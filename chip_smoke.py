@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA
+GPU.
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line:
+Phases, each printing one JSON line per record:
 
-  env     torch/CUDA versions, the card, and the kernel build from
-          roc_tpu_torch/csrc/ with nvcc (timed; the compiler's register
-          report goes to stderr)
+  env     torch/CUDA versions, the card, and the build of every kernel
+          library from roc_tpu_torch/csrc/, one nvcc per source, all
+          started together (timed; the compiler's register report goes to
+          stderr)
   graph   host generation of the Reddit-shape synthetic graph (timed)
   kernel  the sum-aggregation kernel against its plain PyTorch version on
           the card, on that graph, at H = 41, 256, 602 in both precisions:
@@ -18,7 +20,20 @@ Phases, each printing one JSON line:
           on the same CSR (the library yardstick, fp32), and the bound
           (compulsory bytes over 3.35 TB/s vs E*H fp32 adds over 67
           TFLOP/s, the larger)
+  kernel  (training) the kernels of the training path on the same graph,
+          each against its plain version as above (integer data: x in
+          {0,1}, W in {-2..2}, g in {-3..3}, all sums exact in fp32):
+          aggregate_sum over the transposed CSR at H = 256 and 41 (the
+          unfused backward), aggregate_linear at 602->256 relu and 256->41
+          none, aggregate_linear_bwd at 602<-256 relu (with dx, and u alone
+          as the first layer's backward asks) and 256<-41 none, both
+          precisions.  Library: torch.sparse.mm then torch.matmul (fp32,
+          TF32 off).  Bound: compulsory bytes over 3.35 TB/s vs the adds
+          and GEMM operations over 67 TFLOP/s fp32, the larger
   small   the port's GCN forward on the audit graph, card vs CPU (exact)
+  train_small  the port's Trainer on mega-shard (GCN 64-16-8, exact,
+          dropout 0, 3 epochs), card vs CPU, unfused and megafuse: final
+          loss and logits within 1e-5 of the row max-abs
   serve   ServeEngine with GCN 602-256-41 on the Reddit graph (precision
           fast, seeded random weights): warmup and 120 open-loop requests
           of sizes (1, 2, 3, 5, 8, 13), with every kernel launch count set
@@ -26,6 +41,16 @@ Phases, each printing one JSON line:
           twice per forward.  Then served rows vs predict_logits (<= 32
           ULPs) and vs a forward through the plain aggregation in fp32
           (<= 5e-3 of each row's max-abs: one designed bf16 rounding).
+  train   the Trainer with GCN 602-256-41 on the Reddit graph, fast,
+          -lr 0.01 -decay 0.0001 -dropout 0.5 (test.sh), 10 epochs,
+          eval every 5, without and with -megafuse: synced epoch times
+          (median of epochs 3-10), peak memory, the first and the last
+          train_loss (finite and falling), and each kernel's launches in
+          the run (counts set to 0 just before, read just after) and in
+          one more step: 4 aggregate_sum unfused; 2 aggregate_linear and
+          2 aggregate_linear_bwd and no aggregate_sum with -megafuse
+  ab      the same model in exact, dropout 0, 3 epochs from the same
+          params, -megafuse vs unfused: final loss within 1e-3 relative
 
 Then the ``kernels`` line, the card's name and power limit as nvidia-smi
 gives them, and last ``{"ok": true, "device": {...}}``.  Any failure
@@ -36,6 +61,7 @@ before printing any result.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -86,20 +112,34 @@ def nvidia_smi() -> str:
     return out.strip().splitlines()[0]
 
 
+def reset_launches() -> None:
+    from roc_tpu_torch.ops.kernels import KERNELS
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    from roc_tpu_torch.ops.kernels import KERNELS
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
 def phase_env() -> dict:
-    from roc_tpu_torch.ops.kernels import aggregate_sum as K
+    from roc_tpu_torch.ops.kernels import LIBRARIES, build_all
     t0 = time.perf_counter()
-    K.load_library()
+    build_all()
     build_s = time.perf_counter() - t0
-    print(K.build_info.get("log", ""), file=sys.stderr, flush=True)
+    for lib in LIBRARIES:
+        print(lib.info.get("log", ""), file=sys.stderr, flush=True)
     rec = {"phase": "env", "torch": torch.__version__,
            "cuda": torch.version.cuda,
            "device": torch.cuda.get_device_name(0),
            "capability": list(torch.cuda.get_device_capability(0)),
            "nvidia_smi": nvidia_smi(),
            "kernel_build_s": round(build_s, 3),
-           "nvcc_s": round(K.build_info["seconds"], 3),
-           "library": K.build_info["path"].rsplit("/", 1)[-1]}
+           "nvcc_s": {lib.source.name: round(lib.info["seconds"], 3)
+                      for lib in LIBRARIES},
+           "libraries": [lib.info["path"].rsplit("/", 1)[-1]
+                         for lib in LIBRARIES]}
     emit(rec)
     return rec
 
@@ -121,8 +161,9 @@ def phase_kernel(ds, dev) -> list:
     from roc_tpu_torch.ops.kernels.aggregate_sum import (aggregate_sum,
                                                          aggregate_sum_plain)
     g = ds.graph
-    csr = DeviceCsr.from_csr(g, dev)
-    ring = DeviceCsr.from_csr(ring_fixture(g.num_nodes), dev)
+    csr = DeviceCsr.from_csr(g, dev, transpose=False)
+    ring = DeviceCsr.from_csr(ring_fixture(g.num_nodes), dev,
+                              transpose=False)
     lib_mat = torch.sparse_csr_tensor(
         csr.row_ptr, csr.col_idx.to(torch.int64),
         torch.ones(g.num_edges, dtype=torch.float32, device=dev),
@@ -194,9 +235,261 @@ def phase_small(dev) -> dict:
     return rec
 
 
+def _bound(nbytes: float, flops: float) -> dict:
+    b, f = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    return {"bound_bytes": nbytes, "bound_flops": flops,
+            "bound_ms": max(b, f) * 1e3,
+            "bound_by": "bytes" if b >= f else "operations"}
+
+
+def _check_row(rec: dict, kern, plain, int_args, gauss_args, library,
+               tol: float = 1e-5) -> dict:
+    """Hold ``kern`` against ``plain`` (both return a tensor or a tuple of
+    tensors): bitwise on ``int_args``, within ``tol`` of each row's
+    max-abs on ``gauss_args``; then time the kernel, the plain version and
+    the library call on the Gaussian inputs."""
+    def parts(out):
+        return out if isinstance(out, tuple) else (out,)
+
+    k, p = parts(kern(*int_args)), parts(plain(*int_args))
+    rec["int_bitwise"] = all(bool(torch.equal(a, b)) for a, b in zip(k, p))
+    k, p = parts(kern(*gauss_args)), parts(plain(*gauss_args))
+    torch.cuda.synchronize()
+    rec["max_abs_err"] = max(float((a - b).abs().max()) for a, b in zip(k, p))
+    rec["row_rel_err"] = max(row_rel_err(a, b) for a, b in zip(k, p))
+    rec["tolerance"] = tol
+    rec["finite"] = all(bool(torch.isfinite(a).all()) for a in k)
+    del k, p
+    rec["kernel_ms"] = time_ms(lambda: kern(*gauss_args), reps=20, warmup=3)
+    rec["plain_ms"] = time_ms(lambda: plain(*gauss_args))
+    rec["library_ms"] = time_ms(library)
+    emit(rec)
+    if not (rec["finite"] and rec["int_bitwise"]
+            and rec["row_rel_err"] <= tol):
+        raise AssertionError(f"{rec['name']} disagrees with its plain "
+                             f"version: {rec}")
+    return rec
+
+
+def phase_kernel_train(ds, dev) -> list:
+    """The training path's kernels on the Reddit graph, each against its
+    plain version, with times, the library yardstick and the bound."""
+    from roc_tpu_torch.ops import DeviceCsr
+    from roc_tpu_torch.ops.kernels import aggregate_linear as KL
+    from roc_tpu_torch.ops.kernels.aggregate_sum import (aggregate_sum,
+                                                         aggregate_sum_plain)
+    g = ds.graph
+    n, e = g.num_nodes, g.num_edges
+    csr = DeviceCsr.from_csr(g, dev)
+    csr_bytes = csr.row_ptr.numel() * 8 + csr.col_idx.numel() * 4
+
+    def sparse(row_ptr, col_idx):
+        return torch.sparse_csr_tensor(
+            row_ptr, col_idx.to(torch.int64),
+            torch.ones(e, dtype=torch.float32, device=dev), size=(n, n),
+            check_invariants=False)
+
+    fwd_mat, bwd_mat = sparse(csr.row_ptr, csr.col_idx), \
+        sparse(csr.t_row_ptr, csr.t_col_idx)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+
+    def ints(shape, lo, hi):
+        return torch.randint(lo, hi + 1, shape, generator=gen,
+                             device=dev).to(torch.float32)
+
+    def gauss(shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def mm(a, b):
+        torch.backends.cuda.matmul.allow_tf32 = False
+        return torch.matmul(a, b)
+
+    rows = []
+    for prec in ("fast", "exact"):
+        # the unfused backward: the sum over the transposed CSR
+        for h in (256, 41):
+            rec = {"phase": "kernel", "name": "aggregate_sum",
+                   "csr": "transposed", "H": h, "precision": prec,
+                   "nodes": n, "edges": e,
+                   **_bound(2 * n * h * 4 + csr_bytes, e * h)}
+            xg = gauss((n, h))
+            rows.append(_check_row(
+                rec,
+                lambda x: aggregate_sum(x, csr.t_row_ptr, csr.t_col_idx,
+                                        prec),
+                lambda x: aggregate_sum_plain(x, csr.t_row_ptr,
+                                              csr.t_col_idx, prec),
+                (ints((n, h), 0, 1),), (xg,),
+                lambda x=xg: bwd_mat @ x))
+        for hi, ho, act in ((602, 256, "relu"), (256, 41, "none")):
+            rec = {"phase": "kernel", "name": "aggregate_linear",
+                   "H_in": hi, "H_out": ho, "activation": act,
+                   "precision": prec, "nodes": n, "edges": e,
+                   **_bound(n * hi * 4 + hi * ho * 4 + n * ho * 4
+                            + csr_bytes, e * hi + 2 * n * hi * ho)}
+            xg, wg = gauss((n, hi)), gauss((hi, ho))
+            rows.append(_check_row(
+                rec,
+                lambda x, w: KL.aggregate_linear(x, w, csr.row_ptr,
+                                                 csr.col_idx, prec, act),
+                lambda x, w: KL.aggregate_linear_plain(
+                    x, w, csr.row_ptr, csr.col_idx, prec, act),
+                (ints((n, hi), 0, 1), ints((hi, ho), -2, 2)), (xg, wg),
+                lambda x=xg, w=wg: torch.relu(mm(fwd_mat @ x, w))
+                if act == "relu" else mm(fwd_mat @ x, w)))
+            del xg, wg
+        # the backward as the megafuse path calls it: the first layer
+        # (602 <- 256, relu) asks for u alone, its input taking no
+        # gradient; its full function (with dx) is timed too
+        for hi, ho, relu, need_dx in ((602, 256, True, True),
+                                      (602, 256, True, False),
+                                      (256, 41, False, True)):
+            nbytes = (n * ho * 4 * (2 if relu else 1) + hi * ho * 4
+                      + n * ho * 4 + (n * hi * 4 if need_dx else 0)
+                      + csr_bytes)
+            rec = {"phase": "kernel", "name": "aggregate_linear_bwd",
+                   "H_in": hi, "H_out": ho, "relu": relu, "dx": need_dx,
+                   "precision": prec, "nodes": n, "edges": e,
+                   **_bound(nbytes, e * ho
+                            + (2 * n * hi * ho if need_dx else 0))}
+            gg, yg, wg = gauss((n, ho)), gauss((n, ho)), gauss((hi, ho))
+
+            def lib(g_=gg, y_=yg, w_=wg, relu=relu, need_dx=need_dx):
+                gm = torch.where(y_ > 0, g_, torch.zeros_like(g_)) \
+                    if relu else g_
+                u = bwd_mat @ gm
+                return u, (mm(u, w_.t()) if need_dx else None)
+
+            rows.append(_check_row(
+                rec,
+                lambda g_, y_, w_, relu=relu, need_dx=need_dx: tuple(
+                    t for t in KL.aggregate_linear_bwd(
+                        g_, y_, w_, csr.t_row_ptr, csr.t_col_idx, prec,
+                        relu, need_dx) if t is not None),
+                lambda g_, y_, w_, relu=relu, need_dx=need_dx: tuple(
+                    t for t in KL.aggregate_linear_bwd_plain(
+                        g_, y_, w_, csr.t_row_ptr, csr.t_col_idx, prec,
+                        relu, need_dx) if t is not None),
+                (ints((n, ho), -3, 3), ints((n, ho), -1, 1),
+                 ints((hi, ho), -2, 2)), (gg, yg, wg), lib))
+            del gg, yg, wg
+    return rows
+
+
+def _trainer(ds, layers, dev, **kw):
+    from roc_tpu_torch.models import build_model
+    from roc_tpu_torch.train.config import Config
+    from roc_tpu_torch.train.driver import Trainer
+    cfg = Config(dataset=ds.name, layers=layers, seed=SEED,
+                 device=str(dev), **kw)
+    return Trainer(cfg, ds, build_model("gcn", layers, cfg.dropout_rate))
+
+
+def _quiet(*a, **k):
+    pass
+
+
+def phase_train_small(dev) -> dict:
+    """The Trainer on mega-shard, card vs CPU, unfused and megafuse."""
+    from roc_tpu_torch.graph import datasets
+    ds = datasets.get("mega-shard", seed=1)
+    kw = dict(num_epochs=3, learning_rate=0.01, weight_decay=5e-4,
+              dropout_rate=0.0, eval_every=1000, aggregate_backend="binned",
+              aggregate_precision="exact")
+    rec = {"phase": "train_small", "dataset": "mega-shard",
+           "layers": [64, 16, 8], "tolerance": 1e-5}
+    for mf in (False, True):
+        out = {}
+        for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+            tr = _trainer(ds, [64, 16, 8], d, megafuse=mf, **kw)
+            loss = tr.train(print_fn=_quiet).final_loss
+            out[where] = (loss, tr.predict_logits().cpu())
+        key = "megafuse" if mf else "unfused"
+        rec[key] = {"card_loss": out["card"][0], "cpu_loss": out["cpu"][0],
+                    "loss_rel_err": abs(out["card"][0] - out["cpu"][0])
+                    / abs(out["cpu"][0]),
+                    "logits_row_rel_err": row_rel_err(out["card"][1],
+                                                      out["cpu"][1])}
+    emit(rec)
+    for key in ("unfused", "megafuse"):
+        r = rec[key]
+        if not (r["loss_rel_err"] <= 1e-5
+                and r["logits_row_rel_err"] <= 1e-5):
+            raise AssertionError(f"card training disagrees with the CPU: "
+                                 f"{rec}")
+    return rec
+
+
+_TRAIN_LOSS = re.compile(r"train_loss: ([0-9.naif+-]+)")
+# launches of one training step of GCN 602-256-41
+STEP_LAUNCHES = {False: {"aggregate_sum": 4, "aggregate_linear": 0,
+                         "aggregate_linear_bwd": 0},
+                 True: {"aggregate_sum": 0, "aggregate_linear": 2,
+                        "aggregate_linear_bwd": 2}}
+
+
+def phase_train(ds, dev, megafuse: bool, epochs: int = 10) -> dict:
+    """GCN 602-256-41 on the Reddit graph as test.sh trains it."""
+    layers = [602, 256, 41]
+    tr = _trainer(ds, layers, dev, num_epochs=epochs, learning_rate=0.01,
+                  weight_decay=0.0001, dropout_rate=0.5, eval_every=5,
+                  aggregate_precision="fast", megafuse=megafuse)
+    lines = []
+    reset_launches()
+    stats = tr.train(print_fn=lines.append)
+    launches = read_launches()
+    first = float(_TRAIN_LOSS.search(lines[0]).group(1))
+    last = float(tr.evaluate().train_loss)
+    reset_launches()
+    tr.run_epoch()
+    torch.cuda.synchronize(dev)
+    per_step = read_launches()
+    steady = stats.epoch_times[2:]
+    rec = {"phase": "train", "model": "gcn", "layers": layers,
+           "dataset": ds.name, "precision": "fast", "megafuse": megafuse,
+           "epochs": epochs, "epoch_ms": [t * 1e3 for t in stats.epoch_times],
+           "median_epoch_ms_3_on": statistics.median(steady) * 1e3,
+           "peak_mem_bytes": max(stats.peak_mem_bytes, default=0),
+           "first_train_loss": first, "last_train_loss": last,
+           "final_step_loss": stats.final_loss, "metric_lines": lines,
+           "launches": launches, "launches_per_step": per_step}
+    emit(rec)
+    ran = {k: v > 0 for k, v in launches.items()}
+    if ran != {k: v > 0 for k, v in STEP_LAUNCHES[megafuse].items()}:
+        raise AssertionError(f"the training run launched {launches}")
+    if per_step != STEP_LAUNCHES[megafuse]:
+        raise AssertionError(f"one training step launched {per_step}, "
+                             f"expected {STEP_LAUNCHES[megafuse]}")
+    if not (np.isfinite(first) and np.isfinite(last) and last < first):
+        raise AssertionError(f"train_loss did not fall: {first} -> {last}")
+    return rec
+
+
+def phase_ab(ds, dev, epochs: int = 3) -> dict:
+    """Megafuse vs unfused at full width, exact, from the same params."""
+    out = {}
+    for mf in (False, True):
+        tr = _trainer(ds, [602, 256, 41], dev, num_epochs=epochs,
+                      learning_rate=0.01, weight_decay=0.0001,
+                      dropout_rate=0.0, eval_every=1000,
+                      aggregate_precision="exact", megafuse=mf)
+        loss = tr.train(print_fn=_quiet).final_loss
+        out[mf] = (loss, tr.predict_logits())
+        del tr
+    rel = abs(out[True][0] - out[False][0]) / abs(out[False][0])
+    rec = {"phase": "ab", "precision": "exact", "epochs": epochs,
+           "unfused_loss": out[False][0], "megafuse_loss": out[True][0],
+           "loss_rel_err": rel, "tolerance": 1e-3,
+           "logits_row_rel_err": row_rel_err(out[True][1], out[False][1])}
+    emit(rec)
+    if not (np.isfinite(rel) and rel <= 1e-3):
+        raise AssertionError(f"megafuse and unfused training disagree: "
+                             f"{rec}")
+    return rec
+
+
 def phase_serve(ds, dev) -> dict:
     from roc_tpu_torch.models import build_model
-    from roc_tpu_torch.ops.kernels import KERNELS
     from roc_tpu_torch.serve import ServeEngine, max_ulp_diff, run_load
     from roc_tpu_torch.train.config import Config
     from roc_tpu_torch.train.frozen import load_frozen
@@ -205,15 +498,14 @@ def phase_serve(ds, dev) -> dict:
     model = build_model(cfg.model, cfg.layers, cfg.dropout_rate)
     aggs = sum(op.kind == "aggregate" for op in model.ops)
     torch.cuda.reset_peak_memory_stats(dev)
-    for fn in KERNELS.values():
-        fn.launches = 0
+    reset_launches()
     eng = ServeEngine(cfg, ds, model, device=dev)
     try:
         eng.warmup()
         load = run_load(eng, n_requests=120, qps=200.0,
                         sizes=(1, 2, 3, 5, 8, 13),
                         rng=np.random.default_rng(SEED))
-        launches = {name: fn.launches for name, fn in KERNELS.items()}
+        launches = read_launches()
         forwards = eng.forwards
         peak = torch.cuda.max_memory_allocated(dev)
         stats = eng.stats()
@@ -257,6 +549,23 @@ def phase_serve(ds, dev) -> dict:
     return rec
 
 
+def _kernel_entry(name, source, replaces, launches, row, rows, keys):
+    """One entry of the ``kernels`` line: the main row's numbers and every
+    measured shape."""
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": sum(launches.values()),
+            "launches_by_path": launches,
+            "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "at": {k: row[k] for k in keys if k in row},
+            "shapes": [{k: r[k] for k in (*keys, "kernel_ms", "plain_ms",
+                                          "library_ms", "bound_ms",
+                                          "bound_by", "max_abs_err",
+                                          "row_rel_err") if k in r}
+                       for r in rows]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -272,28 +581,47 @@ def main() -> int:
           "nodes": ds.graph.num_nodes, "edges": ds.graph.num_edges,
           "host_gen_s": round(time.perf_counter() - t0, 3)})
     rows = phase_kernel(ds, dev)
+    rows += phase_kernel_train(ds, dev)
     phase_small(dev)
+    phase_train_small(dev)
     serve = phase_serve(ds, dev)
+    train = {mf: phase_train(ds, dev, mf) for mf in (False, True)}
+    phase_ab(ds, dev)
 
-    main_row = next(r for r in rows if r["H"] == 256
-                    and r["precision"] == "fast")
-    emit({"kernels": [{
-        "name": "aggregate_sum", "route": "cuda",
-        "source": "roc_tpu_torch/csrc/aggregate_sum.cu",
-        "replaces": "roc_tpu/ops/pallas/binned.py:1885",
-        "also_replaces": ["roc_tpu/ops/pallas/binned.py:1991",
-                          "roc_tpu/ops/pallas/binned.py:2107",
-                          "roc_tpu/ops/pallas/binned.py:2153"],
-        "launches": serve["launches"]["aggregate_sum"],
-        "max_abs_err": main_row["max_abs_err"],
-        "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"],
-        "at": {"H": 256, "precision": "fast"},
-        "shapes": [{k: r[k] for k in ("H", "precision", "kernel_ms",
-                                      "plain_ms", "library_ms", "bound_ms",
-                                      "max_abs_err", "row_rel_err")}
-                   for r in rows]}]})
+    def pick(name, **want):
+        return next(r for r in rows if r["name"] == name and all(
+            r.get(k) == v for k, v in want.items()))
+
+    def named(name):
+        return [r for r in rows if r["name"] == name]
+
+    src = "roc_tpu_torch/csrc/"
+    pallas = "roc_tpu/ops/pallas/binned.py:"
+    sum_entry = _kernel_entry(
+        "aggregate_sum", src + "aggregate_sum.cu", pallas + "1885",
+        {"serve": serve["launches"]["aggregate_sum"],
+         "train": train[False]["launches"]["aggregate_sum"]},
+        pick("aggregate_sum", H=256, precision="fast", csr=None),
+        named("aggregate_sum"), ("H", "precision", "csr"))
+    sum_entry["also_replaces"] = [pallas + "1991", pallas + "2107",
+                                  pallas + "2153"]
+    emit({"kernels": [
+        sum_entry,
+        _kernel_entry(
+            "aggregate_linear", src + "aggregate_linear.cu", pallas + "2300",
+            {"train_megafuse": train[True]["launches"]["aggregate_linear"]},
+            pick("aggregate_linear", H_in=602, precision="fast"),
+            named("aggregate_linear"),
+            ("H_in", "H_out", "activation", "precision")),
+        _kernel_entry(
+            "aggregate_linear_bwd", src + "aggregate_linear.cu",
+            pallas + "2599",
+            {"train_megafuse":
+             train[True]["launches"]["aggregate_linear_bwd"]},
+            pick("aggregate_linear_bwd", H_in=602, dx=True,
+                 precision="fast"),
+            named("aggregate_linear_bwd"),
+            ("H_in", "H_out", "relu", "dx", "precision"))]})
     print(env["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

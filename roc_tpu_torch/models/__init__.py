@@ -1,5 +1,5 @@
 from roc_tpu_torch.models.gcn import build_gcn
-from roc_tpu_torch.models.model import GraphCtx, Model
+from roc_tpu_torch.models.model import GraphCtx, Model, mega_matches
 
 
 def build_model(name: str, layers, dropout_rate: float = 0.5,
@@ -14,4 +14,4 @@ def build_model(name: str, layers, dropout_rate: float = 0.5,
     raise ValueError(f"unknown model {name!r}")
 
 
-__all__ = ["Model", "GraphCtx", "build_gcn", "build_model"]
+__all__ = ["Model", "GraphCtx", "build_gcn", "build_model", "mega_matches"]

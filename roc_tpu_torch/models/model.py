@@ -3,8 +3,9 @@ class).
 
 The builder API emits a small op IR (``OpNode``s over ``TensorRef`` ids);
 ``apply`` runs it over tensors.  Aggregation goes through
-``GraphCtx.aggregate``, which hides the graph data and the backend.  The
-JAX package's fused paths (whole-layer megakernel, cross-layer regions) and
+``GraphCtx.aggregate``, which hides the graph data and the backend.  A
+``GraphCtx.fuse_linear`` hook runs each :func:`mega_matches` layer chain as
+the whole-layer megakernel.  The JAX package's cross-layer regions and
 graph attention are not ported yet (ROADMAP queue A).
 """
 
@@ -22,6 +23,10 @@ class GraphCtx(NamedTuple):
     """Everything an op needs to know about the graph."""
     aggregate: Callable[[torch.Tensor, str], torch.Tensor]  # x, aggr -> out
     in_degree: torch.Tensor  # [N] float32, >= 1
+    # whole-layer megakernel hook: (x, w, activation, aggr, fold) -> out.
+    # When set, ``apply`` hands each ``mega_matches`` chain to it instead
+    # of running the chain's ops one by one.
+    fuse_linear: Optional[Callable] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,6 +42,105 @@ class OpNode:
     inputs: tuple             # input tensor ids
     out: int                  # output tensor id
     attrs: dict               # op-specific attributes
+
+
+def mega_matches(model: "Model") -> Dict[int, dict]:
+    """Megakernel-eligible layer chains in the op IR (model.py:89-191).
+
+    Two shapes match.  The direct ``aggregate -> linear (-> relu)`` chain
+    is keyed by the aggregate's op index.  The GCN chain ``linear -> norm
+    -> aggregate -> norm (-> relu)`` is keyed by the linear's op index and
+    carries ``fold=True``: ``indegree_norm`` is a positive diagonal row
+    scale, so D^-1/2 A D^-1/2 (x W) = D^-1/2 (A ((D^-1/2 x) W)); the hook
+    pre-scales the layer input, runs the fused kernel and post-scales, and
+    relu commutes with the positive scale.
+
+    Each record holds the matched ``aggregate`` and ``linear`` nodes, the
+    activation ("none" or "relu"), ``final`` (the node whose output the
+    fused op takes over), the op indices to ``skip``, ``fold``, and
+    ``gone`` (the tensor ids that never materialize under fusion).
+
+    Eligibility is structural: every intermediate feeds exactly one op in
+    the same builder layer, the aggregate is sum or avg, the linear's own
+    activation is none or relu (none for the folded shape), a trailing
+    single-consumer relu folds into the epilogue, and no interior
+    intermediate is the logits tensor.
+    """
+    consumers: Dict[int, List[int]] = {}
+    for i, op in enumerate(model.ops):
+        for t in op.inputs:
+            consumers.setdefault(t, []).append(i)
+    logits_id = model.logits.id if model.logits is not None else -1
+
+    def sole(out_id, layer):
+        """The single same-layer consumer of tensor ``out_id``, or None."""
+        cons = consumers.get(out_id, [])
+        if len(cons) != 1:
+            return None, -1
+        nxt = model.ops[cons[0]]
+        if nxt.attrs.get("layer") != layer:
+            return None, -1
+        return nxt, cons[0]
+
+    def trailing_relu(out_id, layer):
+        """(relu node, its index) when ``out_id`` feeds only a relu."""
+        nxt, ni = sole(out_id, layer)
+        if (nxt is not None and nxt.kind == "activation"
+                and nxt.attrs.get("mode") == "relu"):
+            return nxt, ni
+        return None, -1
+
+    found: Dict[int, dict] = {}
+    for i, op in enumerate(model.ops):
+        if op.kind != "aggregate" or op.attrs.get("aggr") not in ("sum",
+                                                                  "avg"):
+            continue
+        if op.out == logits_id:
+            continue
+        layer = op.attrs.get("layer")
+        lin, li = sole(op.out, layer)
+        if (lin is None or lin.kind != "linear"
+                or lin.attrs.get("activation") not in ("none", "relu")):
+            continue
+        activation, skip, final = lin.attrs["activation"], [li], lin
+        if activation == "none" and lin.out != logits_id:
+            relu, ri = trailing_relu(lin.out, layer)
+            if relu is not None:
+                activation, final = "relu", relu
+                skip.append(ri)
+        found[i] = {"aggregate": op, "linear": lin,
+                    "activation": activation, "final": final,
+                    "skip": tuple(skip), "fold": False,
+                    "gone": (op.out,) + ((lin.out,)
+                                         if final is not lin else ())}
+    for i, op in enumerate(model.ops):
+        if (op.kind != "linear" or op.attrs.get("activation") != "none"
+                or op.out == logits_id):
+            continue
+        layer = op.attrs.get("layer")
+        n1, i1 = sole(op.out, layer)
+        if n1 is None or n1.kind != "norm" or n1.out == logits_id:
+            continue
+        agg, ia = sole(n1.out, layer)
+        if (agg is None or agg.kind != "aggregate"
+                or agg.attrs.get("aggr") not in ("sum", "avg")
+                or agg.out == logits_id):
+            continue
+        n2, i2 = sole(agg.out, layer)
+        if n2 is None or n2.kind != "norm":
+            continue
+        activation, skip, final = "none", [i1, ia, i2], n2
+        if n2.out != logits_id:
+            relu, ri = trailing_relu(n2.out, layer)
+            if relu is not None:
+                activation, final = "relu", relu
+                skip.append(ri)
+        found[i] = {"aggregate": agg, "linear": op,
+                    "activation": activation, "final": final,
+                    "skip": tuple(skip), "fold": True,
+                    "gone": (op.out, agg.out) + ((n2.out,)
+                                                 if final is not n2 else ())}
+    return found
 
 
 class Model:
@@ -147,10 +251,22 @@ class Model:
               gctx: GraphCtx, generator: Optional[torch.Generator] = None,
               train: bool = False) -> torch.Tensor:
         """Run the op list; returns logits [N, C].  Training dropout draws
-        from ``generator``."""
+        from ``generator``.  With ``gctx.fuse_linear`` set, each
+        ``mega_matches`` chain runs through the hook (model.py:486-523)."""
         vals: Dict[int, torch.Tensor] = {0: x}
-        for op in self.ops:
+        matches = mega_matches(self) if gctx.fuse_linear is not None else {}
+        skipped: set = set()
+        for idx, op in enumerate(self.ops):
+            if idx in skipped:
+                continue
             a = vals[op.inputs[0]]
+            if idx in matches:
+                m = matches[idx]
+                vals[m["final"].out] = gctx.fuse_linear(
+                    a, params[m["linear"].attrs["param"]], m["activation"],
+                    m["aggregate"].attrs["aggr"], m["fold"])
+                skipped.update(m["skip"])
+                continue
             if op.kind == "dropout":
                 out = ops.dropout(a, op.attrs["rate"], train, generator)
             elif op.kind == "linear":
@@ -170,3 +286,12 @@ class Model:
         if self.logits is None:
             raise ValueError("call softmax_cross_entropy() last")
         return vals[self.logits.id]
+
+    def loss(self, params, x, labels, mask, gctx,
+             generator: Optional[torch.Generator] = None,
+             train: bool = True) -> torch.Tensor:
+        """The masked softmax cross-entropy (a sum over train rows) of the
+        model's logits."""
+        logits = self.apply(params, x, gctx, generator=generator,
+                            train=train)
+        return ops.masked_softmax_cross_entropy(logits, labels, mask)

@@ -1,42 +1,111 @@
 """Sparse neighborhood aggregation (roc_tpu/ops/aggregate.py).
 
 ``out[v] = aggr over in-edges (u -> v) of x[u]``, over an in-edge CSR held
-on the device (:class:`DeviceCsr`).
+on the device with its transpose (:class:`DeviceCsr`).
 
-``sum`` and ``avg`` (sum / in-degree) go through
-:func:`roc_tpu_torch.ops.kernels.aggregate_sum.aggregate_sum`: the CUDA
-kernel for a CUDA tensor, its plain version for a CPU tensor.  ``max`` and
-``min`` are plain PyTorch only; they are not on the GCN path.
+``sum`` and ``avg`` (sum / in-degree) go through an autograd Function whose
+forward is :func:`roc_tpu_torch.ops.kernels.aggregate_sum.aggregate_sum`
+(the CUDA kernel for a CUDA tensor, its plain version for a CPU tensor)
+and whose backward is the same function over the transposed CSR at the same
+precision, as ``_bn_bwd`` runs ``run_binned`` on the transposed plan
+(aggregate.py:492-504).  So gradients flow, and take the same path, on
+every device.  ``max`` and ``min`` are plain PyTorch only; they are not on
+the GCN path.
+
+:func:`scatter_gather_linear` is the whole-layer megakernel
+``act((A x) W)`` with its fused backward, the counterpart of
+``scatter_gather_linear_binned`` (aggregate.py:522-582).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from roc_tpu_torch.ops.kernels.aggregate_linear import (aggregate_linear,
+                                                        aggregate_linear_bwd)
 from roc_tpu_torch.ops.kernels.aggregate_sum import (aggregate_sum,
                                                      aggregate_sum_plain,
                                                      check_precision)
+from roc_tpu_torch.ops.linear import linear
 
 
 class DeviceCsr(NamedTuple):
-    """An in-edge CSR on a device: ``col_idx[row_ptr[v]:row_ptr[v+1]]``
-    are v's sources."""
-    row_ptr: torch.Tensor   # [N+1] int64
-    col_idx: torch.Tensor   # [E] int32
+    """An in-edge CSR on a device, ``col_idx[row_ptr[v]:row_ptr[v+1]]``
+    being v's sources, and its transpose (``t_col_idx[t_row_ptr[u]:
+    t_row_ptr[u+1]]`` are u's destinations): aggregating over the
+    transpose is the backward of aggregating over the CSR.  A
+    forward-only user (serving) places no transpose."""
+    row_ptr: torch.Tensor                       # [N+1] int64
+    col_idx: torch.Tensor                       # [E] int32
+    t_row_ptr: Optional[torch.Tensor] = None    # [T+1] int64
+    t_col_idx: Optional[torch.Tensor] = None    # [E] int32
 
     @classmethod
-    def from_csr(cls, csr, device) -> "DeviceCsr":
-        return cls(torch.as_tensor(np.asarray(csr.row_ptr, np.int64),
-                                   device=device),
-                   torch.as_tensor(np.asarray(csr.col_idx, np.int32),
-                                   device=device))
+    def from_csr(cls, csr, device, transpose: bool = True) -> "DeviceCsr":
+        """A host ``Csr`` on ``device``, with its transpose (built once,
+        by ``Csr.transpose()``) unless ``transpose`` is False."""
+        arrays = [(csr.row_ptr, np.int64), (csr.col_idx, np.int32)]
+        if transpose:
+            t = csr.transpose()
+            arrays += [(t.row_ptr, np.int64), (t.col_idx, np.int32)]
+        return cls(*(torch.as_tensor(np.asarray(a, dt), device=device)
+                     for a, dt in arrays))
 
     @property
     def num_rows(self) -> int:
         return self.row_ptr.numel() - 1
+
+    def transposed(self):
+        """``(t_row_ptr, t_col_idx)``; raises for a forward-only CSR."""
+        if self.t_row_ptr is None:
+            raise RuntimeError("this CSR was placed without its transpose "
+                               "(forward only): a backward needs "
+                               "DeviceCsr.from_csr(..., transpose=True)")
+        return self.t_row_ptr, self.t_col_idx
+
+
+class _AggregateSum(torch.autograd.Function):
+    """Sum over in-edges; the backward sums the cotangent over the
+    transposed CSR with the same function and precision (so in "fast" the
+    cotangent takes one bf16 rounding, as in the JAX package)."""
+
+    @staticmethod
+    def forward(ctx, x, csr, precision, sum_fn):
+        ctx.csr, ctx.precision, ctx.sum_fn = csr, precision, sum_fn
+        return sum_fn(x, csr.row_ptr, csr.col_idx, precision)
+
+    @staticmethod
+    def backward(ctx, g):
+        gx = ctx.sum_fn(g.contiguous(), *ctx.csr.transposed(),
+                        ctx.precision)
+        return gx, None, None, None
+
+
+class _AggregateLinear(torch.autograd.Function):
+    """``act((A x) W)`` through the forward megakernel; the backward runs
+    the backward megakernel (``u = A^T (g * [out > 0])``, ``dx = u W^T``)
+    and ``dW = x^T u`` as one fp32 GEMM, as aggregate.py:560-574 does."""
+
+    @staticmethod
+    def forward(ctx, x, w, csr, precision, activation):
+        out = aggregate_linear(x, w, csr.row_ptr, csr.col_idx, precision,
+                               activation)
+        ctx.save_for_backward(x, w, out)
+        ctx.csr, ctx.precision, ctx.relu = csr, precision, \
+            activation == "relu"
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, out = ctx.saved_tensors
+        u, dx = aggregate_linear_bwd(
+            g.contiguous(), out, w, *ctx.csr.transposed(), ctx.precision,
+            ctx.relu, need_dx=ctx.needs_input_grad[0])
+        dw = linear(x.t(), u) if ctx.needs_input_grad[1] else None
+        return dx, dw, None, None, None
 
 
 def divide_by_degree(out: torch.Tensor,
@@ -64,7 +133,7 @@ def _segment_extreme(x: torch.Tensor, csr: DeviceCsr,
 def _aggregate(sum_fn, x, csr, aggr, precision):
     check_precision(precision, x.dtype)
     if aggr in ("sum", "avg"):
-        out = sum_fn(x, csr.row_ptr, csr.col_idx, precision)
+        out = _AggregateSum.apply(x, csr, precision, sum_fn)
         if aggr == "avg":
             out = divide_by_degree(out, torch.diff(csr.row_ptr))
         return out
@@ -88,3 +157,12 @@ def scatter_gather_plain(x: torch.Tensor, csr: DeviceCsr, aggr: str = "sum",
     """The plain version of :func:`scatter_gather` on any device (the
     ``xla`` backend's counterpart: fp32 unless asked otherwise)."""
     return _aggregate(aggregate_sum_plain, x, csr, aggr, precision)
+
+
+def scatter_gather_linear(x: torch.Tensor, w: torch.Tensor, csr: DeviceCsr,
+                          precision: str = "fast",
+                          activation: str = "none") -> torch.Tensor:
+    """``act(sum-aggregate(x) @ w)`` for act in {none, relu}, through the
+    megakernel on CUDA (its plain version on the CPU); differentiable in x
+    and w.  The ``[rows, H_in]`` aggregate never reaches device memory."""
+    return _AggregateLinear.apply(x, w, csr, precision, activation)

@@ -1,0 +1,209 @@
+"""Whole-layer megakernel: aggregate -> linear (-> relu) and its backward,
+the CUDA kernels, their loader and their plain versions.
+
+``aggregate_linear(x, w, row_ptr, col_idx, precision, activation)``
+computes ``act((A x) W)``: the sum over v's in-edges of ``x[u]``, times
+``w``, then the activation ("none" or "relu").  It is the function of the
+JAX package's ``roc_tpu/ops/pallas/binned.py:run_binned_linear``
+(``_mega_kernel``).
+
+``aggregate_linear_bwd(g, y, w, t_row_ptr, t_col_idx, precision, relu)``
+computes, over the transposed CSR, ``u = A^T (g * [y > 0])`` (``A^T g``
+without relu) and ``dx = u W^T``: the function of ``run_binned_linear_bwd``
+(``_mega_bwd_kernel``).  ``dW = x^T u`` is left to the caller as one GEMM,
+as the JAX package leaves it to XLA.
+
+Precision contract (binned.py:2304-2317, :2599-2615):
+
+  fast   one bf16 rounding of each gathered element (x forward, the masked
+         g backward), fp32 accumulation, an fp32 GEMM
+  exact  fp32 throughout
+
+The GEMM part is fp32 (the JAX kernel's ``Precision.HIGHEST``): no TF32.
+Inputs and outputs are fp32.
+
+On a CUDA tensor each wrapper launches its kernel from
+``csrc/aggregate_linear.cu`` or raises; on a CPU tensor it runs the plain
+version.  ``aggregate_linear.launches`` and ``aggregate_linear_bwd.launches``
+count kernel launches.  Index bounds are the caller's, as for
+``aggregate_sum`` (the graph data validates the CSR once).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from roc_tpu_torch.ops.kernels.aggregate_sum import (_check_csr,
+                                                     aggregate_sum_plain,
+                                                     check_precision)
+from roc_tpu_torch.ops.kernels.build import CudaLibrary
+from roc_tpu_torch.ops.linear import linear
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    fwd = lib.roc_aggregate_linear
+    fwd.argtypes = [p, p, p, p, p, ll, ll, ll, i, i, i, p]
+    fwd.restype = ctypes.c_int
+    bwd = lib.roc_aggregate_linear_bwd
+    bwd.argtypes = [p, p, p, p, p, p, p, ll, ll, ll, i, i, i, p]
+    bwd.restype = ctypes.c_int
+
+
+LIBRARY = CudaLibrary("aggregate_linear.cu", _bind)
+
+
+def _check(precision: str, activation: str, *tensors) -> None:
+    check_precision(precision, torch.float32)
+    if activation not in ("none", "relu"):
+        raise ValueError(f"activation={activation!r}: the megakernel fuses "
+                         f"'none' or 'relu' only")
+    for t in tensors:
+        if t.dtype != torch.float32:
+            raise ValueError(f"the megakernel takes float32 tensors, got "
+                             f"{t.dtype}")
+
+
+def aggregate_linear_plain(x: torch.Tensor, w: torch.Tensor,
+                           row_ptr: torch.Tensor, col_idx: torch.Tensor,
+                           precision: str = "fast",
+                           activation: str = "none") -> torch.Tensor:
+    """The plain PyTorch version on any device: the chunked aggregation at
+    the given precision, then ``ops.linear`` (an fp32 GEMM, TF32 off) and
+    the activation."""
+    _check_csr(x, row_ptr, col_idx)
+    _check(precision, activation, x, w)
+    return linear(aggregate_sum_plain(x, row_ptr, col_idx, precision), w,
+                  activation)
+
+
+def aggregate_linear_bwd_plain(g: torch.Tensor, y: Optional[torch.Tensor],
+                               w: torch.Tensor, t_row_ptr: torch.Tensor,
+                               t_col_idx: torch.Tensor,
+                               precision: str = "fast", relu: bool = False,
+                               need_dx: bool = True
+                               ) -> Tuple[torch.Tensor,
+                                          Optional[torch.Tensor]]:
+    """The plain version of the backward: ``(u, dx)`` with
+    ``u = A^T (g * [y > 0])`` over the transposed CSR, rounded once to bf16
+    before the sum in "fast", and ``dx = u W^T`` in fp32 (None unless
+    ``need_dx``)."""
+    _check_csr(g, t_row_ptr, t_col_idx)
+    _check(precision, "relu" if relu else "none", g, w)
+    gm = torch.where(y > 0, g, torch.zeros_like(g)) if relu else g
+    u = aggregate_sum_plain(gm, t_row_ptr, t_col_idx, precision)
+    return u, (linear(u, w.t()) if need_dx else None)
+
+
+def _vec_width(*ts: torch.Tensor) -> int:
+    """Widest vector load (elements per lane) that divides the gathered
+    width and keeps every row start of every gathered tensor aligned."""
+    h = ts[0].shape[1]
+    for v in (4, 2, 1):
+        if h % v == 0 and all(t.data_ptr() % (v * 4) == 0 for t in ts):
+            return v
+    return 1
+
+
+def _require_cuda(name: str, *tensors) -> None:
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu tensors, got {dev}")
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name}: every tensor must be on {dev}, got "
+                             f"{t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+
+
+def _csr_int64(row_ptr: torch.Tensor) -> None:
+    if row_ptr.dtype != torch.int64:
+        raise ValueError(f"the megakernel takes an int64 row_ptr, got "
+                         f"{row_ptr.dtype}")
+
+
+def aggregate_linear(x: torch.Tensor, w: torch.Tensor,
+                     row_ptr: torch.Tensor, col_idx: torch.Tensor,
+                     precision: str = "fast",
+                     activation: str = "none") -> torch.Tensor:
+    """``act((A x) W)``: x [table_rows, H_in], w [H_in, H_out] ->
+    [num_rows, H_out] fp32.  Launches the CUDA kernel for CUDA tensors,
+    runs the plain version for CPU tensors."""
+    if x.device.type == "cpu":
+        return aggregate_linear_plain(x, w, row_ptr, col_idx, precision,
+                                      activation)
+    _check_csr(x, row_ptr, col_idx)
+    _check(precision, activation, x, w)
+    _require_cuda("aggregate_linear", x, w, row_ptr, col_idx)
+    _csr_int64(row_ptr)
+    if w.dim() != 2 or w.shape[0] != x.shape[1]:
+        raise ValueError(f"w must be [{x.shape[1]}, H_out], got "
+                         f"{tuple(w.shape)}")
+    n, h_in, h_out = row_ptr.numel() - 1, x.shape[1], w.shape[1]
+    out = torch.empty((n, h_out), dtype=torch.float32, device=x.device)
+    if n == 0 or h_in == 0 or h_out == 0:
+        return out.zero_()
+    fn = LIBRARY.load().roc_aggregate_linear
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(row_ptr.data_ptr(), col_idx.data_ptr(), x.data_ptr(),
+                 w.data_ptr(), out.data_ptr(), n, h_in, h_out,
+                 int(precision == "fast"), int(activation == "relu"),
+                 _vec_width(x), stream)
+    if err != 0:
+        raise RuntimeError(f"aggregate_linear kernel launch failed: CUDA "
+                           f"error {err}")
+    aggregate_linear.launches += 1
+    return out
+
+
+def aggregate_linear_bwd(g: torch.Tensor, y: Optional[torch.Tensor],
+                         w: torch.Tensor, t_row_ptr: torch.Tensor,
+                         t_col_idx: torch.Tensor, precision: str = "fast",
+                         relu: bool = False, need_dx: bool = True
+                         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The layer's backward over the transposed CSR: g, y [num_rows,
+    H_out], w [H_in, H_out] -> (u [table_rows, H_out], dx [table_rows,
+    H_in] or None).  Launches the CUDA kernel for CUDA tensors, runs the
+    plain version for CPU tensors."""
+    if g.device.type == "cpu":
+        return aggregate_linear_bwd_plain(g, y, w, t_row_ptr, t_col_idx,
+                                          precision, relu, need_dx)
+    _check_csr(g, t_row_ptr, t_col_idx)
+    _check(precision, "relu" if relu else "none", g, w)
+    gathered = (g, y) if relu else (g,)
+    if relu and (y is None or y.shape != g.shape or y.dtype != g.dtype):
+        raise ValueError("relu needs the saved output y, shaped like g")
+    _require_cuda("aggregate_linear_bwd", *gathered, w, t_row_ptr, t_col_idx)
+    _csr_int64(t_row_ptr)
+    if w.dim() != 2 or w.shape[1] != g.shape[1]:
+        raise ValueError(f"w must be [H_in, {g.shape[1]}], got "
+                         f"{tuple(w.shape)}")
+    t, h_out, h_in = t_row_ptr.numel() - 1, g.shape[1], w.shape[0]
+    wt = w.t().contiguous()
+    u = torch.empty((t, h_out), dtype=torch.float32, device=g.device)
+    dx = torch.empty((t, h_in), dtype=torch.float32, device=g.device) \
+        if need_dx else None
+    if t == 0 or h_out == 0 or h_in == 0:
+        return u.zero_(), (dx.zero_() if need_dx else None)
+    fn = LIBRARY.load().roc_aggregate_linear_bwd
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream(g.device).cuda_stream
+        err = fn(t_row_ptr.data_ptr(), t_col_idx.data_ptr(), g.data_ptr(),
+                 y.data_ptr() if relu else None, wt.data_ptr(), u.data_ptr(),
+                 dx.data_ptr() if need_dx else None, t, h_out, h_in,
+                 int(precision == "fast"), int(relu),
+                 _vec_width(*gathered), stream)
+    if err != 0:
+        raise RuntimeError(f"aggregate_linear_bwd kernel launch failed: "
+                           f"CUDA error {err}")
+    aggregate_linear_bwd.launches += 1
+    return u, dx
+
+
+aggregate_linear.launches = 0
+aggregate_linear_bwd.launches = 0

@@ -17,6 +17,8 @@ On a CUDA tensor the wrapper launches ``csrc/aggregate_sum.cu`` (built with
 loaded with ctypes) or raises; on a CPU tensor it runs
 :func:`aggregate_sum_plain`.  ``aggregate_sum.launches`` counts kernel
 launches, so a caller can show that a run went through the kernel.
+Gradients flow through ``ops.aggregate``'s autograd Function, whose
+backward is this same function over the transposed CSR.
 
 Index bounds are not checked per call (that would cost a device sync on
 every aggregation): ``col_idx`` must lie in ``[0, x.shape[0])`` and
@@ -28,31 +30,16 @@ it on the device.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-import time
-from pathlib import Path
 
 import torch
 
-_PKG = Path(__file__).resolve().parents[2]
-SOURCE = _PKG / "csrc" / "aggregate_sum.cu"
-BUILD_DIR = _PKG / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+from roc_tpu_torch.ops.kernels.build import CudaLibrary
 
 # Edges per plain-version chunk: the gathered [chunk, H] block stays near
 # 2^25 elements (128 MiB fp32).  Unchunked, x[col_idx] at Reddit shape is
 # 23.5 M x 256 x 4 B = 24 GB (roc_tpu/ops/aggregate.py:47-78 chunks the
 # same way).
 _CHUNK_TARGET_ELEMS = 1 << 25
-
-_lock = threading.Lock()
-_lib = None
-build_info: dict = {}
 
 
 def check_precision(precision: str, dtype: torch.dtype) -> None:
@@ -67,59 +54,17 @@ def check_precision(precision: str, dtype: torch.dtype) -> None:
                          f"got {dtype}")
 
 
-def _nvcc() -> str:
-    cands = [shutil.which("nvcc")]
-    for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
-        if home:
-            cands.append(os.path.join(home, "bin", "nvcc"))
-    for c in cands:
-        if c and os.path.isfile(c):
-            return c
-    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, "
-                       "/usr/local/cuda/bin): the CUDA kernel is built from "
-                       "source at first use")
+def _bind(lib: ctypes.CDLL) -> None:
+    fn = lib.roc_aggregate_sum
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_longlong, ctypes.c_longlong,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
 
 
-def build() -> Path:
-    """Compile ``csrc/aggregate_sum.cu`` into ``build/`` (keyed by the
-    source's and flags' hash, so an edit rebuilds) and return the path.
-    Records the build time and the compiler's resource report in
-    ``build_info``."""
-    src = SOURCE.read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libroc_aggregate_sum_{key}.so"
-    if lib.exists():
-        build_info.update(path=str(lib), seconds=0.0, cached=True)
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}) on {SOURCE}:\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)
-    build_info.update(path=str(lib), seconds=time.perf_counter() - t0,
-                      cached=False, log=(proc.stdout + proc.stderr).strip())
-    return lib
-
-
-def load_library() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library, once per process."""
-    global _lib
-    with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            fn = lib.roc_aggregate_sum
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                           ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_longlong, ctypes.c_longlong,
-                           ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            _lib = lib
-    return _lib
+LIBRARY = CudaLibrary("aggregate_sum.cu", _bind)
 
 
 def _check_csr(x, row_ptr, col_idx) -> None:
@@ -194,7 +139,7 @@ def aggregate_sum(x: torch.Tensor, row_ptr: torch.Tensor,
     out = torch.empty((n, h), dtype=x.dtype, device=x.device)
     if n == 0 or h == 0:
         return out
-    fn = load_library().roc_aggregate_sum
+    fn = LIBRARY.load().roc_aggregate_sum
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(row_ptr.data_ptr(), int(row_ptr.dtype == torch.int64),

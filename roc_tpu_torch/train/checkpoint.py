@@ -21,6 +21,8 @@ from typing import Any, Dict, List
 import numpy as np
 import torch
 
+from roc_tpu_torch.optim.adam import AdamState
+
 _FORMAT_VERSION = 1
 
 
@@ -119,6 +121,50 @@ def _read_verified(path: str):
     return meta, arrays
 
 
+def _unflatten(like, leaves: List[np.ndarray]):
+    """Rebuild ``like``'s structure (dicts by sorted key, tuples and
+    NamedTuples in order) from its leaves in flatten order, each leaf a
+    tensor with the dtype and device of the leaf it replaces."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        if isinstance(t, tuple):
+            vals = [build(v) for v in t]
+            return type(t)(*vals) if hasattr(t, "_fields") else tuple(vals)
+        if isinstance(t, list):
+            return [build(v) for v in t]
+        a = next(it)
+        if tuple(a.shape) != tuple(t.shape):
+            raise CheckpointError(f"checkpoint leaf shape {a.shape}, "
+                                  f"expected {tuple(t.shape)}")
+        return torch.as_tensor(a).to(device=t.device, dtype=t.dtype)
+
+    return build(like)
+
+
+def _leaf_arrays(arrays: Dict[str, np.ndarray], prefix: str,
+                 count: int, path: str) -> List[np.ndarray]:
+    n = sum(1 for k in arrays if k.startswith(prefix))
+    if n != count:
+        raise CheckpointError(f"checkpoint {path!r} holds {n} "
+                              f"{prefix}* leaves, expected {count}")
+    return [arrays[f"{prefix}leaf_{i}"] for i in range(count)]
+
+
+def load(path: str, params_like, opt_state_like):
+    """Full restore into the structure, dtypes and devices of
+    ``params_like`` and ``opt_state_like``: returns ``(params, opt_state,
+    epoch, alpha, extra)``."""
+    meta, arrays = _read_verified(path)
+    params = _unflatten(params_like, _leaf_arrays(
+        arrays, "p_", len(_leaves(params_like)), path))
+    opt_state = _unflatten(opt_state_like, _leaf_arrays(
+        arrays, "o_", len(_leaves(opt_state_like)), path))
+    return params, opt_state, meta["epoch"], meta["alpha"], meta["extra"]
+
+
 def load_params(path: str, params_like: Dict[str, torch.Tensor]
                 ) -> Dict[str, torch.Tensor]:
     """Params-only restore into the keys, dtypes and devices of
@@ -146,3 +192,11 @@ def params_from_jax(np_params: Dict[str, np.ndarray],
     """Carry a JAX param dict (already pulled to numpy) onto ``device``."""
     return {k: torch.tensor(np.asarray(v), device=device)
             for k, v in np_params.items()}
+
+
+def opt_state_from_jax(np_state, device):
+    """Carry a JAX ``AdamState(m, v, t)`` (already pulled to numpy) onto
+    ``device`` as the port's AdamState."""
+    m, v, t = np_state
+    return AdamState(params_from_jax(m, device), params_from_jax(v, device),
+                     torch.tensor(np.asarray(t, np.int32), device=device))

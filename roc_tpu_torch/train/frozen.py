@@ -55,7 +55,8 @@ def load_frozen(config: Config, dataset: Dataset, model: Model,
     dev = resolve_device(device)
     backend = effective_backend(config, model, dev)
     gdata = dense_graph_data(dataset.graph, backend,
-                             config.aggregate_precision, dev)
+                             config.aggregate_precision, dev,
+                             transpose=False)
     x = torch.as_tensor(dataset.features, dtype=torch.float32, device=dev)
     if params is None:
         gen = torch.Generator().manual_seed(config.seed)

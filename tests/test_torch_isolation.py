@@ -25,6 +25,11 @@ for n in names:
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "roc_tpu" or m.startswith("roc_tpu."))
+need = {"roc_tpu_torch.__main__", "roc_tpu_torch.fault.guard",
+        "roc_tpu_torch.ops.kernels.aggregate_linear",
+        "roc_tpu_torch.ops.kernels.build", "roc_tpu_torch.ops.softmax",
+        "roc_tpu_torch.optim.adam", "roc_tpu_torch.train.driver"}
+assert need <= set(names), need - set(names)
 print(len(names), bad)
 assert not bad, bad
 """
@@ -37,7 +42,17 @@ def test_port_imports_without_jax_or_roc_tpu():
                           timeout=300)
     assert proc.returncode == 0, proc.stderr
     count, bad = proc.stdout.split(" ", 1)
-    assert int(count) >= 20 and bad.strip() == "[]"
+    assert int(count) >= 30 and bad.strip() == "[]"
+
+
+def test_every_kernel_source_has_a_loader():
+    """Each csrc/*.cu is built and loaded by one library of
+    ops/kernels (and so by chip_smoke.py's build of them all)."""
+    from roc_tpu_torch.ops.kernels import KERNELS, LIBRARIES
+    sources = {p.name for p in (PORT / "csrc").glob("*.cu")}
+    assert sources == {lib.source.name for lib in LIBRARIES}
+    assert set(KERNELS) == {"aggregate_sum", "aggregate_linear",
+                            "aggregate_linear_bwd"}
 
 
 def _imported_modules(path: Path):
