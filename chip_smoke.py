@@ -51,6 +51,31 @@ Phases, each printing one JSON line per record:
           2 aggregate_linear_bwd and no aggregate_sum with -megafuse
   ab      the same model in exact, dropout 0, 3 epochs from the same
           params, -megafuse vs unfused: final loss within 1e-3 relative
+  kernel  (gat) the four GAT entry points (gat_score, gat_forward,
+          gat_bwd_dst, gat_bwd_src) against their plain versions on the
+          card: first on a small graph with a hub row and an isolated node
+          at ragged head shapes (K, F) = (3, 5), (8, 8), (40, 2), (2, 200),
+          (1, 41), (4, 64); then on the Reddit graph at the layer-1 (K=4,
+          F=64) and layer-2 (K=1, F=41) shapes, both precisions.  Forward
+          bitwise on the integer fixture (a_src = 0, so every e is 1);
+          Gaussian data: out, m, z and dtable within 1e-5 of each row's
+          max-abs; the scores and score gradients (as, dadl, dast: signed
+          sums that may cancel to ~0) each element within 1e-5 of the sum
+          of the absolute values of its terms (the plain version run on
+          |x|, |a_src|, |du|, |dz| with every e unchanged).  Times: kernel,
+          plain, and the library: for the score torch.einsum, for the
+          forward torch.sparse.softmax over a sparse [N, N] score matrix
+          per head, then torch.sparse.mm; bound = compulsory bytes / 3.35
+          TB/s vs operations / 67 TFLOP/s fp32, the larger
+  train_small_gat  the Trainer with GAT 64-8-8 (2 heads) on mega-shard,
+          exact, dropout 0, 3 epochs, card vs CPU: within 1e-5
+  serve_gat  ServeEngine with GAT 602-64-41 (4 heads) on the Reddit graph,
+          fast, seeded weights: 40 requests; the score and forward kernels
+          each ran twice per forward; served rows vs predict_logits <= 32
+          ULPs
+  train_gat  the Trainer with GAT 602-64-41 (4 heads) on the Reddit graph,
+          fast, -lr 0.01 -decay 0.0001 -dropout 0.5, 10 epochs: as train,
+          with 2 launches per step of each GAT kernel and no aggregate_sum
 
 Then the ``kernels`` line, the card's name and power limit as nvidia-smi
 gives them, and last ``{"ok": true, "device": {...}}``.  Any failure
@@ -110,6 +135,12 @@ def nvidia_smi() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout
     return out.strip().splitlines()[0]
+
+
+def launch_dict(**nonzero) -> dict:
+    """Every kernel's launch count: ``nonzero``'s, 0 for the rest."""
+    from roc_tpu_torch.ops.kernels import KERNELS
+    return {k: nonzero.get(k, 0) for k in KERNELS}
 
 
 def reset_launches() -> None:
@@ -376,42 +407,316 @@ def phase_kernel_train(ds, dev) -> list:
     return rows
 
 
+def _gat_parts(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def term_rel_err(got: torch.Tensor, want: torch.Tensor,
+                 terms: torch.Tensor) -> float:
+    """max over elements of |got - want| / (the sum of the absolute values
+    of the element's terms); 0/0 counts as 0."""
+    d = (got - want).abs()
+    r = torch.where(d == 0, torch.zeros_like(d), d / terms)
+    return float(r.max())
+
+
+def _gat_errors(k, p, terms) -> dict:
+    """The max abs error; the largest error of each row's max-abs over the
+    outputs whose ``terms`` entry is None; the largest error of the terms'
+    absolute sum over the others."""
+    out = {"max_abs_err": 0.0, "row_rel_err": 0.0, "term_rel_err": 0.0}
+    for a, b, t in zip(k, p, terms):
+        out["max_abs_err"] = max(out["max_abs_err"],
+                                 float((a - b).abs().max()))
+        if t is None:
+            out["row_rel_err"] = max(out["row_rel_err"], row_rel_err(a, b))
+        else:
+            out["term_rel_err"] = max(out["term_rel_err"],
+                                      term_rel_err(a, b, t))
+    return out
+
+
+def _gat_inputs(n, k, f, gen, dev, integer=False) -> dict:
+    """Seeded inputs of the four entry points at K heads of F on an
+    n-row graph (table = destination rows, as on one device).  The integer
+    fixture has a_src = 0, so every edge's e is exactly 1."""
+    from roc_tpu_torch.ops.kernels import gat as G
+    h = k * f
+    if integer:
+        x = torch.randint(0, 8, (n, h), generator=gen, device=dev).float()
+        a_src = torch.zeros((k, f), device=dev)
+        a_dst = torch.randint(0, 3, (k, f), generator=gen,
+                              device=dev).float()
+    else:
+        x = torch.randn((n, h), generator=gen, device=dev)
+        a_src = torch.randn((k, f), generator=gen, device=dev)
+        a_dst = torch.randn((k, f), generator=gen, device=dev)
+    return {"x": x, "a_src": a_src, "as_": G.gat_score_plain(x, a_src),
+            "ad": G.gat_score_plain(x, a_dst),
+            "du": torch.randn((n, h), generator=gen, device=dev),
+            "dz": torch.randn((n, k), generator=gen, device=dev)}
+
+
+def _gat_calls(csr, prec: str) -> dict:
+    """name -> (kernel call, plain call, terms call); each takes the inputs
+    of :func:`_gat_inputs` and the forward's ``m``.  The terms call gives,
+    per output, None where the output is gated on its row's max-abs, else
+    the sum of the absolute values of each element's terms: the plain
+    version on |x|, |a_src|, |du|, |dz| (as_, ad and m unchanged, so every
+    e and lrelu'(q) is too, and both are positive)."""
+    from roc_tpu_torch.ops.kernels import gat as G
+
+    def absolute(i):
+        return {**i, **{n: i[n].abs() for n in ("x", "a_src", "du", "dz")}}
+
+    def score(fn):
+        return lambda i: fn(i["x"], i["a_src"])
+
+    def fwd(fn):
+        return lambda i: fn(i["x"], i["as_"], i["ad"], csr.row_ptr,
+                            csr.col_idx, 0.2, prec)
+
+    def dst(fn):
+        return lambda i: fn(i["x"], i["as_"], i["ad"], i["m"], i["du"],
+                            i["dz"], csr.row_ptr, csr.col_idx, 0.2)
+
+    def src(fn):
+        return lambda i: fn(i["x"], i["as_"], i["ad"], i["m"], i["du"],
+                            i["dz"], csr.t_row_ptr, csr.t_col_idx, 0.2, prec)
+
+    return {"gat_score": (score(G.gat_score), score(G.gat_score_plain),
+                          lambda i: (score(G.gat_score_plain)(absolute(i)),)),
+            "gat_forward": (fwd(G.gat_forward), fwd(G.gat_forward_plain),
+                            lambda i: (None, None, None)),
+            "gat_bwd_dst": (dst(G.gat_bwd_dst), dst(G.gat_bwd_dst_plain),
+                            lambda i: (dst(G.gat_bwd_dst_plain)(absolute(i)),)),
+            "gat_bwd_src": (src(G.gat_bwd_src), src(G.gat_bwd_src_plain),
+                            lambda i: (None, src(G.gat_bwd_src_plain)(
+                                absolute(i))[1]))}
+
+
+def _gat_bound(name, n, e, k, f, csr_bytes) -> dict:
+    """Compulsory bytes (each input read once, each output written once)
+    and operations: 2 per multiply-add of the weighted sums and dots, and a
+    few per edge and head for the score, its shift, exp and sums."""
+    h = k * f
+    nk, nh = n * k * 4, n * h * 4
+    if name == "gat_score":
+        return _bound(nh + h * 4 + nk, 2 * n * h)
+    if name == "gat_forward":
+        return _bound(nh + 2 * nk + nh + 2 * nk + csr_bytes,
+                      2 * e * h + 4 * e * k)
+    if name == "gat_bwd_dst":
+        return _bound(2 * nh + 4 * nk + nk + csr_bytes, 2 * e * h + 6 * e * k)
+    return _bound(2 * nh + 4 * nk + nh + nk + csr_bytes,
+                  4 * e * h + 8 * e * k)
+
+
+def _score_library(i) -> torch.Tensor:
+    """The source score as one library call: torch.einsum (fp32, TF32
+    off)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    k, f = i["a_src"].shape
+    return torch.einsum("tkf,kf->tk", i["x"].view(-1, k, f), i["a_src"])
+
+
+def _gat_library(csr, n, dev):
+    """The forward as library calls: a sparse [N, N] score matrix per head
+    (COO in (row, column) order, parallel edges kept as separate entries),
+    torch.sparse.softmax over its rows, then torch.sparse.mm."""
+    dst = torch.repeat_interleave(torch.arange(n, device=dev),
+                                  torch.diff(csr.row_ptr))
+    src = csr.col_idx.long()
+    order = torch.argsort(dst * n + src)
+    idx = torch.stack([dst[order], src[order]])
+    del dst, src, order
+
+    def run(i):
+        k = i["as_"].shape[1]
+        f = i["x"].shape[1] // k
+        s = torch.nn.functional.leaky_relu(i["ad"][idx[0]] + i["as_"][idx[1]],
+                                           0.2)
+        outs = []
+        for hd in range(k):
+            p = torch.sparse.softmax(torch.sparse_coo_tensor(
+                idx, s[:, hd].contiguous(), (n, n), is_coalesced=True), 1)
+            outs.append(torch.sparse.mm(p, i["x"][:, hd * f:(hd + 1) * f]))
+        return torch.cat(outs, 1)
+    return run
+
+
+# (K, F): K*F not a multiple of 4 or 32, K above 32, H above one 256-column
+# tile, and the full-width model's two layers
+GAT_SHAPES = ((3, 5), (8, 8), (40, 2), (2, 200), (1, 41), (4, 64))
+
+
+def phase_kernel_gat_shapes(dev) -> dict:
+    """The GAT kernels against their plain versions at ragged head shapes
+    on a small graph: a hub row of 700 in-edges (many 32-edge batches), an
+    isolated row, rows of every small degree."""
+    from roc_tpu_torch.graph.csr import from_edges
+    from roc_tpu_torch.ops import DeviceCsr
+    rng = np.random.default_rng(SEED + 5)
+    n = 3000
+    src = rng.integers(0, n, 30000)
+    dst = rng.integers(0, n, 30000)
+    dst[:700] = 17
+    keep = dst != 29
+    csr = DeviceCsr.from_csr(from_edges(n, src[keep], dst[keep]), dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    worst = {}
+    for k, f in GAT_SHAPES:
+        for prec in ("fast", "exact"):
+            calls = _gat_calls(csr, prec)
+            for integer in (True, False):
+                inp = _gat_inputs(n, k, f, gen, dev, integer)
+                inp["m"] = calls["gat_forward"][1](inp)[1]
+                for name, (kern, plain, terms) in calls.items():
+                    kk = _gat_parts(kern(inp))
+                    pp = _gat_parts(plain(inp))
+                    torch.cuda.synchronize()
+                    if integer and name in ("gat_score", "gat_forward"):
+                        ok = all(bool(torch.equal(a, b))
+                                 for a, b in zip(kk, pp))
+                        if not ok:
+                            raise AssertionError(
+                                f"{name} K={k} F={f} {prec}: not bitwise "
+                                f"on the integer fixture")
+                    if integer:
+                        continue
+                    err = _gat_errors(kk, pp, terms(inp))
+                    w = worst.setdefault(name, {"row_rel_err": 0.0,
+                                                "term_rel_err": 0.0})
+                    for key in w:
+                        w[key] = max(w[key], err[key])
+                    if max(err["row_rel_err"], err["term_rel_err"]) > 1e-5 \
+                            or not all(bool(torch.isfinite(a).all())
+                                       for a in kk):
+                        raise AssertionError(f"{name} K={k} F={f} {prec}: "
+                                             f"errors {err}")
+                    if name == "gat_forward" and not (
+                            bool((kk[0][29] == 0).all())
+                            and bool((kk[2][29] == 0).all())
+                            and bool((kk[1][29] == 0).all())):
+                        raise AssertionError("gat_forward: the isolated row "
+                                             "is not out = 0, m = 0, z = 0")
+    rec = {"phase": "kernel_gat_shapes", "nodes": n, "hub_in_degree":
+           int(torch.diff(csr.row_ptr)[17]), "isolated_row": 29,
+           "shapes": GAT_SHAPES,
+           "worst_err": worst, "tolerance": 1e-5, "int_bitwise": True}
+    emit(rec)
+    return rec
+
+
+def phase_kernel_gat(ds, dev) -> list:
+    """The GAT kernels on the Reddit graph at the full-width model's two
+    layer shapes (layer 1: K=4, F=64; layer 2: K=1, F=41), both
+    precisions, each against its plain version, with times and bounds."""
+    from roc_tpu_torch.ops import DeviceCsr
+    g = ds.graph
+    n, e = g.num_nodes, g.num_edges
+    csr = DeviceCsr.from_csr(g, dev)
+    csr_bytes = csr.row_ptr.numel() * 8 + csr.col_idx.numel() * 4
+    library = _gat_library(csr, n, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    rows = []
+    for k, f in ((4, 64), (1, 41)):
+        for prec in ("fast", "exact"):
+            calls = _gat_calls(csr, prec)
+            ints = _gat_inputs(n, k, f, gen, dev, integer=True)
+            gauss = _gat_inputs(n, k, f, gen, dev)
+            for inp in (ints, gauss):
+                inp["m"] = calls["gat_forward"][1](inp)[1]
+            for name, (kern, plain, terms) in calls.items():
+                rec = {"phase": "kernel", "name": name, "K": k, "F": f,
+                       "precision": prec, "nodes": n, "edges": e,
+                       **_gat_bound(name, n, e, k, f, csr_bytes)}
+                if name in ("gat_score", "gat_forward"):
+                    rec["int_bitwise"] = all(
+                        bool(torch.equal(a, b)) for a, b in
+                        zip(_gat_parts(kern(ints)), _gat_parts(plain(ints))))
+                kk, pp = _gat_parts(kern(gauss)), _gat_parts(plain(gauss))
+                torch.cuda.synchronize()
+                rec.update(_gat_errors(kk, pp, terms(gauss)))
+                rec["tolerance"] = 1e-5
+                rec["finite"] = all(bool(torch.isfinite(a).all())
+                                    for a in kk)
+                del kk, pp
+                rec["kernel_ms"] = time_ms(lambda: kern(gauss), reps=20,
+                                           warmup=3)
+                rec["plain_ms"] = time_ms(lambda: plain(gauss), reps=5,
+                                          warmup=1)
+                rec["library_ms"] = None
+                if name == "gat_score":
+                    lib = _score_library(gauss)
+                    rec["library_term_rel_err"] = term_rel_err(
+                        lib, plain(gauss), terms(gauss)[0])
+                    del lib
+                    rec["library_ms"] = time_ms(
+                        lambda: _score_library(gauss), reps=20, warmup=3)
+                if name == "gat_forward":
+                    try:
+                        lib = library(gauss)
+                        rec["library_rel_err"] = row_rel_err(
+                            lib, plain(gauss)[0])
+                        del lib
+                        rec["library_ms"] = time_ms(lambda: library(gauss),
+                                                    reps=5, warmup=1)
+                    except (RuntimeError, NotImplementedError) as err:
+                        rec["library_error"] = str(err)[:300]
+                emit(rec)
+                rows.append(rec)
+                if not (rec["finite"] and rec.get("int_bitwise", True)
+                        and rec["row_rel_err"] <= 1e-5
+                        and rec["term_rel_err"] <= 1e-5
+                        and rec.get("library_term_rel_err", 0.0) <= 1e-5):
+                    raise AssertionError(f"{name} (or its library call) "
+                                         f"disagrees with its plain "
+                                         f"version: {rec}")
+            del ints, gauss
+    return rows
+
+
 def _trainer(ds, layers, dev, **kw):
     from roc_tpu_torch.models import build_model
     from roc_tpu_torch.train.config import Config
     from roc_tpu_torch.train.driver import Trainer
     cfg = Config(dataset=ds.name, layers=layers, seed=SEED,
                  device=str(dev), **kw)
-    return Trainer(cfg, ds, build_model("gcn", layers, cfg.dropout_rate))
+    return Trainer(cfg, ds, build_model(cfg.model, layers, cfg.dropout_rate,
+                                        heads=cfg.heads))
 
 
 def _quiet(*a, **k):
     pass
 
 
-def phase_train_small(dev) -> dict:
-    """The Trainer on mega-shard, card vs CPU, unfused and megafuse."""
+def phase_train_small(dev, model: str = "gcn") -> dict:
+    """The Trainer on mega-shard, card vs CPU: GCN 64-16-8 unfused and
+    megafuse, or GAT 64-8-8 with 2 heads."""
     from roc_tpu_torch.graph import datasets
     ds = datasets.get("mega-shard", seed=1)
+    layers = [64, 16, 8] if model == "gcn" else [64, 8, 8]
     kw = dict(num_epochs=3, learning_rate=0.01, weight_decay=5e-4,
               dropout_rate=0.0, eval_every=1000, aggregate_backend="binned",
-              aggregate_precision="exact")
-    rec = {"phase": "train_small", "dataset": "mega-shard",
-           "layers": [64, 16, 8], "tolerance": 1e-5}
-    for mf in (False, True):
+              aggregate_precision="exact", model=model, heads=2)
+    rec = {"phase": "train_small" if model == "gcn" else "train_small_gat",
+           "dataset": "mega-shard", "model": model, "layers": layers,
+           "tolerance": 1e-5}
+    keys = ("unfused", "megafuse") if model == "gcn" else ("unfused",)
+    for key in keys:
         out = {}
         for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
-            tr = _trainer(ds, [64, 16, 8], d, megafuse=mf, **kw)
+            tr = _trainer(ds, layers, d, megafuse=key == "megafuse", **kw)
             loss = tr.train(print_fn=_quiet).final_loss
             out[where] = (loss, tr.predict_logits().cpu())
-        key = "megafuse" if mf else "unfused"
         rec[key] = {"card_loss": out["card"][0], "cpu_loss": out["cpu"][0],
                     "loss_rel_err": abs(out["card"][0] - out["cpu"][0])
                     / abs(out["cpu"][0]),
                     "logits_row_rel_err": row_rel_err(out["card"][1],
                                                       out["cpu"][1])}
     emit(rec)
-    for key in ("unfused", "megafuse"):
+    for key in keys:
         r = rec[key]
         if not (r["loss_rel_err"] <= 1e-5
                 and r["logits_row_rel_err"] <= 1e-5):
@@ -421,19 +726,30 @@ def phase_train_small(dev) -> dict:
 
 
 _TRAIN_LOSS = re.compile(r"train_loss: ([0-9.naif+-]+)")
-# launches of one training step of GCN 602-256-41
-STEP_LAUNCHES = {False: {"aggregate_sum": 4, "aggregate_linear": 0,
-                         "aggregate_linear_bwd": 0},
-                 True: {"aggregate_sum": 0, "aggregate_linear": 2,
-                        "aggregate_linear_bwd": 2}}
+# the full-width models: GCN 602-256-41 and GAT 602-64-41 with 4 heads
+LAYERS = {"gcn": [602, 256, 41], "gat": [602, 64, 41]}
 
 
-def phase_train(ds, dev, megafuse: bool, epochs: int = 10) -> dict:
-    """GCN 602-256-41 on the Reddit graph as test.sh trains it."""
-    layers = [602, 256, 41]
+def step_launches(model: str, megafuse: bool) -> dict:
+    """Kernel launches of one training step of the full-width model."""
+    if model == "gat":
+        return launch_dict(gat_score=2, gat_forward=2, gat_bwd_dst=2,
+                           gat_bwd_src=2)
+    if megafuse:
+        return launch_dict(aggregate_linear=2, aggregate_linear_bwd=2)
+    return launch_dict(aggregate_sum=4)
+
+
+def phase_train(ds, dev, megafuse: bool, epochs: int = 10,
+                model: str = "gcn") -> dict:
+    """GCN 602-256-41 (or GAT 602-64-41, 4 heads) on the Reddit graph as
+    test.sh trains GCN."""
+    from roc_tpu_torch.train.graph_data import model_gat_dims
+    layers = LAYERS[model]
     tr = _trainer(ds, layers, dev, num_epochs=epochs, learning_rate=0.01,
                   weight_decay=0.0001, dropout_rate=0.5, eval_every=5,
-                  aggregate_precision="fast", megafuse=megafuse)
+                  aggregate_precision="fast", megafuse=megafuse,
+                  model=model, heads=4)
     lines = []
     reset_launches()
     stats = tr.train(print_fn=lines.append)
@@ -445,7 +761,10 @@ def phase_train(ds, dev, megafuse: bool, epochs: int = 10) -> dict:
     torch.cuda.synchronize(dev)
     per_step = read_launches()
     steady = stats.epoch_times[2:]
-    rec = {"phase": "train", "model": "gcn", "layers": layers,
+    expected = step_launches(model, megafuse)
+    rec = {"phase": "train" if model == "gcn" else "train_gat",
+           "model": model, "heads_head_dim": model_gat_dims(tr.model),
+           "layers": layers,
            "dataset": ds.name, "precision": "fast", "megafuse": megafuse,
            "epochs": epochs, "epoch_ms": [t * 1e3 for t in stats.epoch_times],
            "median_epoch_ms_3_on": statistics.median(steady) * 1e3,
@@ -455,11 +774,11 @@ def phase_train(ds, dev, megafuse: bool, epochs: int = 10) -> dict:
            "launches": launches, "launches_per_step": per_step}
     emit(rec)
     ran = {k: v > 0 for k, v in launches.items()}
-    if ran != {k: v > 0 for k, v in STEP_LAUNCHES[megafuse].items()}:
+    if ran != {k: v > 0 for k, v in expected.items()}:
         raise AssertionError(f"the training run launched {launches}")
-    if per_step != STEP_LAUNCHES[megafuse]:
+    if per_step != expected:
         raise AssertionError(f"one training step launched {per_step}, "
-                             f"expected {STEP_LAUNCHES[megafuse]}")
+                             f"expected {expected}")
     if not (np.isfinite(first) and np.isfinite(last) and last < first):
         raise AssertionError(f"train_loss did not fall: {first} -> {last}")
     return rec
@@ -488,21 +807,27 @@ def phase_ab(ds, dev, epochs: int = 3) -> dict:
     return rec
 
 
-def phase_serve(ds, dev) -> dict:
+def phase_serve(ds, dev, model_name: str = "gcn",
+                n_requests: int = 120) -> dict:
+    """ServeEngine on the Reddit graph (GCN 602-256-41, or GAT 602-64-41
+    with 4 heads); GCN's logits are also held against the plain fp32
+    aggregation (GAT's plain composition does not fit at this size)."""
     from roc_tpu_torch.models import build_model
     from roc_tpu_torch.serve import ServeEngine, max_ulp_diff, run_load
     from roc_tpu_torch.train.config import Config
     from roc_tpu_torch.train.frozen import load_frozen
-    cfg = Config(dataset="reddit", layers=[602, 256, 41], seed=SEED,
-                 aggregate_precision="fast")
-    model = build_model(cfg.model, cfg.layers, cfg.dropout_rate)
-    aggs = sum(op.kind == "aggregate" for op in model.ops)
+    from roc_tpu_torch.train.graph_data import forward_launches
+    cfg = Config(dataset="reddit", layers=LAYERS[model_name], seed=SEED,
+                 aggregate_precision="fast", model=model_name, heads=4)
+    model = build_model(cfg.model, cfg.layers, cfg.dropout_rate,
+                        heads=cfg.heads)
+    per_forward = launch_dict(**forward_launches(model))
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launches()
     eng = ServeEngine(cfg, ds, model, device=dev)
     try:
         eng.warmup()
-        load = run_load(eng, n_requests=120, qps=200.0,
+        load = run_load(eng, n_requests=n_requests, qps=200.0,
                         sizes=(1, 2, 3, 5, 8, 13),
                         rng=np.random.default_rng(SEED))
         launches = read_launches()
@@ -515,16 +840,19 @@ def phase_serve(ds, dev) -> dict:
         served = eng.query(ids, timeout=600.0)
         logits = eng.bundle.predict_logits()
         ulps = max_ulp_diff(served, logits[torch.as_tensor(ids, device=dev)])
-        plain_cfg = Config(dataset="reddit", layers=cfg.layers, seed=SEED,
-                           aggregate_backend="xla")
-        plain = load_frozen(plain_cfg, ds, model, device=dev,
-                            params=eng.bundle.params).predict_logits()
-        plain_err = row_rel_err(logits, plain)
+        plain_err = None
+        if model_name == "gcn":
+            plain_cfg = Config(dataset="reddit", layers=cfg.layers,
+                               seed=SEED, aggregate_backend="xla")
+            plain = load_frozen(plain_cfg, ds, model, device=dev,
+                                params=eng.bundle.params).predict_logits()
+            plain_err = row_rel_err(logits, plain)
         finite = bool(torch.isfinite(logits).all())
         shape = list(logits.shape)
     finally:
         eng.close()
-    rec = {"phase": "serve", "model": "gcn", "layers": cfg.layers,
+    rec = {"phase": "serve" if model_name == "gcn" else "serve_gat",
+           "model": model_name, "layers": cfg.layers,
            "dataset": "reddit", "nodes": ds.graph.num_nodes,
            "edges": ds.graph.num_edges, "precision": cfg.aggregate_precision,
            "requests": load["n"], "windows": stats["windows"],
@@ -540,11 +868,12 @@ def phase_serve(ds, dev) -> dict:
            "plain_tolerance": 5e-3, "logits_shape": shape,
            "finite": finite}
     emit(rec)
-    if launches["aggregate_sum"] != aggs * forwards or forwards < 1:
-        raise AssertionError(f"aggregate_sum ran {launches} times over "
-                             f"{forwards} forwards; expected {aggs} each")
-    if ulps > 32 or plain_err > 5e-3 or not finite \
-            or shape != [ds.graph.num_nodes, cfg.layers[-1]]:
+    want = {k: v * forwards for k, v in per_forward.items()}
+    if launches != want or forwards < 1:
+        raise AssertionError(f"the kernels ran {launches} times over "
+                             f"{forwards} forwards; expected {want}")
+    if ulps > 32 or (plain_err is not None and plain_err > 5e-3) \
+            or not finite or shape != [ds.graph.num_nodes, cfg.layers[-1]]:
         raise AssertionError(f"served logits are wrong: {rec}")
     return rec
 
@@ -562,7 +891,8 @@ def _kernel_entry(name, source, replaces, launches, row, rows, keys):
             "shapes": [{k: r[k] for k in (*keys, "kernel_ms", "plain_ms",
                                           "library_ms", "bound_ms",
                                           "bound_by", "max_abs_err",
-                                          "row_rel_err") if k in r}
+                                          "row_rel_err", "term_rel_err")
+                        if k in r}
                        for r in rows]}
 
 
@@ -582,10 +912,15 @@ def main() -> int:
           "host_gen_s": round(time.perf_counter() - t0, 3)})
     rows = phase_kernel(ds, dev)
     rows += phase_kernel_train(ds, dev)
+    phase_kernel_gat_shapes(dev)
+    rows += phase_kernel_gat(ds, dev)
     phase_small(dev)
     phase_train_small(dev)
+    phase_train_small(dev, "gat")
     serve = phase_serve(ds, dev)
+    serve_gat = phase_serve(ds, dev, "gat", n_requests=40)
     train = {mf: phase_train(ds, dev, mf) for mf in (False, True)}
+    train_gat = phase_train(ds, dev, False, model="gat")
     phase_ab(ds, dev)
 
     def pick(name, **want):
@@ -621,7 +956,16 @@ def main() -> int:
             pick("aggregate_linear_bwd", H_in=602, dx=True,
                  precision="fast"),
             named("aggregate_linear_bwd"),
-            ("H_in", "H_out", "relu", "dx", "precision"))]})
+            ("H_in", "H_out", "relu", "dx", "precision")),
+        *(_kernel_entry(
+            name, src + "gat.cu", "roc_tpu/ops/pallas/gat.py:" + line,
+            {"serve_gat": serve_gat["launches"][name],
+             "train_gat": train_gat["launches"][name]},
+            pick(name, K=4, precision="fast"), named(name),
+            ("K", "F", "precision"))
+          for name, line in (("gat_score", "310"), ("gat_forward", "328"),
+                             ("gat_bwd_dst", "536"),
+                             ("gat_bwd_src", "632")))]})
     print(env["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

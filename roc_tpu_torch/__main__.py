@@ -1,5 +1,6 @@
 """CLI entry: ``python -m roc_tpu_torch -dataset reddit -layers 602-256-41
--e 10 [-megafuse] [-device cpu]`` (roc_tpu/__main__.py).
+-e 10 [-model gcn|gcn-chain|sage|gin|gat] [-heads K] [-aggr A] [-megafuse]
+[-device cpu]`` (roc_tpu/__main__.py).
 
 Trains on one NVIDIA GPU; ``-device cpu`` runs on the CPU instead, and
 without a GPU and without that flag the command exits non-zero.  Reading
@@ -49,7 +50,8 @@ def main(argv=None) -> int:
         print(f"error: -layers tail {cfg.layers[-1]} != dataset classes "
               f"{ds.num_classes}", file=sys.stderr)
         return 2
-    model = build_model(cfg.model, cfg.layers, cfg.dropout_rate, cfg.aggr)
+    model = build_model(cfg.model, cfg.layers, cfg.dropout_rate, cfg.aggr,
+                        heads=cfg.heads)
     make_trainer(cfg, ds, model).train()
     return 0
 

@@ -3,10 +3,11 @@ class).
 
 The builder API emits a small op IR (``OpNode``s over ``TensorRef`` ids);
 ``apply`` runs it over tensors.  Aggregation goes through
-``GraphCtx.aggregate``, which hides the graph data and the backend.  A
-``GraphCtx.fuse_linear`` hook runs each :func:`mega_matches` layer chain as
-the whole-layer megakernel.  The JAX package's cross-layer regions and
-graph attention are not ported yet (ROADMAP queue A).
+``GraphCtx.aggregate``, which hides the graph data and the backend, and
+graph attention through ``GraphCtx.attend``.  A ``GraphCtx.fuse_linear``
+hook runs each :func:`mega_matches` layer chain as the whole-layer
+megakernel.  The JAX package's cross-layer regions are not ported yet
+(ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -27,6 +28,8 @@ class GraphCtx(NamedTuple):
     # When set, ``apply`` hands each ``mega_matches`` chain to it instead
     # of running the chain's ops one by one.
     fuse_linear: Optional[Callable] = None
+    # graph attention: (h [N, K, F], a_src, a_dst, slope) -> [N, K, F]
+    attend: Optional[Callable] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,7 +41,8 @@ class TensorRef:
 
 @dataclasses.dataclass(frozen=True)
 class OpNode:
-    kind: str                 # dropout|linear|norm|aggregate|activation|add
+    kind: str                 # dropout|linear|norm|aggregate|gat|
+                              # activation|add
     inputs: tuple             # input tensor ids
     out: int                  # output tensor id
     attrs: dict               # op-specific attributes
@@ -206,9 +210,15 @@ class Model:
 
     def gat(self, t: TensorRef, head_dim: int, heads: int = 1,
             slope: float = 0.2) -> TensorRef:
-        raise NotImplementedError(
-            "graph attention is not ported yet (ROADMAP queue A, model zoo; "
-            "queue B, GAT attention kernels)")
+        """Multi-head graph-attention layer: the W projection, then
+        attention aggregation, heads concatenated."""
+        out = self._new(head_dim * heads)
+        self._emit(OpNode("gat", (t.id,), out.id,
+                          {"in_dim": t.dim, "head_dim": head_dim,
+                           "heads": heads, "slope": slope,
+                           "param": f"gat_{self.num_linear}"}))
+        self.num_linear += 1
+        return out
 
     def relu(self, t: TensorRef) -> TensorRef:
         return self._activation(t, "relu")
@@ -239,12 +249,25 @@ class Model:
     # -- parameters -------------------------------------------------------
     def init_params(self, generator: torch.Generator,
                     device=None) -> Dict[str, torch.Tensor]:
-        """Glorot-uniform per linear op, drawn in op order from one
-        generator."""
-        return {op.attrs["param"]: ops.glorot_uniform(
-                    op.attrs["in_dim"], op.attrs["out_dim"], generator,
-                    device=device)
-                for op in self.ops if op.kind == "linear"}
+        """Glorot-uniform, drawn in op order from one generator: a
+        linear op's ``[in, out]`` weight; a gat op's ``_w`` ``[in, K*F]``,
+        then ``_asrc`` and ``_adst`` ``[K, F]`` (each drawn as a
+        ``[K*F, 1]`` Glorot matrix, model.py:461-471)."""
+        params = {}
+        for op in self.ops:
+            a = op.attrs
+            if op.kind == "linear":
+                params[a["param"]] = ops.glorot_uniform(
+                    a["in_dim"], a["out_dim"], generator, device=device)
+            elif op.kind == "gat":
+                kf = a["heads"] * a["head_dim"]
+                params[a["param"] + "_w"] = ops.glorot_uniform(
+                    a["in_dim"], kf, generator, device=device)
+                for suffix in ("_asrc", "_adst"):
+                    params[a["param"] + suffix] = ops.glorot_uniform(
+                        kf, 1, generator, device=device).reshape(
+                            a["heads"], a["head_dim"])
+        return params
 
     # -- execution --------------------------------------------------------
     def apply(self, params: Dict[str, torch.Tensor], x: torch.Tensor,
@@ -276,6 +299,15 @@ class Model:
                 out = ops.indegree_norm(a, gctx.in_degree)
             elif op.kind == "aggregate":
                 out = gctx.aggregate(a, op.attrs["aggr"])
+            elif op.kind == "gat":
+                if gctx.attend is None:
+                    raise ValueError("this GraphCtx has no attention")
+                name, k, f = (op.attrs["param"], op.attrs["heads"],
+                              op.attrs["head_dim"])
+                h = ops.linear(a, params[name + "_w"]).reshape(-1, k, f)
+                out = gctx.attend(h, params[name + "_asrc"],
+                                  params[name + "_adst"],
+                                  op.attrs["slope"]).reshape(-1, k * f)
             elif op.kind == "activation":
                 out = ops.apply_activation(a, op.attrs["mode"])
             elif op.kind == "add":

@@ -5,13 +5,17 @@ is compiled at its first launch, or all of them at once by
 
 from concurrent.futures import ThreadPoolExecutor
 
-from roc_tpu_torch.ops.kernels import aggregate_linear, aggregate_sum
+from roc_tpu_torch.ops.kernels import aggregate_linear, aggregate_sum, gat
 
 KERNELS = {"aggregate_sum": aggregate_sum.aggregate_sum,
            "aggregate_linear": aggregate_linear.aggregate_linear,
-           "aggregate_linear_bwd": aggregate_linear.aggregate_linear_bwd}
+           "aggregate_linear_bwd": aggregate_linear.aggregate_linear_bwd,
+           "gat_score": gat.gat_score,
+           "gat_forward": gat.gat_forward,
+           "gat_bwd_dst": gat.gat_bwd_dst,
+           "gat_bwd_src": gat.gat_bwd_src}
 
-LIBRARIES = (aggregate_sum.LIBRARY, aggregate_linear.LIBRARY)
+LIBRARIES = (aggregate_sum.LIBRARY, aggregate_linear.LIBRARY, gat.LIBRARY)
 
 
 def build_all() -> None:
@@ -23,4 +27,4 @@ def build_all() -> None:
 
 
 __all__ = ["KERNELS", "LIBRARIES", "aggregate_linear", "aggregate_sum",
-           "build_all"]
+           "build_all", "gat"]

@@ -1,0 +1,371 @@
+"""GAT attention: the CUDA kernels, their loader and their plain versions.
+
+Features are ``x`` [T, H] with H = K * F (K heads of F features, head k in
+columns [k*F, (k+1)*F)), the layout of the JAX package's fused kernels
+(``roc_tpu/ops/pallas/gat.py``, heads stacked on the lane axis).  K is read
+from the score tensors' second dimension.  Entry points, each the function
+of a TPU kernel (or of the score its body computes):
+
+  gat_score(x, a_src)                  as[t, k] = sum_f x[t, kF+f] a_src[k, f]
+                                       (``_chunk_score``, gat.py:310)
+  gat_forward(x, as_, ad, row_ptr, col_idx, slope, precision)
+                                       -> (out [N, H], m [N, K], z [N, K]):
+                                       q = ad[v] + as[u], s = lrelu(q),
+                                       m = max s, e = exp(s - m), z = sum e,
+                                       out = sum e x[u] / max(z, 1e-15)
+                                       (``_gat_max_kernel`` + ``_gat_sum_kernel``)
+  gat_bwd_dst(x, as_, ad, m, du, dz, row_ptr, col_idx, slope)
+                                       -> dadl [N, K] = sum over in-edges of
+                                       dq = e lrelu'(q) (sum_f du[v] x[u] + dz[v])
+                                       (``_gat_bwd_dst_kernel``)
+  gat_bwd_src(x, as_, ad, m, du, dz, t_row_ptr, t_col_idx, slope, precision)
+                                       -> (dtable [T, H] = sum over out-edges of
+                                       e du[v], dast [T, K] = sum of dq)
+                                       (``_gat_bwd_src_kernel``)
+
+lrelu'(q) is 1 for q >= 0 and ``slope`` below, as in the JAX package
+(edge.py:479).  Precision contract (gat.py:433-438): "fast" gives the
+products e * x (forward) and e * du (dtable) one bf16 rounding before their
+fp32 sums; "exact" is fp32 throughout; scores, maxima, normalizers and the
+score gradients are fp32 in both.
+
+On a CUDA tensor each wrapper launches its kernel from ``csrc/gat.cu`` or
+raises; on a CPU tensor it runs the plain version, which gathers in edge
+chunks (unchunked, [E, K, F] at the Reddit shape is 24 GB).  Each wrapper's
+``launches`` counts kernel launches.  Index bounds are the caller's, as for
+``aggregate_sum`` (the graph data validates the CSR once).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Iterator, Tuple
+
+import torch
+
+from roc_tpu_torch.ops.kernels.aggregate_sum import (_CHUNK_TARGET_ELEMS,
+                                                     _check_csr,
+                                                     check_precision)
+from roc_tpu_torch.ops.kernels.build import CudaLibrary
+
+# Normalizer guard of every softmax division (roc_tpu/ops/edge.py:39): live
+# rows have z >= 1 by the max shift; edgeless rows divide 0 by it.
+Z_GUARD = 1e-15
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    p, ll, i, f = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_float)
+    for name, args in (
+            ("roc_gat_score", [p, p, p, ll, i, i, i, p]),
+            ("roc_gat_forward", [p, p, p, p, p, p, p, p, ll, i, i, f, i, i,
+                                 p]),
+            ("roc_gat_bwd_dst", [p, p, p, p, p, p, p, p, p, ll, i, i, f, i,
+                                 p]),
+            ("roc_gat_bwd_src", [p, p, p, p, p, p, p, p, p, p, ll, i, i, f,
+                                 i, i, p])):
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
+
+
+LIBRARY = CudaLibrary("gat.cu", _bind)
+
+
+def _lrelu(q: torch.Tensor, slope: float) -> torch.Tensor:
+    return torch.where(q >= 0, q, q * slope)
+
+
+def _heads(x: torch.Tensor, scores: torch.Tensor) -> Tuple[int, int]:
+    """(K, F) from x [T, H] and a [rows, K] score tensor."""
+    if x.dim() != 2 or scores.dim() != 2:
+        raise ValueError(f"x must be [T, H] and scores [rows, K], got "
+                         f"{tuple(x.shape)} and {tuple(scores.shape)}")
+    k = scores.shape[1]
+    if k < 1 or x.shape[1] % k:
+        raise ValueError(f"H = {x.shape[1]} is not a multiple of K = {k}")
+    return k, x.shape[1] // k
+
+
+def _check_f32(*tensors) -> None:
+    for t in tensors:
+        if t.dtype != torch.float32:
+            raise ValueError(f"the GAT kernels take float32 tensors, got "
+                             f"{t.dtype}")
+
+
+def _check_node_tensors(n: int, k: int, h: int, per_head: dict,
+                        per_column: dict) -> None:
+    """Each of ``per_head`` [n, K] and each of ``per_column`` [n, H]."""
+    for want, group in (((n, k), per_head), ((n, h), per_column)):
+        for name, v in group.items():
+            if tuple(v.shape) != want:
+                raise ValueError(f"{name} must be {list(want)}, got "
+                                 f"{tuple(v.shape)}")
+
+
+def _check_shapes(x, as_, ad, row_ptr, col_idx, per_head=None,
+                  per_column=None) -> None:
+    """x [T, H], as_ [T, K], ad and each of ``per_head`` [N, K], each of
+    ``per_column`` [N, H], against the CSR's N destination rows."""
+    per_head, per_column = per_head or {}, per_column or {}
+    _check_csr(x, row_ptr, col_idx)
+    k, _ = _heads(x, as_)
+    n, (t, h) = row_ptr.numel() - 1, x.shape
+    if tuple(as_.shape) != (t, k):
+        raise ValueError(f"as_ must be [{t}, K], got {tuple(as_.shape)}")
+    _check_node_tensors(n, k, h, {"ad": ad, **per_head}, per_column)
+    _check_f32(x, as_, ad, *per_head.values(), *per_column.values())
+
+
+def _check_src_shapes(x, as_, ad, m, du, dz, t_row_ptr, t_col_idx) -> None:
+    """x [T, H] and as_ [T, K] against the transposed CSR's T source rows;
+    ad, m, dz [N, K] and du [N, H] over the N destination rows."""
+    _check_csr(x, t_row_ptr, t_col_idx)
+    k, _ = _heads(x, as_)
+    (t, h), n = x.shape, du.shape[0] if du.dim() == 2 else -1
+    if t_row_ptr.numel() - 1 != t or tuple(as_.shape) != (t, k):
+        raise ValueError(f"gat_bwd_src: x {tuple(x.shape)} and as_ "
+                         f"{tuple(as_.shape)} disagree with a transposed "
+                         f"CSR of {t_row_ptr.numel() - 1} rows")
+    _check_node_tensors(n, k, h, {"ad": ad, "m": m, "dz": dz}, {"du": du})
+    _check_f32(x, as_, ad, m, du, dz)
+
+
+def _edge_chunks(row_ptr: torch.Tensor, col_idx: torch.Tensor,
+                 width: int) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
+    """(row, col) int64 ids of each edge, in chunks whose gathered
+    [chunk, width] block stays near 2^25 elements."""
+    num_edges = col_idx.numel()
+    chunk = max(_CHUNK_TARGET_ELEMS // max(width, 1), 1024)
+    for lo in range(0, num_edges, chunk):
+        hi = min(lo + chunk, num_edges)
+        e = torch.arange(lo, hi, dtype=row_ptr.dtype, device=row_ptr.device)
+        yield (torch.searchsorted(row_ptr, e, right=True) - 1,
+               col_idx[lo:hi].long())
+
+
+def _round(t: torch.Tensor, precision: str) -> torch.Tensor:
+    return t.to(torch.bfloat16).to(torch.float32) if precision == "fast" \
+        else t
+
+
+# -- plain versions ---------------------------------------------------------
+
+def gat_score_plain(x: torch.Tensor, a_src: torch.Tensor) -> torch.Tensor:
+    """as[t, k] = sum_f x[t, kF + f] a_src[k, f], on any device."""
+    if a_src.dim() != 2 or x.dim() != 2 or x.shape[1] != a_src.numel():
+        raise ValueError(f"x [T, K*F] and a_src [K, F] disagree: "
+                         f"{tuple(x.shape)}, {tuple(a_src.shape)}")
+    _check_f32(x, a_src)
+    k, f = a_src.shape
+    return (x.view(-1, k, f) * a_src).sum(-1)
+
+
+def gat_forward_plain(x, as_, ad, row_ptr, col_idx, slope: float = 0.2,
+                      precision: str = "exact"):
+    """The plain forward on any device: the two-pass softmax, its maxima
+    by ``scatter_reduce_`` and its sums by ``index_add_`` in edge chunks."""
+    _check_shapes(x, as_, ad, row_ptr, col_idx)
+    check_precision(precision, x.dtype)
+    k, f = _heads(x, as_)
+    n, h = row_ptr.numel() - 1, x.shape[1]
+    m = torch.full((n, k), float("-inf"), device=x.device)
+    for rows, cols in _edge_chunks(row_ptr, col_idx, k):
+        s = _lrelu(ad[rows] + as_[cols], slope)
+        m.scatter_reduce_(0, rows[:, None].expand(-1, k), s, "amax")
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    z = torch.zeros((n, k), device=x.device)
+    u = torch.zeros((n, h), device=x.device)
+    for rows, cols in _edge_chunks(row_ptr, col_idx, h):
+        e = torch.exp(_lrelu(ad[rows] + as_[cols], slope) - m[rows])
+        z.index_add_(0, rows, e)
+        t = (e[:, :, None] * x[cols].view(-1, k, f)).view(-1, h)
+        u.index_add_(0, rows, _round(t, precision))
+    out = u.view(n, k, f) / torch.clamp_min(z, Z_GUARD)[:, :, None]
+    return out.view(n, h), m, z
+
+
+def _dq(q, e, du_e, x_e, dz_e, k, f, slope):
+    """Per-edge score gradient e lrelu'(q) (sum_f du x + dz), fp32."""
+    de = (du_e.view(-1, k, f) * x_e.view(-1, k, f)).sum(-1) + dz_e
+    return e * de * torch.where(q >= 0, 1.0, slope)
+
+
+def gat_bwd_dst_plain(x, as_, ad, m, du, dz, row_ptr, col_idx,
+                      slope: float = 0.2) -> torch.Tensor:
+    """dadl over the forward CSR, on any device."""
+    _check_shapes(x, as_, ad, row_ptr, col_idx, {"m": m, "dz": dz},
+                  {"du": du})
+    k, f = _heads(x, as_)
+    dadl = torch.zeros((row_ptr.numel() - 1, k), device=x.device)
+    for rows, cols in _edge_chunks(row_ptr, col_idx, x.shape[1]):
+        q = ad[rows] + as_[cols]
+        e = torch.exp(_lrelu(q, slope) - m[rows])
+        dadl.index_add_(0, rows, _dq(q, e, du[rows], x[cols], dz[rows], k, f,
+                                     slope))
+    return dadl
+
+
+def gat_bwd_src_plain(x, as_, ad, m, du, dz, t_row_ptr, t_col_idx,
+                      slope: float = 0.2, precision: str = "exact"):
+    """(dtable, dast) over the transposed CSR (row u, its destinations v),
+    on any device."""
+    _check_src_shapes(x, as_, ad, m, du, dz, t_row_ptr, t_col_idx)
+    check_precision(precision, x.dtype)
+    k, f = _heads(x, as_)
+    t, h = x.shape
+    dtable = torch.zeros((t, h), device=x.device)
+    dast = torch.zeros((t, k), device=x.device)
+    for rows, cols in _edge_chunks(t_row_ptr, t_col_idx, h):
+        q = ad[cols] + as_[rows]
+        e = torch.exp(_lrelu(q, slope) - m[cols])
+        g = du[cols]
+        prod = (e[:, :, None] * g.view(-1, k, f)).view(-1, h)
+        dtable.index_add_(0, rows, _round(prod, precision))
+        dast.index_add_(0, rows, _dq(q, e, g, x[rows], dz[cols], k, f,
+                                     slope))
+    return dtable, dast
+
+
+# -- the kernels ------------------------------------------------------------
+
+def _require_cuda(name: str, *tensors) -> None:
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu tensors, got {dev}")
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name}: every tensor must be on {dev}, got "
+                             f"{t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+
+
+def _csr_int64(row_ptr: torch.Tensor) -> None:
+    if row_ptr.dtype != torch.int64:
+        raise ValueError(f"the GAT kernels take an int64 row_ptr, got "
+                         f"{row_ptr.dtype}")
+
+
+def _vec_width(h: int, *packed: torch.Tensor) -> int:
+    """Widest vector (floats per lane) that divides H and keeps every row
+    start of each tensor read or written in packs aligned."""
+    for v in (4, 2, 1):
+        if h % v == 0 and all(t.data_ptr() % (v * 4) == 0 for t in packed):
+            return v
+    return 1
+
+
+def _launch(name: str, fn, *args) -> None:
+    with torch.cuda.device(args[-1]):
+        err = fn(*args[:-1], torch.cuda.current_stream(args[-1]).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def gat_score(x: torch.Tensor, a_src: torch.Tensor) -> torch.Tensor:
+    """as [T, K] from x [T, K*F] and a_src [K, F].  Launches the CUDA kernel
+    for CUDA tensors, runs the plain version for CPU tensors."""
+    if x.device.type == "cpu":
+        return gat_score_plain(x, a_src)
+    if a_src.dim() != 2 or x.dim() != 2 or x.shape[1] != a_src.numel():
+        raise ValueError(f"x [T, K*F] and a_src [K, F] disagree: "
+                         f"{tuple(x.shape)}, {tuple(a_src.shape)}")
+    _check_f32(x, a_src)
+    _require_cuda("gat_score", x, a_src)
+    k, f = a_src.shape
+    out = torch.empty((x.shape[0], k), device=x.device)
+    if x.shape[0] == 0:
+        return out
+    _launch("gat_score", LIBRARY.load().roc_gat_score, x.data_ptr(),
+            a_src.data_ptr(), out.data_ptr(), x.shape[0], k, f,
+            _vec_width(x.shape[1], x, a_src), x.device)
+    gat_score.launches += 1
+    return out
+
+
+def gat_forward(x, as_, ad, row_ptr, col_idx, slope: float = 0.2,
+                precision: str = "exact"):
+    """(out [N, H], m [N, K], z [N, K]) over the in-edge CSR.  Launches the
+    CUDA kernel for CUDA tensors, runs the plain version for CPU
+    tensors."""
+    if x.device.type == "cpu":
+        return gat_forward_plain(x, as_, ad, row_ptr, col_idx, slope,
+                                 precision)
+    _check_shapes(x, as_, ad, row_ptr, col_idx)
+    check_precision(precision, x.dtype)
+    _require_cuda("gat_forward", x, as_, ad, row_ptr, col_idx)
+    _csr_int64(row_ptr)
+    k, f = _heads(x, as_)
+    n, h = row_ptr.numel() - 1, x.shape[1]
+    out = torch.empty((n, h), device=x.device)
+    m = torch.empty((n, k), device=x.device)
+    z = torch.empty((n, k), device=x.device)
+    if n == 0:
+        return out, m, z
+    _launch("gat_forward", LIBRARY.load().roc_gat_forward,
+            row_ptr.data_ptr(), col_idx.data_ptr(), x.data_ptr(),
+            as_.data_ptr(), ad.data_ptr(), out.data_ptr(), m.data_ptr(),
+            z.data_ptr(), n, k, f, float(slope), int(precision == "fast"),
+            _vec_width(h, x, out), x.device)
+    gat_forward.launches += 1
+    return out, m, z
+
+
+def gat_bwd_dst(x, as_, ad, m, du, dz, row_ptr, col_idx,
+                slope: float = 0.2) -> torch.Tensor:
+    """dadl [N, K] over the in-edge CSR.  Launches the CUDA kernel for CUDA
+    tensors, runs the plain version for CPU tensors."""
+    if x.device.type == "cpu":
+        return gat_bwd_dst_plain(x, as_, ad, m, du, dz, row_ptr, col_idx,
+                                 slope)
+    _check_shapes(x, as_, ad, row_ptr, col_idx, {"m": m, "dz": dz},
+                  {"du": du})
+    _require_cuda("gat_bwd_dst", x, as_, ad, m, du, dz, row_ptr, col_idx)
+    _csr_int64(row_ptr)
+    k, f = _heads(x, as_)
+    n = row_ptr.numel() - 1
+    dadl = torch.empty((n, k), device=x.device)
+    if n == 0:
+        return dadl
+    _launch("gat_bwd_dst", LIBRARY.load().roc_gat_bwd_dst,
+            row_ptr.data_ptr(), col_idx.data_ptr(), x.data_ptr(),
+            as_.data_ptr(), ad.data_ptr(), m.data_ptr(), du.data_ptr(),
+            dz.data_ptr(), dadl.data_ptr(), n, k, f, float(slope),
+            _vec_width(x.shape[1], x), x.device)
+    gat_bwd_dst.launches += 1
+    return dadl
+
+
+def gat_bwd_src(x, as_, ad, m, du, dz, t_row_ptr, t_col_idx,
+                slope: float = 0.2, precision: str = "exact"):
+    """(dtable [T, H], dast [T, K]) over the transposed CSR.  Launches the
+    CUDA kernel for CUDA tensors, runs the plain version for CPU tensors."""
+    if x.device.type == "cpu":
+        return gat_bwd_src_plain(x, as_, ad, m, du, dz, t_row_ptr, t_col_idx,
+                                 slope, precision)
+    _check_src_shapes(x, as_, ad, m, du, dz, t_row_ptr, t_col_idx)
+    check_precision(precision, x.dtype)
+    _require_cuda("gat_bwd_src", x, as_, ad, m, du, dz, t_row_ptr, t_col_idx)
+    _csr_int64(t_row_ptr)
+    k, f = _heads(x, as_)
+    t, h = x.shape
+    dtable = torch.empty((t, h), device=x.device)
+    dast = torch.empty((t, k), device=x.device)
+    if t == 0:
+        return dtable, dast
+    _launch("gat_bwd_src", LIBRARY.load().roc_gat_bwd_src,
+            t_row_ptr.data_ptr(), t_col_idx.data_ptr(), x.data_ptr(),
+            as_.data_ptr(), ad.data_ptr(), m.data_ptr(), du.data_ptr(),
+            dz.data_ptr(), dtable.data_ptr(), dast.data_ptr(), t, k, f,
+            float(slope), int(precision == "fast"),
+            _vec_width(h, du, dtable), x.device)
+    gat_bwd_src.launches += 1
+    return dtable, dast
+
+
+gat_score.launches = 0
+gat_forward.launches = 0
+gat_bwd_dst.launches = 0
+gat_bwd_src.launches = 0

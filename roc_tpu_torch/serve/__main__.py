@@ -1,15 +1,16 @@
-"""``python -m roc_tpu_torch.serve --selftest [--device cuda|cpu]``: the
-serving smoke gate (the contracts of roc_tpu/serve/__main__.py, without the
-dynamic-delta leg).
+"""``python -m roc_tpu_torch.serve --selftest [--device cuda|cpu]
+[--model gcn|gat]``: the serving smoke gate (the contracts of
+roc_tpu/serve/__main__.py, without the dynamic-delta leg).
 
-On the tiny audit graph (GCN 8-16-4): write a checkpoint, cold-start a
-ServeEngine from it, and assert in one process that
+On the tiny audit graph (GCN 8-16-4, or GAT 8-4-4 with 2 heads): write a
+checkpoint, cold-start a ServeEngine from it, and assert in one process that
 
   1. cold start loads the checkpoint and serves its first forward,
   2. served logits match the eval forward to <= 32 ULPs,
   3. a 100-request mixed-size stream dispatches only ladder buckets and,
-     on CUDA, runs every aggregation through the kernel (launches ==
-     aggregations per forward x forwards).
+     on CUDA, runs every aggregation and attention layer through its
+     kernels (each kernel's launches == its launches per forward x
+     forwards).
 
 Exit 0 with a one-line summary per contract; any violation raises.
 """
@@ -22,23 +23,26 @@ import sys
 import tempfile
 
 
-def selftest(device: str = "cuda") -> int:
+def selftest(device: str = "cuda", model_name: str = "gcn") -> int:
     import numpy as np
     import torch
 
     from roc_tpu_torch.graph import datasets
     from roc_tpu_torch.models import build_model
-    from roc_tpu_torch.ops.kernels.aggregate_sum import aggregate_sum
+    from roc_tpu_torch.ops.kernels import KERNELS
     from roc_tpu_torch.serve import ServeEngine, max_ulp_diff, run_load
     from roc_tpu_torch.train import checkpoint
     from roc_tpu_torch.train.config import Config
+    from roc_tpu_torch.train.graph_data import forward_launches
 
-    cfg = Config(dataset="roc-audit", layers=[8, 16, 4],
+    cfg = Config(dataset="roc-audit", model=model_name, heads=2,
+                 layers=[8, 16, 4] if model_name == "gcn" else [8, 4, 4],
                  aggregate_backend="binned", serve_batch=8,
                  serve_wait_ms=1.0)
     ds = datasets.get(cfg.dataset, seed=cfg.seed)
-    model = build_model(cfg.model, cfg.layers, cfg.dropout_rate, cfg.aggr)
-    aggs = sum(op.kind == "aggregate" for op in model.ops)
+    model = build_model(cfg.model, cfg.layers, cfg.dropout_rate, cfg.aggr,
+                        heads=cfg.heads)
+    per_forward = forward_launches(model)
 
     with tempfile.TemporaryDirectory(prefix="roc_torch_serve_") as tmp:
         ckpt = os.path.join(tmp, "serve.ckpt.npz")
@@ -60,15 +64,18 @@ def selftest(device: str = "cuda") -> int:
                   f"(gate: <=32)")
 
             eng.warmup()
-            fwd0, launches0 = eng.forwards, aggregate_sum.launches
+            fwd0 = eng.forwards
+            before = {k: KERNELS[k].launches for k in per_forward}
             stats = run_load(eng, n_requests=100, qps=2000.0,
                              sizes=(1, 2, 3, 5, 8, 13))
             bad = set(eng.dispatches) - set(eng.buckets)
             if bad:
                 raise AssertionError(f"dispatched off-ladder buckets {bad}")
             fwd = eng.forwards - fwd0
-            launches = aggregate_sum.launches - launches0
-            want = aggs * fwd if eng.device.type == "cuda" else 0
+            launches = {k: KERNELS[k].launches - v for k, v in before.items()}
+            on_card = eng.device.type == "cuda"
+            want = {k: v * fwd if on_card else 0
+                    for k, v in per_forward.items()}
             if launches != want:
                 raise AssertionError(f"{launches} kernel launches over {fwd} "
                                      f"forwards, expected {want}")
@@ -85,11 +92,12 @@ def main(argv) -> int:
     p = argparse.ArgumentParser(prog="python -m roc_tpu_torch.serve")
     p.add_argument("--selftest", action="store_true")
     p.add_argument("--device", default="cuda")
+    p.add_argument("--model", default="gcn", choices=["gcn", "gat"])
     args = p.parse_args(argv)
     if not args.selftest:
         p.print_usage(sys.stderr)
         return 2
-    return selftest(args.device)
+    return selftest(args.device, args.model)
 
 
 if __name__ == "__main__":

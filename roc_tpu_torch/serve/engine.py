@@ -6,7 +6,8 @@ loads a checkpoint through ``train.frozen.load_frozen`` (weights only),
 builds the graph data through the same backend resolution as training, and
 answers node-level queries with one full-graph eval forward followed by an
 ``index_select`` of the queried rows.  On CUDA every aggregation of that
-forward is a launch of the hand-written sum-aggregation kernel.
+forward is a launch of the hand-written sum-aggregation kernel, and every
+attention layer one launch each of the GAT score and forward kernels.
 
 Shape discipline: a chunk of queries is padded to a power-of-two bucket
 capped at ``serve_batch``, so the query gather sees at most

@@ -21,7 +21,8 @@ class Config:
     dropout_rate: float = 0.5
     decay_rate: float = 1.0
     decay_steps: int = 100
-    model: str = "gcn"
+    model: str = "gcn"            # gcn | gcn-chain | sage | gin | gat
+    heads: int = 8                # attention heads (gat only)
     aggr: str = ""                # "" = the model's default
     seed: int = 1
     aggregate_backend: str = "auto"  # auto | xla | matmul | pallas | binned
@@ -79,6 +80,11 @@ def parse_args(argv: List[str]) -> Config:
     p.add_argument("-decay-step", "-ds", dest="decay_steps", type=int,
                    default=100)
     p.add_argument("-seed", type=int, default=1)
+    p.add_argument("-model", default="gcn",
+                   choices=["gcn", "gcn-chain", "sage", "gin", "gat"])
+    p.add_argument("-heads", type=int, default=8)
+    p.add_argument("-aggr", default="",
+                   choices=["", "sum", "avg", "max", "min"])
     p.add_argument("-aggr-precision", dest="aggregate_precision",
                    default="fast", choices=["exact", "fast"])
     p.add_argument("-aggr-backend", dest="aggregate_backend", default="auto",

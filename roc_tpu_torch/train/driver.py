@@ -4,8 +4,9 @@ Per epoch, as the reference's loop (gnn.cc:99-111) and the JAX driver
 (driver.py:913-1040):
   * every ``decay_steps`` epochs (not epoch 0) the learning rate is
     multiplied by ``decay_rate``;
-  * one train step: forward, backward (autograd; every aggregation and
-    megakernel has its own backward kernel) and the guarded Adam update;
+  * one train step: forward, backward (autograd; every aggregation,
+    megakernel and attention layer has its own backward kernels) and the
+    guarded Adam update;
   * the epoch ends with a device sync, and ``epoch_times`` are the synced
     times;
   * every ``eval_every`` epochs an inference forward prints the reference's

@@ -2,7 +2,8 @@
 (roc_tpu/train/frozen.py): checkpoint in, a :class:`FrozenBundle` out, with
 the params (weights only, no optimizer arrays), the features and the graph
 data resident on one device.  The graph data is built through the same
-backend resolution as training (``graph_data.effective_backend``).
+backend resolution as training (``graph_data.effective_backend``), with
+the CSR alone: a forward-only consumer runs only forward kernels.
 The streaming executor's branch is not ported yet (ROADMAP queue A)."""
 
 from __future__ import annotations

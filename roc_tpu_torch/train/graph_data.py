@@ -1,16 +1,21 @@
 """Graph data on the device and the aggregation backend (the parts of
 roc_tpu/train/driver.py that the trainer and the frozen loader call:
-``effective_backend``, ``dense_graph_data``, ``make_gctx``).
+``effective_backend``, ``dense_graph_data``, ``make_gctx``,
+``model_has_gat``, ``model_gat_dims``).
 
 Backends:
-  kernel  sum/avg through ops.scatter_gather at the configured precision:
-          the CUDA kernel on a CUDA device, its plain version on the CPU
-          (the counterpart of the JAX package's binned Pallas backend)
-  xla     the plain version in fp32 on any device (the counterpart of the
+  kernel  sum/avg through ops.scatter_gather at the configured precision,
+          and graph attention through ops.gat_attend_kernel: the CUDA
+          kernels on a CUDA device, their plain versions on the CPU (the
+          counterpart of the JAX package's binned and plan backends)
+  xla     the plain versions in fp32 on any device (the counterpart of the
           JAX package's xla backend, which ignores the precision)
 
-Both differentiate through the same autograd Function, whose backward
-aggregates over the transposed CSR.
+The sums differentiate through one autograd Function on both backends,
+whose backward aggregates over the transposed CSR.  One backend choice
+covers aggregation and attention: the JAX package resolves attention
+separately (``effective_gat_backend``) only because its plans are built
+per operation.
 """
 
 from __future__ import annotations
@@ -34,19 +39,44 @@ class DenseGraphData:
     precision: str = "exact"
 
 
+def model_has_gat(model: Model) -> bool:
+    return any(op.kind == "gat" for op in model.ops)
+
+
+def model_gat_dims(model: Model) -> tuple:
+    """(heads, head_dim) of the model's first gat op; (0, 0) when the model
+    has no attention."""
+    for op in model.ops:
+        if op.kind == "gat":
+            return int(op.attrs["heads"]), int(op.attrs["head_dim"])
+    return 0, 0
+
+
+def forward_launches(model: Model) -> dict:
+    """Kernel launches of one unfused forward of ``model`` on the kernel
+    backend: one sum aggregation per sum/avg aggregate op, one score and one
+    attention forward per gat op."""
+    kinds = [op.attrs.get("aggr") if op.kind == "aggregate" else op.kind
+             for op in model.ops]
+    gats = kinds.count("gat")
+    return {"aggregate_sum": kinds.count("sum") + kinds.count("avg"),
+            "gat_score": gats, "gat_forward": gats}
+
+
 def effective_backend(config: Config, model: Model,
                       device: torch.device) -> str:
-    """The run's aggregation backend, ``"kernel"`` or ``"xla"``.
+    """The run's backend, ``"kernel"`` or ``"xla"``.
 
-    ``xla`` is the explicit way to ask for the plain version.  On CUDA,
+    ``xla`` is the explicit way to ask for the plain versions.  On CUDA,
     every other choice (auto, binned, pallas, matmul) resolves to the
-    kernel.  On the CPU, ``auto`` resolves to ``xla`` as it does in the
+    kernels.  On the CPU, ``auto`` resolves to ``xla`` as it does in the
     JAX package off the TPU, and the others to the kernel backend (whose
-    wrapper runs the plain version at the configured precision).  A model
-    without sum/avg aggregation has nothing for the kernel to do."""
+    wrappers run the plain versions at the configured precision).  A model
+    with neither sum/avg aggregation nor attention has nothing for the
+    kernels to do."""
     b = config.aggregate_backend
     aggrs = {op.attrs["aggr"] for op in model.ops if op.kind == "aggregate"}
-    if b == "xla" or not ({"sum", "avg"} & aggrs):
+    if b == "xla" or not ({"sum", "avg"} & aggrs or model_has_gat(model)):
         return "xla"
     if device.type == "cpu" and b == "auto":
         return "xla"
@@ -76,11 +106,27 @@ def make_gctx(g: DenseGraphData, megafuse: bool = False) -> GraphCtx:
     backend, each ``mega_matches`` chain runs through the whole-layer
     megakernel (driver.py:368-414).  The JAX hook's TPU gates (VMEM budget,
     flat geometry, bf16 staging unit, kill switches, hybrid plans) have no
-    counterpart here: the hook always runs the kernel."""
+    counterpart here: the hook always runs the kernel.
+
+    Attention (driver.py:348-366) on the kernel backend always runs
+    ``gat_attend_kernel``, with or without ``megafuse``: the JAX package
+    gates its fused attention on ``-megafuse`` only for the VMEM admission
+    and binned schedule that the CSR kernels do not have."""
     def aggregate(x, aggr):
         if g.backend == "xla":
             return ops.scatter_gather_plain(x, g.csr, aggr, "exact")
         return ops.scatter_gather(x, g.csr, aggr, g.precision)
+
+    def attend(h, a_src, a_dst, slope):
+        # one device: the source table is the layer's own h
+        if g.backend == "xla":
+            n = g.csr.num_rows
+            dst = torch.repeat_interleave(
+                torch.arange(n, device=h.device), torch.diff(g.csr.row_ptr))
+            return ops.gat_attend(h, h, g.csr.col_idx, dst, n, a_src, a_dst,
+                                  slope)
+        return ops.gat_attend_kernel(h, h, a_src, a_dst, g.csr, slope,
+                                     g.precision)
 
     def fuse_linear(x, w, activation, aggr, fold=False):
         # fold: the norm-folded GCN chain, D^-1/2 A D^-1/2 (x W) =
@@ -102,4 +148,5 @@ def make_gctx(g: DenseGraphData, megafuse: bool = False) -> GraphCtx:
 
     fused = megafuse and g.backend == "kernel"
     return GraphCtx(aggregate=aggregate, in_degree=g.in_degree,
-                    fuse_linear=fuse_linear if fused else None)
+                    fuse_linear=fuse_linear if fused else None,
+                    attend=attend)

@@ -27,7 +27,8 @@ bad = sorted(m for m in sys.modules
              or m == "roc_tpu" or m.startswith("roc_tpu."))
 need = {"roc_tpu_torch.__main__", "roc_tpu_torch.fault.guard",
         "roc_tpu_torch.ops.kernels.aggregate_linear",
-        "roc_tpu_torch.ops.kernels.build", "roc_tpu_torch.ops.softmax",
+        "roc_tpu_torch.ops.kernels.build", "roc_tpu_torch.ops.kernels.gat",
+        "roc_tpu_torch.ops.edge", "roc_tpu_torch.ops.softmax",
         "roc_tpu_torch.optim.adam", "roc_tpu_torch.train.driver"}
 assert need <= set(names), need - set(names)
 print(len(names), bad)
@@ -52,7 +53,8 @@ def test_every_kernel_source_has_a_loader():
     sources = {p.name for p in (PORT / "csrc").glob("*.cu")}
     assert sources == {lib.source.name for lib in LIBRARIES}
     assert set(KERNELS) == {"aggregate_sum", "aggregate_linear",
-                            "aggregate_linear_bwd"}
+                            "aggregate_linear_bwd", "gat_score",
+                            "gat_forward", "gat_bwd_dst", "gat_bwd_src"}
 
 
 def _imported_modules(path: Path):

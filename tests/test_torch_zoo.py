@@ -1,0 +1,145 @@
+"""The port's model zoo (roc_tpu_torch.models) against roc_tpu's: the
+registry, the op IR, the CLI, and SAGE, GIN and gcn-chain trained 3 epochs
+from the same parameters on the CPU.
+
+Tolerances: the final loss and the logits within 1e-3 (relative, and of
+each row's max-abs), the trainer bound of tests/test_torch_train.py; roc_tpu's
+binned backend runs its Pallas kernels in interpret mode.
+"""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from roc_tpu.graph import datasets as jdatasets
+from roc_tpu.models import build_model as jbuild_model
+from roc_tpu.train.config import Config as JConfig
+from roc_tpu.train.config import parse_args as jparse_args
+from roc_tpu.train.driver import Trainer as JTrainer
+from roc_tpu_torch import __main__ as cli
+from roc_tpu_torch.graph import datasets
+from roc_tpu_torch.models import build_model
+from roc_tpu_torch.train import checkpoint
+from roc_tpu_torch.train.config import Config, parse_args
+from roc_tpu_torch.train.driver import Trainer
+
+MODELS = ["gcn", "gcn-chain", "sage", "gin", "gat"]
+
+
+@pytest.fixture(autouse=True)
+def _binned_runs_under_jax_0_9(monkeypatch):
+    """run_binned's one-shot eager warning calls jax.core.trace_state_clean,
+    which jax 0.9.0 no longer exports (ROADMAP queue C)."""
+    from roc_tpu.ops.pallas import binned
+    monkeypatch.setattr(binned, "_EAGER_WARNED", [True])
+
+
+def _row_rel_err(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    d = np.abs(got - want).max(axis=1)
+    s = np.abs(want).max(axis=1)
+    return float(np.where(d == 0, 0.0, d / np.where(s == 0, 1.0, s)).max())
+
+
+def _ir(model):
+    keys = ("rate", "slot", "in_dim", "out_dim", "activation", "param",
+            "aggr", "mode", "head_dim", "heads", "slope", "layer")
+    return [(op.kind, op.inputs, op.out,
+             {k: op.attrs[k] for k in keys if k in op.attrs})
+            for op in model.ops]
+
+
+@pytest.mark.parametrize("name", MODELS)
+@pytest.mark.parametrize("aggr", ["", "sum", "avg"])
+def test_build_model_matches_roc_tpu(name, aggr):
+    """The same op IR and parameter shapes, or the same refusal."""
+    layers = [8, 16, 16, 4]
+    try:
+        want = jbuild_model(name, layers, 0.3, aggr, heads=3)
+    except ValueError:
+        with pytest.raises(ValueError):
+            build_model(name, layers, 0.3, aggr, heads=3)
+        return
+    got = build_model(name, layers, 0.3, aggr, heads=3)
+    assert _ir(got) == _ir(want)
+    assert got.logits.id == want.logits.id
+    ours = got.init_params(torch.Generator().manual_seed(0))
+    ref = want.init_params(jax.random.PRNGKey(0))
+    assert {k: tuple(v.shape) for k, v in ours.items()} == \
+        {k: tuple(v.shape) for k, v in ref.items()}
+
+
+def test_unknown_model_is_refused():
+    with pytest.raises(ValueError, match="unknown model"):
+        build_model("gcnn", [8, 4])
+
+
+def test_parse_args_model_flags_match_roc_tpu():
+    argv = ["-model", "gat", "-heads", "4", "-aggr", "avg"]
+    ours, ref = parse_args(argv), jparse_args(argv)
+    for f in ("model", "heads", "aggr"):
+        assert getattr(ours, f) == getattr(ref, f), f
+    d, jd = parse_args([]), jparse_args([])
+    assert (d.model, d.heads, d.aggr) == (jd.model, jd.heads, jd.aggr)
+
+
+@pytest.mark.parametrize("name", MODELS)
+def test_cli_builds_the_model(monkeypatch, capsys, name):
+    """``python -m roc_tpu_torch -model NAME`` builds and trains that model
+    (the entry point's main, on the CPU)."""
+    built = []
+    real = cli.make_trainer
+
+    def spy(cfg, ds, model):
+        built.append(model)
+        return real(cfg, ds, model)
+
+    monkeypatch.setattr(cli, "make_trainer", spy)
+    assert cli.main(["-dataset", "roc-audit", "-layers", "8-4-4", "-e", "1",
+                     "-model", name, "-heads", "2", "-device", "cpu"]) == 0
+    assert "[INFER][0] train_loss" in capsys.readouterr().out
+    assert _ir(built[0]) == _ir(jbuild_model(name, [8, 4, 4], 0.5, "",
+                                             heads=2))
+
+
+BASE = dict(num_epochs=3, learning_rate=0.01, weight_decay=5e-4,
+            dropout_rate=0.0, eval_every=1000)
+# (model, layers, roc_tpu backend, precision)
+ZOO_CASES = [("sage", [8, 16, 4], "xla", "exact"),
+             ("sage", [8, 16, 4], "binned", "fast"),
+             ("gin", [8, 16, 4], "xla", "exact"),
+             ("gin", [8, 16, 4], "binned", "exact"),
+             ("gcn-chain", [8, 16, 16, 4], "xla", "exact")]
+
+
+@pytest.mark.parametrize("case", ZOO_CASES,
+                         ids=lambda c: f"{c[0]}-{c[2]}-{c[3]}")
+def test_zoo_trains_like_roc_tpu(case):
+    """Logits before training and the 3-epoch final loss and logits, from
+    params carried from roc_tpu."""
+    name, layers, backend, precision = case
+    kw = dict(dataset="roc-audit", layers=layers, model=name,
+              aggregate_backend=backend, aggregate_precision=precision,
+              **BASE)
+    jtr = JTrainer(JConfig(**kw), jdatasets.get("roc-audit"),
+                   jbuild_model(name, layers, 0.0))
+    tr = Trainer(Config(device="cpu", **kw), datasets.get("roc-audit"),
+                 build_model(name, layers, 0.0))
+    assert tr.gdata.backend == ("xla" if backend == "xla" else "kernel")
+    tr.params = checkpoint.params_from_jax(
+        {k: np.asarray(v) for k, v in jtr.params.items()}, "cpu")
+    tr.opt_state = checkpoint.opt_state_from_jax(
+        jax.device_get(jtr.opt_state), "cpu")
+    logits0 = _row_rel_err(tr.predict_logits().numpy(),
+                           np.asarray(jtr.predict_logits()))
+    want = jtr.train(print_fn=lambda *a: None).final_loss
+    got = tr.train(print_fn=lambda *a: None).final_loss
+    logits = _row_rel_err(tr.predict_logits().numpy(),
+                          np.asarray(jtr.predict_logits()))
+    gap = abs(got - want) / abs(want)
+    print(f"{name} ({backend}, {precision}): logits before {logits0:.2e}, "
+          f"after {logits:.2e} of the row max-abs; final loss {gap:.2e} "
+          f"relative")
+    assert np.isfinite(got)
+    assert logits0 <= 1e-3 and logits <= 1e-3 and gap <= 1e-3
