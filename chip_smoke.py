@@ -77,6 +77,35 @@ Phases, each printing one JSON line per record:
           fast, -lr 0.01 -decay 0.0001 -dropout 0.5, 10 epochs: as train,
           with 2 launches per step of each GAT kernel and no aggregate_sum
 
+  kernel_xlayer_shapes  the region kernels (xlayer_fwd, xlayer_bwd) against
+          their plain versions on a small graph with a hub row of 700
+          in-edges and an isolated row: depth 2 (37-64-130) and depth 3
+          (602-300-42-256, an interior layer without relu), with and without
+          the norm pair, both precisions; integer fixture bitwise (and the
+          plain version equal to a float64 reference: the fixture is exact),
+          two backward calls bitwise equal, Gaussian data within 1e-5 of the
+          sum of the absolute values of each element's terms
+  kernel  (xlayer) the same at the full-width path's region on the Reddit
+          graph (depth 3, 602-256-256-256, relu, fold), both precisions,
+          plus: whether the region equals the chain of per-layer megakernels
+          bitwise (forward, and dx); times of the kernel (the backward as the
+          path calls it, without dx, and with dx), the plain version and the
+          library composition (per layer torch.sparse.mm, torch.matmul and
+          the epilogue, forward and backward); the bound
+  train_small_chain  the Trainer with gcn-chain 64-16-16-16-8 on mega-shard,
+          exact, dropout 0, -megafuse -fusion-depth 0, card vs CPU: within
+          1e-5; the card's run launched the region kernels
+  train_chain  gcn-chain 602-256-256-256-41 on the Reddit graph, fast,
+          -lr 0.01 -decay 0.0001 -dropout 0, 10 epochs, -megafuse with
+          -fusion-depth 1, 2 and 0: median epoch (3-10), peak memory, the
+          loss curve, launches per step (1: 4 + 4 megakernel; 2: 1 + 1
+          region, 2 + 2 megakernel; 0: 1 + 1 region, 1 + 1 megakernel)
+  ab_chain  the same in exact, 3 epochs, -fusion-depth 0 vs 1 from the same
+          params: final loss within 1e-3 relative
+  serve_mega  ServeEngine with GCN 602-256-41 and -megafuse, 40 requests:
+          2 aggregate_linear and no aggregate_sum launches per forward,
+          served rows vs predict_logits <= 32 ULPs
+
 Then the ``kernels`` line, the card's name and power limit as nvidia-smi
 gives them, and last ``{"ok": true, "device": {...}}``.  Any failure
 raises and the exit code is non-zero; without CUDA the script exits 2
@@ -677,6 +706,392 @@ def phase_kernel_gat(ds, dev) -> list:
     return rows
 
 
+# the cross-layer path: gcn-chain at the canonical GCN's widths with three
+# hidden layers; -fusion-depth 0 fuses the three hidden layers into one region
+CHAIN = [602, 256, 256, 256, 41]
+REGION = CHAIN[:4]
+REGION_ACTS = ("relu", "relu", "relu")
+
+
+def region_reference(x, ws, scale, csr, precision, acts, g,
+                     absolute=False, need_dx=True):
+    """The region's forward and backward in float64, where sums of the
+    integer fixture are exact in any order, rounding each gathered element
+    to bf16 in "fast" as the kernels do.  With ``absolute`` it runs on |x|,
+    |W| and |g| with every relu open and no rounding, and gives per output
+    element the sum of the absolute values of its terms (relu is
+    1-Lipschitz, so this bounds what fp32 reassociation and a flipped
+    rounding can move).  Returns (out, dx, dws)."""
+    f64 = torch.float64
+
+    def cast(t):
+        return (t.abs() if absolute else t).to(f64)
+
+    def agg(t, rp, ci):
+        if precision == "fast" and not absolute:
+            t = t.to(torch.bfloat16).to(f64)
+        acc = torch.zeros((rp.numel() - 1, t.shape[1]), dtype=f64,
+                          device=t.device)
+        chunk = max((1 << 25) // t.shape[1], 1024)
+        for lo in range(0, ci.numel(), chunk):
+            hi = min(lo + chunk, ci.numel())
+            e = torch.arange(lo, hi, dtype=rp.dtype, device=t.device)
+            dst = torch.searchsorted(rp, e, right=True) - 1
+            acc.index_add_(0, dst, t.index_select(0, ci[lo:hi]))
+        return acc
+
+    def relu_mask(t, l, keep):
+        if acts[l] == "relu" and not absolute:
+            return torch.where(keep, t, torch.zeros_like(t))
+        return t
+
+    depth = len(ws)
+    s = None if scale is None else scale.to(f64)[:, None]
+    w64 = [cast(w) for w in ws]
+    h, planes, keep = cast(x), [], []
+    for l in range(depth):
+        t = agg(h, csr.row_ptr, csr.col_idx) @ w64[l]
+        keep.append(t > 0)
+        t = relu_mask(t, l, keep[l])
+        if l + 1 < depth:
+            if s is not None:
+                t = (t * s) * s
+            planes.append(t)
+        h = t
+    out, dws, c = h, [None] * depth, cast(g)
+    for l in reversed(range(depth)):
+        staged = c if l == depth - 1 or s is None else (c * s) * s
+        u = agg(relu_mask(staged, l, keep[l]), csr.t_row_ptr, csr.t_col_idx)
+        dws[l] = (cast(x) if l == 0 else planes[l - 1]).t() @ u
+        c = u @ w64[l].t() if l > 0 or need_dx else None
+    return out, c, tuple(dws)
+
+
+def region_int_inputs(n, widths, gen, dev, seed_rows=None):
+    """The integer fixture of a region: x in {0, 1} on ``seed_rows`` random
+    rows (every row when None), each weight with one +-1 per column (3 in 4
+    positive) on rows spread over its input width, so a GEMM selects and
+    never sums; per-row scales 1 or 1/2; g in {-1, 0, 1}.  Sums stay exact
+    in fp32, so the kernel and its plain version must agree bitwise (the
+    float64 reference checks that the fixture is exact)."""
+    x = torch.randint(0, 2, (n, widths[0]), generator=gen,
+                      device=dev).to(torch.float32)
+    if seed_rows is not None:
+        keep = torch.zeros(n, dtype=torch.bool, device=dev)
+        keep[torch.randperm(n, generator=gen, device=dev)[:seed_rows]] = True
+        x = torch.where(keep[:, None], x, torch.zeros_like(x))
+    ws = []
+    for hi, ho in zip(widths, widths[1:]):
+        rows = torch.randperm(hi, generator=gen, device=dev)[
+            torch.arange(ho, device=dev) % hi]
+        sign = torch.where(torch.rand(ho, generator=gen, device=dev) < 0.75,
+                           1.0, -1.0)
+        w = torch.zeros((hi, ho), device=dev)
+        w[rows, torch.arange(ho, device=dev)] = sign
+        ws.append(w)
+    scale = torch.where(torch.rand(n, generator=gen, device=dev) < 0.25,
+                        0.5, 1.0)
+    g = torch.randint(-1, 2, (n, widths[-1]), generator=gen,
+                      device=dev).to(torch.float32)
+    return x, ws, scale, g
+
+
+def region_gauss_inputs(n, widths, scale, gen, dev):
+    """Gaussian x and g, Glorot-scaled Gaussian weights, the graph's own
+    scales rsqrt(in_degree)."""
+    x = torch.randn((n, widths[0]), generator=gen, device=dev)
+    ws = [torch.randn((hi, ho), generator=gen, device=dev) / hi ** 0.5
+          for hi, ho in zip(widths, widths[1:])]
+    g = torch.randn((n, widths[-1]), generator=gen, device=dev)
+    return x, ws, scale, g
+
+
+def _region_calls(csr, prec, acts):
+    """name -> (kernel call, plain call) of the two region entry points;
+    each takes (x, ws, scale, g, y, need_dx) and returns a tuple of
+    tensors: (out,) forward, (dx, dW_0, ..., dW_{D-1}) backward (dx left
+    out without need_dx)."""
+    from roc_tpu_torch.ops.kernels import xlayer as KX
+
+    def fwd(fn):
+        return lambda x, ws, s, g=None, y=None, need_dx=True: (
+            fn(x, ws, s, csr.row_ptr, csr.col_idx, prec, acts),)
+
+    def bwd(fn):
+        def call(x, ws, s, g, y, need_dx=True):
+            dx, dws = fn(g, y, x, ws, s, csr.row_ptr, csr.col_idx,
+                         csr.t_row_ptr, csr.t_col_idx, prec, acts, need_dx)
+            return (*(() if dx is None else (dx,)), *dws)
+        return call
+
+    return {"xlayer_fwd": (fwd(KX.xlayer_fwd), fwd(KX.xlayer_fwd_plain)),
+            "xlayer_bwd": (bwd(KX.xlayer_bwd), bwd(KX.xlayer_bwd_plain))}
+
+
+def _region_check(csr, prec, acts, ints, gauss, scaled=True) -> dict:
+    """Hold both region kernels against their plain versions.  Integer
+    fixture: bitwise, and the plain version equal to the float64 reference
+    (the fixture is exact).  Gaussian: each output element within 1e-5 of
+    the sum of the absolute values of its terms (the float64 reference on
+    absolute values, every relu open), and the forward's out within 1e-5
+    of each row's max-abs in exact.  The row error is reported for dx too
+    but not gated: dx sums every path through three layers with random
+    signs and cancels (on Reddit its terms reach ~3e5 times the row's
+    max-abs), and in fast a last-bit difference in an interior plane can
+    flip that element's bf16 rounding (2^-8 of one term).  Two backward
+    calls must give the same bits."""
+    calls = _region_calls(csr, prec, acts)
+    res = {name: {"finite": True} for name in calls}
+    for kind, (x, ws, s, g) in (("int", ints), ("gauss", gauss)):
+        s = s if scaled else None
+        y = calls["xlayer_fwd"][1](x, ws, s)[0]
+        ref_out, ref_dx, ref_dws = region_reference(x, ws, s, csr, prec,
+                                                    acts, g)
+        refs = {"xlayer_fwd": (ref_out,), "xlayer_bwd": (ref_dx, *ref_dws)}
+        terms = None
+        if kind == "gauss":
+            t_out, t_dx, t_dws = region_reference(x, ws, s, csr, prec, acts,
+                                                  g, absolute=True)
+            terms = {"xlayer_fwd": (t_out,), "xlayer_bwd": (t_dx, *t_dws)}
+        del ref_out, ref_dx, ref_dws
+        for name, (kern, plain) in calls.items():
+            r = res[name]
+            k, p = kern(x, ws, s, g, y), plain(x, ws, s, g, y)
+            torch.cuda.synchronize()
+            r["finite"] = r["finite"] and all(bool(torch.isfinite(a).all())
+                                              for a in k)
+            if kind == "int":
+                r["int_bitwise"] = all(bool(torch.equal(a, b))
+                                       for a, b in zip(k, p))
+                r["fixture_exact"] = all(bool(torch.equal(a.double(), b))
+                                         for a, b in zip(p, refs[name]))
+                if name == "xlayer_bwd":
+                    again = kern(x, ws, s, g, y)
+                    r["deterministic"] = all(bool(torch.equal(a, b))
+                                             for a, b in zip(k, again))
+                    del again
+                continue
+            r["max_abs_err"] = max(float((a - b).abs().max())
+                                   for a, b in zip(k, p))
+            r["term_rel_err"] = max(term_rel_err(a.double(), b.double(), t)
+                                    for a, b, t in zip(k, p, terms[name]))
+            # out, or dx: the outputs held per row; dW is held per element
+            r["row_rel_err"] = row_rel_err(k[0], p[0])
+            del k, p
+        del refs, terms, y
+    for name, r in res.items():
+        r["tolerance"] = 1e-5
+        r["ok"] = (r["finite"] and r["int_bitwise"] and r["fixture_exact"]
+                   and r.get("deterministic", True)
+                   and r["term_rel_err"] <= 1e-5
+                   and (prec == "fast" or name == "xlayer_bwd"
+                        or r["row_rel_err"] <= 1e-5))
+    return res
+
+
+def _region_bound(n, e, widths, csr_bytes, backward, need_dx=True) -> dict:
+    """Compulsory bytes (each input read once, each output written once)
+    and operations: an add per gathered element, 2 per multiply-add."""
+    depth = len(widths) - 1
+    layers = list(zip(widths, widths[1:]))
+    w_bytes = sum(a * b for a, b in layers) * 4
+    agg = [e * a for a, _ in layers]
+    gemm = [2 * n * a * b for a, b in layers]
+    if not backward:
+        return _bound(n * widths[0] * 4 + n * widths[-1] * 4 + w_bytes
+                      + csr_bytes + n * 4, sum(agg) + sum(gemm))
+    nbytes = (2 * n * widths[-1] * 4 + n * widths[0] * 4 + 2 * w_bytes
+              + 2 * csr_bytes + n * 4 + (n * widths[0] * 4 if need_dx else 0))
+    flops = (sum(agg[:-1]) + sum(gemm[:-1])                  # replay
+             + sum(e * b for _, b in layers) + sum(gemm)      # u, dW
+             + sum(gemm[0 if need_dx else 1:]))               # hand-offs
+    return _bound(nbytes, flops)
+
+
+def _region_library(csr, n, dev):
+    """The region as library calls (fp32, TF32 off): per layer
+    torch.sparse.mm over the CSR, torch.matmul and the epilogue forward;
+    the backward replays the interior planes the same way, then per layer
+    the masked cotangent, torch.sparse.mm over the transpose and two
+    torch.matmul (dW and the hand-off)."""
+    def sparse(rp, ci):
+        return torch.sparse_csr_tensor(
+            rp, ci.to(torch.int64), torch.ones(ci.numel(), device=dev),
+            size=(n, n), check_invariants=False)
+
+    fwd_mat = sparse(csr.row_ptr, csr.col_idx)
+    bwd_mat = sparse(csr.t_row_ptr, csr.t_col_idx)
+
+    def mm(a, b):
+        torch.backends.cuda.matmul.allow_tf32 = False
+        return torch.matmul(a, b)
+
+    def planes(x, ws, s, upto):
+        h, out = x, []
+        for l in range(upto):
+            h = torch.relu(mm(fwd_mat @ h, ws[l]))
+            if l + 1 < len(ws):
+                h = (h * s[:, None]) * s[:, None]
+            out.append(h)
+        return out
+
+    def fwd(x, ws, s):
+        return planes(x, ws, s, len(ws))[-1]
+
+    def bwd(x, ws, s, g, y, need_dx=False):
+        ps = planes(x, ws, s, len(ws) - 1)
+        c, dws = g, []
+        for l in reversed(range(len(ws))):
+            last = l == len(ws) - 1
+            st = c if last else (c * s[:, None]) * s[:, None]
+            st = torch.where((y if last else ps[l]) > 0, st,
+                             torch.zeros_like(st))
+            u = bwd_mat @ st
+            dws.append(mm((x if l == 0 else ps[l - 1]).t(), u))
+            c = mm(u, ws[l].t()) if l > 0 or need_dx else None
+        return c, dws
+
+    return fwd, bwd
+
+
+def phase_kernel_xlayer_shapes(dev) -> dict:
+    """The region kernels against their plain versions on a small graph
+    with a hub row of 700 in-edges and an isolated row: depth 2 (widths 37
+    -> 64 -> 130, relu then none) and depth 3 (602 -> 300 -> 42 -> 256, relu,
+    none, relu: every vector load width, an interior layer without relu,
+    widths above one 256-column pass), with and without the norm pair, both
+    precisions."""
+    from roc_tpu_torch.graph.csr import from_edges
+    from roc_tpu_torch.ops import DeviceCsr
+    rng = np.random.default_rng(SEED + 8)
+    n = 3000
+    src = rng.integers(0, n, 30000)
+    dst = rng.integers(0, n, 30000)
+    dst[:700] = 17
+    keep = dst != 29
+    csr = DeviceCsr.from_csr(from_edges(n, src[keep], dst[keep]), dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    deg = torch.clamp_min(torch.diff(csr.row_ptr).float(), 1.0)
+    worst, cases = {}, []
+    for widths, acts in (((37, 64, 130), ("relu", "none")),
+                         ((602, 300, 42, 256), ("relu", "none", "relu"))):
+        for fold in (False, True):
+            for prec in ("fast", "exact"):
+                ints = region_int_inputs(n, widths, gen, dev)
+                gauss = region_gauss_inputs(n, widths, torch.rsqrt(deg), gen,
+                                            dev)
+                res = _region_check(csr, prec, acts, ints, gauss, fold)
+                out = _region_calls(csr, prec, acts)["xlayer_fwd"][0](
+                    *gauss[:2], gauss[2] if fold else None)[0]
+                iso = bool((out[29] == 0).all())
+                cases.append({"widths": widths, "activations": acts,
+                              "fold": fold, "precision": prec,
+                              "isolated_row_zero": iso,
+                              **{k: v["ok"] for k, v in res.items()}})
+                for name, r in res.items():
+                    w = worst.setdefault(name, {"row_rel_err": 0.0,
+                                                "term_rel_err": 0.0})
+                    for key in w:
+                        w[key] = max(w[key], r[key])
+                    if not r["ok"] or not iso:
+                        emit({"phase": "kernel_xlayer_shapes", "failed": name,
+                              "case": cases[-1], "result": r})
+                        raise AssertionError(f"{name} {widths} fold={fold} "
+                                             f"{prec}: {r}, isolated row "
+                                             f"zero: {iso}")
+    rec = {"phase": "kernel_xlayer_shapes", "nodes": n,
+           "hub_in_degree": int(torch.diff(csr.row_ptr)[17]),
+           "isolated_row": 29, "cases": cases, "worst_err": worst,
+           "tolerance": 1e-5, "int_bitwise": True, "deterministic": True}
+    emit(rec)
+    return rec
+
+
+def phase_kernel_xlayer(ds, dev) -> list:
+    """The region kernels on the Reddit graph at the full-width path's
+    region (depth 3, 602 -> 256 -> 256 -> 256, relu on every layer, the norm
+    pair between layers), both precisions: the checks of _region_check on
+    the integer fixture (x on 64 seed rows, so the dW sums over every node
+    stay exact) and on Gaussian data; whether the region equals the chain
+    of per-layer megakernels bitwise (forward, and dx of the backward); then
+    the times of the kernel, the plain version and the library composition,
+    and the bound.  The backward is timed as the path calls it (no dx: the
+    region's input takes no gradient) and with dx."""
+    from roc_tpu_torch.ops import DeviceCsr
+    from roc_tpu_torch.ops.kernels import aggregate_linear as KL
+    from roc_tpu_torch.ops.kernels import xlayer as KX
+    g = ds.graph
+    n, e = g.num_nodes, g.num_edges
+    csr = DeviceCsr.from_csr(g, dev)
+    csr_bytes = csr.row_ptr.numel() * 8 + csr.col_idx.numel() * 4
+    scale = torch.rsqrt(torch.as_tensor(g.in_degrees, dtype=torch.float32,
+                                        device=dev))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    ints = region_int_inputs(n, REGION, gen, dev, seed_rows=64)
+    gauss = region_gauss_inputs(n, REGION, scale, gen, dev)
+    lib_fwd, lib_bwd = _region_library(csr, n, dev)
+    rows = []
+    for prec in ("fast", "exact"):
+        res = _region_check(csr, prec, REGION_ACTS, ints, gauss)
+        calls = _region_calls(csr, prec, REGION_ACTS)
+        x, ws, s, gg = gauss
+        kf, pf = calls["xlayer_fwd"]
+        kb, pb = calls["xlayer_bwd"]
+        y = pf(x, ws, s)[0]
+        # the chain of per-layer megakernels, as -fusion-depth 1 runs it
+        h, chain_planes = x, []
+        for l, w in enumerate(ws):
+            chain_planes.append(h)
+            h = KL.aggregate_linear(h, w, csr.row_ptr, csr.col_idx, prec,
+                                    "relu")
+            if l + 1 < len(ws):
+                h = (h * s[:, None]) * s[:, None]
+        chain_fwd_equal = bool(torch.equal(h, kf(x, ws, s)[0]))
+        c, chain_out = gg, h
+        for l in reversed(range(len(ws))):
+            c = c if l == len(ws) - 1 else (c * s[:, None]) * s[:, None]
+            yl = chain_out if l == len(ws) - 1 else chain_planes[l + 1]
+            _, c = KL.aggregate_linear_bwd(c, yl, ws[l], csr.t_row_ptr,
+                                           csr.t_col_idx, prec, True)
+        chain_dx_equal = bool(torch.equal(c, kb(x, ws, s, gg, chain_out)[0]))
+        del h, c, chain_planes, chain_out
+        for name, need_dx in (("xlayer_fwd", None), ("xlayer_bwd", False),
+                              ("xlayer_bwd", True)):
+            kern, plain = calls[name]
+            rec = {"phase": "kernel", "name": name, "widths": REGION,
+                   "activations": REGION_ACTS, "fold": True,
+                   "precision": prec, "nodes": n, "edges": e,
+                   **res[name],
+                   **_region_bound(n, e, REGION, csr_bytes,
+                                   name == "xlayer_bwd", bool(need_dx))}
+            if name == "xlayer_fwd":
+                rec["per_layer_chain_bitwise"] = chain_fwd_equal
+                args = (x, ws, s)
+                rec["kernel_ms"] = time_ms(lambda: kern(*args), reps=20,
+                                           warmup=3)
+                rec["plain_ms"] = time_ms(lambda: plain(*args), reps=5,
+                                          warmup=1)
+                rec["library_ms"] = time_ms(lambda: lib_fwd(*args), reps=10)
+            else:
+                rec["dx"] = need_dx
+                rec["per_layer_chain_dx_bitwise"] = chain_dx_equal
+                args = (x, ws, s, gg, y, need_dx)
+                rec["kernel_ms"] = time_ms(lambda: kern(*args),
+                                           reps=20 if not need_dx else 10,
+                                           warmup=3)
+                rec["plain_ms"] = time_ms(lambda: plain(*args), reps=5,
+                                          warmup=1)
+                rec["library_ms"] = time_ms(lambda: lib_bwd(*args), reps=10)
+                rec["grid"] = KX.xlayer_bwd.grid
+            emit(rec)
+            rows.append(rec)
+            if not rec["ok"]:
+                raise AssertionError(f"{name} disagrees with its plain "
+                                     f"version: {rec}")
+        del y
+    return rows
+
+
 def _trainer(ds, layers, dev, **kw):
     from roc_tpu_torch.models import build_model
     from roc_tpu_torch.train.config import Config
@@ -691,37 +1106,52 @@ def _quiet(*a, **k):
     pass
 
 
+# model -> (layers, {variant: trainer settings}) of the small card-vs-CPU runs
+SMALL = {"gcn": ([64, 16, 8], {"unfused": {}, "megafuse": {"megafuse": True}}),
+         "gat": ([64, 8, 8], {"unfused": {}}),
+         "gcn-chain": ([64, 16, 16, 16, 8],
+                       {"region": {"megafuse": True, "fusion_depth": 0}})}
+
+
 def phase_train_small(dev, model: str = "gcn") -> dict:
     """The Trainer on mega-shard, card vs CPU: GCN 64-16-8 unfused and
-    megafuse, or GAT 64-8-8 with 2 heads."""
+    megafuse, GAT 64-8-8 with 2 heads, or gcn-chain 64-16-16-16-8 with its
+    three hidden layers as one region (-megafuse -fusion-depth 0)."""
     from roc_tpu_torch.graph import datasets
     ds = datasets.get("mega-shard", seed=1)
-    layers = [64, 16, 8] if model == "gcn" else [64, 8, 8]
+    layers, variants = SMALL[model]
     kw = dict(num_epochs=3, learning_rate=0.01, weight_decay=5e-4,
               dropout_rate=0.0, eval_every=1000, aggregate_backend="binned",
               aggregate_precision="exact", model=model, heads=2)
-    rec = {"phase": "train_small" if model == "gcn" else "train_small_gat",
-           "dataset": "mega-shard", "model": model, "layers": layers,
-           "tolerance": 1e-5}
-    keys = ("unfused", "megafuse") if model == "gcn" else ("unfused",)
-    for key in keys:
+    name = {"gcn": "train_small", "gat": "train_small_gat",
+            "gcn-chain": "train_small_chain"}[model]
+    rec = {"phase": name, "dataset": "mega-shard", "model": model,
+           "layers": layers, "tolerance": 1e-5}
+    for key, extra in variants.items():
         out = {}
         for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
-            tr = _trainer(ds, layers, d, megafuse=key == "megafuse", **kw)
+            tr = _trainer(ds, layers, d, **kw, **extra)
+            reset_launches()
             loss = tr.train(print_fn=_quiet).final_loss
-            out[where] = (loss, tr.predict_logits().cpu())
+            out[where] = (loss, tr.predict_logits().cpu(), read_launches())
         rec[key] = {"card_loss": out["card"][0], "cpu_loss": out["cpu"][0],
                     "loss_rel_err": abs(out["card"][0] - out["cpu"][0])
                     / abs(out["cpu"][0]),
                     "logits_row_rel_err": row_rel_err(out["card"][1],
-                                                      out["cpu"][1])}
+                                                      out["cpu"][1]),
+                    "card_launches": out["card"][2]}
     emit(rec)
-    for key in keys:
+    for key in variants:
         r = rec[key]
         if not (r["loss_rel_err"] <= 1e-5
                 and r["logits_row_rel_err"] <= 1e-5):
             raise AssertionError(f"card training disagrees with the CPU: "
                                  f"{rec}")
+    if model == "gcn-chain" and not (
+            rec["region"]["card_launches"]["xlayer_fwd"] > 0
+            and rec["region"]["card_launches"]["xlayer_bwd"] > 0):
+        raise AssertionError(f"the card's region run launched no region "
+                             f"kernel: {rec}")
     return rec
 
 
@@ -784,6 +1214,86 @@ def phase_train(ds, dev, megafuse: bool, epochs: int = 10,
     return rec
 
 
+def chain_step_launches(depth: int) -> dict:
+    """Kernel launches of one training step of gcn-chain 602-256-256-256-41
+    under -megafuse -fusion-depth ``depth``, dropout 0: a region forward
+    and backward per region, a megakernel forward and backward per layer
+    outside one (the logits layer always)."""
+    regions, per_layer = {1: (0, 4), 2: (1, 2), 0: (1, 1)}[depth]
+    return launch_dict(xlayer_fwd=regions, xlayer_bwd=regions,
+                       aggregate_linear=per_layer,
+                       aggregate_linear_bwd=per_layer)
+
+
+def phase_train_chain(ds, dev, depth: int, epochs: int = 10) -> dict:
+    """gcn-chain 602-256-256-256-41 on the Reddit graph, fast, -lr 0.01
+    -decay 0.0001 -dropout 0, -megafuse -fusion-depth ``depth``: synced
+    epoch times (median of epochs 3-10), peak memory, the loss curve (the
+    eval train_loss of every epoch) and each kernel's launches in the run
+    and in one more step."""
+    tr = _trainer(ds, CHAIN, dev, model="gcn-chain", num_epochs=epochs,
+                  learning_rate=0.01, weight_decay=0.0001, dropout_rate=0.0,
+                  eval_every=1, aggregate_precision="fast", megafuse=True,
+                  fusion_depth=depth)
+    lines = []
+    reset_launches()
+    stats = tr.train(print_fn=lines.append)
+    launches = read_launches()
+    curve = [float(_TRAIN_LOSS.search(ln).group(1)) for ln in lines]
+    reset_launches()
+    tr.run_epoch()
+    torch.cuda.synchronize(dev)
+    per_step = read_launches()
+    expected = chain_step_launches(depth)
+    rec = {"phase": "train_chain", "model": "gcn-chain", "layers": CHAIN,
+           "dataset": ds.name, "precision": "fast", "megafuse": True,
+           "fusion_depth": depth, "dropout": 0.0, "epochs": epochs,
+           "epoch_ms": [t * 1e3 for t in stats.epoch_times],
+           "median_epoch_ms_3_on": statistics.median(
+               stats.epoch_times[2:]) * 1e3,
+           "peak_mem_bytes": max(stats.peak_mem_bytes, default=0),
+           "peak_mem_by_epoch": stats.peak_mem_bytes,
+           "train_loss_curve": curve, "final_step_loss": stats.final_loss,
+           "launches": launches, "launches_per_step": per_step}
+    emit(rec)
+    if per_step != expected:
+        raise AssertionError(f"one -fusion-depth {depth} step launched "
+                             f"{per_step}, expected {expected}")
+    if {k: v > 0 for k, v in launches.items()} != \
+            {k: v > 0 for k, v in expected.items()}:
+        raise AssertionError(f"the -fusion-depth {depth} run launched "
+                             f"{launches}")
+    if not (all(np.isfinite(curve)) and curve[-1] < curve[0]):
+        raise AssertionError(f"train_loss did not fall: {curve}")
+    return rec
+
+
+def phase_ab_chain(ds, dev, epochs: int = 3) -> dict:
+    """gcn-chain at full width, exact, dropout 0, 3 epochs from the same
+    params: -fusion-depth 0 (one region) vs 1 (per layer), both -megafuse:
+    final loss within 1e-3 relative."""
+    out = {}
+    for depth in (1, 0):
+        tr = _trainer(ds, CHAIN, dev, model="gcn-chain", num_epochs=epochs,
+                      learning_rate=0.01, weight_decay=0.0001,
+                      dropout_rate=0.0, eval_every=1000,
+                      aggregate_precision="exact", megafuse=True,
+                      fusion_depth=depth)
+        loss = tr.train(print_fn=_quiet).final_loss
+        out[depth] = (loss, tr.predict_logits())
+        del tr
+    rel = abs(out[0][0] - out[1][0]) / abs(out[1][0])
+    rec = {"phase": "ab_chain", "precision": "exact", "epochs": epochs,
+           "per_layer_loss": out[1][0], "region_loss": out[0][0],
+           "loss_rel_err": rel, "tolerance": 1e-3,
+           "logits_row_rel_err": row_rel_err(out[0][1], out[1][1])}
+    emit(rec)
+    if not (np.isfinite(rel) and rel <= 1e-3):
+        raise AssertionError(f"-fusion-depth 0 and 1 training disagree: "
+                             f"{rec}")
+    return rec
+
+
 def phase_ab(ds, dev, epochs: int = 3) -> dict:
     """Megafuse vs unfused at full width, exact, from the same params."""
     out = {}
@@ -808,20 +1318,22 @@ def phase_ab(ds, dev, epochs: int = 3) -> dict:
 
 
 def phase_serve(ds, dev, model_name: str = "gcn",
-                n_requests: int = 120) -> dict:
+                n_requests: int = 120, megafuse: bool = False) -> dict:
     """ServeEngine on the Reddit graph (GCN 602-256-41, or GAT 602-64-41
-    with 4 heads); GCN's logits are also held against the plain fp32
-    aggregation (GAT's plain composition does not fit at this size)."""
+    with 4 heads), with -megafuse when asked; GCN's logits are also held
+    against the plain fp32 aggregation (GAT's plain composition does not
+    fit at this size)."""
     from roc_tpu_torch.models import build_model
     from roc_tpu_torch.serve import ServeEngine, max_ulp_diff, run_load
     from roc_tpu_torch.train.config import Config
     from roc_tpu_torch.train.frozen import load_frozen
     from roc_tpu_torch.train.graph_data import forward_launches
     cfg = Config(dataset="reddit", layers=LAYERS[model_name], seed=SEED,
-                 aggregate_precision="fast", model=model_name, heads=4)
+                 aggregate_precision="fast", model=model_name, heads=4,
+                 megafuse=megafuse)
     model = build_model(cfg.model, cfg.layers, cfg.dropout_rate,
                         heads=cfg.heads)
-    per_forward = launch_dict(**forward_launches(model))
+    per_forward = launch_dict(**forward_launches(model, megafuse))
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launches()
     eng = ServeEngine(cfg, ds, model, device=dev)
@@ -851,8 +1363,9 @@ def phase_serve(ds, dev, model_name: str = "gcn",
         shape = list(logits.shape)
     finally:
         eng.close()
-    rec = {"phase": "serve" if model_name == "gcn" else "serve_gat",
-           "model": model_name, "layers": cfg.layers,
+    rec = {"phase": ("serve_mega" if megafuse else "serve")
+           if model_name == "gcn" else "serve_gat",
+           "model": model_name, "layers": cfg.layers, "megafuse": megafuse,
            "dataset": "reddit", "nodes": ds.graph.num_nodes,
            "edges": ds.graph.num_edges, "precision": cfg.aggregate_precision,
            "requests": load["n"], "windows": stats["windows"],
@@ -910,7 +1423,13 @@ def main() -> int:
     emit({"phase": "graph", "dataset": "reddit",
           "nodes": ds.graph.num_nodes, "edges": ds.graph.num_edges,
           "host_gen_s": round(time.perf_counter() - t0, 3)})
-    rows = phase_kernel(ds, dev)
+    phase_kernel_xlayer_shapes(dev)
+    rows = phase_kernel_xlayer(ds, dev)
+    phase_train_small(dev, "gcn-chain")
+    chain = {d: phase_train_chain(ds, dev, d) for d in (1, 2, 0)}
+    phase_ab_chain(ds, dev)
+    serve_mega = phase_serve(ds, dev, n_requests=40, megafuse=True)
+    rows += phase_kernel(ds, dev)
     rows += phase_kernel_train(ds, dev)
     phase_kernel_gat_shapes(dev)
     rows += phase_kernel_gat(ds, dev)
@@ -930,6 +1449,10 @@ def main() -> int:
     def named(name):
         return [r for r in rows if r["name"] == name]
 
+    def chain_launches(name):
+        return {f"train_chain_depth{d}": chain[d]["launches"][name]
+                for d in (1, 2, 0) if chain[d]["launches"][name]}
+
     src = "roc_tpu_torch/csrc/"
     pallas = "roc_tpu/ops/pallas/binned.py:"
     sum_entry = _kernel_entry(
@@ -944,7 +1467,9 @@ def main() -> int:
         sum_entry,
         _kernel_entry(
             "aggregate_linear", src + "aggregate_linear.cu", pallas + "2300",
-            {"train_megafuse": train[True]["launches"]["aggregate_linear"]},
+            {"train_megafuse": train[True]["launches"]["aggregate_linear"],
+             "serve_mega": serve_mega["launches"]["aggregate_linear"],
+             **chain_launches("aggregate_linear")},
             pick("aggregate_linear", H_in=602, precision="fast"),
             named("aggregate_linear"),
             ("H_in", "H_out", "activation", "precision")),
@@ -952,7 +1477,8 @@ def main() -> int:
             "aggregate_linear_bwd", src + "aggregate_linear.cu",
             pallas + "2599",
             {"train_megafuse":
-             train[True]["launches"]["aggregate_linear_bwd"]},
+             train[True]["launches"]["aggregate_linear_bwd"],
+             **chain_launches("aggregate_linear_bwd")},
             pick("aggregate_linear_bwd", H_in=602, dx=True,
                  precision="fast"),
             named("aggregate_linear_bwd"),
@@ -965,7 +1491,17 @@ def main() -> int:
             ("K", "F", "precision"))
           for name, line in (("gat_score", "310"), ("gat_forward", "328"),
                              ("gat_bwd_dst", "536"),
-                             ("gat_bwd_src", "632")))]})
+                             ("gat_bwd_src", "632"))),
+        _kernel_entry(
+            "xlayer_fwd", src + "xlayer.cu", pallas + "2949",
+            chain_launches("xlayer_fwd"),
+            pick("xlayer_fwd", precision="fast"), named("xlayer_fwd"),
+            ("widths", "precision", "fold")),
+        _kernel_entry(
+            "xlayer_bwd", src + "xlayer.cu", pallas + "3226",
+            chain_launches("xlayer_bwd"),
+            pick("xlayer_bwd", precision="fast", dx=False),
+            named("xlayer_bwd"), ("widths", "precision", "fold", "dx"))]})
     print(env["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

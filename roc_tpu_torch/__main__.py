@@ -1,6 +1,6 @@
 """CLI entry: ``python -m roc_tpu_torch -dataset reddit -layers 602-256-41
--e 10 [-model gcn|gcn-chain|sage|gin|gat] [-heads K] [-aggr A] [-megafuse]
-[-device cpu]`` (roc_tpu/__main__.py).
+-e 10 [-model gcn|gcn-chain|sage|gin|gat] [-heads K] [-aggr A] [-megafuse
+[-fusion-depth N]] [-device cpu]`` (roc_tpu/__main__.py).
 
 Trains on one NVIDIA GPU; ``-device cpu`` runs on the CPU instead, and
 without a GPU and without that flag the command exits non-zero.  Reading

@@ -1,7 +1,8 @@
 from roc_tpu_torch.models.gat import build_gat
 from roc_tpu_torch.models.gcn import build_gcn
 from roc_tpu_torch.models.gin import build_gin
-from roc_tpu_torch.models.model import GraphCtx, Model, mega_matches
+from roc_tpu_torch.models.model import (GraphCtx, Model, mega_matches,
+                                        mega_regions)
 from roc_tpu_torch.models.sage import build_sage
 
 
@@ -27,4 +28,4 @@ def build_model(name: str, layers, dropout_rate: float = 0.5,
 
 
 __all__ = ["Model", "GraphCtx", "build_gat", "build_gcn", "build_gin",
-           "build_model", "build_sage", "mega_matches"]
+           "build_model", "build_sage", "mega_matches", "mega_regions"]

@@ -6,8 +6,9 @@ The builder API emits a small op IR (``OpNode``s over ``TensorRef`` ids);
 ``GraphCtx.aggregate``, which hides the graph data and the backend, and
 graph attention through ``GraphCtx.attend``.  A ``GraphCtx.fuse_linear``
 hook runs each :func:`mega_matches` layer chain as the whole-layer
-megakernel.  The JAX package's cross-layer regions are not ported yet
-(ROADMAP queue A).
+megakernel, and a ``GraphCtx.fuse_region`` hook each :func:`mega_regions`
+chain of such layers (a cross-layer fusion region, ``-fusion-depth``) as
+one region kernel.
 """
 
 from __future__ import annotations
@@ -30,6 +31,14 @@ class GraphCtx(NamedTuple):
     fuse_linear: Optional[Callable] = None
     # graph attention: (h [N, K, F], a_src, a_dst, slope) -> [N, K, F]
     attend: Optional[Callable] = None
+    # cross-layer fusion-region hook: (x, ws, activations, fold) -> out.
+    # When set and fusion_depth != 1, ``apply`` hands each ``mega_regions``
+    # chain (its weights and activations, head to tail) to it before the
+    # per-layer ``fuse_linear`` match at the same op index.
+    fuse_region: Optional[Callable] = None
+    # region-length cap: 1 = off, 2 = chains of at most two layers, ...,
+    # 0 = unlimited
+    fusion_depth: int = 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -144,6 +153,110 @@ def mega_matches(model: "Model") -> Dict[int, dict]:
                     "skip": tuple(skip), "fold": True,
                     "gone": (op.out, agg.out) + ((n2.out,)
                                                  if final is not n2 else ())}
+    return found
+
+
+def mega_regions(model: "Model", max_depth: int = 0,
+                 train: bool = False) -> Dict[int, dict]:
+    """Chain ``mega_matches`` records into multi-layer fusion regions
+    (model.py:219-337): aggregate -> linear (-> relu) -> aggregate ->
+    linear ..., keyed by the first member's head-op index (the index
+    ``apply`` dispatches on).
+
+    A link exists when member l's ``final`` output reaches member l+1's
+    head op through single-consumer identity dropouts only (rate 0, or any
+    rate when ``train`` is False).  Every member aggregates with ``sum``
+    (avg's division runs outside the kernel), ``fold`` is the same across
+    members, and no member's ``final`` output is the logits tensor: the
+    classifier layer never joins a region.
+
+    ``max_depth``: 1 disables chaining ({}), N caps chains at N members, 0
+    means unlimited.  Chains are maximal under the cap and greedy from the
+    earliest head, so the partition is deterministic.
+
+    Each record holds ``members`` (the ordered per-layer match records),
+    ``final`` (the last member's final node), ``skip`` (every op index the
+    region replaces except the dispatch head), ``fold``, and ``gone`` (the
+    members' ``gone`` tensors plus the interior boundaries and dropout
+    outputs that never materialize).
+    """
+    if max_depth == 1:
+        return {}
+    matches = mega_matches(model)
+    if not matches:
+        return {}
+    consumers: Dict[int, List[int]] = {}
+    for i, op in enumerate(model.ops):
+        for t in op.inputs:
+            consumers.setdefault(t, []).append(i)
+    logits_id = model.logits.id if model.logits is not None else -1
+
+    def eligible(m):
+        return (m["aggregate"].attrs.get("aggr") == "sum"
+                and m["final"].out != logits_id)
+
+    # next-link map: head index -> (next head index, interstitial op
+    # indices, interstitial output tensor ids)
+    nxt: Dict[int, tuple] = {}
+    for i, m in matches.items():
+        if not eligible(m):
+            continue
+        tid, inter_ops, inter_outs = m["final"].out, [], []
+        while True:
+            cons = consumers.get(tid, [])
+            if len(cons) != 1:
+                break
+            ci = cons[0]
+            op = model.ops[ci]
+            if op.inputs[0] != tid:
+                break
+            if ci in matches and eligible(matches[ci]):
+                nxt[i] = (ci, tuple(inter_ops), tuple(inter_outs))
+                break
+            if op.kind == "dropout" and (op.attrs.get("rate") == 0.0
+                                         or not train):
+                inter_ops.append(ci)
+                inter_outs.append(op.out)
+                tid = op.out
+                continue
+            break
+
+    # greedy maximal chains in ascending head order: links only run forward
+    # in the (topologically ordered) op list
+    preds = {j: i for i, (j, _, _) in nxt.items()}
+    found: Dict[int, dict] = {}
+    used: set = set()
+    for h in sorted(set(nxt) | set(preds)):
+        if h in used:
+            continue
+        p = preds.get(h)
+        if p is not None and p not in used:
+            continue
+        fold = matches[h]["fold"]
+        chain, i = [h], h
+        while i in nxt and (max_depth == 0 or len(chain) < max_depth):
+            j = nxt[i][0]
+            if j in used or matches[j]["fold"] != fold:
+                break
+            chain.append(j)
+            i = j
+        used.update(chain)
+        if len(chain) < 2:
+            continue
+        members = tuple(matches[k] for k in chain)
+        skip: List[int] = list(members[0]["skip"])
+        gone: List[int] = list(members[0]["gone"])
+        for k_prev, k in zip(chain, chain[1:]):
+            _, inter_ops, inter_outs = nxt[k_prev]
+            skip.extend(inter_ops)
+            gone.extend(inter_outs)
+            gone.append(matches[k_prev]["final"].out)
+            skip.append(k)
+            skip.extend(matches[k]["skip"])
+            gone.extend(matches[k]["gone"])
+        found[h] = {"members": members, "final": members[-1]["final"],
+                    "fold": fold, "skip": tuple(skip),
+                    "gone": tuple(dict.fromkeys(gone))}
     return found
 
 
@@ -274,15 +387,28 @@ class Model:
               gctx: GraphCtx, generator: Optional[torch.Generator] = None,
               train: bool = False) -> torch.Tensor:
         """Run the op list; returns logits [N, C].  Training dropout draws
-        from ``generator``.  With ``gctx.fuse_linear`` set, each
-        ``mega_matches`` chain runs through the hook (model.py:486-523)."""
+        from ``generator``.  With ``gctx.fuse_region`` set and a fusion
+        depth other than 1, each ``mega_regions`` chain runs through that
+        hook; with ``gctx.fuse_linear`` set, each remaining
+        ``mega_matches`` chain runs through its own (model.py:486-523)."""
         vals: Dict[int, torch.Tensor] = {0: x}
         matches = mega_matches(self) if gctx.fuse_linear is not None else {}
+        regions = (mega_regions(self, gctx.fusion_depth, train)
+                   if gctx.fuse_region is not None
+                   and gctx.fusion_depth != 1 else {})
         skipped: set = set()
         for idx, op in enumerate(self.ops):
             if idx in skipped:
                 continue
             a = vals[op.inputs[0]]
+            if idx in regions:
+                r = regions[idx]
+                vals[r["final"].out] = gctx.fuse_region(
+                    a, tuple(params[m["linear"].attrs["param"]]
+                             for m in r["members"]),
+                    tuple(m["activation"] for m in r["members"]), r["fold"])
+                skipped.update(r["skip"])
+                continue
             if idx in matches:
                 m = matches[idx]
                 vals[m["final"].out] = gctx.fuse_linear(

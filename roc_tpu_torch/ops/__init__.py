@@ -1,5 +1,6 @@
 from roc_tpu_torch.ops.activation import apply_activation, elu, relu, sigmoid
-from roc_tpu_torch.ops.aggregate import (DeviceCsr, divide_by_degree,
+from roc_tpu_torch.ops.aggregate import (DeviceCsr, _unfused_region,
+                                         divide_by_degree, region_linear,
                                          scatter_gather, scatter_gather_linear,
                                          scatter_gather_plain)
 from roc_tpu_torch.ops.dropout import dropout
@@ -14,7 +15,8 @@ from roc_tpu_torch.ops.softmax import (PerfMetrics, format_metrics,
 
 __all__ = [
     "DeviceCsr", "scatter_gather", "scatter_gather_plain",
-    "scatter_gather_linear", "divide_by_degree", "edge_softmax", "gat_attend",
+    "scatter_gather_linear", "region_linear", "_unfused_region",
+    "divide_by_degree", "edge_softmax", "gat_attend",
     "gat_attend_kernel", "indegree_norm", "linear",
     "relu", "sigmoid", "elu", "apply_activation", "add", "mul", "dropout",
     "glorot_uniform", "PerfMetrics", "masked_softmax_cross_entropy",

@@ -15,11 +15,15 @@ the GCN path.
 :func:`scatter_gather_linear` is the whole-layer megakernel
 ``act((A x) W)`` with its fused backward, the counterpart of
 ``scatter_gather_linear_binned`` (aggregate.py:522-582).
+:func:`region_linear` runs a whole cross-layer fusion region through one
+kernel forward and one backward, the counterpart of
+``region_linear_binned`` (aggregate.py:611-667), and
+:func:`_unfused_region` is its per-layer oracle (aggregate.py:591-608).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -29,7 +33,9 @@ from roc_tpu_torch.ops.kernels.aggregate_linear import (aggregate_linear,
 from roc_tpu_torch.ops.kernels.aggregate_sum import (aggregate_sum,
                                                      aggregate_sum_plain,
                                                      check_precision)
+from roc_tpu_torch.ops.kernels.xlayer import xlayer_bwd, xlayer_fwd
 from roc_tpu_torch.ops.linear import linear
+from roc_tpu_torch.ops.norm import indegree_norm
 
 
 class DeviceCsr(NamedTuple):
@@ -166,3 +172,59 @@ def scatter_gather_linear(x: torch.Tensor, w: torch.Tensor, csr: DeviceCsr,
     megakernel on CUDA (its plain version on the CPU); differentiable in x
     and w.  The ``[rows, H_in]`` aggregate never reaches device memory."""
     return _AggregateLinear.apply(x, w, csr, precision, activation)
+
+
+class _RegionLinear(torch.autograd.Function):
+    """A fusion region through the region forward kernel; the backward is
+    one launch of the region backward kernel, which replays the interior
+    planes and returns dx and every dW.  Saves the region's input, its
+    weights and its output only: the interior boundaries are never kept.
+    ``in_degree`` is graph structure and takes no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, in_degree, csr, precision, activations, fold, *ws):
+        scale = torch.rsqrt(in_degree) if fold else None
+        out = xlayer_fwd(x, ws, scale, csr.row_ptr, csr.col_idx, precision,
+                         activations)
+        ctx.save_for_backward(x, out, *ws)
+        ctx.csr, ctx.in_degree, ctx.precision, ctx.activations, ctx.fold = \
+            csr, in_degree, precision, activations, fold
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out, *ws = ctx.saved_tensors
+        scale = torch.rsqrt(ctx.in_degree) if ctx.fold else None
+        dx, dws = xlayer_bwd(
+            g.contiguous(), out, x, ws, scale, ctx.csr.row_ptr,
+            ctx.csr.col_idx, *ctx.csr.transposed(), ctx.precision,
+            ctx.activations, need_dx=ctx.needs_input_grad[0])
+        return (dx, None, None, None, None, None, *dws)
+
+
+def region_linear(x: torch.Tensor, ws: Sequence[torch.Tensor],
+                  in_degree: torch.Tensor, csr: DeviceCsr,
+                  precision: str = "fast", activations: Sequence[str] = (),
+                  fold: bool = False) -> torch.Tensor:
+    """A whole fusion region, ``act_D(A ... act_1((A x) W_1) ... W_D)``,
+    through the region kernels on CUDA (their plain versions on the CPU);
+    differentiable in x and every w.  ``fold`` applies GCN's norm pair
+    (D^-1/2 twice) at each interior boundary; the caller owns the head's
+    pre-scale and the tail's post-scale, as for the per-layer hook."""
+    return _RegionLinear.apply(x, in_degree, csr, precision,
+                               tuple(activations), fold, *ws)
+
+
+def _unfused_region(x: torch.Tensor, ws: Sequence[torch.Tensor],
+                    in_degree: torch.Tensor, csr: DeviceCsr,
+                    precision: str = "fast", activations: Sequence[str] = (),
+                    fold: bool = False) -> torch.Tensor:
+    """The per-layer composition the region kernels must match: the
+    megakernel per member, with GCN's folded norm pair (layer l's post-scale
+    and layer l+1's pre-scale) between members."""
+    h = x
+    for d, (w, act) in enumerate(zip(ws, activations)):
+        h = scatter_gather_linear(h, w, csr, precision, act)
+        if fold and d + 1 < len(ws):
+            h = indegree_norm(indegree_norm(h, in_degree), in_degree)
+    return h

@@ -5,7 +5,8 @@ is compiled at its first launch, or all of them at once by
 
 from concurrent.futures import ThreadPoolExecutor
 
-from roc_tpu_torch.ops.kernels import aggregate_linear, aggregate_sum, gat
+from roc_tpu_torch.ops.kernels import (aggregate_linear, aggregate_sum, gat,
+                                       xlayer)
 
 KERNELS = {"aggregate_sum": aggregate_sum.aggregate_sum,
            "aggregate_linear": aggregate_linear.aggregate_linear,
@@ -13,9 +14,12 @@ KERNELS = {"aggregate_sum": aggregate_sum.aggregate_sum,
            "gat_score": gat.gat_score,
            "gat_forward": gat.gat_forward,
            "gat_bwd_dst": gat.gat_bwd_dst,
-           "gat_bwd_src": gat.gat_bwd_src}
+           "gat_bwd_src": gat.gat_bwd_src,
+           "xlayer_fwd": xlayer.xlayer_fwd,
+           "xlayer_bwd": xlayer.xlayer_bwd}
 
-LIBRARIES = (aggregate_sum.LIBRARY, aggregate_linear.LIBRARY, gat.LIBRARY)
+LIBRARIES = (aggregate_sum.LIBRARY, aggregate_linear.LIBRARY, gat.LIBRARY,
+             xlayer.LIBRARY)
 
 
 def build_all() -> None:
@@ -27,4 +31,4 @@ def build_all() -> None:
 
 
 __all__ = ["KERNELS", "LIBRARIES", "aggregate_linear", "aggregate_sum",
-           "build_all", "gat"]
+           "build_all", "gat", "xlayer"]

@@ -2,8 +2,8 @@
 
 Each source under ``roc_tpu_torch/csrc/`` has a plain C interface.  It is
 compiled with ``nvcc`` for ``sm_90a`` into a shared library under
-``roc_tpu_torch/build/`` (named by the hash of the source and the flags, so
-an edit rebuilds) at its first use, and loaded with ctypes.  Nothing here
+``roc_tpu_torch/build/`` (named by the hash of the source, the headers it
+includes and the flags, so an edit rebuilds) at its first use, and loaded with ctypes.  Nothing here
 runs when a module is imported.
 """
 
@@ -12,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -39,6 +40,27 @@ def _nvcc() -> str:
                        "from source at first use")
 
 
+_QUOTED_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _source_closure(source: Path) -> list:
+    """The bytes of ``source`` and of every header it includes with quotes
+    (resolved beside the including file, as nvcc resolves them), each
+    once, in the order first reached: an edit to a header rebuilds every
+    library that includes it."""
+    seen, out, todo = set(), [], [source.resolve()]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.add(path)
+        data = path.read_bytes()
+        out.append(data)
+        todo += [(path.parent / m.decode()).resolve()
+                 for m in _QUOTED_INCLUDE.findall(data)]
+    return out
+
+
 class CudaLibrary:
     """One ``csrc/*.cu`` source, its shared library and its ctypes handle.
 
@@ -55,9 +77,8 @@ class CudaLibrary:
         self.info: dict = {}
 
     def build(self) -> Path:
-        src = self.source.read_bytes()
-        key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()) \
-            .hexdigest()[:16]
+        key = hashlib.sha256(b"".join(_source_closure(self.source))
+                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
         lib = BUILD_DIR / f"libroc_{self.source.stem}_{key}.so"
         if lib.exists():
             self.info.update(path=str(lib), seconds=0.0, cached=True)

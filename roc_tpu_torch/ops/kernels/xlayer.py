@@ -1,0 +1,290 @@
+"""Cross-layer fusion region: the two CUDA kernels, their loader and their
+plain versions.
+
+A region is a chain of D >= 2 layers ``aggregate -> linear (-> relu)``
+over one square CSR (the same N rows are the table and the destinations).
+Layers are numbered 0 .. D-1; layer l maps width ``H_l`` to ``H_{l+1}``
+with ``ws[l]`` [H_l, H_{l+1}].
+
+``xlayer_fwd(x, ws, scale, row_ptr, col_idx, precision, activations)``
+computes ``act_{D-1}(A ... act_0((A x) W_0) ... W_{D-1})``.  On an interior
+layer the epilogue is the activation, then ``(v * scale) * scale`` per row
+when ``scale`` is given (GCN's norm pair between two layers: the caller
+passes ``torch.rsqrt(in_degree)``, the multiplier ``ops.indegree_norm``
+applies); the last layer's epilogue is its activation alone.  It is the
+function of the JAX package's ``roc_tpu/ops/pallas/binned.py:
+run_binned_region`` (``_xlayer_kernel``).
+
+``xlayer_bwd(g, y, x, ws, scale, row_ptr, col_idx, t_row_ptr, t_col_idx,
+precision, activations, need_dx)`` returns ``(dx, (dW_0, ..., dW_{D-1}))``
+given the output cotangent g and the saved output y, as
+``run_binned_region_bwd`` (``_xlayer_bwd_kernel``) does: the interior
+planes are replayed, never saved; then, last layer first, the staged
+cotangent (``g * [y > 0]``, or the handed-off one times the scale twice and
+masked by the replayed plane ``> 0``) is summed over the transposed CSR into
+``u``, ``dW_l = z_l^T u`` (``z_l`` the replayed input plane, x at l = 0) and
+``u W_l^T`` is handed to the next layer down (dx at l = 0, None unless
+``need_dx``).
+
+Precision as the megakernel's: "fast" rounds each gathered element once to
+bf16 and sums in fp32; "exact" is fp32 throughout; every GEMM is fp32 (no
+TF32).  On a CUDA tensor each wrapper launches its kernel from
+``csrc/xlayer.cu`` (one cooperative launch per call) or raises; on a CPU
+tensor it runs the plain version.  ``xlayer_fwd.launches`` and
+``xlayer_bwd.launches`` count kernel launches; ``.grid`` holds the last
+launch's grid size.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from roc_tpu_torch.ops.kernels.aggregate_linear import (_csr_int64,
+                                                        _require_cuda)
+from roc_tpu_torch.ops.kernels.aggregate_sum import (_check_csr,
+                                                     aggregate_sum_plain,
+                                                     check_precision)
+from roc_tpu_torch.ops.kernels.build import CudaLibrary
+from roc_tpu_torch.ops.linear import linear
+
+MAX_DEPTH = 8     # kMaxDepth in csrc/xlayer.cu
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    pp, pi, pll = (ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(i),
+                   ctypes.POINTER(ll))
+    fwd = lib.roc_xlayer_fwd
+    fwd.argtypes = [p, p, p, pp, p, pi, pll, i, ll, p, pp, p, i, p, pi]
+    fwd.restype = i
+    bwd = lib.roc_xlayer_bwd
+    bwd.argtypes = [p, p, p, p, p, pp, pp, p, pi, pll, i, ll, p, p, pp, pp,
+                    p, p, pp, p, p, i, p, pi]
+    bwd.restype = i
+    size = lib.roc_xlayer_partial_floats
+    size.argtypes = [ll, pll, i]
+    size.restype = ll
+
+
+LIBRARY = CudaLibrary("xlayer.cu", _bind)
+
+
+def _check_region(x: torch.Tensor, ws: Sequence[torch.Tensor],
+                  scale: Optional[torch.Tensor], row_ptr: torch.Tensor,
+                  col_idx: torch.Tensor, precision: str,
+                  activations: Sequence[str]) -> list:
+    """Validate a region's inputs; returns its width chain H_0 .. H_D."""
+    _check_csr(x, row_ptr, col_idx)
+    check_precision(precision, torch.float32)
+    depth = len(ws)
+    if not 2 <= depth <= MAX_DEPTH:
+        raise ValueError(f"a region has 2 to {MAX_DEPTH} layers, got {depth}")
+    if len(activations) != depth or any(a not in ("none", "relu")
+                                        for a in activations):
+        raise ValueError(f"activations={tuple(activations)!r}: one of "
+                         f"'none' or 'relu' per layer")
+    n = row_ptr.numel() - 1
+    if x.shape[0] != n:
+        raise ValueError(f"a region is square: x has {x.shape[0]} rows, the "
+                         f"CSR {n}")
+    widths = [x.shape[1]]
+    for w in ws:
+        if w.dim() != 2 or w.shape[0] != widths[-1]:
+            raise ValueError(f"weight chain breaks at {tuple(w.shape)} "
+                             f"after width {widths[-1]}")
+        widths.append(w.shape[1])
+    if scale is not None and tuple(scale.shape) != (n,):
+        raise ValueError(f"scale must be [{n}], got {tuple(scale.shape)}")
+    for t in (x, *ws, *(() if scale is None else (scale,))):
+        if t.dtype != torch.float32:
+            raise ValueError(f"the region kernels take float32 tensors, got "
+                             f"{t.dtype}")
+    return widths
+
+
+def _scaled(h: torch.Tensor, scale: Optional[torch.Tensor]) -> torch.Tensor:
+    """The interior epilogue's norm pair, (h * s) * s per row."""
+    if scale is None:
+        return h
+    s = scale[:, None]
+    return (h * s) * s
+
+
+def xlayer_fwd_plain(x: torch.Tensor, ws: Sequence[torch.Tensor],
+                     scale: Optional[torch.Tensor], row_ptr: torch.Tensor,
+                     col_idx: torch.Tensor, precision: str = "fast",
+                     activations: Sequence[str] = ()) -> torch.Tensor:
+    """The plain forward on any device: the per-layer chain, the chunked
+    aggregation at the given precision, ``ops.linear`` with the layer's
+    activation, and the interior norm pair."""
+    _check_region(x, ws, scale, row_ptr, col_idx, precision, activations)
+    h = x
+    for l, (w, act) in enumerate(zip(ws, activations)):
+        h = linear(aggregate_sum_plain(h, row_ptr, col_idx, precision), w,
+                   act)
+        if l + 1 < len(ws):
+            h = _scaled(h, scale)
+    return h
+
+
+def xlayer_bwd_plain(g: torch.Tensor, y: Optional[torch.Tensor],
+                     x: torch.Tensor, ws: Sequence[torch.Tensor],
+                     scale: Optional[torch.Tensor], row_ptr: torch.Tensor,
+                     col_idx: torch.Tensor, t_row_ptr: torch.Tensor,
+                     t_col_idx: torch.Tensor, precision: str = "fast",
+                     activations: Sequence[str] = (), need_dx: bool = True
+                     ) -> Tuple[Optional[torch.Tensor], Tuple[torch.Tensor,
+                                                              ...]]:
+    """The plain backward, step by step as the kernel runs it: replay the
+    interior planes, then per layer from the last the staged cotangent,
+    ``u`` over the transposed CSR, ``dW = z^T u`` and the hand-off
+    ``u W^T``."""
+    _check_region(x, ws, scale, row_ptr, col_idx, precision, activations)
+    depth = len(ws)
+    relu = [a == "relu" for a in activations]
+    if relu[-1] and (y is None or y.shape != g.shape):
+        raise ValueError("a last relu needs the saved output y, shaped "
+                         "like g")
+    planes = []
+    h = x
+    for l in range(depth - 1):
+        h = _scaled(linear(aggregate_sum_plain(h, row_ptr, col_idx,
+                                               precision), ws[l],
+                           activations[l]), scale)
+        planes.append(h)
+    dws = [None] * depth
+    c = g
+    for l in reversed(range(depth)):
+        if l == depth - 1:
+            staged, mask = c, y
+        else:
+            staged, mask = _scaled(c, scale), planes[l]
+        if relu[l]:
+            staged = torch.where(mask > 0, staged, torch.zeros_like(staged))
+        u = aggregate_sum_plain(staged, t_row_ptr, t_col_idx, precision)
+        dws[l] = linear((x if l == 0 else planes[l - 1]).t(), u)
+        c = linear(u, ws[l].t()) if l > 0 or need_dx else None
+    return c, tuple(dws)
+
+
+def _ptrs(ts) -> ctypes.Array:
+    return (ctypes.c_void_p * len(ts))(*(t.data_ptr() for t in ts))
+
+
+def _ints(vals) -> ctypes.Array:
+    return (ctypes.c_int * len(vals))(*vals)
+
+
+def _longs(vals) -> ctypes.Array:
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def _launch(wrapper, fn, args, dev: torch.device) -> None:
+    """One cooperative launch on the current stream; counts it on
+    ``wrapper``."""
+    grid = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*args, stream, ctypes.byref(grid))
+    if err != 0:
+        raise RuntimeError(f"{wrapper.__name__} kernel launch failed: CUDA "
+                           f"error {err}")
+    wrapper.launches += 1
+    wrapper.grid = grid.value
+
+
+def _cuda_inputs(name, x, ws, scale, row_ptr, col_idx, *more) -> None:
+    _require_cuda(name, x, *ws, row_ptr, col_idx, *more,
+                  *(() if scale is None else (scale,)))
+    _csr_int64(row_ptr)
+
+
+def xlayer_fwd(x: torch.Tensor, ws: Sequence[torch.Tensor],
+               scale: Optional[torch.Tensor], row_ptr: torch.Tensor,
+               col_idx: torch.Tensor, precision: str = "fast",
+               activations: Sequence[str] = ()) -> torch.Tensor:
+    """The region forward: x [N, H_0] -> [N, H_D] fp32.  Launches the CUDA
+    kernel for CUDA tensors, runs the plain version for CPU tensors."""
+    if x.device.type == "cpu":
+        return xlayer_fwd_plain(x, ws, scale, row_ptr, col_idx, precision,
+                                activations)
+    widths = _check_region(x, ws, scale, row_ptr, col_idx, precision,
+                           activations)
+    _cuda_inputs("xlayer_fwd", x, ws, scale, row_ptr, col_idx)
+    n, depth, dev = row_ptr.numel() - 1, len(ws), x.device
+    out = torch.empty((n, widths[-1]), dtype=torch.float32, device=dev)
+    # the interior planes: one at depth 2, a ping-pong beyond
+    planes = [torch.empty(n * max(widths[1:-1]), dtype=torch.float32,
+                          device=dev) for _ in range(1 if depth == 2 else 2)]
+    counter = torch.zeros(depth, dtype=torch.int32, device=dev)
+    _launch(xlayer_fwd, LIBRARY.load().roc_xlayer_fwd,
+            (row_ptr.data_ptr(), col_idx.data_ptr(), x.data_ptr(), _ptrs(ws),
+             None if scale is None else scale.data_ptr(),
+             _ints([a == "relu" for a in activations]), _longs(widths),
+             depth, n, out.data_ptr(), _ptrs(planes + planes[:1]),
+             counter.data_ptr(), int(precision == "fast")), dev)
+    return out
+
+
+def xlayer_bwd(g: torch.Tensor, y: Optional[torch.Tensor], x: torch.Tensor,
+               ws: Sequence[torch.Tensor], scale: Optional[torch.Tensor],
+               row_ptr: torch.Tensor, col_idx: torch.Tensor,
+               t_row_ptr: torch.Tensor, t_col_idx: torch.Tensor,
+               precision: str = "fast", activations: Sequence[str] = (),
+               need_dx: bool = True
+               ) -> Tuple[Optional[torch.Tensor], Tuple[torch.Tensor, ...]]:
+    """The region backward: ``(dx [N, H_0] or None, (dW_0, ..., dW_{D-1}))``.
+    Launches the CUDA kernel for CUDA tensors, runs the plain version for
+    CPU tensors."""
+    if g.device.type == "cpu":
+        return xlayer_bwd_plain(g, y, x, ws, scale, row_ptr, col_idx,
+                                t_row_ptr, t_col_idx, precision, activations,
+                                need_dx)
+    widths = _check_region(x, ws, scale, row_ptr, col_idx, precision,
+                           activations)
+    relu = [a == "relu" for a in activations]
+    n, depth, dev = row_ptr.numel() - 1, len(ws), x.device
+    if tuple(g.shape) != (n, widths[-1]):
+        raise ValueError(f"g must be [{n}, {widths[-1]}], got "
+                         f"{tuple(g.shape)}")
+    if relu[-1] and (y is None or y.shape != g.shape
+                     or y.dtype != torch.float32):
+        raise ValueError("a last relu needs the saved output y, shaped "
+                         "like g")
+    _check_csr(g, t_row_ptr, t_col_idx)
+    if t_row_ptr.numel() - 1 != n:
+        raise ValueError("the transposed CSR must have the region's rows")
+    _cuda_inputs("xlayer_bwd", x, ws, scale, row_ptr, col_idx, g,
+                 t_row_ptr, t_col_idx, *((y,) if relu[-1] else ()))
+    _csr_int64(t_row_ptr)
+    lib = LIBRARY.load()
+    f32 = dict(dtype=torch.float32, device=dev)
+    wts = [w.t().contiguous() for w in ws]
+    dws = [torch.empty(tuple(w.shape), **f32) for w in ws]
+    dx = torch.empty((n, widths[0]), **f32) if need_dx else None
+    planes = [torch.empty((n, h), **f32) for h in widths[1:-1]]
+    cot = [torch.empty(n * max(widths[1:-1]), **f32)
+           for _ in range(1 if depth == 2 else 2)]
+    u = torch.empty(n * max(widths[1:]), **f32)
+    partial = torch.empty(lib.roc_xlayer_partial_floats(
+        n, _longs(widths), depth), **f32)
+    counter = torch.zeros(2 * depth - 1, dtype=torch.int32, device=dev)
+    _launch(xlayer_bwd, lib.roc_xlayer_bwd,
+            (row_ptr.data_ptr(), col_idx.data_ptr(), t_row_ptr.data_ptr(),
+             t_col_idx.data_ptr(), x.data_ptr(), _ptrs(ws), _ptrs(wts),
+             None if scale is None else scale.data_ptr(), _ints(relu),
+             _longs(widths), depth, n, g.data_ptr(),
+             y.data_ptr() if relu[-1] else None, _ptrs(planes),
+             _ptrs(cot + cot[:1]), u.data_ptr(), partial.data_ptr(),
+             _ptrs(dws), None if dx is None else dx.data_ptr(),
+             counter.data_ptr(), int(precision == "fast")), dev)
+    return dx, tuple(dws)
+
+
+xlayer_fwd.launches = 0
+xlayer_fwd.grid = 0
+xlayer_bwd.launches = 0
+xlayer_bwd.grid = 0

@@ -37,6 +37,9 @@ class Config:
     megafuse: bool = False        # whole-layer megakernel: each eligible
                                   # aggregate->linear(->relu) layer runs as
                                   # one kernel forward and one backward
+    fusion_depth: int = 1         # cross-layer fusion-region cap (needs
+                                  # megafuse): 1 off, N chains of at most
+                                  # N layers, 0 unlimited
     device: str = "cuda"          # cuda, or cpu when asked for
     serve_batch: int = 64         # microbatch cap and top of the bucket ladder
     serve_wait_ms: float = 2.0    # max ms a serving window stays open
@@ -59,6 +62,9 @@ class Config:
         if self.serve_queue_max < 0:
             raise ValueError(f"serve_queue_max={self.serve_queue_max} must "
                              "be >= 0 (0 disables the depth cap)")
+        if self.fusion_depth < 0:
+            raise SystemExit(f"bad fusion_depth {self.fusion_depth} "
+                             "(0 = full, 1 = off, >=2 = cap)")
         if self.eval_every < 1 or self.decay_steps < 1:
             raise ValueError(f"eval_every={self.eval_every} and decay_steps="
                              f"{self.decay_steps} must be >= 1")
@@ -98,6 +104,11 @@ def parse_args(argv: List[str]) -> Config:
     p.add_argument("-megafuse", dest="megafuse", action="store_true",
                    help="run each aggregate->linear(->relu) layer as one "
                         "megakernel, forward and backward")
+    p.add_argument("-fusion-depth", dest="fusion_depth", type=int,
+                   default=1,
+                   help="cross-layer fusion-region cap (needs -megafuse): "
+                        "1 per-layer only (default), 2 chain two layers, "
+                        "0 full chain")
     p.add_argument("-device", default="cuda",
                    help="cuda (default) or cpu")
     ns = p.parse_args(argv)

@@ -95,7 +95,7 @@ class Trainer:
         self.gdata = dense_graph_data(
             ds.graph, effective_backend(cfg, self.model, dev),
             cfg.aggregate_precision, dev)
-        self.gctx = make_gctx(self.gdata, cfg.megafuse)
+        self.gctx = make_gctx(self.gdata, cfg.megafuse, cfg.fusion_depth)
         self.x = torch.as_tensor(ds.features, dtype=torch.float32,
                                  device=dev)
         self.labels = torch.as_tensor(ds.labels, dtype=torch.float32,

@@ -3,8 +3,11 @@
 the params (weights only, no optimizer arrays), the features and the graph
 data resident on one device.  The graph data is built through the same
 backend resolution as training (``graph_data.effective_backend``), with
-the CSR alone: a forward-only consumer runs only forward kernels.
-The streaming executor's branch is not ported yet (ROADMAP queue A)."""
+the CSR alone: a forward-only consumer runs only forward kernels.  Under
+``megafuse`` the forward runs each eligible layer through the megakernel,
+as the trainer's eval does; serving stays at fusion depth 1, as the JAX
+package's frozen path does.  The streaming executor's branch is not ported
+yet (ROADMAP queue A)."""
 
 from __future__ import annotations
 
@@ -35,13 +38,15 @@ class FrozenBundle:
     gdata: DenseGraphData
     num_nodes: int
     device: torch.device
+    megafuse: bool = False
 
     def predict_logits(self) -> torch.Tensor:
         """One full-graph eval forward: logits [N, C] in node order, on the
         device.  The parity oracle served queries are held against."""
         with torch.inference_mode():
             return self.model.apply(self.params, self.x,
-                                    make_gctx(self.gdata), train=False)
+                                    make_gctx(self.gdata, self.megafuse),
+                                    train=False)
 
 
 def load_frozen(config: Config, dataset: Dataset, model: Model,
@@ -68,4 +73,5 @@ def load_frozen(config: Config, dataset: Dataset, model: Model,
     params = {k: v.to(dev) for k, v in params.items()}
     return FrozenBundle(config=config, dataset=dataset, model=model,
                         params=params, x=x, gdata=gdata,
-                        num_nodes=dataset.graph.num_nodes, device=dev)
+                        num_nodes=dataset.graph.num_nodes, device=dev,
+                        megafuse=config.megafuse)

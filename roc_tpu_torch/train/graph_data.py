@@ -25,7 +25,7 @@ import dataclasses
 import torch
 
 from roc_tpu_torch import ops
-from roc_tpu_torch.models.model import GraphCtx, Model
+from roc_tpu_torch.models.model import GraphCtx, Model, mega_matches
 from roc_tpu_torch.train.config import Config
 
 
@@ -52,15 +52,21 @@ def model_gat_dims(model: Model) -> tuple:
     return 0, 0
 
 
-def forward_launches(model: Model) -> dict:
-    """Kernel launches of one unfused forward of ``model`` on the kernel
-    backend: one sum aggregation per sum/avg aggregate op, one score and one
+def forward_launches(model: Model, megafuse: bool = False) -> dict:
+    """Kernel launches of one forward of ``model`` on the kernel backend:
+    one megakernel per ``mega_matches`` layer chain (with ``megafuse``),
+    one sum aggregation per other sum/avg aggregate op, one score and one
     attention forward per gat op."""
+    matches = mega_matches(model) if megafuse else {}
+    fused = {j for i, m in matches.items() for j in (i, *m["skip"])}
     kinds = [op.attrs.get("aggr") if op.kind == "aggregate" else op.kind
-             for op in model.ops]
+             for i, op in enumerate(model.ops) if i not in fused]
     gats = kinds.count("gat")
-    return {"aggregate_sum": kinds.count("sum") + kinds.count("avg"),
-            "gat_score": gats, "gat_forward": gats}
+    out = {"aggregate_sum": kinds.count("sum") + kinds.count("avg"),
+           "gat_score": gats, "gat_forward": gats}
+    if megafuse:
+        out["aggregate_linear"] = len(matches)
+    return out
 
 
 def effective_backend(config: Config, model: Model,
@@ -101,12 +107,15 @@ def dense_graph_data(graph, backend: str, precision: str,
         backend=backend, precision=precision)
 
 
-def make_gctx(g: DenseGraphData, megafuse: bool = False) -> GraphCtx:
+def make_gctx(g: DenseGraphData, megafuse: bool = False,
+              fusion_depth: int = 1) -> GraphCtx:
     """The op graph's view of ``g``.  With ``megafuse`` on the kernel
     backend, each ``mega_matches`` chain runs through the whole-layer
-    megakernel (driver.py:368-414).  The JAX hook's TPU gates (VMEM budget,
-    flat geometry, bf16 staging unit, kill switches, hybrid plans) have no
-    counterpart here: the hook always runs the kernel.
+    megakernel (driver.py:368-414), and with a ``fusion_depth`` other than
+    1 each ``mega_regions`` chain of such layers through the region kernels
+    (driver.py:416-444).  The JAX hooks' TPU gates (VMEM budgets, flat
+    geometry, bf16 staging unit, kill switches, hybrid plans, region
+    admission) have no counterpart here: the hooks always run the kernels.
 
     Attention (driver.py:348-366) on the kernel backend always runs
     ``gat_attend_kernel``, with or without ``megafuse``: the JAX package
@@ -146,7 +155,22 @@ def make_gctx(g: DenseGraphData, megafuse: bool = False) -> GraphCtx:
             out = ops.apply_activation(out, activation)
         return out
 
+    def fuse_region(x, ws, activations, fold=False):
+        # the region kernels own the interior norm pairs; the head's
+        # pre-scale and the tail's post-scale stay outside, as in the
+        # per-layer hook
+        if fold:
+            x = ops.indegree_norm(x, g.in_degree)
+        out = ops.region_linear(x, ws, g.in_degree, g.csr, g.precision,
+                                activations, fold)
+        if fold:
+            out = ops.indegree_norm(out, g.in_degree)
+        return out
+
     fused = megafuse and g.backend == "kernel"
+    regions = fused and fusion_depth != 1
     return GraphCtx(aggregate=aggregate, in_degree=g.in_degree,
                     fuse_linear=fuse_linear if fused else None,
-                    attend=attend)
+                    attend=attend,
+                    fuse_region=fuse_region if regions else None,
+                    fusion_depth=fusion_depth)

@@ -54,7 +54,8 @@ def test_every_kernel_source_has_a_loader():
     assert sources == {lib.source.name for lib in LIBRARIES}
     assert set(KERNELS) == {"aggregate_sum", "aggregate_linear",
                             "aggregate_linear_bwd", "gat_score",
-                            "gat_forward", "gat_bwd_dst", "gat_bwd_src"}
+                            "gat_forward", "gat_bwd_dst", "gat_bwd_src",
+                            "xlayer_fwd", "xlayer_bwd"}
 
 
 def _imported_modules(path: Path):
