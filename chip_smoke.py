@@ -25,10 +25,15 @@ Phases, each printing one JSON line per record:
           {0,1}, W in {-2..2}, g in {-3..3}, all sums exact in fp32):
           aggregate_sum over the transposed CSR at H = 256 and 41 (the
           unfused backward), aggregate_linear at 602->256 relu and 256->41
-          none, aggregate_linear_bwd at 602<-256 relu (with dx, and u alone
-          as the first layer's backward asks) and 256<-41 none, both
-          precisions.  Library: torch.sparse.mm then torch.matmul (fp32,
-          TF32 off).  Bound: compulsory bytes over 3.35 TB/s vs the adds
+          none, stage_cotangent (the backward's masked, rounded cotangent
+          plane) at H = 256 relu and 41 none, aggregate_linear_bwd at
+          602<-256 relu (u alone, as the first layer's backward asks, and
+          with dx), 256<-256 relu with dx (gcn-chain's interior layer) and
+          256<-41 none, both precisions; u also bitwise equal to
+          aggregate_sum over the transposed CSR on the staged plane.
+          Library: torch.sparse.mm then torch.matmul (fp32, TF32 off);
+          for the staging, which no one call computes, the where + cast
+          composition.  Bound: compulsory bytes over 3.35 TB/s vs the adds
           and GEMM operations over 67 TFLOP/s fp32, the larger
   small   the port's GCN forward on the audit graph, card vs CPU (exact)
   train_small  the port's Trainer on mega-shard (GCN 64-16-8, exact,
@@ -47,8 +52,9 @@ Phases, each printing one JSON line per record:
           (median of epochs 3-10), peak memory, the first and the last
           train_loss (finite and falling), and each kernel's launches in
           the run (counts set to 0 just before, read just after) and in
-          one more step: 4 aggregate_sum unfused; 2 aggregate_linear and
-          2 aggregate_linear_bwd and no aggregate_sum with -megafuse
+          one more step: 4 aggregate_sum unfused; 2 aggregate_linear, 2
+          aggregate_linear_bwd, 2 stage_cotangent and no aggregate_sum
+          with -megafuse
   ab      the same model in exact, dropout 0, 3 epochs from the same
           params, -megafuse vs unfused: final loss within 1e-3 relative
   kernel  (gat) the four GAT entry points (gat_score, gat_forward,
@@ -56,7 +62,10 @@ Phases, each printing one JSON line per record:
           card: first on a small graph with a hub row and an isolated node
           at ragged head shapes (K, F) = (3, 5), (8, 8), (40, 2), (2, 200),
           (1, 41), (4, 64); then on the Reddit graph at the layer-1 (K=4,
-          F=64) and layer-2 (K=1, F=41) shapes, both precisions.  Forward
+          F=64) and layer-2 (K=1, F=41) shapes, both precisions.  The
+          score bitwise equal to the serial-order reference (products
+          rounded, added in f order from 0) everywhere, also on an x
+          that starts 4 bytes into its buffer.  Forward
           bitwise on the integer fixture (a_src = 0, so every e is 1);
           Gaussian data: out, m, z and dtable within 1e-5 of each row's
           max-abs; the scores and score gradients (as, dadl, dast: signed
@@ -99,7 +108,8 @@ Phases, each printing one JSON line per record:
           -lr 0.01 -decay 0.0001 -dropout 0, 10 epochs, -megafuse with
           -fusion-depth 1, 2 and 0: median epoch (3-10), peak memory, the
           loss curve, launches per step (1: 4 + 4 megakernel; 2: 1 + 1
-          region, 2 + 2 megakernel; 0: 1 + 1 region, 1 + 1 megakernel)
+          region, 2 + 2 megakernel; 0: 1 + 1 region, 1 + 1 megakernel;
+          one stage_cotangent per megakernel backward)
   ab_chain  the same in exact, 3 epochs, -fusion-depth 0 vs 1 from the same
           params: final loss within 1e-3 relative
   serve_mega  ServeEngine with GCN 602-256-41 and -megafuse, 40 requests:
@@ -303,11 +313,13 @@ def _bound(nbytes: float, flops: float) -> dict:
 
 
 def _check_row(rec: dict, kern, plain, int_args, gauss_args, library,
-               tol: float = 1e-5) -> dict:
+               tol: float = 1e-5, timed=None) -> dict:
     """Hold ``kern`` against ``plain`` (both return a tensor or a tuple of
     tensors): bitwise on ``int_args``, within ``tol`` of each row's
-    max-abs on ``gauss_args``; then time the kernel, the plain version and
-    the library call on the Gaussian inputs."""
+    max-abs on ``gauss_args``; then time the kernel (``timed`` when given:
+    the launch alone, without what adapts its output for the check), the
+    plain version and the library call (None where there is none) on the
+    Gaussian inputs."""
     def parts(out):
         return out if isinstance(out, tuple) else (out,)
 
@@ -320,12 +332,13 @@ def _check_row(rec: dict, kern, plain, int_args, gauss_args, library,
     rec["tolerance"] = tol
     rec["finite"] = all(bool(torch.isfinite(a).all()) for a in k)
     del k, p
-    rec["kernel_ms"] = time_ms(lambda: kern(*gauss_args), reps=20, warmup=3)
+    rec["kernel_ms"] = time_ms(lambda: (timed or kern)(*gauss_args),
+                               reps=20, warmup=3)
     rec["plain_ms"] = time_ms(lambda: plain(*gauss_args))
-    rec["library_ms"] = time_ms(library)
+    rec["library_ms"] = None if library is None else time_ms(library)
     emit(rec)
     if not (rec["finite"] and rec["int_bitwise"]
-            and rec["row_rel_err"] <= tol):
+            and rec["row_rel_err"] <= tol and rec.get("checks_ok", True)):
         raise AssertionError(f"{rec['name']} disagrees with its plain "
                              f"version: {rec}")
     return rec
@@ -398,11 +411,43 @@ def phase_kernel_train(ds, dev) -> list:
                 lambda x=xg, w=wg: torch.relu(mm(fwd_mat @ x, w))
                 if act == "relu" else mm(fwd_mat @ x, w)))
             del xg, wg
+        # the backward's staging kernel alone: the masked, rounded
+        # cotangent plane (bf16 in fast, fp32 in exact with relu)
+        for ho, relu in ((256, True), (41, False)):
+            if prec == "exact" and not relu:
+                continue       # exact without relu gathers g itself
+            plane = 2 if prec == "fast" else 4
+            rec = {"phase": "kernel", "name": "stage_cotangent", "H": ho,
+                   "relu": relu, "precision": prec, "nodes": n,
+                   **_bound(n * ho * 4 * (2 if relu else 1)
+                            + n * ho * plane, n * ho)}
+            gg, yg = gauss((n, ho)), gauss((n, ho))
+
+            def comp(g_=gg, y_=yg, relu=relu):
+                gm = torch.where(y_ > 0, g_, torch.zeros_like(g_)) \
+                    if relu else g_
+                return gm.to(torch.bfloat16) if prec == "fast" else gm
+
+            # no single library call computes it: the two-call
+            # composition is timed beside it
+            rec["composition_ms"] = time_ms(comp)
+            rows.append(_check_row(
+                rec,
+                lambda g_, y_, relu=relu, ho=ho: KL.stage_cotangent(
+                    g_, y_, prec, relu)[:, :ho].float(),
+                lambda g_, y_, relu=relu: KL.stage_cotangent_plain(
+                    g_, y_, prec, relu),
+                (ints((n, ho), -3, 3), ints((n, ho), -1, 1)), (gg, yg),
+                None, timed=lambda g_, y_, relu=relu: KL.stage_cotangent(
+                    g_, y_, prec, relu)))
+            del gg, yg
         # the backward as the megafuse path calls it: the first layer
         # (602 <- 256, relu) asks for u alone, its input taking no
-        # gradient; its full function (with dx) is timed too
-        for hi, ho, relu, need_dx in ((602, 256, True, True),
-                                      (602, 256, True, False),
+        # gradient; its full function (with dx) is timed too, and so is
+        # gcn-chain's interior layer (256 <- 256, relu, with dx)
+        for hi, ho, relu, need_dx in ((602, 256, True, False),
+                                      (602, 256, True, True),
+                                      (256, 256, True, True),
                                       (256, 41, False, True)):
             nbytes = (n * ho * 4 * (2 if relu else 1) + hi * ho * 4
                       + n * ho * 4 + (n * hi * 4 if need_dx else 0)
@@ -413,6 +458,20 @@ def phase_kernel_train(ds, dev) -> list:
                    **_bound(nbytes, e * ho
                             + (2 * n * hi * ho if need_dx else 0))}
             gg, yg, wg = gauss((n, ho)), gauss((n, ho)), gauss((hi, ho))
+            # u is the sum over the transposed CSR of the staged plane:
+            # aggregate_sum on that plane in fp32 gives it bit for bit (a
+            # second bf16 rounding of a bf16 value is the identity, and
+            # both sum in CSR order from 0)
+            u = KL.aggregate_linear_bwd(gg, yg, wg, csr.t_row_ptr,
+                                        csr.t_col_idx, prec, relu,
+                                        need_dx)[0]
+            staged = KL.stage_cotangent(gg, yg, prec, relu)[:, :ho] \
+                .float().contiguous() if prec == "fast" or relu else gg
+            rec["u_equals_sum_on_staged"] = bool(torch.equal(
+                u, aggregate_sum(staged, csr.t_row_ptr, csr.t_col_idx,
+                                 prec)))
+            rec["checks_ok"] = rec["u_equals_sum_on_staged"]
+            del u, staged
 
             def lib(g_=gg, y_=yg, w_=wg, relu=relu, need_dx=need_dx):
                 gm = torch.where(y_ > 0, g_, torch.zeros_like(g_)) \
@@ -541,6 +600,18 @@ def _gat_bound(name, n, e, k, f, csr_bytes) -> dict:
                   4 * e * h + 8 * e * k)
 
 
+def _score_serial_equal(i) -> bool:
+    """gat_score bitwise equal to the serial-order reference (products
+    rounded, added in f order from 0), on x as given and on a copy of x
+    that starts 4 bytes into its buffer (the kernel's unaligned copy)."""
+    from roc_tpu_torch.ops.kernels import gat as G
+    x, a = i["x"], i["a_src"]
+    shifted = torch.empty(x.numel() + 1, device=x.device)[1:].view_as(x)
+    shifted.copy_(x)
+    return all(bool(torch.equal(G.gat_score(t, a), G.gat_score_serial(t, a)))
+               for t in (x, shifted))
+
+
 def _score_library(i) -> torch.Tensor:
     """The source score as one library call: torch.einsum (fp32, TF32
     off)."""
@@ -604,6 +675,11 @@ def phase_kernel_gat_shapes(dev) -> dict:
                     kk = _gat_parts(kern(inp))
                     pp = _gat_parts(plain(inp))
                     torch.cuda.synchronize()
+                    if name == "gat_score" and not _score_serial_equal(
+                            inp):
+                        raise AssertionError(
+                            f"gat_score K={k} F={f}: not bitwise equal to "
+                            f"the serial-order reference")
                     if integer and name in ("gat_score", "gat_forward"):
                         ok = all(bool(torch.equal(a, b))
                                  for a, b in zip(kk, pp))
@@ -632,7 +708,8 @@ def phase_kernel_gat_shapes(dev) -> dict:
     rec = {"phase": "kernel_gat_shapes", "nodes": n, "hub_in_degree":
            int(torch.diff(csr.row_ptr)[17]), "isolated_row": 29,
            "shapes": GAT_SHAPES,
-           "worst_err": worst, "tolerance": 1e-5, "int_bitwise": True}
+           "worst_err": worst, "tolerance": 1e-5, "int_bitwise": True,
+           "score_serial_bitwise": True}
     emit(rec)
     return rec
 
@@ -677,6 +754,8 @@ def phase_kernel_gat(ds, dev) -> list:
                                           warmup=1)
                 rec["library_ms"] = None
                 if name == "gat_score":
+                    rec["serial_bitwise"] = all(_score_serial_equal(i)
+                                                for i in (ints, gauss))
                     lib = _score_library(gauss)
                     rec["library_term_rel_err"] = term_rel_err(
                         lib, plain(gauss), terms(gauss)[0])
@@ -696,6 +775,7 @@ def phase_kernel_gat(ds, dev) -> list:
                 emit(rec)
                 rows.append(rec)
                 if not (rec["finite"] and rec.get("int_bitwise", True)
+                        and rec.get("serial_bitwise", True)
                         and rec["row_rel_err"] <= 1e-5
                         and rec["term_rel_err"] <= 1e-5
                         and rec.get("library_term_rel_err", 0.0) <= 1e-5):
@@ -1166,7 +1246,8 @@ def step_launches(model: str, megafuse: bool) -> dict:
         return launch_dict(gat_score=2, gat_forward=2, gat_bwd_dst=2,
                            gat_bwd_src=2)
     if megafuse:
-        return launch_dict(aggregate_linear=2, aggregate_linear_bwd=2)
+        return launch_dict(aggregate_linear=2, aggregate_linear_bwd=2,
+                           stage_cotangent=2)
     return launch_dict(aggregate_sum=4)
 
 
@@ -1218,11 +1299,13 @@ def chain_step_launches(depth: int) -> dict:
     """Kernel launches of one training step of gcn-chain 602-256-256-256-41
     under -megafuse -fusion-depth ``depth``, dropout 0: a region forward
     and backward per region, a megakernel forward and backward per layer
-    outside one (the logits layer always)."""
+    outside one (the logits layer always), each backward staging its
+    cotangent once (fast)."""
     regions, per_layer = {1: (0, 4), 2: (1, 2), 0: (1, 1)}[depth]
     return launch_dict(xlayer_fwd=regions, xlayer_bwd=regions,
                        aggregate_linear=per_layer,
-                       aggregate_linear_bwd=per_layer)
+                       aggregate_linear_bwd=per_layer,
+                       stage_cotangent=per_layer)
 
 
 def phase_train_chain(ds, dev, depth: int, epochs: int = 10) -> dict:
@@ -1479,10 +1562,16 @@ def main() -> int:
             {"train_megafuse":
              train[True]["launches"]["aggregate_linear_bwd"],
              **chain_launches("aggregate_linear_bwd")},
-            pick("aggregate_linear_bwd", H_in=602, dx=True,
+            pick("aggregate_linear_bwd", H_in=602, dx=False,
                  precision="fast"),
             named("aggregate_linear_bwd"),
             ("H_in", "H_out", "relu", "dx", "precision")),
+        _kernel_entry(
+            "stage_cotangent", src + "aggregate_linear.cu", pallas + "2599",
+            {"train_megafuse": train[True]["launches"]["stage_cotangent"],
+             **chain_launches("stage_cotangent")},
+            pick("stage_cotangent", H=256, precision="fast"),
+            named("stage_cotangent"), ("H", "relu", "precision")),
         *(_kernel_entry(
             name, src + "gat.cu", "roc_tpu/ops/pallas/gat.py:" + line,
             {"serve_gat": serve_gat["launches"][name],

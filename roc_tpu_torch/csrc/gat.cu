@@ -6,7 +6,7 @@
 //   _gat_bwd_dst_kernel (gat.py:536)                                -> gat_bwd_dst_rows
 //   _gat_bwd_src_kernel (gat.py:632)                                -> gat_bwd_src_rows
 // and the source score the Pallas kernels compute in their own bodies
-// (_chunk_score, gat.py:310) -> gat_score_rows, run once per node.
+// (_chunk_score, gat.py:310) -> gat_score_rows, run once per node (its own design below).
 //
 // Function (roc_tpu/ops/edge.py:gat_attend_plan).  Features are x [T, H],
 // H = K * F (K heads of F features, head k in columns [k*F, (k+1)*F)).
@@ -68,6 +68,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
+
 namespace {
 
 constexpr int kMaxWarps = 8;            // warps per block, fewer when K is large
@@ -119,34 +121,84 @@ __device__ __forceinline__ void head_reduce(const float* pbuf, float* hacc, int6
 }
 
 // ---------------------------------------------------------------------------
-// as[t, k] = sum_f x[t, kF + f] * a[kF + f]
-// shared memory per warp: pbuf[kTile] | hacc[K]
-template <int VEC>
-__global__ void gat_score_rows(const float* __restrict__ x, const float* __restrict__ a,
-                               float* __restrict__ as, int64_t rows, int K, int F) {
-  extern __shared__ float smem[];
-  constexpr int kTile = 32 * VEC * kNP;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, wpb = blockDim.x >> 5;
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * wpb + warp;
-  if (row >= rows) return;
-  float* pbuf = smem + static_cast<int64_t>(warp) * (kTile + K);
-  float* hacc = pbuf + kTile;
+// as[t, k] = sum_f x[t, kF + f] * a[kF + f]  (gat_score)
+//
+// x is [T, H] contiguous, so a block's R consecutive rows are one contiguous span.  A block
+// of kScoreThreads threads copies a (into sa) and its rows (into sx) to shared memory, then
+// each thread forms the dot product of one (row, head) pair of the block's R * K pairs: pair
+// p is row p % R and head p / R, so the lanes of a warp take consecutive rows of one head.
+// The dot runs in f order from 0 and rounds each product before its add (__fmul_rn and
+// __fadd_rn, which nvcc does not contract into an FMA): the order and rounding of the plain
+// serial reference and of the warp-per-row kernel this one replaced, so as keeps its bits.
+//   padded (H % 4 == 0 and x 16-byte aligned): row r is copied with 16-byte cp.async to
+//     sx + r * ts, ts = H rounded up to an odd number of 16-byte chunks, so a quarter warp's
+//     float4 reads of 8 consecutive rows fall in 8 distinct bank groups; VEC4 (F % 4 == 0)
+//     reads the dot's operands as float4.
+//   otherwise: the span is copied as it lies, from its 16-byte-aligned start with cp.async
+//     when x is 16-byte aligned (row 0 then sits at sx + off, off < 4), else by 4-byte loads;
+//     rows are H apart, which for odd H puts a warp's 32 rows on 32 distinct banks.
+// shared memory: sa [H rounded up to 4] | sx
+// Bound: x once (T * H * 4 B) against T * H multiply-adds: bytes bind.
+constexpr int kScoreThreads = 256;
+
+template <bool VEC4>
+__global__ void __launch_bounds__(kScoreThreads)
+gat_score_rows(const float* __restrict__ x, const float* __restrict__ a, float* __restrict__ as,
+               int64_t rows, int K, int F, int R, int ts, int padded, int aligned) {
+  extern __shared__ float4 smem4[];
+  const int tid = threadIdx.x;
   const int64_t H = static_cast<int64_t>(K) * F;
-  for (int k = lane; k < K; k += 32) hacc[k] = 0.f;
-  for (int64_t t0 = 0; t0 < H; t0 += kTile) {
-#pragma unroll
-    for (int p = 0; p < kNP; ++p) {
-      const int64_t c = pack_col<VEC>(t0, p, lane);
-      if (c < H) {
-        const Pack<VEC> xv = load_pack<VEC>(x + row * H + c);
-        const Pack<VEC> av = load_pack<VEC>(a + c);
-#pragma unroll
-        for (int j = 0; j < VEC; ++j) pbuf[c - t0 + j] = xv.v[j] * av.v[j];
+  float* sa = reinterpret_cast<float*>(smem4);
+  float* sx = sa + (H + 3) / 4 * 4;
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * R;
+  const int nr = rows - row0 < R ? static_cast<int>(rows - row0) : R;
+  for (int64_t i = tid; i < H; i += kScoreThreads) sa[i] = a[i];
+  int64_t off = 0;
+  if (padded) {
+    const int64_t cpr = H / 4;  // 16-byte chunks per row
+    for (int64_t q = tid; q < nr * cpr; q += kScoreThreads) {
+      const int64_t r = q / cpr, c = q - r * cpr;
+      roc::cp_async16(sx + r * ts + 4 * c, x + (row0 + r) * H + 4 * c);
+    }
+  } else if (aligned) {
+    const int64_t s0 = row0 * H, s1 = (row0 + nr) * H, total = rows * H;
+    const int64_t a0 = s0 / 4 * 4;
+    off = s0 - a0;
+    for (int64_t q = tid; q < (s1 - a0 + 3) / 4; q += kScoreThreads) {
+      const int64_t g0 = a0 + 4 * q;
+      if (g0 + 4 <= total) {
+        roc::cp_async16(sx + 4 * q, x + g0);
+      } else {  // the array's ragged end: no 16-byte read past it
+        for (int j = 0; j < 4; ++j)
+          if (g0 + j < total) sx[4 * q + j] = x[g0 + j];
       }
     }
-    head_reduce(pbuf, hacc, t0, kTile, K, F, lane);
+  } else {
+    for (int64_t i = tid; i < nr * H; i += kScoreThreads) sx[i] = x[row0 * H + i];
   }
-  for (int k = lane; k < K; k += 32) as[row * K + k] = hacc[k];
+  roc::cp_async_commit();
+  roc::cp_async_wait<0>();
+  __syncthreads();
+  const int64_t stride = padded ? ts : H;
+  for (int p = tid; p < nr * K; p += kScoreThreads) {
+    const int r = p % nr, k = p / nr;
+    const float* xr = sx + off + r * stride + static_cast<int64_t>(k) * F;
+    const float* ar = sa + static_cast<int64_t>(k) * F;
+    float acc = 0.f;
+    if (VEC4) {
+      for (int f = 0; f < F; f += 4) {
+        const float4 xv = *reinterpret_cast<const float4*>(xr + f);
+        const float4 av = *reinterpret_cast<const float4*>(ar + f);
+        acc = __fadd_rn(acc, __fmul_rn(xv.x, av.x));
+        acc = __fadd_rn(acc, __fmul_rn(xv.y, av.y));
+        acc = __fadd_rn(acc, __fmul_rn(xv.z, av.z));
+        acc = __fadd_rn(acc, __fmul_rn(xv.w, av.w));
+      }
+    } else {
+      for (int f = 0; f < F; ++f) acc = __fadd_rn(acc, __fmul_rn(xr[f], ar[f]));
+    }
+    as[(row0 + r) * K + k] = acc;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -478,18 +530,33 @@ bool bad_shape(long long rows, int K, int F) { return rows <= 0 || K <= 0 || F <
 // (0 on success).
 
 extern "C" int roc_gat_score(const void* x, const void* a, void* as, long long rows, int K, int F,
-                             int vec, void* stream) {
+                             int x_aligned16, void* stream) {
   if (bad_shape(rows, K, F)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* xp = static_cast<const float*>(x);
-  const float* ap = static_cast<const float*>(a);
-  float* op = static_cast<float*>(as);
-  switch (vec) {
-    case 4: return launch(gat_score_rows<4>, rows, tile_of(4) + K, s, xp, ap, op, (int64_t)rows, K, F);
-    case 2: return launch(gat_score_rows<2>, rows, tile_of(2) + K, s, xp, ap, op, (int64_t)rows, K, F);
-    case 1: return launch(gat_score_rows<1>, rows, tile_of(1) + K, s, xp, ap, op, (int64_t)rows, K, F);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t H = static_cast<int64_t>(K) * F;
+  const bool padded = H % 4 == 0 && x_aligned16;
+  const int64_t ts = padded ? (H / 4 | 1) * 4 : H;
+  // R rows a block: enough (row, head) pairs for every thread, fewer while the block's
+  // shared memory (a, the rows and off's slack) exceeds what one block may use
+  constexpr int64_t kMaxSmem = 227 * 1024;
+  int64_t R = K >= kScoreThreads ? 1 : kScoreThreads / K;
+  auto smem_of = [&](int64_t r) { return ((H + 3) / 4 * 4 + r * ts + 4) * 4; };
+  while (R > 1 && smem_of(R) > kMaxSmem) R /= 2;
+  const int64_t smem = smem_of(R);
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = padded && F % 4 == 0 ? gat_score_rows<true> : gat_score_rows<false>;
+  if (smem > kSmemBytes) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
+  const dim3 grid(static_cast<unsigned>((rows + R - 1) / R));
+  const size_t bytes = static_cast<size_t>(smem);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  kernel<<<grid, kScoreThreads, bytes, s>>>(
+      static_cast<const float*>(x), static_cast<const float*>(a), static_cast<float*>(as),
+      static_cast<int64_t>(rows), K, F, static_cast<int>(R), static_cast<int>(ts), padded ? 1 : 0,
+      x_aligned16 ? 1 : 0);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int roc_gat_forward(const void* row_ptr, const void* col_idx, const void* x,

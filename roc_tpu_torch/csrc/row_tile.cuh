@@ -47,22 +47,13 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// The megakernel's source rows: src[u, c .. c + VEC), each element zeroed where
-// mask[u, :] <= 0 when MASKED (the relu mask of the backward).  Read-only for the launch.
-template <bool MASKED>
+// The megakernel forward's source rows: src[u, c .. c + VEC).  Read-only for the launch.
 struct SourceRows {
   const float* __restrict__ src;
-  const float* __restrict__ mask;
 
   template <int VEC>
   __device__ __forceinline__ Pack<VEC> load(int64_t u, int64_t c, int64_t H) const {
-    Pack<VEC> s = *reinterpret_cast<const Pack<VEC>*>(src + u * H + c);
-    if (MASKED) {
-      const Pack<VEC> m = *reinterpret_cast<const Pack<VEC>*>(mask + u * H + c);
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) s.v[j] = m.v[j] > 0.f ? s.v[j] : 0.f;
-    }
-    return s;
+    return *reinterpret_cast<const Pack<VEC>*>(src + u * H + c);
   }
 };
 

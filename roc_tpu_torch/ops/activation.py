@@ -1,4 +1,12 @@
-"""Standalone activations (roc_tpu/ops/activation.py)."""
+"""Standalone activations (roc_tpu/ops/activation.py).
+
+``relu`` is the JAX package's ``jnp.maximum(x, 0.0)`` with that function's
+VJP: the cotangent times 1 where x > 0, 0.5 at a tie (x == 0, either
+sign), 0 elsewhere (NaN included), as ``jax.lax.max``'s balanced rule
+gives it.  ``torch.clamp_min``'s own backward passes the whole cotangent
+at x == 0.  The fused megakernel and region paths keep their ``y > 0``
+mask (the Pallas kernels' rule), so they pass 0 at a tie.
+"""
 
 from __future__ import annotations
 
@@ -6,8 +14,23 @@ import torch
 import torch.nn.functional as F
 
 
+class _Relu(torch.autograd.Function):
+    """max(x, 0), NaN passing through; backward g * (1, 0.5 or 0)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.clamp_min(x, 0.0)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        slope = torch.where(x > 0, 1.0, torch.where(x == 0, 0.5, 0.0))
+        return g * slope.to(g.dtype)
+
+
 def relu(x: torch.Tensor) -> torch.Tensor:
-    return torch.clamp_min(x, 0.0)
+    return _Relu.apply(x)
 
 
 def sigmoid(x: torch.Tensor) -> torch.Tensor:

@@ -11,6 +11,7 @@ from roc_tpu_torch.ops.kernels import (aggregate_linear, aggregate_sum, gat,
 KERNELS = {"aggregate_sum": aggregate_sum.aggregate_sum,
            "aggregate_linear": aggregate_linear.aggregate_linear,
            "aggregate_linear_bwd": aggregate_linear.aggregate_linear_bwd,
+           "stage_cotangent": aggregate_linear.stage_cotangent,
            "gat_score": gat.gat_score,
            "gat_forward": gat.gat_forward,
            "gat_bwd_dst": gat.gat_bwd_dst,

@@ -11,7 +11,10 @@ JAX package's ``roc_tpu/ops/pallas/binned.py:run_binned_linear``
 computes, over the transposed CSR, ``u = A^T (g * [y > 0])`` (``A^T g``
 without relu) and ``dx = u W^T``: the function of ``run_binned_linear_bwd``
 (``_mega_bwd_kernel``).  ``dW = x^T u`` is left to the caller as one GEMM,
-as the JAX package leaves it to XLA.
+as the JAX package leaves it to XLA.  On the card it runs two kernels:
+``stage_cotangent`` writes the masked, rounded cotangent once per source
+row (a bf16 plane in "fast", fp32 in exact with relu; exact without relu
+gathers g itself), then the backward gathers that plane.
 
 Precision contract (binned.py:2304-2317, :2599-2615):
 
@@ -24,9 +27,10 @@ Inputs and outputs are fp32.
 
 On a CUDA tensor each wrapper launches its kernel from
 ``csrc/aggregate_linear.cu`` or raises; on a CPU tensor it runs the plain
-version.  ``aggregate_linear.launches`` and ``aggregate_linear_bwd.launches``
-count kernel launches.  Index bounds are the caller's, as for
-``aggregate_sum`` (the graph data validates the CSR once).
+version.  ``aggregate_linear.launches``, ``aggregate_linear_bwd.launches``
+and ``stage_cotangent.launches`` count kernel launches.  Index bounds are
+the caller's, as for ``aggregate_sum`` (the graph data validates the CSR
+once).
 """
 
 from __future__ import annotations
@@ -36,7 +40,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from roc_tpu_torch.ops.kernels.aggregate_sum import (_check_csr,
+from roc_tpu_torch.ops.kernels.aggregate_sum import (_check_csr, _vec_width,
                                                      aggregate_sum_plain,
                                                      check_precision)
 from roc_tpu_torch.ops.kernels.build import CudaLibrary
@@ -48,8 +52,11 @@ def _bind(lib: ctypes.CDLL) -> None:
     fwd = lib.roc_aggregate_linear
     fwd.argtypes = [p, p, p, p, p, ll, ll, ll, i, i, i, p]
     fwd.restype = ctypes.c_int
+    stage = lib.roc_stage_cotangent
+    stage.argtypes = [p, p, p, ll, ll, ll, i, i, i, p]
+    stage.restype = ctypes.c_int
     bwd = lib.roc_aggregate_linear_bwd
-    bwd.argtypes = [p, p, p, p, p, p, p, ll, ll, ll, i, i, i, p]
+    bwd.argtypes = [p, p, p, ll, i, i, p, ll, p, p, ll, ll, ll, p]
     bwd.restype = ctypes.c_int
 
 
@@ -80,6 +87,18 @@ def aggregate_linear_plain(x: torch.Tensor, w: torch.Tensor,
                   activation)
 
 
+def stage_cotangent_plain(g: torch.Tensor, y: Optional[torch.Tensor],
+                          precision: str = "fast",
+                          relu: bool = False) -> torch.Tensor:
+    """The staged cotangent as fp32 values: ``g * [y > 0]`` (g without
+    relu; a NaN of g passes where y > 0), rounded once to bf16 in
+    "fast"."""
+    _check(precision, "relu" if relu else "none", g)
+    s = torch.where(y > 0, g, torch.zeros_like(g)) if relu else g
+    return s.to(torch.bfloat16).to(torch.float32) if precision == "fast" \
+        else s
+
+
 def aggregate_linear_bwd_plain(g: torch.Tensor, y: Optional[torch.Tensor],
                                w: torch.Tensor, t_row_ptr: torch.Tensor,
                                t_col_idx: torch.Tensor,
@@ -87,25 +106,15 @@ def aggregate_linear_bwd_plain(g: torch.Tensor, y: Optional[torch.Tensor],
                                need_dx: bool = True
                                ) -> Tuple[torch.Tensor,
                                           Optional[torch.Tensor]]:
-    """The plain version of the backward: ``(u, dx)`` with
-    ``u = A^T (g * [y > 0])`` over the transposed CSR, rounded once to bf16
-    before the sum in "fast", and ``dx = u W^T`` in fp32 (None unless
-    ``need_dx``)."""
+    """The plain version of the backward: ``(u, dx)`` with ``u`` the sum
+    over the transposed CSR of the staged cotangent
+    (:func:`stage_cotangent_plain`, already rounded, so summed in fp32) and
+    ``dx = u W^T`` in fp32 (None unless ``need_dx``)."""
     _check_csr(g, t_row_ptr, t_col_idx)
     _check(precision, "relu" if relu else "none", g, w)
-    gm = torch.where(y > 0, g, torch.zeros_like(g)) if relu else g
-    u = aggregate_sum_plain(gm, t_row_ptr, t_col_idx, precision)
+    s = stage_cotangent_plain(g, y, precision, relu)
+    u = aggregate_sum_plain(s, t_row_ptr, t_col_idx, "exact")
     return u, (linear(u, w.t()) if need_dx else None)
-
-
-def _vec_width(*ts: torch.Tensor) -> int:
-    """Widest vector load (elements per lane) that divides the gathered
-    width and keeps every row start of every gathered tensor aligned."""
-    h = ts[0].shape[1]
-    for v in (4, 2, 1):
-        if h % v == 0 and all(t.data_ptr() % (v * 4) == 0 for t in ts):
-            return v
-    return 1
 
 
 def _require_cuda(name: str, *tensors) -> None:
@@ -161,6 +170,54 @@ def aggregate_linear(x: torch.Tensor, w: torch.Tensor,
     return out
 
 
+def _staged_plane(h: int, precision: str, relu: bool):
+    """(dtype, row stride) of the staged cotangent plane: bf16 in "fast",
+    fp32 in exact with relu, rows padded to 16 bytes; None in exact without
+    relu, which gathers g itself."""
+    if precision == "fast":
+        return torch.bfloat16, -(-h // 8) * 8
+    if relu:
+        return torch.float32, -(-h // 4) * 4
+    return None, h
+
+
+def stage_cotangent(g: torch.Tensor, y: Optional[torch.Tensor],
+                    precision: str = "fast",
+                    relu: bool = False) -> torch.Tensor:
+    """The staged cotangent plane ``round(g * [y > 0])``: g, y [rows, H]
+    fp32 -> [rows, ld] (bf16 in "fast", fp32 in exact with relu; columns
+    from H on are 0).  Launches the CUDA kernel for CUDA tensors; for CPU
+    tensors it is :func:`stage_cotangent_plain` ([rows, H] fp32).  Exact
+    without relu stages nothing: the backward gathers g itself."""
+    if g.device.type == "cpu":
+        return stage_cotangent_plain(g, y, precision, relu)
+    _check(precision, "relu" if relu else "none", g)
+    dtype, ld = _staged_plane(g.shape[1], precision, relu)
+    if dtype is None:
+        raise ValueError("exact without relu has no staged plane")
+    if relu and (y is None or y.shape != g.shape or y.dtype != g.dtype):
+        raise ValueError("relu needs the saved output y, shaped like g")
+    gathered = (g, y) if relu else (g,)
+    _require_cuda("stage_cotangent", *gathered)
+    rows, h = g.shape
+    s = torch.empty((rows, ld), dtype=dtype, device=g.device)
+    if rows == 0 or h == 0:
+        return s.zero_()
+    vec = 4 if h % 4 == 0 and all(t.data_ptr() % 16 == 0
+                                  for t in gathered) else 1
+    fn = LIBRARY.load().roc_stage_cotangent
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream(g.device).cuda_stream
+        err = fn(g.data_ptr(), y.data_ptr() if relu else None, s.data_ptr(),
+                 rows, h, ld, int(dtype == torch.bfloat16), int(relu), vec,
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"stage_cotangent kernel launch failed: CUDA "
+                           f"error {err}")
+    stage_cotangent.launches += 1
+    return s
+
+
 def aggregate_linear_bwd(g: torch.Tensor, y: Optional[torch.Tensor],
                          w: torch.Tensor, t_row_ptr: torch.Tensor,
                          t_col_idx: torch.Tensor, precision: str = "fast",
@@ -168,36 +225,45 @@ def aggregate_linear_bwd(g: torch.Tensor, y: Optional[torch.Tensor],
                          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The layer's backward over the transposed CSR: g, y [num_rows,
     H_out], w [H_in, H_out] -> (u [table_rows, H_out], dx [table_rows,
-    H_in] or None).  Launches the CUDA kernel for CUDA tensors, runs the
-    plain version for CPU tensors."""
+    H_in] or None).  For CUDA tensors it stages the cotangent
+    (:func:`stage_cotangent`) and launches the backward kernel on the
+    staged plane; for CPU tensors it runs the plain version."""
     if g.device.type == "cpu":
         return aggregate_linear_bwd_plain(g, y, w, t_row_ptr, t_col_idx,
                                           precision, relu, need_dx)
     _check_csr(g, t_row_ptr, t_col_idx)
     _check(precision, "relu" if relu else "none", g, w)
-    gathered = (g, y) if relu else (g,)
     if relu and (y is None or y.shape != g.shape or y.dtype != g.dtype):
         raise ValueError("relu needs the saved output y, shaped like g")
-    _require_cuda("aggregate_linear_bwd", *gathered, w, t_row_ptr, t_col_idx)
+    _require_cuda("aggregate_linear_bwd", g, w, t_row_ptr, t_col_idx)
     _csr_int64(t_row_ptr)
     if w.dim() != 2 or w.shape[1] != g.shape[1]:
         raise ValueError(f"w must be [H_in, {g.shape[1]}], got "
                          f"{tuple(w.shape)}")
     t, h_out, h_in = t_row_ptr.numel() - 1, g.shape[1], w.shape[0]
-    wt = w.t().contiguous()
     u = torch.empty((t, h_out), dtype=torch.float32, device=g.device)
     dx = torch.empty((t, h_in), dtype=torch.float32, device=g.device) \
         if need_dx else None
     if t == 0 or h_out == 0 or h_in == 0:
         return u.zero_(), (dx.zero_() if need_dx else None)
+    dtype, ld = _staged_plane(h_out, precision, relu)
+    if dtype is None:
+        s, vec = g, _vec_width(g)
+    else:
+        s = stage_cotangent(g, y, precision, relu)
+        vec = 8 if dtype == torch.bfloat16 else 4
+    # W^T [H_out, ldw], its rows padded to 16 bytes for the GEMM's cp.async
+    ldw = -(-h_in // 4) * 4
+    if need_dx:
+        wt = torch.zeros((h_out, ldw), dtype=torch.float32, device=g.device)
+        wt[:, :h_in] = w.t()
     fn = LIBRARY.load().roc_aggregate_linear_bwd
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream(g.device).cuda_stream
-        err = fn(t_row_ptr.data_ptr(), t_col_idx.data_ptr(), g.data_ptr(),
-                 y.data_ptr() if relu else None, wt.data_ptr(), u.data_ptr(),
-                 dx.data_ptr() if need_dx else None, t, h_out, h_in,
-                 int(precision == "fast"), int(relu),
-                 _vec_width(*gathered), stream)
+        err = fn(t_row_ptr.data_ptr(), t_col_idx.data_ptr(), s.data_ptr(),
+                 ld, int(dtype == torch.bfloat16), vec,
+                 wt.data_ptr() if need_dx else None, ldw, u.data_ptr(),
+                 dx.data_ptr() if need_dx else None, t, h_out, h_in, stream)
     if err != 0:
         raise RuntimeError(f"aggregate_linear_bwd kernel launch failed: "
                            f"CUDA error {err}")
@@ -207,3 +273,4 @@ def aggregate_linear_bwd(g: torch.Tensor, y: Optional[torch.Tensor],
 
 aggregate_linear.launches = 0
 aggregate_linear_bwd.launches = 0
+stage_cotangent.launches = 0

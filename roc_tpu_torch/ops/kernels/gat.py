@@ -6,7 +6,9 @@ columns [k*F, (k+1)*F)), the layout of the JAX package's fused kernels
 from the score tensors' second dimension.  Entry points, each the function
 of a TPU kernel (or of the score its body computes):
 
-  gat_score(x, a_src)                  as[t, k] = sum_f x[t, kF+f] a_src[k, f]
+  gat_score(x, a_src)                  as[t, k] = sum_f x[t, kF+f] a_src[k, f],
+                                       in f order from 0, each product rounded
+                                       before its add (``gat_score_serial``)
                                        (``_chunk_score``, gat.py:310)
   gat_forward(x, as_, ad, row_ptr, col_idx, slope, precision)
                                        -> (out [N, H], m [N, K], z [N, K]):
@@ -162,6 +164,18 @@ def gat_score_plain(x: torch.Tensor, a_src: torch.Tensor) -> torch.Tensor:
     return (x.view(-1, k, f) * a_src).sum(-1)
 
 
+def gat_score_serial(x: torch.Tensor, a_src: torch.Tensor) -> torch.Tensor:
+    """The source score in the kernel's order and rounding: for each head,
+    from 0, add the rounded product of feature f, f = 0, 1, ...  A check of
+    the kernel's bits (``chip_smoke.py``, the tests); no path runs it."""
+    k, f = a_src.shape
+    xv = x.view(-1, k, f)
+    acc = torch.zeros((x.shape[0], k), dtype=torch.float32, device=x.device)
+    for i in range(f):
+        acc = acc + xv[:, :, i] * a_src[:, i]
+    return acc
+
+
 def gat_forward_plain(x, as_, ad, row_ptr, col_idx, slope: float = 0.2,
                       precision: str = "exact"):
     """The plain forward on any device: the two-pass softmax, its maxima
@@ -280,7 +294,7 @@ def gat_score(x: torch.Tensor, a_src: torch.Tensor) -> torch.Tensor:
         return out
     _launch("gat_score", LIBRARY.load().roc_gat_score, x.data_ptr(),
             a_src.data_ptr(), out.data_ptr(), x.shape[0], k, f,
-            _vec_width(x.shape[1], x, a_src), x.device)
+            int(x.data_ptr() % 16 == 0), x.device)
     gat_score.launches += 1
     return out
 

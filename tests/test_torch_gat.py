@@ -193,6 +193,36 @@ def test_forward_ragged_heads_match_the_plan(monkeypatch, k, f):
     assert norm_ulps(want, _port(h, a_src, a_dst, csr, "exact")) <= 32
 
 
+@pytest.mark.parametrize("k,f", [(1, 41), (4, 64), (3, 5), (40, 2)])
+def test_serial_score_reference_matches_plain_and_roc_tpu(k, f):
+    """``gat_score_serial`` (the kernel's order and rounding: products
+    rounded, added in f order from 0) against ``gat_score_plain`` and
+    roc_tpu's ``einsum("tkf,kf->tk")`` at "highest": each element within
+    1e-6 of the sum of the absolute values of its terms (the three differ
+    only in the order of the fp32 adds)."""
+    x, a_src, _ = _gaussian(300, k, f, seed=23)
+    x = x.reshape(300, k * f)
+    x[0, :] = 0.0
+    x[1, 0] = -0.0
+    got = G.gat_score_serial(torch.as_tensor(x), torch.as_tensor(a_src))
+    assert got.shape == (300, k) and got.dtype == torch.float32
+    terms = (np.abs(x).reshape(300, k, f) * np.abs(a_src)).sum(-1)
+    plain = G.gat_score_plain(torch.as_tensor(x), torch.as_tensor(a_src))
+    jax_score = jnp.einsum("tkf,kf->tk", jnp.asarray(x.reshape(300, k, f)),
+                           jnp.asarray(a_src), precision="highest")
+    for want in (plain.numpy(), np.asarray(jax_score)):
+        err = np.abs(got.numpy() - want)
+        assert (err <= 1e-6 * terms).all(), float(err.max())
+    # the serial order from 0, as the kernel adds
+    want = np.zeros((300, k), np.float32)
+    xv = x.reshape(300, k, f)
+    for i in range(f):
+        want = want + xv[:, :, i] * a_src[:, i]
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  want.view(np.int32))
+    assert (got[0] == 0).all()
+
+
 # -- backward ---------------------------------------------------------------
 
 def _port_grads(h, a_src, a_dst, csr, precision):

@@ -53,7 +53,8 @@ def test_every_kernel_source_has_a_loader():
     sources = {p.name for p in (PORT / "csrc").glob("*.cu")}
     assert sources == {lib.source.name for lib in LIBRARIES}
     assert set(KERNELS) == {"aggregate_sum", "aggregate_linear",
-                            "aggregate_linear_bwd", "gat_score",
+                            "aggregate_linear_bwd", "stage_cotangent",
+                            "gat_score",
                             "gat_forward", "gat_bwd_dst", "gat_bwd_src",
                             "xlayer_fwd", "xlayer_bwd"}
 
@@ -67,7 +68,8 @@ def _imported_modules(path: Path):
 
 
 def test_no_jax_or_roc_tpu_import_in_source():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                          ROOT / "chip_ab.py"]
     assert len(files) >= 20
     for f in files:
         for mod in _imported_modules(f):

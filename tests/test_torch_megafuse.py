@@ -34,6 +34,7 @@ from roc_tpu_torch import ops
 from roc_tpu_torch.models import build_gcn
 from roc_tpu_torch.models.model import Model, mega_matches
 from roc_tpu_torch.ops.kernels import aggregate_linear as KL
+from roc_tpu_torch.ops.kernels.aggregate_sum import aggregate_sum_plain
 
 GF = B.Geometry(sb=256, ch=512, slot=128, rb=256, ch2=512, grt=1 << 14,
                 flat=1)
@@ -160,6 +161,87 @@ def test_plain_versions_match_roc_tpu_on_gaussian(precision, act,
                 _port_autograd(csr, x, w, g, precision, act)):
         for a, b in zip(got, want):
             assert _row_rel_err(a, b) <= 1e-5
+
+
+@pytest.mark.parametrize("act", ["none", "relu"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_plain_versions_bitwise_vs_roc_tpu_on_integers_fast(act, seed,
+                                                            monkeypatch):
+    """The dominance fixture in "fast": its integers are bf16-exact, so the
+    one rounding of the staged cotangent changes nothing on either side."""
+    n, t, e, h, ho = 96, 128, 800, 64, 32
+    src, dst, x, w = _dom_graph(n, t, e, h, ho, 800, -4, 4, -3, 3, seed)
+    g = np.random.default_rng(seed + 50).integers(-3, 4, (n, ho)) \
+        .astype(np.float32)
+    want = _jax_layer(src, dst, n, t, x, w, g, "fast", act, monkeypatch)
+    csr = _device_csr(src, dst, n, t)
+    for got in (_port_plain(csr, x, w, g, "fast", act),
+                _port_autograd(csr, x, w, g, "fast", act)):
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+
+
+def _old_bwd_u(g, y, t_row_ptr, t_col_idx, precision, relu):
+    """The backward's u as the plain version computed it before the
+    cotangent was staged: the mask, then the sum at the precision (one
+    bf16 rounding of each gathered element in "fast")."""
+    gm = torch.where(y > 0, g, torch.zeros_like(g)) if relu else g
+    return aggregate_sum_plain(gm, t_row_ptr, t_col_idx, precision)
+
+
+def _int32(t):
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("precision", ["fast", "exact"])
+def test_staged_cotangent_sums_to_the_old_per_edge_mask_and_round(precision,
+                                                                   relu):
+    """u from the staged plane (masked and rounded once per source row)
+    equals u from the old per-edge mask and round, bit for bit, with NaN
+    and -0.0 in g and ties (y == +-0) in y."""
+    rng = np.random.default_rng(17)
+    n, e, ho = 80, 900, 19
+    src = rng.integers(0, n, e)
+    dst = np.sort(rng.integers(0, n, e))
+    csr = _device_csr(src, dst, n, n)
+    g = torch.as_tensor(rng.standard_normal((n, ho)).astype(np.float32))
+    y = torch.as_tensor(rng.standard_normal((n, ho)).astype(np.float32))
+    g[3, 2], g[4, 1], g[5, :4], g[7, 1] = float("nan"), float("nan"), \
+        -0.0, 1e-40
+    # g[3, 2]'s NaN passes the mask, g[4, 1]'s is masked off
+    y[3, 2], y[4, 1], y[5, 1], y[9, :3], y[3, 0] = 1.0, -1.0, 0.0, -0.0, 0.0
+    staged = KL.stage_cotangent_plain(g, y, precision, relu)
+    assert staged.dtype == torch.float32
+    got = aggregate_sum_plain(staged, csr.t_row_ptr, csr.t_col_idx, "exact")
+    via_bwd, _ = KL.aggregate_linear_bwd_plain(
+        g, y, torch.ones(4, ho), csr.t_row_ptr, csr.t_col_idx, precision,
+        relu, need_dx=False)
+    want = _old_bwd_u(g, y, csr.t_row_ptr, csr.t_col_idx, precision, relu)
+    assert torch.isnan(want).any()
+    for u in (got, via_bwd):
+        assert torch.equal(torch.isnan(u), torch.isnan(want))
+        keep = ~torch.isnan(want)
+        assert torch.equal(_int32(u)[keep], _int32(want)[keep])
+    # the staged -0.0 survives the mask and the rounding where y > 0
+    assert torch.equal(_int32(staged[5, 2:4]),
+                       _int32(torch.where(y[5, 2:4] > 0, -0.0, 0.0)
+                              if relu else torch.full((2,), -0.0)))
+
+
+def test_stage_cotangent_takes_the_plain_version_on_the_cpu():
+    g = torch.tensor([[1.0 + 2 ** -12, -2.0, float("nan")]])
+    y = torch.tensor([[1.0, 0.0, 3.0]])
+    got = KL.stage_cotangent(g, y, "fast", True)
+    assert torch.equal(got[:, :2], torch.tensor([[1.0, 0.0]]))
+    assert torch.isnan(got[0, 2])
+    assert torch.equal(KL.stage_cotangent(g, y, "exact", False)[:, :2],
+                       g[:, :2])
+    assert KL.stage_cotangent.launches == 0      # the CPU never launches
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        KL.stage_cotangent(g.to("meta"), y.to("meta"), "fast", True)
+    with pytest.raises(ValueError, match="precision"):
+        KL.stage_cotangent(g, y, "bf16", True)
 
 
 def test_backward_skips_dx_when_the_input_takes_no_gradient():
