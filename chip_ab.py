@@ -13,6 +13,10 @@ and measures on the Reddit graph:
                 with nothing else live in the process
   chain_depth1  gcn-chain 602-256-256-256-41, -megafuse -fusion-depth 1
                 (chip_smoke.py's train_chain phase): the same
+  chain_depth2  the same at -fusion-depth 2 (one region of the two
+                256-wide layers)
+  chain_depth0  the same at -fusion-depth 0 (one region of the three
+                hidden layers)
   score         the GAT source score at K=4, F=64 and K=1, F=41 beside
                 torch.einsum: the CUDA-event time of one launch (median of
                 50) and the time per launch over runs of 100 launches
@@ -43,8 +47,9 @@ dev = torch.device("cuda", 0)
 ds = datasets.get("reddit", seed=C.SEED)
 out = {"checkout": root}
 for name, phase in (("gcn_megafuse", lambda: C.phase_train(ds, dev, True)),
-                    ("chain_depth1",
-                     lambda: C.phase_train_chain(ds, dev, 1))):
+                    *((f"chain_depth{d}",
+                       lambda d=d: C.phase_train_chain(ds, dev, d))
+                      for d in (1, 2, 0))):
     rec = phase()
     out[name] = {"median_epoch_ms_3_on": rec["median_epoch_ms_3_on"],
                  "peak_mem_bytes": rec["peak_mem_bytes"]}

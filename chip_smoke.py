@@ -96,11 +96,15 @@ Phases, each printing one JSON line per record:
           sum of the absolute values of each element's terms
   kernel  (xlayer) the same at the full-width path's region on the Reddit
           graph (depth 3, 602-256-256-256, relu, fold), both precisions,
-          plus: whether the region equals the chain of per-layer megakernels
-          bitwise (forward, and dx); times of the kernel (the backward as the
-          path calls it, without dx, and with dx), the plain version and the
-          library composition (per layer torch.sparse.mm, torch.matmul and
-          the epilogue, forward and backward); the bound
+          plus: the region equals the chain of per-layer megakernels
+          bitwise (forward, and dx; part of the row's ok); times of the
+          kernel (the backward as the path calls it, without dx, and with
+          dx), the plain version and the library composition (per layer
+          torch.sparse.mm, torch.matmul and the epilogue, forward and
+          backward); the bound; the phase split (phase_ms: per phase of the
+          launch, the median over 5 launches of the time between the
+          kernel's %globaltimer stamps); each region kernel's registers
+          and spill bytes from the build's ptxas report (ptxas)
   train_small_chain  the Trainer with gcn-chain 64-16-16-16-8 on mega-shard,
           exact, dropout 0, -megafuse -fusion-depth 0, card vs CPU: within
           1e-5; the card's run launched the region kernels
@@ -1110,6 +1114,7 @@ def phase_kernel_xlayer(ds, dev) -> list:
     ints = region_int_inputs(n, REGION, gen, dev, seed_rows=64)
     gauss = region_gauss_inputs(n, REGION, scale, gen, dev)
     lib_fwd, lib_bwd = _region_library(csr, n, dev)
+    ptxas = ptxas_report(KX.LIBRARY.info.get("log", ""))
     rows = []
     for prec in ("fast", "exact"):
         res = _region_check(csr, prec, REGION_ACTS, ints, gauss)
@@ -1146,7 +1151,13 @@ def phase_kernel_xlayer(ds, dev) -> list:
                                    name == "xlayer_bwd", bool(need_dx))}
             if name == "xlayer_fwd":
                 rec["per_layer_chain_bitwise"] = chain_fwd_equal
+                rec["ok"] = rec["ok"] and chain_fwd_equal
                 args = (x, ws, s)
+                rec["phase_ms"] = region_phase_ms(
+                    lambda st: KX.xlayer_fwd(x, ws, s, csr.row_ptr,
+                                             csr.col_idx, prec, REGION_ACTS,
+                                             stamps=st), len(ws), False,
+                    prec)
                 rec["kernel_ms"] = time_ms(lambda: kern(*args), reps=20,
                                            warmup=3)
                 rec["plain_ms"] = time_ms(lambda: plain(*args), reps=5,
@@ -1155,7 +1166,13 @@ def phase_kernel_xlayer(ds, dev) -> list:
             else:
                 rec["dx"] = need_dx
                 rec["per_layer_chain_dx_bitwise"] = chain_dx_equal
+                rec["ok"] = rec["ok"] and chain_dx_equal
                 args = (x, ws, s, gg, y, need_dx)
+                rec["phase_ms"] = region_phase_ms(
+                    lambda st: KX.xlayer_bwd(
+                        gg, y, x, ws, s, csr.row_ptr, csr.col_idx,
+                        csr.t_row_ptr, csr.t_col_idx, prec, REGION_ACTS,
+                        need_dx, stamps=st), len(ws), True, prec)
                 rec["kernel_ms"] = time_ms(lambda: kern(*args),
                                            reps=20 if not need_dx else 10,
                                            warmup=3)
@@ -1163,6 +1180,7 @@ def phase_kernel_xlayer(ds, dev) -> list:
                                           warmup=1)
                 rec["library_ms"] = time_ms(lambda: lib_bwd(*args), reps=10)
                 rec["grid"] = KX.xlayer_bwd.grid
+            rec["ptxas"] = {k: v for k, v in ptxas.items() if name in k}
             emit(rec)
             rows.append(rec)
             if not rec["ok"]:
@@ -1170,6 +1188,55 @@ def phase_kernel_xlayer(ds, dev) -> list:
                                      f"version: {rec}")
         del y
     return rows
+
+
+def ptxas_report(log: str) -> dict:
+    """Registers and spill bytes per entry function from ``nvcc -Xptxas -v``
+    output ({} when the build printed nothing, as a cached build does),
+    keyed by the demangled name where ``c++filt`` is at hand."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name in out:
+            out[name].update(spill_stores=int(m.group(1)),
+                             spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name in out:
+            out[name]["registers"] = int(m.group(1))
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(out),
+                               capture_output=True, text=True, timeout=60,
+                               check=True).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        names = list(out)
+    if len(names) != len(out):
+        names = list(out)
+    return dict(zip(names, out.values()))
+
+
+def region_phase_ms(launch, depth: int, backward: bool, precision: str,
+                    reps: int = 5) -> list:
+    """The phase split of a region kernel: ``launch(stamps)`` runs it once
+    with a stamp buffer; per phase the median over ``reps`` launches (after
+    one more) of the time between its two ``%globaltimer`` stamps, in
+    ms."""
+    from roc_tpu_torch.ops.kernels import xlayer as KX
+    names = KX.phases(depth, backward, precision)
+    buf = torch.zeros(len(names) + 1, dtype=torch.int64, device="cuda")
+    runs = []
+    for _ in range(reps + 1):
+        launch(buf)
+        torch.cuda.synchronize()
+        t = buf.tolist()
+        runs.append([(b - a) / 1e6 for a, b in zip(t, t[1:])])
+    return [{"phase": name, "ms": statistics.median(r[i] for r in runs[1:])}
+            for i, name in enumerate(names)]
 
 
 def _trainer(ds, layers, dev, **kw):

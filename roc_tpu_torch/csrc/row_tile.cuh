@@ -1,7 +1,9 @@
-// Row-tile device code shared by the whole-layer megakernel (aggregate_linear.cu) and the
-// cross-layer region kernels (xlayer.cu): the CSR gather of up to 16 destination rows into
-// an fp32 shared-memory tile, and the fp32 FMA GEMM of that tile with a row-major weight.
-// Both files run exactly this arithmetic, so a region layer gives the same bits as the
+// Row-tile device code of the whole-layer megakernel forward (aggregate_linear.cu): the CSR
+// gather of up to 16 destination rows into an fp32 shared-memory tile, and the fp32 FMA GEMM
+// of that tile with a row-major weight; and the launch constants and prepare() that the
+// cross-layer region kernels (xlayer.cu) share.  xlayer.cu has its own gather and
+// shared-memory GEMM, with the same arithmetic (the same addends summed in CSR order from 0,
+// one fmaf per k in ascending k from 0), so a region layer gives the same bits as the
 // per-layer megakernel on the same input.
 //
 // Gather (gather_rows).  A block of 256 threads owns RB <= 16 consecutive rows of the CSR it

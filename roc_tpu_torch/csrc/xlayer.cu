@@ -13,246 +13,703 @@
 // Backward, roc_xlayer_bwd:   (dx, dW_0 .. dW_{D-1}) of the forward, given the output
 //   cotangent g, the saved output y, the input x and the weights.  Replaces
 //   binned.py:3226 _xlayer_bwd_kernel (pallas_call at :3581, run_binned_region_bwd :3591).
-//   1. Replay: D-1 forward sweeps over the CSR refill the interior planes P_0 .. P_{D-2}
-//      in their scaled form (nothing of the forward was saved but x and y).
-//   2. D sweeps over the TRANSPOSED CSR, layer l = D-1 down to 0.  The staged cotangent is
-//      g * [y > 0] at the last layer (the mask only with its relu), and at an interior layer
-//      the handed-off cotangent c, times s twice when scaled, masked by P_l > 0 when the
-//      layer has a relu.  Its sum over the transpose is u_l (written to a workspace plane);
-//      the hand-off u_l W_l^T goes to the cotangent ping-pong, or to dx at l = 0 (skipped
-//      when dx is not asked for).
+//   0. Staging: the last layer's staged cotangent S_{D-1} = g * [y > 0] (g without its relu).
+//   1. Replay: D-1 forward sweeps over the CSR refill the interior planes P_0 .. P_{D-2} in
+//      their scaled form (nothing of the forward was saved but x and y).
+//   2. D sweeps over the TRANSPOSED CSR, layer l = D-1 down to 0: u_l = A^T S_l (written to a
+//      workspace plane), then the hand-off v = u_l W_l^T, whose epilogue forms the next
+//      layer's staged cotangent S_{l-1} = ((v * s) * s) * [P_{l-1} > 0] (the scale when
+//      given, the mask with layer l-1's relu), or writes dx at l = 0 (skipped when dx is not
+//      asked for).
 //   3. dW_l = z_l^T u_l, z_l = P_{l-1} (x at l = 0), after each sweep: a split-K GEMM in the
-//      kernel.  Rows are cut into fixed chunks of kDwSplitRows; each (chunk, 64 x 64 output
-//      tile) item is one block's FMA loop over its rows in order, written to a partials
-//      workspace; after a grid sync each dW element sums its chunks' partials in chunk
-//      order.  No floating-point atomics: two calls give the same bits.  Workspace:
-//      ceil(N / 4096) * ceil(H_l / 64) * ceil(H_{l+1} / 64) * 64 * 64 floats, the largest l
-//      (37 MB at Reddit's 602 -> 256 layer).
+//      kernel (see dw_partials), reduced in chunk order: no floating-point atomics, so two
+//      calls give the same bits.
 //
 // The function is copied, not the TPU schedule: bins, one-hot MXU scatters, 128-lane
 // padding, VMEM admission gates and the weight stack padded to one width are not carried
 // over; each layer uses its own widths.
 //
+// Precision: the template type T is the type of every plane a sweep gathers.  T = bf16 is
+// "fast": each gathered element is rounded once to bf16 (round to nearest even), and the
+// rounding is done where the element is formed, once per source row, not once per edge:
+// x is staged into a bf16 plane (phase 0), the forward's interior planes are stored as
+// bf16, the replay writes a bf16 shadow of each plane the next replay layer gathers, and
+// the staged cotangents are bf16.  bf16 -> fp32 is exact, so every sum sees the values the
+// per-edge rounding formed, in the same CSR order from 0: the bits of the chain of per-layer
+// megakernels (aggregate_linear.cu), which chip_smoke.py checks.  T = float is "exact":
+// fp32 throughout, x gathered in place.  Sums are fp32 from 0 in CSR order.  The GEMMs are
+// fp32 FMA (no TF32): each output element one fmaf per k in ascending k from 0, the bits of
+// row_tile.cuh's tile_gemm and of mega_bwd_dx.  The scale is multiplied, never recomputed
+// here: rsqrtf is not correctly rounded and would break parity with the per-layer chain.
+//
 // Design.  One persistent cooperative launch per pass, as the Pallas grid is one grid: the
 // grid is the occupancy limit times the SM count, and cooperative_groups' grid sync
-// separates the sweeps.  A launch that cannot be cooperative fails; nothing falls back to
-// per-layer launches.  Each sweep runs the row-tile gather and GEMM of row_tile.cuh, the
-// megakernel's own code, so a region layer gives the per-layer megakernel's bits.  Tiles of
-// 16 rows are claimed from a per-sweep atomic counter, so a block that drew hub rows takes
-// fewer tiles; each row is still summed by one warp in CSR order, whichever block takes it.
-// The interior planes ([N, H] fp32, 238.6 MB at N = 232,965, H = 256) cannot stay on chip
-// and live in device workspaces the wrapper allocates per call: 1 plane at depth 2 and a
-// ping-pong of 2 beyond in the forward; D-1 replay planes, a cotangent ping-pong, u and the
-// dW partials in the backward.  Planes written earlier in the same launch are read through
-// L2 (ld.global.cg), never through the non-coherent read-only path.
+// separates the phases.  A launch that cannot be cooperative fails; nothing falls back to
+// per-layer launches.  A sweep claims tiles of 16 destination rows from a per-sweep atomic
+// counter (a block that drew hub rows takes fewer tiles).  Each warp sums its rows of the
+// tile: lane i owns the 16-byte packs i, i + 32, ... of the row (8 bf16 or 4 fp32 values),
+// so one pass over the row's edges covers up to 32 * kMaxPacks packs (768 bf16 columns: the
+// 602-wide layer in one pass, where 16-byte fp32 loads of 128-column spans took five; in
+// exact, x read in place at 602 in three passes of 2-float packs).
+// The tile [16, H] goes to shared memory (and, over the transpose, to u), then the tile's
+// GEMM: the weight comes through shared memory in cp.async double-buffered slices of 8 rows
+// by 256 columns, each thread owns a 4 x 4 register tile (mega_bwd_dx's scheme), and the
+// tile rows have an odd count of 16-byte chunks, so the float4 reads along k are free of
+// bank conflicts.  Interior planes cannot stay on chip ([N, 256] fp32 is 238.6 MB at
+// Reddit) and live in device workspaces the wrapper allocates per call.  Planes written
+// earlier in the same launch are read through L2 (ld.global.cg, cp.async.cg), never through
+// the non-coherent read-only path.
 //
-// Precision: ROUND = true is "fast", one bf16 rounding of each gathered element (x or a
-// plane forward, the staged cotangent backward), fp32 sums; ROUND = false is "exact".  The
-// GEMMs are fp32 FMA (no TF32).  The scale is multiplied, never recomputed here: rsqrtf is
-// not correctly rounded and would break parity with the per-layer chain.
+// dW is the one GEMM whose bits no chain check pins (it is held per element against the
+// plain version).  Rows are cut into fixed chunks of kDwSplitRows; each (chunk, 64 x 128
+// output tile) item is one block's FMA loop over its rows in order, 32 rows a stage brought
+// in by cp.async, double-buffered, and a 4 x 8 register tile a thread; its partial goes to
+// a workspace, and after a grid sync each dW element sums its chunks' partials in chunk
+// order.  FMA, not a 3xTF32 tensor-core split: chip_smoke.py's phase split of the previous
+// design put dW at 7.0 of 93.5 ms, already ~19 TFLOP/s, and the split is exact on the
+// integer fixtures only while one operand of each product fits 11 significant bits and the
+// other 22, which nothing bounds there; a faster FMA loop keeps the contract and the
+// fixture exact (6.1 ms; 64-column tiles read 8.1, 16-row stages 6.8).
 //
 // Bound.  Depth-3 forward at Reddit's 602 -> 256 -> 256 -> 256: GEMMs 2 N (602 * 256 + 2 *
 // 256 * 256) = 132.9 GFLOP plus E (602 + 256 + 256) = 26.2 G adds, 2.4 ms at 67 TFLOP/s
 // fp32; x, out, the CSR three times and the weights are about 0.9 GB, 0.27 ms at 3.35 TB/s:
-// operations bind.  As in the megakernel, what the kernel really moves is one source row
-// per edge and layer, mostly from L2; the gathers dominate.
+// operations bind.  What the kernel really moves is one source row per edge and layer
+// (1,216 B at 608 bf16, 512 B at 256), mostly from L2; the gathers dominate.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 
-#include <initializer_list>
-
+#include "cp_async.cuh"
 #include "row_tile.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
+using roc::cp_async16;
+using roc::cp_async_commit;
+using roc::cp_async_wait;
 using roc::kThreads;
-using roc::Pack;
+using roc::kWarps;
+using bf16 = __nv_bfloat16;
 
 constexpr int kMaxDepth = 8;
-// Four resident blocks per SM, as the megakernel (64 registers a thread): the gathers are
-// latency-bound and need the warps.
-constexpr int kMinBlocks = 4;
-constexpr int kDwTile = 64;                 // dW output tile, k by j
-constexpr int kDwRows = 16;                 // rows per shared-memory stage of the dW GEMM
-constexpr int64_t kDwSplitRows = 4096;      // rows per split-K chunk of the dW GEMM
+// Three resident blocks per SM (80 registers a thread, some spilled): the gathers are
+// latency-bound and need the warps, and 3 x 55 KB of shared memory fit the SM.  Two blocks
+// (128 registers, almost no spills) read slower: 25.63 / 46.92 ms against 23.14 / 41.06
+// (fast forward / backward at Reddit's depth-3 region; chip_variants.py, NVIDIA H100 80GB
+// HBM3, 700 W, as every time quoted in this file).
+constexpr int kMinBlocks = 3;
+constexpr int kRows = 16;                   // destination rows per tile
+constexpr int kKSlice = 8;                  // weight rows per cp.async stage of a tile GEMM
+constexpr int kPassCols = 256;              // output columns per GEMM pass
+constexpr int kMaxPacks = 3;                // bf16 16-byte packs per lane per pass over the edges
+constexpr int kDwK = 64;                    // dW output tile: k (rows of dW) by
+constexpr int kDwJ = 128;                   // j (columns)
+constexpr int kDwJT = kDwJ / 16;            // j columns a thread owns, in float4s 64 apart
+constexpr int kDwStage = 32;                // rows per cp.async stage of the dW GEMM
+constexpr int64_t kDwSplitRows = 3072;      // rows per split-K chunk of the dW GEMM
 
 struct Region {
   int depth;
   int64_t n;                                // rows of every plane and of both CSRs
   int64_t width[kMaxDepth + 1];
   int relu[kMaxDepth];
-  int vec_fwd[kMaxDepth];                   // vector load of layer l's forward gather
-  int vec_bwd[kMaxDepth];                   // of layer l's transposed gather
+  int vec_x;                                // the fp32 vector width x is read with
+  int vec_g;                                // backward: the vector width g and y are read with
   const int64_t* row_ptr;
   const int32_t* col_idx;
   const int64_t* t_row_ptr;                 // backward only
   const int32_t* t_col_idx;
-  const float* x;
-  const float* w[kMaxDepth];
-  const float* wt[kMaxDepth];               // W_l^T [H_{l+1}, H_l], backward only
+  const float* x;                           // [N, H_0] fp32
+  void* xs;                                 // fast: staged x, bf16 [N, ld(H_0)]; exact: null
+  const float* w[kMaxDepth];                // W_l [H_l, ld4(H_{l+1})]
+  const float* wt[kMaxDepth];               // W_l^T [H_{l+1}, ld4(H_l)], backward only
   const float* scale;                       // [N], or null: no norm pair between layers
   float* out;                               // forward: [N, H_D]
-  float* plane[kMaxDepth];                  // forward: ping-pong; backward: P_0 .. P_{D-2}
+  void* plane[2];                           // T [N, ld(H)]: the forward's ping-pong, the
+                                            // backward's replay shadow (fast only)
+  float* rplane[kMaxDepth];                 // backward: P_0 .. P_{D-2}, fp32 [N, ld4(H_{l+1})]
   const float* g;                           // backward: [N, H_D]
   const float* y;                           // backward: [N, H_D], read with the last relu
-  float* cot[2];                            // backward: the cotangent ping-pong
-  float* u;                                 // backward: [N, H_{l+1}] of the current sweep
+  void* stg[2];                             // backward: staged cotangent ping-pong, T [N, ld(H)]
+  float* u;                                 // backward: [N, ld4(H_{l+1})] of the current sweep
   float* partial;                           // backward: the dW partials
   float* dw[kMaxDepth];                     // backward: [H_l, H_{l+1}]
   float* dx;                                // backward: [N, H_0], or null
   int* counter;                             // one tile counter per sweep, zeroed
+  unsigned long long* stamps;               // phase split: %globaltimer stamps, or null
 };
 
-template <int VEC>
-__device__ __forceinline__ Pack<VEC> load_cg(const float* p);
+__host__ __device__ inline int64_t ld4(int64_t h) { return (h + 3) / 4 * 4; }
+__host__ __device__ inline int64_t ld8(int64_t h) { return (h + 7) / 8 * 8; }
+
+// Row stride of a T plane: 16-byte aligned rows.
+template <typename T>
+__host__ __device__ inline int64_t ld_of(int64_t h) {
+  return sizeof(T) == 2 ? ld8(h) : ld4(h);
+}
+
+// The phase split: with p.stamps set, block 0 thread 0 writes %globaltimer (ns) at the
+// kernel's start and after every grid sync, so stamp i + 1 - stamp i is phase i.  The
+// training and serving paths pass null and pay one untaken branch per phase.
+__device__ __forceinline__ void stamp(const Region& p, int* k) {
+  if (p.stamps == nullptr) return;
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    p.stamps[*k] = t;
+  }
+  ++*k;
+}
+
+// ---------------------------------------------------------------------------
+// Conversions and packed loads.  Every plane a sweep gathers may have been written earlier
+// in the launch, so loads go through L2 (__ldcg).
+
+// fp32 -> bf16, rounded to nearest even: the "fast" rounding.
+__device__ __forceinline__ bf16 to_bf16(float v) { return __float2bfloat16_rn(v); }
+
+// The two bf16 halves of a 32-bit word as fp32 (exact): the low half is the first element.
+__device__ __forceinline__ float bf16_lo(unsigned w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(unsigned w) { return __uint_as_float(w & 0xffff0000u); }
+
+template <typename T, int VEC>
+__device__ __forceinline__ void load_pack(const T* p, float (&v)[VEC]);
 
 template <>
-__device__ __forceinline__ Pack<4> load_cg<4>(const float* p) {
+__device__ __forceinline__ void load_pack<bf16, 8>(const bf16* p, float (&v)[8]) {
+  const uint4 t = __ldcg(reinterpret_cast<const uint4*>(p));
+  v[0] = bf16_lo(t.x); v[1] = bf16_hi(t.x);
+  v[2] = bf16_lo(t.y); v[3] = bf16_hi(t.y);
+  v[4] = bf16_lo(t.z); v[5] = bf16_hi(t.z);
+  v[6] = bf16_lo(t.w); v[7] = bf16_hi(t.w);
+}
+
+template <>
+__device__ __forceinline__ void load_pack<float, 4>(const float* p, float (&v)[4]) {
   const float4 t = __ldcg(reinterpret_cast<const float4*>(p));
-  Pack<4> o;
-  o.v[0] = t.x;
-  o.v[1] = t.y;
-  o.v[2] = t.z;
-  o.v[3] = t.w;
-  return o;
+  v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
 }
 
 template <>
-__device__ __forceinline__ Pack<2> load_cg<2>(const float* p) {
+__device__ __forceinline__ void load_pack<float, 2>(const float* p, float (&v)[2]) {
   const float2 t = __ldcg(reinterpret_cast<const float2*>(p));
-  Pack<2> o;
-  o.v[0] = t.x;
-  o.v[1] = t.y;
-  return o;
+  v[0] = t.x; v[1] = t.y;
 }
 
 template <>
-__device__ __forceinline__ Pack<1> load_cg<1>(const float* p) {
-  Pack<1> o;
-  o.v[0] = __ldcg(p);
-  return o;
+__device__ __forceinline__ void load_pack<float, 1>(const float* p, float (&v)[1]) {
+  v[0] = __ldcg(p);
 }
 
-// A region's staged source rows: src[u, c .. c + VEC), times scale[u] twice when scale is
-// given, zeroed where mask[u, :] <= 0 when mask is given.
-struct PlaneRows {
-  const float* src;
-  const float* mask;
-  const float* scale;
+// dst[c .. c + VEC) of an fp32 row of width H (the columns below H only); dst + c is
+// aligned to the pack when the pack is whole.
+template <int VEC>
+__device__ __forceinline__ void store_pack(float* dst, int64_t c, int64_t H,
+                                           const float (&a)[VEC]) {
+  if (c + VEC <= H) {
+    if constexpr (VEC % 4 == 0) {
+#pragma unroll
+      for (int q = 0; q < VEC / 4; ++q)
+        *reinterpret_cast<float4*>(dst + c + 4 * q) =
+            make_float4(a[4 * q], a[4 * q + 1], a[4 * q + 2], a[4 * q + 3]);
+    } else if constexpr (VEC == 2) {
+      *reinterpret_cast<float2*>(dst + c) = make_float2(a[0], a[1]);
+    } else {
+      dst[c] = a[0];
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < VEC; ++j)
+      if (c + j < H) dst[c + j] = a[j];
+  }
+}
 
-  template <int VEC>
-  __device__ __forceinline__ Pack<VEC> load(int64_t u, int64_t c, int64_t H) const {
-    Pack<VEC> s = load_cg<VEC>(src + u * H + c);
-    if (scale != nullptr) {
-      const float sc = __ldg(scale + u);
+// VEC fp32 values of a read-only input at p (aligned to the pack).
+template <int VEC>
+__device__ __forceinline__ void load_in(const float* p, float (&v)[VEC]) {
+  if constexpr (VEC == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else if constexpr (VEC == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    v[0] = t.x; v[1] = t.y;
+  } else {
+    v[0] = *p;
+  }
+}
+
+// VEC values stored as T at p (aligned to the pack): bf16 rounded to nearest even.
+template <typename T, int VEC>
+__device__ __forceinline__ void store_low(T* p, const float (&v)[VEC]) {
+  if constexpr (sizeof(T) == 4) {
+    store_pack<VEC>(reinterpret_cast<float*>(p), 0, VEC, v);
+  } else if constexpr (VEC == 1) {
+    *p = to_bf16(v[0]);
+  } else {
+    unsigned w[VEC / 2];
 #pragma unroll
-      for (int j = 0; j < VEC; ++j) s.v[j] = (s.v[j] * sc) * sc;
+    for (int q = 0; q < VEC / 2; ++q) {
+      const __nv_bfloat162 h = __halves2bfloat162(to_bf16(v[2 * q]), to_bf16(v[2 * q + 1]));
+      w[q] = *reinterpret_cast<const unsigned*>(&h);
     }
-    if (mask != nullptr) {
-      const Pack<VEC> m = load_cg<VEC>(mask + u * H + c);
+    if constexpr (VEC == 4) *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+    else *reinterpret_cast<unsigned*>(p) = w[0];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Gather.
+
+// Row `row` of a CSR summed over its edges, in CSR order, in fp32 from 0: lane i of the warp
+// owns the packs i + 32 p (p < PACKS) of each pass of 32 * PACKS packs over the row's
+// columns; the sums go to trow[0, H) when trow is given and to urow[0, H) when urow is given.
+// A pack may run past H into the row's padding (ld >= the packs' end); those columns are
+// summed in their own registers and never stored.
+template <typename T, int VEC, int PACKS>
+__device__ __forceinline__ void gather_row(const int64_t* __restrict__ rp,
+                                           const int32_t* __restrict__ ci, const T* src,
+                                           int64_t ld, int64_t row, int64_t H, float* trow,
+                                           float* urow) {
+  const int lane = threadIdx.x & 31;
+  const int64_t beg = rp[row], end = rp[row + 1];
+  for (int64_t c0 = 0; c0 < H; c0 += 32 * VEC * PACKS) {
+    float acc[PACKS][VEC];
 #pragma unroll
-      for (int j = 0; j < VEC; ++j) s.v[j] = m.v[j] > 0.f ? s.v[j] : 0.f;
+    for (int p = 0; p < PACKS; ++p)
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) acc[p][j] = 0.f;
+    const T* base = src + c0 + lane * VEC;
+#pragma unroll (PACKS <= 2 ? 4 : 2)
+    for (int64_t e = beg; e < end; ++e) {
+      const T* s = base + static_cast<int64_t>(ci[e]) * ld;
+#pragma unroll
+      for (int p = 0; p < PACKS; ++p) {
+        if (c0 + (p * 32 + lane) * VEC < H) {
+          float v[VEC];
+          load_pack<T, VEC>(s + p * 32 * VEC, v);
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) acc[p][j] += v[j];
+        }
+      }
     }
-    return s;
+#pragma unroll
+    for (int p = 0; p < PACKS; ++p) {
+      const int64_t c = c0 + (p * 32 + lane) * VEC;
+      if (c < H) {
+        if (trow != nullptr) store_pack<VEC>(trow, c, H, acc[p]);
+        if (urow != nullptr) store_pack<VEC>(urow, c, H, acc[p]);
+      }
+    }
+  }
+}
+
+// The block's tile: warp w sums rows row0 + w, row0 + w + 8, ... below row0 + rb.  With
+// tile == nullptr (u alone, no GEMM) the warp instead claims single rows from *counter
+// (rb is then the row count), so no warp waits for another's hub row.
+template <typename T, int VEC, int PACKS>
+__device__ __forceinline__ void gather_rows(const int64_t* rp, const int32_t* ci, const T* src,
+                                            int64_t ld, int64_t row0, int rb, int64_t H,
+                                            float* tile, int ts, float* u, int64_t ldu,
+                                            int* counter) {
+  if (tile == nullptr) {
+    for (;;) {
+      int row = 0;
+      if ((threadIdx.x & 31) == 0) row = atomicAdd(counter, 1);
+      row = __shfl_sync(0xffffffffu, row, 0);
+      if (row >= rb) return;
+      gather_row<T, VEC, PACKS>(rp, ci, src, ld, row, H, nullptr, u + row * ldu);
+    }
+  }
+  for (int r = threadIdx.x >> 5; r < rb; r += kWarps) {
+    const int64_t row = row0 + r;
+    gather_row<T, VEC, PACKS>(rp, ci, src, ld, row, H, tile + static_cast<int64_t>(r) * ts,
+                              u != nullptr ? u + row * ldu : nullptr);
+  }
+}
+
+template <typename T, int VEC>
+__device__ __forceinline__ void gather_rows_v(const int64_t* rp, const int32_t* ci, const T* src,
+                                              int64_t ld, int64_t row0, int rb, int64_t H,
+                                              float* tile, int ts, float* u, int64_t ldu,
+                                              int* counter) {
+  // packs a lane owns per pass: as many as the row needs, up to kMaxPacks bf16 packs (the
+  // 602-wide layer in one pass at 76 packs) or 4 fp32 packs (three passes of 2-float packs
+  // at 602 in exact: one pass of up to 12 read 30.45 against 22.16 ms for that layer)
+  constexpr int kBig = sizeof(T) == 2 ? kMaxPacks : 4;
+  const int64_t per_lane = ((H + VEC - 1) / VEC + 31) / 32;
+  switch (per_lane <= 1 ? 1 : per_lane == 2 ? 2 : per_lane == 3 ? 3 : kBig) {
+    case 1: gather_rows<T, VEC, 1>(rp, ci, src, ld, row0, rb, H, tile, ts, u, ldu, counter); break;
+    case 2: gather_rows<T, VEC, 2>(rp, ci, src, ld, row0, rb, H, tile, ts, u, ldu, counter); break;
+    case 3: gather_rows<T, VEC, 3>(rp, ci, src, ld, row0, rb, H, tile, ts, u, ldu, counter); break;
+    default:
+      gather_rows<T, VEC, kBig>(rp, ci, src, ld, row0, rb, H, tile, ts, u, ldu, counter);
+      break;
+  }
+}
+
+// rb rows from row0 of a T plane [*, ld] at width H into the tile (and u), or every row into
+// u alone (see gather_rows); vec is the fp32 vector width (bf16 planes are always read as
+// 8-element packs).
+template <typename T>
+__device__ __forceinline__ void gather_tile(const int64_t* rp, const int32_t* ci, const T* src,
+                                            int64_t ld, int vec, int64_t row0, int rb, int64_t H,
+                                            float* tile, int ts, float* u, int64_t ldu,
+                                            int* counter) {
+  if constexpr (sizeof(T) == 2) {
+    gather_rows_v<T, 8>(rp, ci, src, ld, row0, rb, H, tile, ts, u, ldu, counter);
+  } else {
+    switch (vec) {
+      case 4: gather_rows_v<T, 4>(rp, ci, src, ld, row0, rb, H, tile, ts, u, ldu, counter); break;
+      case 2: gather_rows_v<T, 2>(rp, ci, src, ld, row0, rb, H, tile, ts, u, ldu, counter); break;
+      default: gather_rows_v<T, 1>(rp, ci, src, ld, row0, rb, H, tile, ts, u, ldu, counter); break;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The tile GEMM and its epilogues.
+
+// What a tile GEMM's output element v at (row, col) becomes: relu (v < 0 -> 0; NaN passes, as
+// maximum(v, 0) lets it), then (v * s) * s with the row's scale, then 0 unless
+// mask[row, col] > 0; then it is stored to f32 (fp32 [*, ld32], columns below N) and/or to
+// low (T [*, ldl]; the columns of the last group of four from N on are 0, and a padding
+// column no group reaches is never summed into a real column by the next gather).
+template <typename T>
+struct Epilogue {
+  bool relu;
+  const float* scale;
+  const float* mask;
+  int64_t ldm;
+  float* f32;
+  int64_t ld32;
+  T* low;
+  int64_t ldl;
+  int64_t N;
+
+  // The four columns col .. col + 3 (col % 4 == 0) of row `row`.
+  __device__ __forceinline__ void operator()(int64_t row, int64_t col, const float (&a)[4]) const {
+    float v[4];
+    float s = 1.f;
+    if (scale != nullptr) s = __ldg(scale + row);
+    float m[4] = {1.f, 1.f, 1.f, 1.f};
+    if (mask != nullptr && col < ldm) {
+      const float4 t = __ldcg(reinterpret_cast<const float4*>(mask + row * ldm + col));
+      m[0] = t.x; m[1] = t.y; m[2] = t.z; m[3] = t.w;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float t = a[j];
+      if (relu && t < 0.f) t = 0.f;
+      if (scale != nullptr) t = (t * s) * s;
+      if (mask != nullptr) t = m[j] > 0.f ? t : 0.f;
+      v[j] = col + j < N ? t : 0.f;
+    }
+    if (f32 != nullptr) {
+      if (col + 4 <= N && ld32 % 4 == 0) {
+        *reinterpret_cast<float4*>(f32 + row * ld32 + col) = make_float4(v[0], v[1], v[2], v[3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (col + j < N) f32[row * ld32 + col + j] = v[j];
+      }
+    }
+    // ldl % 4 == 0: the four columns are all inside
+    if (low != nullptr && col < ldl) store_low<T, 4>(low + row * ldl + col, v);
   }
 };
 
-template <bool ROUND>
-__device__ __forceinline__ void gather_any(int vec, const int64_t* rp, const int32_t* ci,
-                                           const PlaneRows& rows, int64_t row0, int rb, int64_t n,
-                                           int64_t H, float* tile, int stride, float* gout) {
-  switch (vec) {
-    case 4: roc::gather_rows<4, ROUND>(rp, ci, rows, row0, rb, n, H, tile, stride, gout); break;
-    case 2: roc::gather_rows<2, ROUND>(rp, ci, rows, row0, rb, n, H, tile, stride, gout); break;
-    default: roc::gather_rows<1, ROUND>(rp, ci, rows, row0, rb, n, H, tile, stride, gout); break;
+// The tile's row stride: K rounded up to 4 floats with an odd count of 16-byte chunks.
+__host__ __device__ inline int tile_stride(int64_t K) {
+  return static_cast<int>(((K + 3) / 4 | 1) * 4);
+}
+
+// epi(row, col, v[4]) for the tile [rb, K] (row stride ts) times B [K, N] (row stride ldb,
+// ldb % 4 == 0, 16-byte aligned rows; columns N .. ldb are padding).  The output is walked
+// in passes of 256 columns; thread (warp w, lane l) owns the 4 columns (8 w + l % 8) * 4 of
+// the pass and the rows l / 8 + 4 i, i < 4.  B comes through shared memory in slices of 8
+// rows of the pass's columns, cp.async double-buffered; each output element is one fmaf per
+// k in ascending k from 0.  The first slice's __syncthreads also publishes the gathered
+// tile; on return every thread is past the last read of the tile and of wbuf.
+template <class Epi>
+__device__ __forceinline__ void tile_gemm(const float* tile, int ts, int rb, int64_t row0,
+                                          const float* __restrict__ B, int64_t ldb, int64_t K,
+                                          int64_t N, float* wbuf, const Epi& epi) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int cgp = warp * 8 + (lane & 7);  // column group: 4 columns
+  const int rg = lane >> 3;               // rows rg + 4 i
+  const int nsl = static_cast<int>((K + kKSlice - 1) / kKSlice);
+  const float* arow[4];  // a row past rb reads row rb - 1: its sums are never stored
+#pragma unroll
+  for (int i = 0; i < 4; ++i) arow[i] = tile + (rg + 4 * i < rb ? rg + 4 * i : rb - 1) * ts;
+  for (int64_t j0 = 0; j0 < N; j0 += kPassCols) {
+    const int64_t chunks = (ldb - j0) / 4 < kPassCols / 4 ? (ldb - j0) / 4 : kPassCols / 4;
+    auto load_slice = [&](int sl, int buf) {
+      float* dst = wbuf + buf * (kKSlice * kPassCols);
+      for (int q = tid; q < kKSlice * kPassCols / 4; q += kThreads) {
+        const int kk = q / (kPassCols / 4), c4 = q % (kPassCols / 4);
+        const int64_t k = static_cast<int64_t>(sl) * kKSlice + kk;
+        if (k < K && c4 < chunks)
+          cp_async16(dst + kk * kPassCols + c4 * 4, B + k * ldb + j0 + c4 * 4);
+      }
+      cp_async_commit();
+    };
+    float acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    load_slice(0, 0);
+    for (int sl = 0; sl < nsl; ++sl) {
+      if (sl + 1 < nsl) {
+        load_slice(sl + 1, (sl + 1) & 1);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();  // the slice (and, at sl = 0, the gathered tile) is visible to all
+      const float* b = wbuf + (sl & 1) * (kKSlice * kPassCols) + cgp * 4;
+      const int64_t k0 = static_cast<int64_t>(sl) * kKSlice;
+      const int kn = K - k0 < kKSlice ? static_cast<int>(K - k0) : kKSlice;
+      int kk = 0;
+      for (; kk + 4 <= kn; kk += 4) {
+        float4 a[4], bv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = *reinterpret_cast<const float4*>(arow[i] + k0 + kk);
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          bv[q] = *reinterpret_cast<const float4*>(b + (kk + q) * kPassCols);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float av[4] = {a[i].x, a[i].y, a[i].z, a[i].w};
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            acc[i][0] = fmaf(av[q], bv[q].x, acc[i][0]);
+            acc[i][1] = fmaf(av[q], bv[q].y, acc[i][1]);
+            acc[i][2] = fmaf(av[q], bv[q].z, acc[i][2]);
+            acc[i][3] = fmaf(av[q], bv[q].w, acc[i][3]);
+          }
+        }
+      }
+      for (; kk < kn; ++kk) {
+        const float4 bv = *reinterpret_cast<const float4*>(b + kk * kPassCols);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float av = arow[i][k0 + kk];
+          acc[i][0] = fmaf(av, bv.x, acc[i][0]);
+          acc[i][1] = fmaf(av, bv.y, acc[i][1]);
+          acc[i][2] = fmaf(av, bv.z, acc[i][2]);
+          acc[i][3] = fmaf(av, bv.w, acc[i][3]);
+        }
+      }
+      __syncthreads();  // the buffer is free for the slice after next
+    }
+    const int64_t col = j0 + cgp * 4;
+    if (col < N) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (rg + 4 * i < rb) epi(row0 + rg + 4 * i, col, acc[i]);
+    }
   }
 }
 
-// One sweep over a CSR: for every row v, t = the sum over v's edges of rows.load(u, :) at
-// width h_gather (written to gout[v, :] when gout is given); then, when dst is given,
-// dst[v, :] = epilogue(t W) with W [h_gather, h_out].  Tiles are claimed from *counter.
-template <bool ROUND>
-__device__ void sweep(const int64_t* rp, const int32_t* ci, const PlaneRows& rows, int vec,
-                      int64_t n, int64_t h_gather, const float* w, int64_t h_out, float* dst,
-                      bool relu, const float* scale, float* gout, int* counter, float* tile,
-                      int* claim) {
-  int rb, stride;
-  roc::tile_shape(h_gather, &rb, &stride);
-  const int64_t tiles = (n + rb - 1) / rb;
+// One sweep over a CSR: for every tile of 16 rows, the sums over each row's edges of the T
+// plane src [*, ld] at width H, to u [*, ldu] when u is given; then, when B is given, the
+// tile's GEMM with B [H, N] and its epilogue.  Tiles are claimed from *counter; without B
+// (u alone) warps claim single rows instead.
+template <typename T, class Epi>
+__device__ __forceinline__ void sweep(const int64_t* rp, const int32_t* ci, const T* src,
+                                      int64_t ld, int vec, int64_t n, int64_t H, float* u,
+                                      int64_t ldu, const float* B, int64_t ldb, int64_t N,
+                                      const Epi& epi, int* counter, float* smem) {
+  if (B == nullptr) {
+    gather_tile<T>(rp, ci, src, ld, vec, 0, static_cast<int>(n), H, nullptr, 0, u, ldu, counter);
+    return;
+  }
+  const int ts = tile_stride(H);
+  int* claim = reinterpret_cast<int*>(smem);
+  float* tile = smem + 4;
+  float* wbuf = tile + kRows * ts;
+  const int64_t tiles = (n + kRows - 1) / kRows;
   for (;;) {
     if (threadIdx.x == 0) *claim = atomicAdd(counter, 1);
     __syncthreads();
     const int64_t t = *claim;
     if (t >= tiles) break;  // every thread read the same claim: the block leaves together
-    const int64_t row0 = t * rb;
-    gather_any<ROUND>(vec, rp, ci, rows, row0, rb, n, h_gather, tile, stride, gout);
-    if (dst != nullptr) {
-      __syncthreads();
-      roc::tile_gemm(tile, stride, rb, row0, n, w, h_gather, h_out, dst, relu, scale);
-    }
+    const int64_t row0 = t * kRows;
+    const int rb = n - row0 < kRows ? static_cast<int>(n - row0) : kRows;
+    gather_tile<T>(rp, ci, src, ld, vec, row0, rb, H, tile, ts, u, ldu, nullptr);
+    tile_gemm(tile, ts, rb, row0, B, ldb, H, N, wbuf, epi);
     __syncthreads();  // the tile and the claim are free again
   }
 }
+
+// The backward's sweeps, out of line: they then get their own register allocation rather
+// than sharing the backward body's with dw_partials (a transposed 256-wide sweep read 5.96
+// against 6.78 ms inlined; the forward, which has no dW, keeps its sweeps inlined).
+template <typename T, class Epi>
+__device__ __noinline__ void sweep_outlined(const int64_t* rp, const int32_t* ci, const T* src,
+                                            int64_t ld, int vec, int64_t n, int64_t H, float* u,
+                                            int64_t ldu, const float* B, int64_t ldb, int64_t N,
+                                            const Epi& epi, int* counter, float* smem) {
+  sweep<T>(rp, ci, src, ld, vec, n, H, u, ldu, B, ldb, N, epi, counter, smem);
+}
+
+// Shared memory a sweep of gather width H needs, in bytes.
+size_t sweep_smem(int64_t H) {
+  return (4 + static_cast<size_t>(kRows) * tile_stride(H) + 2 * kKSlice * kPassCols) *
+         sizeof(float);
+}
+
+// ---------------------------------------------------------------------------
+// Staging: dst[r, c] = src[r, c] * [mask[r, c] > 0] (src itself without mask) for c < H,
+// stored as T (bf16: rounded to nearest even), and 0 for H <= c < ld.  A warp per row, rows
+// grid-strided; VEC columns a lane (VEC divides H, and src's and mask's rows are aligned to
+// it; ld is a multiple of 4).
+template <typename T, int VEC>
+__device__ void stage_rows(const float* __restrict__ src, const float* __restrict__ mask,
+                           int64_t H, T* dst, int64_t ld, int64_t n) {
+  const int lane = threadIdx.x & 31;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kWarps;
+  for (int64_t row = static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5); row < n;
+       row += stride) {
+    for (int64_t c = static_cast<int64_t>(lane) * VEC; c < ld; c += 32 * VEC) {
+      float v[VEC];
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) v[j] = 0.f;
+      if (c < H) {
+        load_in<VEC>(src + row * H + c, v);
+        if (mask != nullptr) {
+          float m[VEC];
+          load_in<VEC>(mask + row * H + c, m);
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) v[j] = m[j] > 0.f ? v[j] : 0.f;
+        }
+      }
+      store_low<T, VEC>(dst + row * ld + c, v);
+    }
+  }
+}
+
+template <typename T>
+__device__ void stage_plane(const float* src, const float* mask, int vec, int64_t H, T* dst,
+                            int64_t ld, int64_t n) {
+  switch (vec) {
+    case 4: stage_rows<T, 4>(src, mask, H, dst, ld, n); break;
+    case 2: stage_rows<T, 2>(src, mask, H, dst, ld, n); break;
+    default: stage_rows<T, 1>(src, mask, H, dst, ld, n); break;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dW.
 
 struct DwShape {
   int64_t k, j, kt, jt, splits;
 };
 
 __host__ __device__ inline DwShape dw_shape(int64_t n, int64_t k, int64_t j) {
-  return {k, j, (k + kDwTile - 1) / kDwTile, (j + kDwTile - 1) / kDwTile,
+  return {k, j, (k + kDwK - 1) / kDwK, (j + kDwJ - 1) / kDwJ,
           (n + kDwSplitRows - 1) / kDwSplitRows};
 }
 
-// partial[item] = z[rows of the item's chunk, the item's k tile]^T u[same rows, its j tile],
-// each item summed by one block over its rows in order.  Thread t owns the 4 x 4 outputs at
-// k = 4 (t / 16) .., j = 4 (t % 16) ...
-__device__ void dw_partials(const Region& p, int l, const float* z, float* smem) {
+// A stage of the dW GEMM: rows r0 .. r0 + 32 of z's k columns k0 .. k0 + 64 and of u's j
+// columns j0 .. j0 + 128 into zs [32][64] and us [32][128].  z is read with zvec-float
+// cp.async copies (z's rows are aligned to them), u with 16-byte ones; rows at or past r_end
+// and columns past a row's stride are zero.
+__device__ __forceinline__ void dw_stage(const float* z, int64_t ldz, int zvec, const float* u,
+                                         int64_t ldu, int64_t r0, int64_t r_end, int64_t k0,
+                                         int64_t j0, float* zs, float* us) {
+  const int tid = threadIdx.x;
+  const int zper = kDwK / zvec;  // copies per z row
+  for (int q = tid; q < kDwStage * zper; q += kThreads) {
+    const int i = q / zper, c = (q % zper) * zvec;
+    const int64_t r = r0 + i, k = k0 + c;
+    float* dst = zs + i * kDwK + c;
+    if (r < r_end && k + zvec <= ldz) {
+      const float* s = z + r * ldz + k;
+      if (zvec == 4) cp_async16(dst, s);  // through L2: P_{l-1} was written in this launch
+      else if (zvec == 2) roc::cp_async_ca<8>(dst, s);  // x, an input of the launch
+      else roc::cp_async_ca<4>(dst, s);
+    } else {
+      for (int j = 0; j < zvec; ++j) dst[j] = 0.f;
+    }
+  }
+  for (int q = tid; q < kDwStage * (kDwJ / 4); q += kThreads) {
+    const int i = q / (kDwJ / 4), c = (q % (kDwJ / 4)) * 4;
+    const int64_t r = r0 + i, j = j0 + c;
+    float* dst = us + i * kDwJ + c;
+    if (r < r_end && j + 4 <= ldu) cp_async16(dst, u + r * ldu + j);
+    else *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  cp_async_commit();
+}
+
+// partial[item] = z[rows of the item's chunk, its k tile]^T u[same rows, its j tile], each
+// item summed by one block over its rows in order.  Thread t owns the 4 x 8 outputs at
+// k = 4 (t / 16) .., j = 4 (t % 16) .. and 64 + 4 (t % 16) .. (two float4 reads a row, each
+// a quarter-warp's 128 contiguous bytes).  z: x [N, H_0] (ldz = H_0, zvec its vector width)
+// or P_{l-1} (ld4, zvec 4).
+__device__ __noinline__ void dw_partials(const Region& p, int l, const float* z, int64_t ldz,
+                                         int zvec, float* smem) {
   const DwShape s = dw_shape(p.n, p.width[l], p.width[l + 1]);
+  const int64_t ldu = ld4(p.width[l + 1]);
   const int64_t items = s.splits * s.kt * s.jt;
-  float* zs = smem;                         // [kDwRows][kDwTile]
-  float* us = smem + kDwRows * kDwTile;     // [kDwRows][kDwTile]
+  float* zs[2] = {smem, smem + kDwStage * kDwK};
+  float* us[2] = {smem + 2 * kDwStage * kDwK, smem + 2 * kDwStage * kDwK + kDwStage * kDwJ};
   const int tk = threadIdx.x / 16;
   const int tj = threadIdx.x % 16;
   for (int64_t item = blockIdx.x; item < items; item += gridDim.x) {
     const int64_t sp = item / (s.kt * s.jt);
     const int64_t rem = item % (s.kt * s.jt);
-    const int64_t k0 = (rem / s.jt) * kDwTile;
-    const int64_t j0 = (rem % s.jt) * kDwTile;
+    const int64_t k0 = (rem / s.jt) * kDwK;
+    const int64_t j0 = (rem % s.jt) * kDwJ;
     const int64_t r_beg = sp * kDwSplitRows;
     const int64_t r_end = r_beg + kDwSplitRows < p.n ? r_beg + kDwSplitRows : p.n;
-    float acc[4][4];
+    const int nst = static_cast<int>((r_end - r_beg + kDwStage - 1) / kDwStage);
+    float acc[4][kDwJT];
 #pragma unroll
     for (int a = 0; a < 4; ++a)
 #pragma unroll
-      for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
-    for (int64_t r0 = r_beg; r0 < r_end; r0 += kDwRows) {
-      for (int e = threadIdx.x; e < kDwRows * kDwTile; e += kThreads) {
-        const int64_t r = r0 + e / kDwTile;
-        const int64_t c = e % kDwTile;
-        zs[e] = (r < r_end && k0 + c < s.k) ? __ldcg(z + r * s.k + k0 + c) : 0.f;
-        us[e] = (r < r_end && j0 + c < s.j) ? __ldcg(p.u + r * s.j + j0 + c) : 0.f;
+      for (int b = 0; b < kDwJT; ++b) acc[a][b] = 0.f;
+    dw_stage(z, ldz, zvec, p.u, ldu, r_beg, r_end, k0, j0, zs[0], us[0]);
+    for (int st = 0; st < nst; ++st) {
+      if (st + 1 < nst) {
+        dw_stage(z, ldz, zvec, p.u, ldu, r_beg + (st + 1) * kDwStage, r_end, k0, j0,
+                 zs[(st + 1) & 1], us[(st + 1) & 1]);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
       }
       __syncthreads();
-#pragma unroll 4
-      for (int i = 0; i < kDwRows; ++i) {
-        const float4 za = *reinterpret_cast<const float4*>(zs + i * kDwTile + tk * 4);
-        const float4 ub = *reinterpret_cast<const float4*>(us + i * kDwTile + tj * 4);
+      const float* zb = zs[st & 1] + tk * 4;
+      const float* ub = us[st & 1] + tj * 4;
+#pragma unroll 2
+      for (int i = 0; i < kDwStage; ++i) {
+        const float4 za = *reinterpret_cast<const float4*>(zb + i * kDwK);
         const float zv[4] = {za.x, za.y, za.z, za.w};
-        const float uv[4] = {ub.x, ub.y, ub.z, ub.w};
+        float uv[kDwJT];
+#pragma unroll
+        for (int q = 0; q < kDwJT / 4; ++q) {
+          const float4 t = *reinterpret_cast<const float4*>(ub + i * kDwJ + 64 * q);
+          uv[4 * q] = t.x; uv[4 * q + 1] = t.y; uv[4 * q + 2] = t.z; uv[4 * q + 3] = t.w;
+        }
 #pragma unroll
         for (int a = 0; a < 4; ++a)
 #pragma unroll
-          for (int b = 0; b < 4; ++b) acc[a][b] = fmaf(zv[a], uv[b], acc[a][b]);
+          for (int b = 0; b < kDwJT; ++b) acc[a][b] = fmaf(zv[a], uv[b], acc[a][b]);
       }
-      __syncthreads();
+      __syncthreads();  // the buffer is free for the stage after next
     }
-    float* dst = p.partial + item * (kDwTile * kDwTile);
+    float* dst = p.partial + item * (kDwK * kDwJ);
 #pragma unroll
     for (int a = 0; a < 4; ++a)
 #pragma unroll
-      for (int b = 0; b < 4; ++b) dst[(tk * 4 + a) * kDwTile + tj * 4 + b] = acc[a][b];
+      for (int q = 0; q < kDwJT / 4; ++q)
+        *reinterpret_cast<float4*>(dst + (tk * 4 + a) * kDwJ + 64 * q + tj * 4) = make_float4(
+            acc[a][4 * q], acc[a][4 * q + 1], acc[a][4 * q + 2], acc[a][4 * q + 3]);
   }
 }
 
@@ -265,80 +722,136 @@ __device__ void dw_reduce(const Region& p, int l) {
        e += step) {
     const int64_t k = e / s.j;
     const int64_t j = e % s.j;
-    const int64_t tile = (k / kDwTile) * s.jt + j / kDwTile;
-    const int64_t off = (k % kDwTile) * kDwTile + j % kDwTile;
+    const int64_t tile = (k / kDwK) * s.jt + j / kDwJ;
+    const int64_t off = (k % kDwK) * kDwJ + j % kDwJ;
     float v = 0.f;
     for (int64_t sp = 0; sp < s.splits; ++sp)
-      v += __ldcg(p.partial + (sp * s.kt * s.jt + tile) * (kDwTile * kDwTile) + off);
+      v += __ldcg(p.partial + (sp * s.kt * s.jt + tile) * (kDwK * kDwJ) + off);
     p.dw[l][e] = v;
   }
 }
 
-template <bool ROUND>
+size_t dw_smem() { return 2 * kDwStage * (kDwK + kDwJ) * sizeof(float); }
+
+// ---------------------------------------------------------------------------
+// The kernels.
+
+// The plane layer l gathers in the forward and in the replay: x (staged in fast), or the
+// previous layer's plane (the forward's ping-pong, the replay's shadow in fast or P_{l-1}
+// in exact).
+template <typename T>
+__device__ __forceinline__ const T* layer_src(const Region& p, int l, bool replay, int64_t* ld,
+                                              int* vec) {
+  *vec = 4;
+  if (l == 0) {
+    if constexpr (sizeof(T) == 2) {
+      *ld = ld8(p.width[0]);
+      return static_cast<const T*>(p.xs);
+    } else {
+      *ld = p.width[0];
+      *vec = p.vec_x;
+      return reinterpret_cast<const T*>(p.x);
+    }
+  }
+  *ld = ld_of<T>(p.width[l]);
+  if (replay && sizeof(T) == 4) return reinterpret_cast<const T*>(p.rplane[l - 1]);
+  return static_cast<const T*>(p.plane[(l - 1) % 2]);
+}
+
+template <typename T>
 __global__ void __launch_bounds__(kThreads, kMinBlocks) xlayer_fwd(const Region p) {
-  extern __shared__ float4 smem[];
-  __shared__ int claim;
-  float* tile = reinterpret_cast<float*>(smem);
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
   cg::grid_group grid = cg::this_grid();
+  int k = 0;
+  stamp(p, &k);
+  if constexpr (sizeof(T) == 2) {
+    stage_plane<T>(p.x, nullptr, p.vec_x, p.width[0], static_cast<T*>(p.xs), ld8(p.width[0]),
+                   p.n);
+    grid.sync();
+    stamp(p, &k);
+  }
   for (int l = 0; l < p.depth; ++l) {
     const bool last = l == p.depth - 1;
-    const float* src = l == 0 ? p.x : p.plane[(l - 1) % 2];
-    sweep<ROUND>(p.row_ptr, p.col_idx, PlaneRows{src, nullptr, nullptr}, p.vec_fwd[l], p.n,
-                 p.width[l], p.w[l], p.width[l + 1], last ? p.out : p.plane[l % 2],
-                 p.relu[l] != 0, last ? nullptr : p.scale, nullptr, p.counter + l, tile, &claim);
-    if (!last) grid.sync();
+    int64_t ld;
+    int vec;
+    const T* src = layer_src<T>(p, l, false, &ld, &vec);
+    const int64_t N = p.width[l + 1];
+    Epilogue<T> epi{p.relu[l] != 0, last ? nullptr : p.scale, nullptr, 0,
+                    last ? p.out : nullptr, N,
+                    last ? nullptr : static_cast<T*>(p.plane[l % 2]), ld_of<T>(N), N};
+    sweep<T>(p.row_ptr, p.col_idx, src, ld, vec, p.n, p.width[l], nullptr, 0, p.w[l], ld4(N), N,
+             epi, p.counter + l, smem);
+    if (!last || p.stamps != nullptr) grid.sync();
+    stamp(p, &k);
   }
 }
 
-template <bool ROUND>
+template <typename T>
 __global__ void __launch_bounds__(kThreads, kMinBlocks) xlayer_bwd(const Region p) {
-  extern __shared__ float4 smem[];
-  __shared__ int claim;
-  float* tile = reinterpret_cast<float*>(smem);
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
   cg::grid_group grid = cg::this_grid();
   const int D = p.depth;
   int* counter = p.counter;
-  // 1. replay the interior planes, scaled as the forward left them
+  int k = 0;
+  stamp(p, &k);
+  // 0. stage x (fast) and the last layer's cotangent
+  if constexpr (sizeof(T) == 2)
+    stage_plane<T>(p.x, nullptr, p.vec_x, p.width[0], static_cast<T*>(p.xs), ld8(p.width[0]),
+                   p.n);
+  stage_plane<T>(p.g, p.relu[D - 1] ? p.y : nullptr, p.vec_g, p.width[D],
+                 static_cast<T*>(p.stg[0]), ld_of<T>(p.width[D]), p.n);
+  grid.sync();
+  stamp(p, &k);
+  // 1. replay the interior planes, scaled as the forward left them (fp32, with a bf16
+  // shadow for the next replay layer's gather in fast)
   for (int l = 0; l + 1 < D; ++l) {
-    sweep<ROUND>(p.row_ptr, p.col_idx, PlaneRows{l == 0 ? p.x : p.plane[l - 1], nullptr, nullptr},
-                 p.vec_fwd[l], p.n, p.width[l], p.w[l], p.width[l + 1], p.plane[l],
-                 p.relu[l] != 0, p.scale, nullptr, counter++, tile, &claim);
+    int64_t ld;
+    int vec;
+    const T* src = layer_src<T>(p, l, true, &ld, &vec);
+    const int64_t N = p.width[l + 1];
+    const bool shadow = sizeof(T) == 2 && l + 2 < D;
+    Epilogue<T> epi{p.relu[l] != 0, p.scale, nullptr, 0, p.rplane[l], ld4(N),
+                    shadow ? static_cast<T*>(p.plane[l % 2]) : nullptr, ld_of<T>(N), N};
+    sweep_outlined<T>(p.row_ptr, p.col_idx, src, ld, vec, p.n, p.width[l], nullptr, 0, p.w[l],
+                      ld4(N), N, epi, counter++, smem);
     grid.sync();
+    stamp(p, &k);
   }
   // 2-3. the transposed sweeps, last layer first, each followed by its dW
   for (int s = 0; s < D; ++s) {
     const int l = D - 1 - s;
-    const PlaneRows rows =
-        s == 0 ? PlaneRows{p.g, p.relu[l] ? p.y : nullptr, nullptr}
-               : PlaneRows{p.cot[(s - 1) % 2], p.relu[l] ? p.plane[l] : nullptr, p.scale};
-    sweep<ROUND>(p.t_row_ptr, p.t_col_idx, rows, p.vec_bwd[l], p.n, p.width[l + 1], p.wt[l],
-                 p.width[l], l > 0 ? p.cot[s % 2] : p.dx, false, nullptr, p.u, counter++, tile,
-                 &claim);
+    const int64_t K = p.width[l + 1], N = p.width[l];
+    const bool gemm = l > 0 || p.dx != nullptr;
+    Epilogue<T> epi{false, l > 0 ? p.scale : nullptr,
+                    l > 0 && p.relu[l - 1] ? p.rplane[l - 1] : nullptr, ld4(N),
+                    l > 0 ? nullptr : p.dx, N,
+                    l > 0 ? static_cast<T*>(p.stg[(s + 1) % 2]) : nullptr, ld_of<T>(N), N};
+    sweep_outlined<T>(p.t_row_ptr, p.t_col_idx, static_cast<const T*>(p.stg[s % 2]),
+                      ld_of<T>(K), 4, p.n, K, p.u, ld4(K), gemm ? p.wt[l] : nullptr, ld4(N), N,
+                      epi, counter++, smem);
     grid.sync();
-    dw_partials(p, l, l == 0 ? p.x : p.plane[l - 1], tile);
+    stamp(p, &k);
+    if (l == 0) dw_partials(p, l, p.x, p.width[0], p.vec_x, smem);
+    else dw_partials(p, l, p.rplane[l - 1], ld4(p.width[l]), 4, smem);
     grid.sync();
-    // the next sweep writes u and the other cotangent plane, never the partials, which the
+    stamp(p, &k);
+    // the next sweep writes u and the other staged plane, never the partials, which the
     // next dw_partials rewrites only after another grid sync
     dw_reduce(p, l);
+    if (p.stamps != nullptr) {
+      grid.sync();
+      stamp(p, &k);
+    }
   }
 }
 
-size_t tile_bytes(int64_t H) {
-  int rb, stride;
-  roc::tile_shape(H, &rb, &stride);
-  return static_cast<size_t>(rb) * stride * sizeof(float);
-}
-
-int vec_for(int64_t H, const void* a, const void* b = nullptr, const void* c = nullptr,
-            const void* d = nullptr) {
-  for (int v = 4; v > 1; v /= 2) {
-    if (H % v != 0) continue;
-    const uintptr_t align = static_cast<uintptr_t>(4 * v);
-    bool ok = true;
-    for (const void* q : {a, b, c, d})
-      if (q != nullptr && reinterpret_cast<uintptr_t>(q) % align != 0) ok = false;
-    if (ok) return v;
-  }
+int vec_for(int64_t H, const void* a, const void* b = nullptr) {
+  for (int v = 4; v > 1; v /= 2)
+    if (H % v == 0 && reinterpret_cast<uintptr_t>(a) % (4 * v) == 0 &&
+        reinterpret_cast<uintptr_t>(b) % (4 * v) == 0)
+      return v;
   return 1;
 }
 
@@ -365,10 +878,23 @@ int launch_coop(Kernel kernel, Region& p, size_t smem, cudaStream_t stream, int*
   return static_cast<int>(cudaGetLastError());
 }
 
-int fill_common(Region& p, const void* row_ptr, const void* col_idx, const void* x,
+// Bytes of dynamic shared memory a kernel asks for, for the launch's gathered widths.
+size_t region_smem(const long long* width, int depth, bool backward) {
+  size_t most = backward ? dw_smem() : 0;
+  for (int l = 0; l < depth; ++l) {
+    const size_t a = sweep_smem(width[l]);
+    const size_t b = backward ? sweep_smem(width[l + 1]) : 0;
+    most = a > most ? a : most;
+    most = b > most ? b : most;
+  }
+  return most;
+}
+
+int fill_common(Region& p, const void* row_ptr, const void* col_idx, const void* x, void* xs,
                 const void* const* w, const void* scale, const int* relu,
-                const long long* width, int depth, long long n) {
-  if (depth < 2 || depth > kMaxDepth || n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+                const long long* width, int depth, long long n, int round_bf16) {
+  if (depth < 2 || depth > kMaxDepth || n <= 0 || n > INT32_MAX || (round_bf16 && xs == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   p.depth = depth;
   p.n = n;
   for (int l = 0; l <= depth; ++l) {
@@ -382,6 +908,8 @@ int fill_common(Region& p, const void* row_ptr, const void* col_idx, const void*
   p.row_ptr = static_cast<const int64_t*>(row_ptr);
   p.col_idx = static_cast<const int32_t*>(col_idx);
   p.x = static_cast<const float*>(x);
+  p.xs = xs;
+  p.vec_x = vec_for(width[0], x);
   p.scale = static_cast<const float*>(scale);
   return 0;
 }
@@ -390,33 +918,33 @@ int fill_common(Region& p, const void* row_ptr, const void* col_idx, const void*
 
 // C interface, bound with ctypes by roc_tpu_torch/ops/kernels/xlayer.py.  Every tensor is
 // contiguous on the device: fp32 data, int64 row pointers, int32 column indices; w, wt, dw,
-// plane, relu and width are host arrays of depth (width: depth + 1) entries.  counter
-// points to zeroed ints: depth of them forward, 2 depth - 1 backward.  Each returns the
-// CUDA error of the launch (0 on success) and writes the grid size to *grid.
+// plane, relu and width are host arrays of depth (width: depth + 1) entries.  Weights come
+// padded: W_l as [H_l, ld4(H_{l+1})], W_l^T as [H_{l+1}, ld4(H_l)] (ld4: rounded up to 4
+// columns).  "T planes" are bf16 with round_bf16 ("fast") and fp32 otherwise, with rows of
+// ld8(H) (bf16) or ld4(H) (fp32) elements.  xs is the staged x, a bf16 [n, ld8(H_0)]
+// workspace, with round_bf16 (null otherwise).  counter points to zeroed ints: depth of them
+// forward, 2 depth - 1 backward.  stamps is null or takes the phase split (xlayer.py's
+// phases()).  Each returns the CUDA error of the launch (0 on success) and writes the grid
+// size to *grid.
 
-// plane: 2 planes of n * max(H_1 .. H_{D-1}) floats (the same one twice at depth 2).
-extern "C" int roc_xlayer_fwd(const void* row_ptr, const void* col_idx, const void* x,
+// plane: 2 T planes of n * ld(max(H_1 .. H_{D-1})) elements (the same one twice at depth 2).
+extern "C" int roc_xlayer_fwd(const void* row_ptr, const void* col_idx, const void* x, void* xs,
                               const void* const* w, const void* scale, const int* relu,
                               const long long* width, int depth, long long n, void* out,
-                              void* const* plane, void* counter, int round_bf16, void* stream,
-                              int* grid) {
+                              void* const* plane, void* counter, void* stamps, int round_bf16,
+                              void* stream, int* grid) {
   Region p = {};
-  int err = fill_common(p, row_ptr, col_idx, x, w, scale, relu, width, depth, n);
+  int err = fill_common(p, row_ptr, col_idx, x, xs, w, scale, relu, width, depth, n, round_bf16);
   if (err != 0) return err;
+  p.stamps = static_cast<unsigned long long*>(stamps);
   p.out = static_cast<float*>(out);
-  p.plane[0] = static_cast<float*>(plane[0]);
-  p.plane[1] = static_cast<float*>(plane[1]);
+  p.plane[0] = plane[0];
+  p.plane[1] = plane[1];
   p.counter = static_cast<int*>(counter);
-  size_t smem = 0;
-  for (int l = 0; l < depth; ++l) {
-    const void* src = l == 0 ? x : plane[(l - 1) % 2];
-    p.vec_fwd[l] = vec_for(p.width[l], src);
-    const size_t b = tile_bytes(p.width[l]);
-    if (b > smem) smem = b;
-  }
+  const size_t smem = region_smem(width, depth, false);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return round_bf16 ? launch_coop(xlayer_fwd<true>, p, smem, s, grid)
-                    : launch_coop(xlayer_fwd<false>, p, smem, s, grid);
+  return round_bf16 ? launch_coop(xlayer_fwd<bf16>, p, smem, s, grid)
+                    : launch_coop(xlayer_fwd<float>, p, smem, s, grid);
 }
 
 // Floats of the dW partials workspace roc_xlayer_bwd needs.
@@ -424,54 +952,52 @@ extern "C" long long roc_xlayer_partial_floats(long long n, const long long* wid
   long long most = 0;
   for (int l = 0; l < depth; ++l) {
     const DwShape s = dw_shape(n, width[l], width[l + 1]);
-    const long long f = s.splits * s.kt * s.jt * kDwTile * kDwTile;
+    const long long f = s.splits * s.kt * s.jt * kDwK * kDwJ;
     if (f > most) most = f;
   }
   return most;
 }
 
-// plane: the D-1 replay planes, n * H_{l+1} floats each; cot: 2 planes of
-// n * max(H_1 .. H_{D-1}) floats (the same one twice at depth 2); u: n * max(H_1 .. H_D)
-// floats; partial: roc_xlayer_partial_floats floats; y may be null without a last relu and
-// dx null when dx is not asked for.
+// rplane: the D-1 replay planes, fp32 n * ld4(H_{l+1}) each; plane: with round_bf16, the
+// replay's bf16 shadow ping-pong, 2 planes of n * ld8(max(H_1 .. H_{D-2})) (unused at depth
+// 2), else null; stg: 2 T planes of n * ld(max(H_1 .. H_D)) (the staged cotangents); u:
+// n * ld4(max(H_1 .. H_D)) floats; partial: roc_xlayer_partial_floats floats; y may be null
+// without a last relu and dx null when dx is not asked for.
 extern "C" int roc_xlayer_bwd(const void* row_ptr, const void* col_idx, const void* t_row_ptr,
-                              const void* t_col_idx, const void* x, const void* const* w,
-                              const void* const* wt, const void* scale, const int* relu,
-                              const long long* width, int depth, long long n, const void* g,
-                              const void* y, void* const* plane, void* const* cot, void* u,
-                              void* partial, void* const* dw, void* dx, void* counter,
+                              const void* t_col_idx, const void* x, void* xs,
+                              const void* const* w, const void* const* wt, const void* scale,
+                              const int* relu, const long long* width, int depth, long long n,
+                              const void* g, const void* y, void* const* rplane,
+                              void* const* plane, void* const* stg, void* u, void* partial,
+                              void* const* dw, void* dx, void* counter, void* stamps,
                               int round_bf16, void* stream, int* grid) {
   Region p = {};
-  int err = fill_common(p, row_ptr, col_idx, x, w, scale, relu, width, depth, n);
+  int err = fill_common(p, row_ptr, col_idx, x, xs, w, scale, relu, width, depth, n, round_bf16);
   if (err != 0) return err;
   if (p.relu[depth - 1] && y == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  p.stamps = static_cast<unsigned long long*>(stamps);
   p.t_row_ptr = static_cast<const int64_t*>(t_row_ptr);
   p.t_col_idx = static_cast<const int32_t*>(t_col_idx);
   p.g = static_cast<const float*>(g);
   p.y = static_cast<const float*>(y);
-  p.cot[0] = static_cast<float*>(cot[0]);
-  p.cot[1] = static_cast<float*>(cot[1]);
+  p.vec_g = vec_for(width[depth], g, y);
+  if (plane != nullptr) {
+    p.plane[0] = plane[0];
+    p.plane[1] = plane[1];
+  }
+  p.stg[0] = stg[0];
+  p.stg[1] = stg[1];
   p.u = static_cast<float*>(u);
   p.partial = static_cast<float*>(partial);
   p.dx = static_cast<float*>(dx);
   p.counter = static_cast<int*>(counter);
-  size_t smem = 2 * kDwRows * kDwTile * sizeof(float);
   for (int l = 0; l < depth; ++l) {
     p.wt[l] = static_cast<const float*>(wt[l]);
     p.dw[l] = static_cast<float*>(dw[l]);
-    if (l + 1 < depth) {
-      p.plane[l] = static_cast<float*>(plane[l]);
-      p.vec_fwd[l] = vec_for(p.width[l], l == 0 ? x : plane[l - 1]);
-      const size_t b = tile_bytes(p.width[l]);
-      if (b > smem) smem = b;
-    }
-    p.vec_bwd[l] = l == depth - 1
-                       ? vec_for(p.width[l + 1], g, p.relu[l] ? y : nullptr, u)
-                       : vec_for(p.width[l + 1], cot[0], cot[1], p.relu[l] ? plane[l] : nullptr, u);
-    const size_t b = tile_bytes(p.width[l + 1]);
-    if (b > smem) smem = b;
+    if (l + 1 < depth) p.rplane[l] = static_cast<float*>(rplane[l]);
   }
+  const size_t smem = region_smem(width, depth, true);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return round_bf16 ? launch_coop(xlayer_bwd<true>, p, smem, s, grid)
-                    : launch_coop(xlayer_bwd<false>, p, smem, s, grid);
+  return round_bf16 ? launch_coop(xlayer_bwd<bf16>, p, smem, s, grid)
+                    : launch_coop(xlayer_bwd<float>, p, smem, s, grid);
 }

@@ -125,15 +125,25 @@ def divide_by_degree(out: torch.Tensor,
 def _segment_extreme(x: torch.Tensor, csr: DeviceCsr,
                      aggr: str) -> torch.Tensor:
     """Segment max/min; rows with no in-edges are 0, not the ±inf identity,
-    which would poison a later linear layer (aggregate.py:110-116)."""
+    which would poison a later linear layer (aggregate.py:110-116).
+
+    The destination starts at the identity, not at 0: torch's backward of
+    ``scatter_reduce_`` counts the destination's starting value among the
+    ties even with ``include_self=False``, so a zero fill would take a
+    share of the gradient wherever a row's extreme is exactly 0.  The rows
+    that kept the identity are zeroed after the reduction (genuine NaNs
+    stay visible), as roc_tpu zeroes ``jnp.isneginf``/``isposinf``."""
     n = csr.num_rows
     dst = torch.repeat_interleave(
         torch.arange(n, device=x.device), torch.diff(csr.row_ptr))
-    out = torch.zeros((n, x.shape[1]), dtype=x.dtype, device=x.device)
+    ident = float("-inf") if aggr == "max" else float("inf")
+    out = torch.full((n, x.shape[1]), ident, dtype=x.dtype, device=x.device)
     src = x.index_select(0, csr.col_idx)
-    return out.scatter_reduce_(0, dst[:, None].expand_as(src), src,
-                               "amax" if aggr == "max" else "amin",
-                               include_self=False)
+    out = out.scatter_reduce(0, dst[:, None].expand_as(src), src,
+                             "amax" if aggr == "max" else "amin",
+                             include_self=False)
+    empty = torch.isneginf(out) if aggr == "max" else torch.isposinf(out)
+    return torch.where(empty, torch.zeros_like(out), out)
 
 
 def _aggregate(sum_fn, x, csr, aggr, precision):

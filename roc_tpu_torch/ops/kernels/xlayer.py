@@ -28,11 +28,16 @@ masked by the replayed plane ``> 0``) is summed over the transposed CSR into
 
 Precision as the megakernel's: "fast" rounds each gathered element once to
 bf16 and sums in fp32; "exact" is fp32 throughout; every GEMM is fp32 (no
-TF32).  On a CUDA tensor each wrapper launches its kernel from
-``csrc/xlayer.cu`` (one cooperative launch per call) or raises; on a CPU
-tensor it runs the plain version.  ``xlayer_fwd.launches`` and
-``xlayer_bwd.launches`` count kernel launches; ``.grid`` holds the last
-launch's grid size.
+TF32).  On the card the "fast" rounding is done once per source row, where
+the element is formed (x staged to a padded bf16 plane, bf16 interior
+planes, the staged cotangent written by the hand-off GEMM's epilogue), not
+once per edge: ``stage_plain`` and ``handoff_plain`` are the plain twins of
+those steps, for the tests (nothing on the card's path calls them).  On a
+CUDA tensor each wrapper launches its kernel from ``csrc/xlayer.cu`` (one
+cooperative launch per call) or raises; on a CPU tensor it runs the plain
+version.  ``xlayer_fwd.launches`` and ``xlayer_bwd.launches`` count kernel
+launches; ``.grid`` holds the last launch's grid size.  ``phases`` names
+the phases of a launch, whose split a caller can take with ``stamps``.
 """
 
 from __future__ import annotations
@@ -58,11 +63,11 @@ def _bind(lib: ctypes.CDLL) -> None:
     pp, pi, pll = (ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(i),
                    ctypes.POINTER(ll))
     fwd = lib.roc_xlayer_fwd
-    fwd.argtypes = [p, p, p, pp, p, pi, pll, i, ll, p, pp, p, i, p, pi]
+    fwd.argtypes = [p, p, p, p, pp, p, pi, pll, i, ll, p, pp, p, p, i, p, pi]
     fwd.restype = i
     bwd = lib.roc_xlayer_bwd
-    bwd.argtypes = [p, p, p, p, p, pp, pp, p, pi, pll, i, ll, p, p, pp, pp,
-                    p, p, pp, p, p, i, p, pi]
+    bwd.argtypes = [p, p, p, p, p, p, pp, pp, p, pi, pll, i, ll, p, p, pp,
+                    pp, pp, p, p, pp, p, p, p, i, p, pi]
     bwd.restype = i
     size = lib.roc_xlayer_partial_floats
     size.argtypes = [ll, pll, i]
@@ -70,6 +75,68 @@ def _bind(lib: ctypes.CDLL) -> None:
 
 
 LIBRARY = CudaLibrary("xlayer.cu", _bind)
+
+
+def phases(depth: int, backward: bool, precision: str = "fast") -> list:
+    """The names of a region kernel's phases, in the order it runs them:
+    the grid syncs of ``csrc/xlayer.cu`` cut the launch into these, and a
+    call given ``stamps`` writes one ``%globaltimer`` stamp (ns) at the
+    start and one after each phase.  "stage" writes the staged x (fast) and,
+    backward, the last layer's staged cotangent; "layer{l}" and
+    "replay{l}" are forward sweeps, "sweep{l}" the transposed sweep of
+    layer l with its hand-off GEMM, then dW_l's partials and reduction."""
+    if not backward:
+        head = ["stage"] if precision == "fast" else []
+        return head + [f"layer{l}" for l in range(depth)]
+    out = ["stage"] + [f"replay{l}" for l in range(depth - 1)]
+    for l in reversed(range(depth)):
+        out += [f"sweep{l}", f"dw_partials{l}", f"dw_reduce{l}"]
+    return out
+
+
+def _ld(h: int, precision: str) -> int:
+    """Row stride of a gathered plane: 16-byte rows, 8 bf16 (fast) or 4
+    fp32 (exact) elements."""
+    q = 8 if precision == "fast" else 4
+    return -(-h // q) * q
+
+
+def stage_plain(src: torch.Tensor, mask: Optional[torch.Tensor],
+                precision: str = "fast") -> torch.Tensor:
+    """The kernels' staging step as plain PyTorch: ``src * [mask > 0]``
+    (``src`` itself without a mask) stored as the plane a sweep gathers,
+    [N, ld] with the columns from H on 0: bf16 (round to nearest even) in
+    fast, fp32 in exact.  x is staged with no mask; the last layer's
+    cotangent with the saved output y."""
+    n, h = src.shape
+    dtype = torch.bfloat16 if precision == "fast" else torch.float32
+    out = torch.zeros((n, _ld(h, precision)), dtype=dtype, device=src.device)
+    v = src if mask is None else torch.where(mask > 0, src,
+                                             torch.zeros_like(src))
+    out[:, :h] = v.to(dtype)
+    return out
+
+
+def handoff_plain(v: torch.Tensor, scale: Optional[torch.Tensor],
+                  mask: Optional[torch.Tensor],
+                  precision: str = "fast") -> torch.Tensor:
+    """The hand-off GEMM's epilogue as plain PyTorch: from ``v = u_l
+    W_l^T``, the staged cotangent of layer l-1, ``((v * s) * s) * [P_{l-1} >
+    0]`` (the scale when given, the mask with layer l-1's relu), stored as
+    ``stage_plain`` stores it."""
+    return stage_plain(_scaled(v, scale), mask, precision)
+
+
+def _stamps_ptr(stamps: Optional[torch.Tensor], depth: int,
+                backward: bool, precision: str):
+    if stamps is None:
+        return None
+    want = len(phases(depth, backward, precision)) + 1
+    if (stamps.dtype != torch.int64 or stamps.device.type != "cuda"
+            or not stamps.is_contiguous() or stamps.numel() < want):
+        raise ValueError(f"stamps must be a contiguous CUDA int64 tensor of "
+                         f"at least {want} entries")
+    return stamps.data_ptr()
 
 
 def _check_region(x: torch.Tensor, ws: Sequence[torch.Tensor],
@@ -205,27 +272,63 @@ def _cuda_inputs(name, x, ws, scale, row_ptr, col_idx, *more) -> None:
 def xlayer_fwd(x: torch.Tensor, ws: Sequence[torch.Tensor],
                scale: Optional[torch.Tensor], row_ptr: torch.Tensor,
                col_idx: torch.Tensor, precision: str = "fast",
-               activations: Sequence[str] = ()) -> torch.Tensor:
+               activations: Sequence[str] = (),
+               stamps: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The region forward: x [N, H_0] -> [N, H_D] fp32.  Launches the CUDA
-    kernel for CUDA tensors, runs the plain version for CPU tensors."""
+    kernel for CUDA tensors, runs the plain version for CPU tensors.
+    ``stamps`` (CUDA int64, ``len(phases(D, False, precision)) + 1``
+    entries, or None) takes the phase split of the launch."""
     if x.device.type == "cpu":
         return xlayer_fwd_plain(x, ws, scale, row_ptr, col_idx, precision,
                                 activations)
     widths = _check_region(x, ws, scale, row_ptr, col_idx, precision,
                            activations)
     _cuda_inputs("xlayer_fwd", x, ws, scale, row_ptr, col_idx)
+    return _fwd_launch(x, ws, scale, row_ptr, col_idx, precision,
+                       activations, stamps, widths)
+
+
+def _padded(w: torch.Tensor) -> torch.Tensor:
+    """A weight with its rows padded to a multiple of 4 columns (16-byte
+    rows for the kernels' cp.async copies)."""
+    k, h = w.shape
+    ld = _ld(h, "exact")
+    if ld == h:
+        return w.contiguous()
+    out = torch.zeros((k, ld), dtype=w.dtype, device=w.device)
+    out[:, :h] = w
+    return out
+
+
+def _staged_x(x: torch.Tensor, precision: str) -> Optional[torch.Tensor]:
+    """The staged x's workspace: bf16 [N, ld8(H_0)] in fast."""
+    if precision != "fast":
+        return None
+    return torch.empty((x.shape[0], _ld(x.shape[1], "fast")),
+                       dtype=torch.bfloat16, device=x.device)
+
+
+def _fwd_launch(x, ws, scale, row_ptr, col_idx, precision, activations,
+                stamps, widths) -> torch.Tensor:
     n, depth, dev = row_ptr.numel() - 1, len(ws), x.device
+    fast = precision == "fast"
     out = torch.empty((n, widths[-1]), dtype=torch.float32, device=dev)
-    # the interior planes: one at depth 2, a ping-pong beyond
-    planes = [torch.empty(n * max(widths[1:-1]), dtype=torch.float32,
+    # the interior planes, as the next layer gathers them: one at depth 2, a
+    # ping-pong beyond
+    planes = [torch.empty(n * _ld(max(widths[1:-1]), precision),
+                          dtype=torch.bfloat16 if fast else torch.float32,
                           device=dev) for _ in range(1 if depth == 2 else 2)]
+    xs = _staged_x(x, precision)
+    wp = [_padded(w) for w in ws]       # alive until the launch is queued
     counter = torch.zeros(depth, dtype=torch.int32, device=dev)
     _launch(xlayer_fwd, LIBRARY.load().roc_xlayer_fwd,
-            (row_ptr.data_ptr(), col_idx.data_ptr(), x.data_ptr(), _ptrs(ws),
+            (row_ptr.data_ptr(), col_idx.data_ptr(), x.data_ptr(),
+             None if xs is None else xs.data_ptr(), _ptrs(wp),
              None if scale is None else scale.data_ptr(),
              _ints([a == "relu" for a in activations]), _longs(widths),
              depth, n, out.data_ptr(), _ptrs(planes + planes[:1]),
-             counter.data_ptr(), int(precision == "fast")), dev)
+             counter.data_ptr(), _stamps_ptr(stamps, depth, False,
+                                             precision), int(fast)), dev)
     return out
 
 
@@ -234,11 +337,12 @@ def xlayer_bwd(g: torch.Tensor, y: Optional[torch.Tensor], x: torch.Tensor,
                row_ptr: torch.Tensor, col_idx: torch.Tensor,
                t_row_ptr: torch.Tensor, t_col_idx: torch.Tensor,
                precision: str = "fast", activations: Sequence[str] = (),
-               need_dx: bool = True
+               need_dx: bool = True, stamps: Optional[torch.Tensor] = None
                ) -> Tuple[Optional[torch.Tensor], Tuple[torch.Tensor, ...]]:
     """The region backward: ``(dx [N, H_0] or None, (dW_0, ..., dW_{D-1}))``.
     Launches the CUDA kernel for CUDA tensors, runs the plain version for
-    CPU tensors."""
+    CPU tensors.  ``stamps`` as in :func:`xlayer_fwd`, with
+    ``len(phases(D, True, precision)) + 1`` entries."""
     if g.device.type == "cpu":
         return xlayer_bwd_plain(g, y, x, ws, scale, row_ptr, col_idx,
                                 t_row_ptr, t_col_idx, precision, activations,
@@ -260,27 +364,47 @@ def xlayer_bwd(g: torch.Tensor, y: Optional[torch.Tensor], x: torch.Tensor,
     _cuda_inputs("xlayer_bwd", x, ws, scale, row_ptr, col_idx, g,
                  t_row_ptr, t_col_idx, *((y,) if relu[-1] else ()))
     _csr_int64(t_row_ptr)
+    return _bwd_launch(g, y, x, ws, scale, row_ptr, col_idx, t_row_ptr,
+                       t_col_idx, precision, relu, need_dx, stamps, widths)
+
+
+def _bwd_launch(g, y, x, ws, scale, row_ptr, col_idx, t_row_ptr, t_col_idx,
+                precision, relu, need_dx, stamps, widths):
+    n, depth, dev = row_ptr.numel() - 1, len(ws), x.device
+    fast = precision == "fast"
     lib = LIBRARY.load()
     f32 = dict(dtype=torch.float32, device=dev)
-    wts = [w.t().contiguous() for w in ws]
+    low = dict(dtype=torch.bfloat16 if fast else torch.float32, device=dev)
     dws = [torch.empty(tuple(w.shape), **f32) for w in ws]
     dx = torch.empty((n, widths[0]), **f32) if need_dx else None
-    planes = [torch.empty((n, h), **f32) for h in widths[1:-1]]
-    cot = [torch.empty(n * max(widths[1:-1]), **f32)
-           for _ in range(1 if depth == 2 else 2)]
-    u = torch.empty(n * max(widths[1:]), **f32)
+    # the replayed planes P_0 .. P_{D-2}, fp32 (dW and the masks read them)
+    rplanes = [torch.empty((n, _ld(h, "exact")), **f32)
+               for h in widths[1:-1]]
+    # fast: the bf16 shadow of each replayed plane the next replay gathers
+    shadow = ([torch.empty(n * _ld(max(widths[1:-2]), "fast"), **low)
+               for _ in range(1 if depth == 3 else 2)]
+              if fast and depth > 2 else [])
+    # the staged cotangents, as the transposed sweeps gather them
+    stg = [torch.empty(n * _ld(max(widths[1:]), precision), **low)
+           for _ in range(2)]
+    u = torch.empty(n * _ld(max(widths[1:]), "exact"), **f32)
     partial = torch.empty(lib.roc_xlayer_partial_floats(
         n, _longs(widths), depth), **f32)
+    xs = _staged_x(x, precision)
+    wp = [_padded(w) for w in ws]       # alive until the launch is queued
+    wtp = [_padded(w.t()) for w in ws]
     counter = torch.zeros(2 * depth - 1, dtype=torch.int32, device=dev)
     _launch(xlayer_bwd, lib.roc_xlayer_bwd,
             (row_ptr.data_ptr(), col_idx.data_ptr(), t_row_ptr.data_ptr(),
-             t_col_idx.data_ptr(), x.data_ptr(), _ptrs(ws), _ptrs(wts),
+             t_col_idx.data_ptr(), x.data_ptr(),
+             None if xs is None else xs.data_ptr(), _ptrs(wp), _ptrs(wtp),
              None if scale is None else scale.data_ptr(), _ints(relu),
              _longs(widths), depth, n, g.data_ptr(),
-             y.data_ptr() if relu[-1] else None, _ptrs(planes),
-             _ptrs(cot + cot[:1]), u.data_ptr(), partial.data_ptr(),
-             _ptrs(dws), None if dx is None else dx.data_ptr(),
-             counter.data_ptr(), int(precision == "fast")), dev)
+             y.data_ptr() if relu[-1] else None, _ptrs(rplanes),
+             _ptrs(shadow + shadow[:1]) if shadow else None, _ptrs(stg),
+             u.data_ptr(), partial.data_ptr(), _ptrs(dws),
+             None if dx is None else dx.data_ptr(), counter.data_ptr(),
+             _stamps_ptr(stamps, depth, True, precision), int(fast)), dev)
     return dx, tuple(dws)
 
 

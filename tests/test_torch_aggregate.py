@@ -15,6 +15,7 @@ Tolerances, relative to each row's max-abs:
   integer data             bitwise
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -134,6 +135,55 @@ def test_other_aggrs_match_xla(aggr):
     plain = ops.scatter_gather_plain(torch.as_tensor(x),
                                      ops.DeviceCsr.from_csr(g, "cpu"), aggr)
     np.testing.assert_array_equal(plain.numpy(), out)
+
+
+def _extreme_grads(x, g, cot, aggr):
+    """d<out, cot>/dx of the max/min aggregation: the port's autograd and
+    ``jax.vjp`` of roc_tpu's xla ``scatter_gather``."""
+    xt = torch.tensor(x, requires_grad=True)
+    out = ops.scatter_gather(xt, ops.DeviceCsr.from_csr(g, "cpu"), aggr,
+                             "exact")
+    out.backward(torch.as_tensor(cot))
+    _, vjp = jax.vjp(lambda xx: jops.scatter_gather(
+        xx, jnp.asarray(g.col_idx), jnp.asarray(g.dst_idx), g.num_nodes,
+        aggr), jnp.asarray(x))
+    return xt.grad.numpy(), np.asarray(vjp(jnp.asarray(cot))[0])
+
+
+@pytest.mark.parametrize("aggr", ["max", "min"])
+def test_extreme_vjp_matches_roc_tpu_at_ties(aggr):
+    """Tie-heavy integer data: features in {-1, 0, 1} (so most rows tie,
+    and many rows' extreme is exactly 0), a row whose sources are all
+    zero, and empty rows.  The gradient is shared among the tied sources
+    only, as roc_tpu's segment max/min shares it."""
+    g = _random_graph()
+    rng = np.random.default_rng(12)
+    x = rng.integers(-1, 2, (g.num_nodes, 6)).astype(np.float32)
+    x[g.col_idx[g.row_ptr[7]:g.row_ptr[8]], 0] = 0.0    # the hub: all 0
+    cot = rng.integers(-3, 4, (g.num_nodes, 6)).astype(np.float32)
+    ours = ops.scatter_gather(torch.as_tensor(x),
+                              ops.DeviceCsr.from_csr(g, "cpu"), aggr,
+                              "exact").numpy()
+    assert (ours == 0).mean() > 0.05 and np.all(ours[-20:] == 0)
+    got, want = _extreme_grads(x, g, cot, aggr)
+    scale = np.abs(want).max()
+    assert scale > 0 and np.abs(got - want).max() <= 1e-6 * scale
+
+
+@pytest.mark.parametrize("aggr,values,want", [
+    ("max", [0.0, -1.0, -1.0], [1.0, 0.0, 0.0]),
+    ("max", [0.0, 0.0, -1.0], [0.5, 0.5, 0.0]),
+    ("min", [0.0, 1.0, 1.0], [1.0, 0.0, 0.0]),
+    ("min", [0.0, 0.0, 1.0], [0.5, 0.5, 0.0])])
+def test_extreme_gradient_at_a_zero_extreme(aggr, values, want):
+    """One destination row with three sources whose extreme is exactly 0:
+    only the sources that reach it share the gradient."""
+    g = from_edges(4, np.array([1, 2, 3]), np.array([0, 0, 0]))
+    x = np.array([[5.0]] + [[v] for v in values], np.float32)
+    cot = np.array([[1.0], [0.0], [0.0], [0.0]], np.float32)
+    got, ref = _extreme_grads(x, g, cot, aggr)
+    np.testing.assert_array_equal(got[1:, 0], np.float32(want))
+    np.testing.assert_array_equal(got, ref)
 
 
 @pytest.mark.parametrize("precision", ["medium", "bf16", ""])

@@ -46,6 +46,7 @@ from roc_tpu_torch.graph import datasets
 from roc_tpu_torch.models import build_model, mega_regions
 from roc_tpu_torch.ops import aggregate as agg_mod
 from roc_tpu_torch.ops.kernels import xlayer as KX
+from roc_tpu_torch.ops.linear import linear
 from roc_tpu_torch.train import checkpoint
 from roc_tpu_torch.train.config import Config, parse_args
 from roc_tpu_torch.train.driver import Trainer
@@ -271,6 +272,107 @@ def test_region_equals_the_per_layer_chain_and_skips_dx():
     assert dx is None
     for a, b in zip(dws, outs[ops.region_linear][2:]):
         assert torch.equal(a, b)
+
+
+def _staging_case(depth, data, n=240, h=13, seed=50):
+    """A random graph whose row 29 has no in-edges and no out-edges (a
+    zero-degree row both ways), width 13 everywhere (not a multiple of 8:
+    the staged planes carry 3 padding columns), every layer with relu and
+    the norm pair."""
+    rng = np.random.default_rng(seed + depth)
+    src, dst = rng.integers(0, n, 6 * n), rng.integers(0, n, 6 * n)
+    keep = (src != 29) & (dst != 29)
+    order = np.argsort(dst[keep], kind="stable")
+    src, dst = src[keep][order], dst[keep][order]
+    csr = _device_csr(src, dst, n)
+    if data == "integer":
+        x = rng.integers(0, 2, (n, h)).astype(np.float32)
+        ws = [rng.integers(-1, 2, (h, h)).astype(np.float32)
+              for _ in range(depth)]
+        g = rng.integers(-1, 2, (n, h)).astype(np.float32)
+    else:
+        x = rng.standard_normal((n, h), dtype=np.float32)
+        ws = [rng.standard_normal((h, h), dtype=np.float32) / h ** 0.5
+              for _ in range(depth)]
+        g = rng.standard_normal((n, h), dtype=np.float32)
+    scale = torch.rsqrt(torch.clamp_min(torch.diff(csr.row_ptr).float(),
+                                        1.0))
+    return (csr, torch.as_tensor(x), [torch.as_tensor(w) for w in ws],
+            torch.as_tensor(g), scale)
+
+
+def _gather_staged(plane, row_ptr, col_idx, h):
+    """A staged plane summed in exact over its full padded width: the
+    padding columns sum to 0 and are cut off."""
+    out = ops.kernels.aggregate_sum.aggregate_sum_plain(
+        plane.float(), row_ptr, col_idx, "exact")
+    assert plane.shape[1] > h and torch.equal(
+        out[:, h:], torch.zeros_like(out[:, h:]))
+    return out[:, :h]
+
+
+@pytest.mark.parametrize("data", ["integer", "gaussian"])
+@pytest.mark.parametrize("depth", [2, 3])
+def test_staged_planes_give_the_fast_sums_bitwise(depth, data):
+    """The card's region kernels round once per source row, where each
+    gathered element is formed: x staged to a padded bf16 plane, the
+    forward's planes stored as bf16, the last cotangent staged, and each
+    interior one written by the hand-off epilogue.  The staging twins
+    (``stage_plain``, ``handoff_plain``) gathered in exact give, bitwise,
+    the sums of ``aggregate_sum_plain(..., "fast")`` over the unstaged
+    values, and so the plain versions' forward, dx and every dW."""
+    csr, x, ws, g, scale = _staging_case(depth, data)
+    acts, h = ("relu",) * depth, x.shape[1]
+    rp, ci, trp, tci = csr.row_ptr, csr.col_idx, csr.t_row_ptr, csr.t_col_idx
+    xs = KX.stage_plain(x, None, "fast")
+    assert xs.dtype == torch.bfloat16 and xs.shape == (x.shape[0], 16)
+    assert torch.equal(_gather_staged(xs, rp, ci, h),
+                       ops.kernels.aggregate_sum.aggregate_sum_plain(
+                           x, rp, ci, "fast"))
+    # forward, the kernel's way: bf16 planes between the layers
+    src, planes = xs, []
+    for l in range(depth):
+        t = linear(_gather_staged(src, rp, ci, h), ws[l], acts[l])
+        if l + 1 < depth:
+            t = KX._scaled(t, scale)
+            planes.append(t)
+            src = KX.stage_plain(t, None, "fast")
+    y = KX.xlayer_fwd_plain(x, ws, scale, rp, ci, "fast", acts)
+    assert torch.equal(t, y) and bool((y[29] == 0).all())
+    # backward: the staged cotangent, then each hand-off's
+    dws = [None] * depth
+    s = KX.stage_plain(g, y, "fast")
+    for l in reversed(range(depth)):
+        u = _gather_staged(s, trp, tci, h)
+        dws[l] = linear((x if l == 0 else planes[l - 1]).t(), u)
+        v = linear(u, ws[l].t())
+        if l > 0:
+            s = KX.handoff_plain(v, scale, planes[l - 1], "fast")
+    dx, want = KX.xlayer_bwd_plain(g, y, x, ws, scale, rp, ci, trp, tci,
+                                   "fast", acts)
+    assert torch.equal(v, dx)
+    for a, b in zip(dws, want):
+        assert torch.equal(a, b)
+
+
+def test_staged_padding_never_reaches_a_real_column():
+    """The padding columns of a staged plane are written as 0, and a
+    column's sum reads only that column: NaN in every padding column
+    leaves the real columns' sums bitwise as they were."""
+    csr, x, ws, g, scale = _staging_case(3, "gaussian")
+    h = x.shape[1]
+    for plane, rp, ci in ((KX.stage_plain(x, None, "fast"), csr.row_ptr,
+                           csr.col_idx),
+                          (KX.handoff_plain(g, scale, x, "exact"),
+                           csr.t_row_ptr, csr.t_col_idx)):
+        assert torch.equal(plane[:, h:], torch.zeros_like(plane[:, h:]))
+        clean = _gather_staged(plane, rp, ci, h)
+        poisoned = plane.clone()
+        poisoned[:, h:] = float("nan")
+        got = ops.kernels.aggregate_sum.aggregate_sum_plain(
+            poisoned.float(), rp, ci, "exact")
+        assert torch.equal(got[:, :h], clean)
+        assert bool(torch.isnan(got[:, h:]).any())
 
 
 def test_region_inputs_are_validated():

@@ -143,3 +143,40 @@ def test_zoo_trains_like_roc_tpu(case):
           f"relative")
     assert np.isfinite(got)
     assert logits0 <= 1e-3 and logits <= 1e-3 and gap <= 1e-3
+
+
+@pytest.mark.parametrize("aggr", ["max", "min"])
+def test_sage_extreme_gradients_match_roc_tpu(aggr):
+    """SAGE 8-16-4 with ``-aggr max|min``, exact, on integer data: {0, 1}
+    features and {-1, 0, 1} weights, so many rows' extreme is exactly 0
+    (after the first layer's relu too).  Every parameter's gradient of the
+    loss within 1e-6 of its max-abs of roc_tpu's (the max/min gradient is
+    shared among the tied sources only, in both packages)."""
+    from roc_tpu.train.driver import make_gctx as jmake_gctx
+    layers = [8, 16, 4]
+    kw = dict(dataset="roc-audit", layers=layers, model="sage", aggr=aggr,
+              aggregate_backend="xla", aggregate_precision="exact", **BASE)
+    jtr = JTrainer(JConfig(**kw), jdatasets.get("roc-audit"),
+                   jbuild_model("sage", layers, 0.0, aggr))
+    tr = Trainer(Config(device="cpu", **kw), datasets.get("roc-audit"),
+                 build_model("sage", layers, 0.0, aggr))
+    rng = np.random.default_rng(21)
+    params = {k: rng.integers(-1, 2, np.shape(v)).astype(np.float32)
+              for k, v in jtr.params.items()}
+    x = rng.integers(0, 2, tuple(tr.x.shape)).astype(np.float32)
+    want = jax.grad(lambda p: jtr.model.loss(
+        p, jax.numpy.asarray(x), jtr.labels, jtr.mask,
+        jmake_gctx(jtr.gdata, jtr.num_nodes), train=False))(
+        {k: jax.numpy.asarray(v) for k, v in params.items()})
+    ours = {k: v.detach().clone().requires_grad_(True)
+            for k, v in checkpoint.params_from_jax(params, "cpu").items()}
+    loss = tr.model.loss(ours, torch.as_tensor(x), tr.labels, tr.mask,
+                         tr.gctx, train=False)
+    keys = sorted(ours)
+    got = dict(zip(keys, torch.autograd.grad(loss, [ours[k]
+                                                    for k in keys])))
+    for k in keys:
+        w = np.asarray(want[k])
+        gap = np.abs(got[k].numpy() - w).max() / np.abs(w).max()
+        print(f"sage -aggr {aggr}: {k} gradient {gap:.2e} of its max-abs")
+        assert np.abs(w).max() > 0 and gap <= 1e-6, k
