@@ -7,24 +7,37 @@
 Each run is a process of its own, in the order other, this, this, other,
 and measures on the Reddit graph:
 
-  gcn_megafuse  GCN 602-256-41 with -megafuse, fast, 10 epochs
-                (chip_smoke.py's train phase of that checkout): the median
-                epoch of epochs 3-10 and the peak device memory of a step,
-                with nothing else live in the process
+  gcn_unfused   GCN 602-256-41, fast, 10 epochs (chip_smoke.py's train
+                phase of that checkout): the median epoch of epochs 3-10
+                and the peak device memory of a step, with nothing else
+                live in the process
+  gcn_megafuse  the same with -megafuse
   chain_depth1  gcn-chain 602-256-256-256-41, -megafuse -fusion-depth 1
                 (chip_smoke.py's train_chain phase): the same
   chain_depth2  the same at -fusion-depth 2 (one region of the two
                 256-wide layers)
   chain_depth0  the same at -fusion-depth 0 (one region of the three
                 hidden layers)
+  serve_gcn     GCN 602-256-41 served (chip_smoke.py's serve phase): p50
+                and p99 request latency and peak memory
+  digests       SHA-256 of the outputs of aggregate_sum (over the CSR and
+                its transpose, H = 41, 256, 602) and aggregate_linear
+                (602->256 relu, 256->41, 256->256 relu), both precisions,
+                on Gaussian inputs from one seed: equal digests in two
+                checkouts mean equal bits
+  xlayer_ptxas  the region kernels' registers and spill bytes, from the
+                build's ptxas report (empty where the library was already
+                built)
   score         the GAT source score at K=4, F=64 and K=1, F=41 beside
                 torch.einsum: the CUDA-event time of one launch (median of
                 50) and the time per launch over runs of 100 launches
                 (median of 5 runs); a lone launch of a small kernel also
                 holds the host's work of launching it
 
-One JSON line per run, then the card's name and power limit as nvidia-smi
-gives them.  Exits non-zero without CUDA or when a run fails.
+One JSON line per run, then one line saying which digests differ between
+the two checkouts (other vs this, first runs), then the card's name and
+power limit as nvidia-smi gives them.  Exits non-zero without CUDA or when
+a run fails.
 """
 
 from __future__ import annotations
@@ -35,24 +48,59 @@ import subprocess
 import sys
 
 RUN = r'''
-import json, os, statistics, sys
+import hashlib, json, os, statistics, sys
 root = sys.argv[1]
 sys.path.insert(0, root)
 os.chdir(root)
 import torch
 import chip_smoke as C
 from roc_tpu_torch.graph import datasets
+from roc_tpu_torch.ops import DeviceCsr
+from roc_tpu_torch.ops.kernels import aggregate_linear as KL
+from roc_tpu_torch.ops.kernels import aggregate_sum as KS
 from roc_tpu_torch.ops.kernels import gat as G
 dev = torch.device("cuda", 0)
 ds = datasets.get("reddit", seed=C.SEED)
 out = {"checkout": root}
-for name, phase in (("gcn_megafuse", lambda: C.phase_train(ds, dev, True)),
+csr = DeviceCsr.from_csr(ds.graph, dev)
+gen = torch.Generator(device=dev).manual_seed(C.SEED + 21)
+dig, n = {}, ds.graph.num_nodes
+
+
+def digest(t):
+    return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
+
+
+for h in (41, 256, 602):
+    x = torch.randn((n, h), generator=gen, device=dev)
+    for prec in ("fast", "exact"):
+        for d, rp, ci in (("fwd", csr.row_ptr, csr.col_idx),
+                          ("transposed", csr.t_row_ptr, csr.t_col_idx)):
+            dig[f"aggregate_sum_{d}_H{h}_{prec}"] = digest(
+                KS.aggregate_sum(x, rp, ci, prec))
+for hi, ho, act in ((602, 256, "relu"), (256, 41, "none"), (256, 256, "relu")):
+    x = torch.randn((n, hi), generator=gen, device=dev)
+    w = torch.randn((hi, ho), generator=gen, device=dev)
+    for prec in ("fast", "exact"):
+        dig[f"aggregate_linear_{hi}_{ho}_{act}_{prec}"] = digest(
+            KL.aggregate_linear(x, w, csr.row_ptr, csr.col_idx, prec, act))
+out["digests"] = dig
+from roc_tpu_torch.ops.kernels import xlayer as KX
+KX.LIBRARY.load()
+out["xlayer_ptxas"] = {k: v for k, v in C.ptxas_report(
+    KX.LIBRARY.info.get("log", "")).items() if "xlayer_" in k}
+del x, w, csr
+torch.cuda.empty_cache()
+for name, phase in (("gcn_unfused", lambda: C.phase_train(ds, dev, False)),
+                    ("gcn_megafuse", lambda: C.phase_train(ds, dev, True)),
                     *((f"chain_depth{d}",
                        lambda d=d: C.phase_train_chain(ds, dev, d))
                       for d in (1, 2, 0))):
     rec = phase()
     out[name] = {"median_epoch_ms_3_on": rec["median_epoch_ms_3_on"],
                  "peak_mem_bytes": rec["peak_mem_bytes"]}
+rec = C.phase_serve(ds, dev)
+out["serve_gcn"] = {k: rec[k] for k in ("p50_ms", "p99_ms", "peak_mem_bytes")}
 gen = torch.Generator(device=dev).manual_seed(C.SEED)
 for k, f in ((4, 64), (1, 41)):
     x = torch.randn((ds.graph.num_nodes, k * f), generator=gen, device=dev)
@@ -90,6 +138,7 @@ def main() -> int:
         return 2
     here = os.path.dirname(os.path.abspath(__file__))
     other = os.path.abspath(sys.argv[1])
+    runs = []
     for root in (other, here, here, other):
         proc = subprocess.run([sys.executable, "-c", RUN, root],
                               capture_output=True, text=True, timeout=900)
@@ -98,7 +147,13 @@ def main() -> int:
         if proc.returncode != 0 or not lines:
             print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
             return 1
-        print(json.dumps(json.loads(lines[-1])), flush=True)
+        runs.append(json.loads(lines[-1]))
+        print(json.dumps(runs[-1]), flush=True)
+    a, b = runs[0]["digests"], runs[1]["digests"]
+    print(json.dumps({"digests_compared": len(a),
+                      "digests_differ": sorted(k for k in a
+                                               if a[k] != b.get(k))}),
+          flush=True)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

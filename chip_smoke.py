@@ -11,6 +11,16 @@ Phases, each printing one JSON line per record:
           started together (timed; the compiler's register report goes to
           stderr)
   graph   host generation of the Reddit-shape synthetic graph (timed)
+  kernel_sum_shapes  aggregate_sum (over a CSR and its transpose) and
+          aggregate_linear (relu) against their plain versions on a small
+          graph with a hub row of 20,000 in-edges and two rows with no
+          in-edges, at H = 1, 7, 41, 255, 602, 608, 1000 (H_out 41, 256, 7,
+          65, 300, 1, 64), both precisions, x contiguous and a column slice
+          of a wider tensor (unaligned rows): bitwise on integer data,
+          and on Gaussian data each element within 1e-5 of the sum of the
+          absolute values of its terms (a one-column row may cancel to
+          near 0, where its max-abs is no yardstick; the row error is
+          reported beside it)
   kernel  the sum-aggregation kernel against its plain PyTorch version on
           the card, on that graph, at H = 41, 256, 602 in both precisions:
           bitwise on integer data ({0,1} features on the Reddit graph, and
@@ -19,13 +29,16 @@ Phases, each printing one JSON line per record:
           points).  Times: the kernel, the plain version, torch.sparse.mm
           on the same CSR (the library yardstick, fp32), and the bound
           (compulsory bytes over 3.35 TB/s vs E*H fp32 adds over 67
-          TFLOP/s, the larger)
+          TFLOP/s, the larger); in fast the time includes the staging
+          launch, timed alone as stage_ms
   kernel  (training) the kernels of the training path on the same graph,
           each against its plain version as above (integer data: x in
           {0,1}, W in {-2..2}, g in {-3..3}, all sums exact in fp32):
+          stage_plane (fast's bf16 plane of x) at H = 602, 256, 41;
           aggregate_sum over the transposed CSR at H = 256 and 41 (the
-          unfused backward), aggregate_linear at 602->256 relu and 256->41
-          none, stage_cotangent (the backward's masked, rounded cotangent
+          unfused backward), aggregate_linear at 602->256 relu, 256->41
+          none and 256->256 relu (stage_ms beside the total in fast),
+          stage_cotangent (the backward's masked, rounded cotangent
           plane) at H = 256 relu and 41 none, aggregate_linear_bwd at
           602<-256 relu (u alone, as the first layer's backward asks, and
           with dx), 256<-256 relu with dx (gcn-chain's interior layer) and
@@ -34,7 +47,10 @@ Phases, each printing one JSON line per record:
           Library: torch.sparse.mm then torch.matmul (fp32, TF32 off);
           for the staging, which no one call computes, the where + cast
           composition.  Bound: compulsory bytes over 3.35 TB/s vs the adds
-          and GEMM operations over 67 TFLOP/s fp32, the larger
+          and GEMM operations over 67 TFLOP/s fp32, the larger.  A kernel
+          under 0.2 ms (the stagings, the GAT score) is timed per launch
+          over 100 launches between one event pair (kernel_ms; the lone
+          launch is kept as kernel_one_launch_ms), its library call too
   small   the port's GCN forward on the audit graph, card vs CPU (exact)
   train_small  the port's Trainer on mega-shard (GCN 64-16-8, exact,
           dropout 0, 3 epochs), card vs CPU, unfused and megafuse: final
@@ -42,8 +58,9 @@ Phases, each printing one JSON line per record:
   serve   ServeEngine with GCN 602-256-41 on the Reddit graph (precision
           fast, seeded random weights): warmup and 120 open-loop requests
           of sizes (1, 2, 3, 5, 8, 13), with every kernel launch count set
-          to 0 just before and read just after; the kernel must have run
-          twice per forward.  Then served rows vs predict_logits (<= 32
+          to 0 just before and read just after; the sum kernel and the
+          staging must each have run twice per forward.  Then served rows
+          vs predict_logits (<= 32
           ULPs) and vs a forward through the plain aggregation in fp32
           (<= 5e-3 of each row's max-abs: one designed bf16 rounding).
   train   the Trainer with GCN 602-256-41 on the Reddit graph, fast,
@@ -52,9 +69,9 @@ Phases, each printing one JSON line per record:
           (median of epochs 3-10), peak memory, the first and the last
           train_loss (finite and falling), and each kernel's launches in
           the run (counts set to 0 just before, read just after) and in
-          one more step: 4 aggregate_sum unfused; 2 aggregate_linear, 2
-          aggregate_linear_bwd, 2 stage_cotangent and no aggregate_sum
-          with -megafuse
+          one more step: 4 aggregate_sum and 4 stage_plane unfused; 2
+          aggregate_linear, 2 stage_plane, 2 aggregate_linear_bwd, 2
+          stage_cotangent and no aggregate_sum with -megafuse
   ab      the same model in exact, dropout 0, 3 epochs from the same
           params, -megafuse vs unfused: final loss within 1e-3 relative
   kernel  (gat) the four GAT entry points (gat_score, gat_forward,
@@ -113,11 +130,13 @@ Phases, each printing one JSON line per record:
           -fusion-depth 1, 2 and 0: median epoch (3-10), peak memory, the
           loss curve, launches per step (1: 4 + 4 megakernel; 2: 1 + 1
           region, 2 + 2 megakernel; 0: 1 + 1 region, 1 + 1 megakernel;
-          one stage_cotangent per megakernel backward)
+          one stage_plane per megakernel forward, one stage_cotangent per
+          megakernel backward)
   ab_chain  the same in exact, 3 epochs, -fusion-depth 0 vs 1 from the same
           params: final loss within 1e-3 relative
   serve_mega  ServeEngine with GCN 602-256-41 and -megafuse, 40 requests:
-          2 aggregate_linear and no aggregate_sum launches per forward,
+          2 aggregate_linear, 2 stage_plane and no aggregate_sum launches
+          per forward,
           served rows vs predict_logits <= 32 ULPs
 
 Then the ``kernels`` line, the card's name and power limit as nvidia-smi
@@ -162,6 +181,42 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
         b.synchronize()
         ts.append(a.elapsed_time(b))
     return statistics.median(ts)
+
+
+def per_launch_ms(fn, launches: int = 100, runs: int = 5) -> float:
+    """Median over ``runs`` of the CUDA-event time of ``launches`` calls
+    between one event pair, per call: a lone launch of a kernel under ~0.1
+    ms also holds the host's work of launching it (chip_ab.py's score
+    measurement)."""
+    out = []
+    for _ in range(runs):
+        fn()
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(launches):
+            fn()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b) / launches)
+    return statistics.median(out)
+
+
+SMALL_KERNEL_MS = 0.2
+
+
+def retime_small(rec: dict, kern, library=None) -> None:
+    """Where the kernel's one-launch time is under SMALL_KERNEL_MS, its
+    ``kernel_ms`` (and the library call's, where there is one) becomes the
+    per-launch time over 100 launches; the one-launch times are kept."""
+    if rec["kernel_ms"] >= SMALL_KERNEL_MS:
+        return
+    rec["kernel_one_launch_ms"] = rec["kernel_ms"]
+    rec["kernel_ms"] = per_launch_ms(kern)
+    if library is not None and rec.get("library_ms") is not None:
+        rec["library_one_launch_ms"] = rec["library_ms"]
+        rec["library_ms"] = per_launch_ms(library)
 
 
 def row_rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -233,9 +288,12 @@ def ring_fixture(n: int):
 def phase_kernel(ds, dev) -> list:
     from roc_tpu_torch.ops import DeviceCsr
     from roc_tpu_torch.ops.kernels.aggregate_sum import (aggregate_sum,
-                                                         aggregate_sum_plain)
+                                                         aggregate_sum_plain,
+                                                         stage_plane)
+    from roc_tpu_torch.ops.kernels import aggregate_sum as KS
     g = ds.graph
     csr = DeviceCsr.from_csr(g, dev, transpose=False)
+    ptxas = ptxas_report(KS.LIBRARY.info.get("log", ""))
     ring = DeviceCsr.from_csr(ring_fixture(g.num_nodes), dev,
                               transpose=False)
     lib_mat = torch.sparse_csr_tensor(
@@ -268,8 +326,13 @@ def phase_kernel(ds, dev) -> list:
                    "int_bitwise": int_ok, "ring_bitwise": ring_ok,
                    "finite": bool(torch.isfinite(k).all())}
             rec["kernel_ms"] = time_ms(kern, reps=20, warmup=3)
+            if prec == "fast":      # the staging launch the total includes
+                rec["stage_ms"] = per_launch_ms(lambda t=x: stage_plane(t),
+                                                20, 3)
             rec["plain_ms"] = time_ms(plain)
             rec["library_ms"] = time_ms(lambda t=x: lib_mat @ t)
+            rec["ptxas"] = {k: v for k, v in ptxas.items()
+                            if "sum_rows" in k or "stage_kernel" in k}
             nbytes = (x.numel() * 4 + k.numel() * 4
                       + csr.row_ptr.numel() * 8 + csr.col_idx.numel() * 4)
             flops = g.num_edges * h
@@ -285,6 +348,116 @@ def phase_kernel(ds, dev) -> list:
                                      f"plain version: {rec}")
             del k, p
     return rows
+
+
+SUM_SHAPES = (1, 7, 41, 255, 602, 608, 1000)
+# H_out of the megakernel at each H_in above: narrow (<= 64, 64-column GEMM
+# passes) and wide, ragged and aligned
+SUM_SHAPES_OUT = (41, 256, 7, 65, 300, 1, 64)
+
+
+def phase_kernel_sum_shapes(dev) -> dict:
+    """aggregate_sum (over the CSR and its transpose) and aggregate_linear
+    (relu) against their plain versions on a small graph with a hub row of
+    20,000 in-edges and two rows with no in-edges, at the widths of
+    SUM_SHAPES (every pack count and vector width: 1, 2 and 4 floats, 1 to
+    125 bf16 packs), both precisions, x contiguous and x a column slice of
+    a wider tensor (rows 4 bytes off 16-byte alignment, x.stride(0) > H):
+    bitwise on integer data (aggregate_linear's sums all stay below 2^24,
+    checked), rows with no in-edges exactly 0, and on Gaussian data each
+    element within 1e-5 of the sum of the absolute values of its terms
+    (the plain version on |x| and |W|: a signed sum over few columns may
+    cancel to near 0, where a row's max-abs is no yardstick; the row
+    error is reported beside it)."""
+    from roc_tpu_torch.graph.csr import from_edges
+    from roc_tpu_torch.ops import DeviceCsr
+    from roc_tpu_torch.ops.kernels import aggregate_linear as KL
+    from roc_tpu_torch.ops.kernels import aggregate_sum as KS
+    rng = np.random.default_rng(SEED + 12)
+    n, hub, empty = 3000, 17, (29, 2999)
+    src = rng.integers(0, n, 50000)
+    dst = rng.integers(0, n, 50000)
+    dst[:20000] = hub
+    keep = ~np.isin(dst, empty)
+    csr = DeviceCsr.from_csr(from_edges(n, src[keep], dst[keep]), dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    cases, worst = [], 0.0
+
+    def columns(h, ints):
+        """x [n, h]: contiguous, and a column slice at offset 1."""
+        def make(shape):
+            if ints:
+                return torch.randint(-3, 4, shape, generator=gen,
+                                     device=dev).float()
+            return torch.randn(shape, generator=gen, device=dev)
+        return {"contiguous": make((n, h)),
+                "slice": make((n, h + 3))[:, 1:1 + h]}
+
+    for h, ho in zip(SUM_SHAPES, SUM_SHAPES_OUT):
+        xs_i, xs_g = columns(h, True), columns(h, False)
+        w_i = torch.randint(-1, 2, (h, ho), generator=gen,
+                            device=dev).float()
+        w_g = torch.randn((h, ho), generator=gen, device=dev)
+        for layout in ("contiguous", "slice"):
+            x01 = (xs_i[layout] > 0).float()          # {0, 1}, same layout
+            if layout == "slice":
+                x01 = torch.cat([x01[:, :1], x01, x01[:, :2]], 1)[:, 1:1 + h]
+            agg = KS.aggregate_sum_plain(x01, csr.row_ptr, csr.col_idx,
+                                         "exact")
+            most = float((agg @ w_i.abs()).max())
+            for prec in ("fast", "exact"):
+                case = {"H": h, "H_out": ho, "layout": layout,
+                        "precision": prec}
+                for name, rp, ci in (("sum", csr.row_ptr, csr.col_idx),
+                                     ("sum_t", csr.t_row_ptr, csr.t_col_idx)):
+                    k = KS.aggregate_sum(xs_i[layout], rp, ci, prec)
+                    case[f"{name}_int_bitwise"] = bool(torch.equal(
+                        k, KS.aggregate_sum_plain(xs_i[layout], rp, ci, prec)))
+                    k = KS.aggregate_sum(xs_g[layout], rp, ci, prec)
+                    want = KS.aggregate_sum_plain(xs_g[layout], rp, ci, prec)
+                    case[f"{name}_row_rel_err"] = row_rel_err(k, want)
+                    err = term_rel_err(k, want, KS.aggregate_sum_plain(
+                        xs_g[layout].abs(), rp, ci, prec))
+                    case[f"{name}_term_rel_err"] = err
+                    worst = max(worst, err)
+                    if name == "sum":
+                        case["sum_empty_rows_zero"] = bool(
+                            (k[list(empty)] == 0).all())
+                k = KL.aggregate_linear(x01, w_i, csr.row_ptr, csr.col_idx,
+                                        prec, "relu")
+                case["linear_int_bitwise"] = most < 2 ** 24 and bool(
+                    torch.equal(k, KL.aggregate_linear_plain(
+                        x01, w_i, csr.row_ptr, csr.col_idx, prec, "relu")))
+                case["linear_int_most"] = most
+                k = KL.aggregate_linear(xs_g[layout], w_g, csr.row_ptr,
+                                        csr.col_idx, prec, "relu")
+                want = KL.aggregate_linear_plain(
+                    xs_g[layout], w_g, csr.row_ptr, csr.col_idx, prec, "relu")
+                case["linear_row_rel_err"] = row_rel_err(k, want)
+                err = term_rel_err(k, want, KL.aggregate_linear_plain(
+                    xs_g[layout].abs(), w_g.abs(), csr.row_ptr, csr.col_idx,
+                    prec, "none"))
+                case["linear_term_rel_err"] = err
+                case["linear_empty_rows_zero"] = bool(
+                    (k[list(empty)] == 0).all())
+                worst = max(worst, err)
+                torch.cuda.synchronize()
+                case["ok"] = all(v for key, v in case.items()
+                                 if key.endswith(("bitwise", "zero"))) and \
+                    all(v <= 1e-5 for key, v in case.items()
+                        if key.endswith("term_rel_err"))
+                cases.append(case)
+                if not case["ok"]:
+                    emit({"phase": "kernel_sum_shapes", "failed": case})
+                    raise AssertionError(f"aggregate_sum/aggregate_linear "
+                                         f"disagree with their plain "
+                                         f"versions: {case}")
+    rec = {"phase": "kernel_sum_shapes", "nodes": n,
+           "hub_in_degree": int(torch.diff(csr.row_ptr)[hub]),
+           "empty_rows": list(empty), "cases": cases, "worst_term_rel_err":
+           worst, "tolerance": 1e-5, "int_bitwise": True}
+    emit(rec)
+    return rec
 
 
 def phase_small(dev) -> dict:
@@ -317,13 +490,15 @@ def _bound(nbytes: float, flops: float) -> dict:
 
 
 def _check_row(rec: dict, kern, plain, int_args, gauss_args, library,
-               tol: float = 1e-5, timed=None) -> dict:
+               tol: float = 1e-5, timed=None, stage=None) -> dict:
     """Hold ``kern`` against ``plain`` (both return a tensor or a tuple of
     tensors): bitwise on ``int_args``, within ``tol`` of each row's
     max-abs on ``gauss_args``; then time the kernel (``timed`` when given:
     the launch alone, without what adapts its output for the check), the
     plain version and the library call (None where there is none) on the
-    Gaussian inputs."""
+    Gaussian inputs, a kernel under SMALL_KERNEL_MS over 100 launches
+    (``retime_small``); ``stage``, when given, is the staging launch the
+    kernel's time includes, timed alone as ``stage_ms``."""
     def parts(out):
         return out if isinstance(out, tuple) else (out,)
 
@@ -340,6 +515,9 @@ def _check_row(rec: dict, kern, plain, int_args, gauss_args, library,
                                reps=20, warmup=3)
     rec["plain_ms"] = time_ms(lambda: plain(*gauss_args))
     rec["library_ms"] = None if library is None else time_ms(library)
+    retime_small(rec, lambda: (timed or kern)(*gauss_args), library)
+    if stage is not None:
+        rec["stage_ms"] = per_launch_ms(lambda: stage(*gauss_args), 20, 3)
     emit(rec)
     if not (rec["finite"] and rec["int_bitwise"]
             and rec["row_rel_err"] <= tol and rec.get("checks_ok", True)):
@@ -353,11 +531,15 @@ def phase_kernel_train(ds, dev) -> list:
     plain version, with times, the library yardstick and the bound."""
     from roc_tpu_torch.ops import DeviceCsr
     from roc_tpu_torch.ops.kernels import aggregate_linear as KL
+    from roc_tpu_torch.ops.kernels import aggregate_sum as KS
     from roc_tpu_torch.ops.kernels.aggregate_sum import (aggregate_sum,
-                                                         aggregate_sum_plain)
+                                                         aggregate_sum_plain,
+                                                         stage_plain,
+                                                         stage_plane)
     g = ds.graph
     n, e = g.num_nodes, g.num_edges
     csr = DeviceCsr.from_csr(g, dev)
+    ptxas = ptxas_report(KL.LIBRARY.info.get("log", ""))
     csr_bytes = csr.row_ptr.numel() * 8 + csr.col_idx.numel() * 4
 
     def sparse(row_ptr, col_idx):
@@ -382,7 +564,28 @@ def phase_kernel_train(ds, dev) -> list:
         return torch.matmul(a, b)
 
     rows = []
+    # the staging of "fast": x (or the cotangent) once as a bf16 plane, at
+    # the widths the sum and the megakernel forward stage on the main path
+    for h in (602, 256, 41):
+        ld = KS._ld(h, "fast")
+        rec = {"phase": "kernel", "name": "stage_plane", "H": h, "ld": ld,
+               "precision": "fast", "nodes": n,
+               **_bound(n * h * 4 + n * ld * 2, n * h)}
+        xg = gauss((n, h))
+        # one call computes the plane where it needs no padding (a cast);
+        # elsewhere the pad + cast composition is timed beside it
+        lib = (lambda t=xg: t.to(torch.bfloat16)) if ld == h else None
+        if lib is None:
+            rec["composition_ms"] = time_ms(
+                lambda t=xg, ld=ld, h=h: torch.nn.functional.pad(
+                    t, (0, ld - h)).to(torch.bfloat16))
+        rows.append(_check_row(
+            rec, lambda x: stage_plane(x).float(),
+            lambda x: stage_plain(x).float(), (ints((n, h), -300, 300),),
+            (xg,), lib, timed=stage_plane))
+        del xg
     for prec in ("fast", "exact"):
+        stage = (lambda x, *_: stage_plane(x)) if prec == "fast" else None
         # the unfused backward: the sum over the transposed CSR
         for h in (256, 41):
             rec = {"phase": "kernel", "name": "aggregate_sum",
@@ -397,13 +600,16 @@ def phase_kernel_train(ds, dev) -> list:
                 lambda x: aggregate_sum_plain(x, csr.t_row_ptr,
                                               csr.t_col_idx, prec),
                 (ints((n, h), 0, 1),), (xg,),
-                lambda x=xg: bwd_mat @ x))
-        for hi, ho, act in ((602, 256, "relu"), (256, 41, "none")):
+                lambda x=xg: bwd_mat @ x, stage=stage))
+        for hi, ho, act in ((602, 256, "relu"), (256, 41, "none"),
+                            (256, 256, "relu")):
             rec = {"phase": "kernel", "name": "aggregate_linear",
                    "H_in": hi, "H_out": ho, "activation": act,
                    "precision": prec, "nodes": n, "edges": e,
                    **_bound(n * hi * 4 + hi * ho * 4 + n * ho * 4
-                            + csr_bytes, e * hi + 2 * n * hi * ho)}
+                            + csr_bytes, e * hi + 2 * n * hi * ho),
+                   "ptxas": {k: v for k, v in ptxas.items()
+                             if "mega_fwd" in k}}
             xg, wg = gauss((n, hi)), gauss((hi, ho))
             rows.append(_check_row(
                 rec,
@@ -413,7 +619,7 @@ def phase_kernel_train(ds, dev) -> list:
                     x, w, csr.row_ptr, csr.col_idx, prec, act),
                 (ints((n, hi), 0, 1), ints((hi, ho), -2, 2)), (xg, wg),
                 lambda x=xg, w=wg: torch.relu(mm(fwd_mat @ x, w))
-                if act == "relu" else mm(fwd_mat @ x, w)))
+                if act == "relu" else mm(fwd_mat @ x, w), stage=stage))
             del xg, wg
         # the backward's staging kernel alone: the masked, rounded
         # cotangent plane (bf16 in fast, fp32 in exact with relu)
@@ -766,6 +972,8 @@ def phase_kernel_gat(ds, dev) -> list:
                     del lib
                     rec["library_ms"] = time_ms(
                         lambda: _score_library(gauss), reps=20, warmup=3)
+                    retime_small(rec, lambda: kern(gauss),
+                                 lambda: _score_library(gauss))
                 if name == "gat_forward":
                     try:
                         lib = library(gauss)
@@ -1308,14 +1516,16 @@ LAYERS = {"gcn": [602, 256, 41], "gat": [602, 64, 41]}
 
 
 def step_launches(model: str, megafuse: bool) -> dict:
-    """Kernel launches of one training step of the full-width model."""
+    """Kernel launches of one training step of the full-width model, in
+    fast: each sum aggregation and megakernel forward stages its input
+    once (stage_plane)."""
     if model == "gat":
         return launch_dict(gat_score=2, gat_forward=2, gat_bwd_dst=2,
                            gat_bwd_src=2)
     if megafuse:
-        return launch_dict(aggregate_linear=2, aggregate_linear_bwd=2,
-                           stage_cotangent=2)
-    return launch_dict(aggregate_sum=4)
+        return launch_dict(aggregate_linear=2, stage_plane=2,
+                           aggregate_linear_bwd=2, stage_cotangent=2)
+    return launch_dict(aggregate_sum=4, stage_plane=4)
 
 
 def phase_train(ds, dev, megafuse: bool, epochs: int = 10,
@@ -1366,11 +1576,11 @@ def chain_step_launches(depth: int) -> dict:
     """Kernel launches of one training step of gcn-chain 602-256-256-256-41
     under -megafuse -fusion-depth ``depth``, dropout 0: a region forward
     and backward per region, a megakernel forward and backward per layer
-    outside one (the logits layer always), each backward staging its
-    cotangent once (fast)."""
+    outside one (the logits layer always), each megakernel staging its
+    input and each backward its cotangent once (fast)."""
     regions, per_layer = {1: (0, 4), 2: (1, 2), 0: (1, 1)}[depth]
     return launch_dict(xlayer_fwd=regions, xlayer_bwd=regions,
-                       aggregate_linear=per_layer,
+                       aggregate_linear=per_layer, stage_plane=per_layer,
                        aggregate_linear_bwd=per_layer,
                        stage_cotangent=per_layer)
 
@@ -1483,7 +1693,8 @@ def phase_serve(ds, dev, model_name: str = "gcn",
                  megafuse=megafuse)
     model = build_model(cfg.model, cfg.layers, cfg.dropout_rate,
                         heads=cfg.heads)
-    per_forward = launch_dict(**forward_launches(model, megafuse))
+    per_forward = launch_dict(**forward_launches(
+        model, megafuse, cfg.aggregate_precision))
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launches()
     eng = ServeEngine(cfg, ds, model, device=dev)
@@ -1573,6 +1784,7 @@ def main() -> int:
     emit({"phase": "graph", "dataset": "reddit",
           "nodes": ds.graph.num_nodes, "edges": ds.graph.num_edges,
           "host_gen_s": round(time.perf_counter() - t0, 3)})
+    phase_kernel_sum_shapes(dev)
     phase_kernel_xlayer_shapes(dev)
     rows = phase_kernel_xlayer(ds, dev)
     phase_train_small(dev, "gcn-chain")
@@ -1613,8 +1825,19 @@ def main() -> int:
         named("aggregate_sum"), ("H", "precision", "csr"))
     sum_entry["also_replaces"] = [pallas + "1991", pallas + "2107",
                                   pallas + "2153"]
+    stage_entry = _kernel_entry(
+        "stage_plane", src + "aggregate_sum.cu", pallas + "1885",
+        {"serve": serve["launches"]["stage_plane"],
+         "serve_mega": serve_mega["launches"]["stage_plane"],
+         "train": train[False]["launches"]["stage_plane"],
+         "train_megafuse": train[True]["launches"]["stage_plane"],
+         **chain_launches("stage_plane")},
+        pick("stage_plane", H=256), named("stage_plane"), ("H", "ld"))
+    stage_entry["also_replaces"] = [pallas + "1991", pallas + "2107",
+                                    pallas + "2153", pallas + "2300"]
     emit({"kernels": [
         sum_entry,
+        stage_entry,
         _kernel_entry(
             "aggregate_linear", src + "aggregate_linear.cu", pallas + "2300",
             {"train_megafuse": train[True]["launches"]["aggregate_linear"],

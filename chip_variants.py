@@ -1,22 +1,37 @@
 #!/usr/bin/env python3
-"""Time design variants of the region kernels (roc_tpu_torch/csrc/xlayer.cu)
-against the checkout's own source on one NVIDIA GPU, in one call.
+"""Time design variants of the hand-written kernels against the checkout's
+own sources on one NVIDIA GPU, in one call.
 
-    python3 chip_variants.py
+    python3 chip_variants.py [sum] [linear] [xlayer]     # default: all three
 
-Each variant is the checkout's xlayer.cu with one source edit (VARIANTS
-below: each names the design choice it reverses), built with the same nvcc
-flags into chip_check/variants/ (gitignored), all builds started together.
-On the Reddit graph, at the full-width path's region (depth 3,
-602-256-256-256, relu, the norm pair) with chip_smoke.py's Gaussian
-inputs, for each variant in turn (the checkout first and last), both
-precisions: the CUDA-event time of xlayer_fwd and of xlayer_bwd without dx
-(median of 10 launches), the phase split (median of 5 stamped launches),
-the compiler's registers and spill bytes, and whether the outputs equal the
+Each variant is the checkout's roc_tpu_torch/csrc/ with one design choice
+reversed by a source edit (VARIANTS below: each names the choice, the
+library it rebuilds and its edits, which may fall in a shared header, and
+may name the cases it is timed on when the checkout's wrapper cannot
+reach the reversed path),
+built with the same nvcc flags into chip_check/variants/ (gitignored), all
+builds started together.  On the Reddit graph, for each variant in turn (the
+checkout's build first and last), the variant's library takes the place of
+the checkout's and is timed at the main path's shapes:
+
+  sum     aggregate_sum (ops/kernels/aggregate_sum.py, staging included in
+          fast) at H = 41 over the CSR and its transpose, H = 256 and 602
+          over the CSR, both precisions at 256
+  linear  aggregate_linear at 602->256 relu and 256->41 in fast, 602->256
+          relu in exact (in fast the checkout's staging launch is included),
+          and aggregate_linear_bwd's u alone at 602 <- 256 relu, fast
+  xlayer  the region kernels at the full-width path's region (depth 3,
+          602-256-256-256, relu, the norm pair), both precisions: xlayer_fwd
+          and xlayer_bwd without dx, and the phase split
+
+Each time is the median of 10 CUDA-event timed calls on chip_smoke.py's
+Gaussian inputs; each record holds the compiler's registers and spill
+bytes of the target's kernels and whether every output equals the
 checkout's bitwise (a variant that changes only the schedule keeps them;
-dW may differ in its last bits where the schedule of its sums changes).
-One JSON line per variant, then the card's name and power limit as
-nvidia-smi gives them.  Exits non-zero without CUDA or when a build fails.
+a region's dW may differ in its last bits where the schedule of its sums
+changes).  One JSON line per variant, then the card's name and power limit
+as nvidia-smi gives them.  Exits non-zero without CUDA or when a build
+fails.
 """
 
 from __future__ import annotations
@@ -33,56 +48,294 @@ import torch
 ROOT = Path(__file__).resolve().parent
 CSRC = ROOT / "roc_tpu_torch" / "csrc"
 OUT = ROOT / "chip_check" / "variants"
+SOURCES = {"sum": "aggregate_sum.cu", "linear": "aggregate_linear.cu",
+           "xlayer": "xlayer.cu"}
 
-# name -> (the design choice it reverses, [(old, new) source edits])
+# The tile counter of the megakernel forward, as the region kernels claim
+# their tiles: a grid of resident blocks (the occupancy's count on every SM)
+# takes tiles from one device-global counter, zeroed before each launch (one
+# counter for the library: the variant is timed on one stream).
+_TILE_COUNTER = [
+    ("aggregate_linear.cu", "constexpr int kMinBlocks = 3;\n",
+     "constexpr int kMinBlocks = 3;\n__device__ int g_tiles;\n"),
+    ("aggregate_linear.cu",
+     "  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kRows;\n"
+     "  const int rb = p.n - row0 < kRows ? static_cast<int>(p.n - row0) "
+     ": kRows;\n"
+     "  gather_tile<T>(p.row_ptr, p.col_idx, static_cast<const T*>(p.src), "
+     "p.ld, p.vec, row0, rb,\n"
+     "                 p.k, tile, ts, nullptr, 0, nullptr);\n"
+     "  tile_gemm<CG>(tile, ts, rb, row0, p.w, p.ldw, p.k, p.m, wbuf, epi);\n",
+     "  __shared__ int claim;\n"
+     "  const int64_t tiles = (p.n + kRows - 1) / kRows;\n"
+     "  for (;;) {\n"
+     "    if (threadIdx.x == 0) claim = atomicAdd(&g_tiles, 1);\n"
+     "    __syncthreads();\n"
+     "    const int64_t t = claim;\n"
+     "    if (t >= tiles) break;\n"
+     "    const int64_t row0 = t * kRows;\n"
+     "    const int rb = p.n - row0 < kRows ? static_cast<int>(p.n - row0) "
+     ": kRows;\n"
+     "    gather_tile<T>(p.row_ptr, p.col_idx, static_cast<const T*>(p.src), "
+     "p.ld, p.vec, row0, rb,\n"
+     "                   p.k, tile, ts, nullptr, 0, nullptr);\n"
+     "    tile_gemm<CG>(tile, ts, rb, row0, p.w, p.ldw, p.k, p.m, wbuf, epi);"
+     "\n"
+     "    __syncthreads();\n"
+     "  }\n"),
+    ("aggregate_linear.cu",
+     "  const dim3 grid(static_cast<unsigned>((p.n + kRows - 1) / kRows));\n"
+     "  mega_fwd<T, CG><<<grid, kThreads, smem, s>>>(p);\n",
+     "  int dev = 0, sms = 0, per_sm = 0;\n"
+     "  void* tiles = nullptr;\n"
+     "  if (cudaGetDevice(&dev) != cudaSuccess ||\n"
+     "      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) "
+     "!= cudaSuccess ||\n"
+     "      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, "
+     "mega_fwd<T, CG>, kThreads, smem) !=\n"
+     "          cudaSuccess ||\n"
+     "      per_sm < 1 || cudaGetSymbolAddress(&tiles, g_tiles) != "
+     "cudaSuccess ||\n"
+     "      cudaMemsetAsync(tiles, 0, sizeof(int), s) != cudaSuccess)\n"
+     "    return static_cast<int>(cudaErrorInvalidConfiguration);\n"
+     "  const int64_t n_tiles = (p.n + kRows - 1) / kRows;\n"
+     "  const dim3 grid(static_cast<unsigned>(\n"
+     "      static_cast<int64_t>(per_sm) * sms < n_tiles ? "
+     "static_cast<int64_t>(per_sm) * sms : n_tiles));\n"
+     "  mega_fwd<T, CG><<<grid, kThreads, smem, s>>>(p);\n"),
+]
+
+# The fp32 gather rounding each element to bf16 as it loads it ("fast"
+# without staging; every fp32 gather of the variant's library rounds).
+_ROUND_PER_EDGE = [
+    ("gather_tile.cuh", load, load + "\n" + " " * indent +
+     "if constexpr (sizeof(T) == 4) for (int j = 0; j < VEC; ++j) "
+     "v[j] = __bfloat162float(to_bf16(v[j]));")
+    for load, indent in (
+        ("          load_pack<T, VEC>(s + off[p], v);", 10),
+        ("            load_pack<T, VEC>(s + p * LPR * VEC, v);", 12))]
+
+
+# name -> (the design choice it reverses, target, [(file, old, new)]
+#          [, the function giving its cases in place of the target's])
 VARIANTS = {
+    "sum_unstaged_at_41": (
+        "fast stages x (a launch, then one-pass bf16 packs) instead of "
+        "gathering x in place and rounding each element per edge, at H = 41",
+        "sum", _ROUND_PER_EDGE, "_sum_per_edge_cases"),
+    "sum_four_edges": (
+        "2 edges in flight a lane group instead of 4",
+        "sum", [("gather_tile.cuh", "constexpr int kRowEdges = 2;",
+                 "constexpr int kRowEdges = 4;")]),
+    "sum_guarded_loads": (
+        "guarded loads where a lane owns one pack a pass and unconditional "
+        "ones where it owns more, instead of guarded ones at every count",
+        "sum", [("aggregate_sum.cu",
+                 "gather_row<T, VEC, PACKS, LPR, (PACKS > 1), kRowEdges>(",
+                 "gather_row<T, VEC, PACKS, LPR, false, kRowEdges>(")]),
+    "sum_clamped_loads": (
+        "guarded loads where a lane owns one pack a pass and unconditional "
+        "ones where it owns more, instead of unconditional ones at every "
+        "count",
+        "sum", [("aggregate_sum.cu",
+                 "gather_row<T, VEC, PACKS, LPR, (PACKS > 1), kRowEdges>(",
+                 "gather_row<T, VEC, PACKS, LPR, true, kRowEdges>(")]),
+    "sum_two_packs": (
+        "up to 3 bf16 packs a lane a pass instead of 2 (602: 1 pass, not 2)",
+        "sum", [("gather_tile.cuh", "constexpr int kMaxPacks = 3;",
+                 "constexpr int kMaxPacks = 2;")]),
+    "linear_guarded_loads": (
+        "unconditional loads of a pass (clamped to the row's last pack) "
+        "instead of guarded ones",
+        "linear", [("aggregate_linear.cu", "  gather_tile<T>(p.row_ptr,",
+                    "  gather_tile<T, false>(p.row_ptr,")]),
+    "linear_u_clamped_loads": (
+        "guarded loads in the backward's u (one pack a lane), as the sum's "
+        "at one pack, instead of unconditional ones",
+        "linear", [("aggregate_linear.cu",
+                    "gather_row<T, VEC, 1, LPR, false, kRowEdges>(",
+                    "gather_row<T, VEC, 1, LPR, true, kRowEdges>(")]),
+    "linear_four_edges": (
+        "2 edges in flight a lane group in the backward's u instead of 4",
+        "linear", [("gather_tile.cuh", "constexpr int kRowEdges = 2;",
+                    "constexpr int kRowEdges = 4;")]),
+    "linear_tile_counter": (
+        "one block a tile instead of tiles claimed from an atomic counter",
+        "linear", _TILE_COUNTER),
+    "linear_four_blocks": (
+        "3 resident blocks an SM (80 registers) instead of 4 (64)",
+        "linear", [("aggregate_linear.cu", "constexpr int kMinBlocks = 3;",
+                    "constexpr int kMinBlocks = 4;")]),
+    "linear_wide_gemm_at_41": (
+        "64-column GEMM passes for outputs <= 64 wide instead of 256",
+        "linear", [("aggregate_linear.cu",
+                    "return p.m <= 64 ? launch_fwd_cg<T, 16>(p, s)",
+                    "return p.m <= 0 ? launch_fwd_cg<T, 16>(p, s)")]),
+    "linear_two_packs": (
+        "up to 3 bf16 packs a lane a pass instead of 2 (602: 1 pass, not 2)",
+        "linear", [("gather_tile.cuh", "constexpr int kMaxPacks = 3;",
+                    "constexpr int kMaxPacks = 2;")]),
+    "xlayer_clamped_loads": (
+        "the region's sweeps with guarded loads (as before the shared "
+        "gather) instead of the unconditional ones the per-layer kernels use",
+        "xlayer", [("xlayer.cu",
+                    "gather_tile<T, false>(rp, ci, src, ld, vec, 0,",
+                    "gather_tile<T, true>(rp, ci, src, ld, vec, 0,"),
+                   ("xlayer.cu",
+                    "gather_tile<T, false>(rp, ci, src, ld, vec, row0,",
+                    "gather_tile<T, true>(rp, ci, src, ld, vec, row0,")]),
     "two_blocks_an_sm": (
         "3 resident blocks an SM (80 registers) instead of 2 (128)",
-        [("constexpr int kMinBlocks = 3;", "constexpr int kMinBlocks = 2;")]),
+        "xlayer", [("xlayer.cu", "constexpr int kMinBlocks = 3;",
+                    "constexpr int kMinBlocks = 2;")]),
     "dw_tile_64": (
         "dW tiles of 64 x 128 (4 x 8 a thread) instead of 64 x 64 (4 x 4)",
-        [("constexpr int kDwJ = 128;", "constexpr int kDwJ = 64;")]),
+        "xlayer", [("xlayer.cu", "constexpr int kDwJ = 128;",
+                    "constexpr int kDwJ = 64;")]),
     "dw_stage_16": (
         "32 rows a dW stage instead of 16",
-        [("constexpr int kDwStage = 32;", "constexpr int kDwStage = 16;")]),
+        "xlayer", [("xlayer.cu", "constexpr int kDwStage = 32;",
+                    "constexpr int kDwStage = 16;")]),
     "bwd_inlined": (
         "the backward's sweeps and dW out of line instead of inlined",
-        [("__device__ __noinline__ void dw_partials(",
-          "__device__ __forceinline__ void dw_partials("),
-         ("    sweep_outlined<T>(p.row_ptr,", "    sweep<T>(p.row_ptr,"),
-         ("    sweep_outlined<T>(p.t_row_ptr,", "    sweep<T>(p.t_row_ptr,")]),
+        "xlayer", [("xlayer.cu", "__device__ __noinline__ void dw_partials(",
+                    "__device__ __forceinline__ void dw_partials("),
+                   ("xlayer.cu", "    sweep_outlined<T>(p.row_ptr,",
+                    "    sweep<T>(p.row_ptr,"),
+                   ("xlayer.cu", "    sweep_outlined<T>(p.t_row_ptr,",
+                    "    sweep<T>(p.t_row_ptr,")]),
     "bf16_four_packs": (
         "at most 3 bf16 packs a lane a pass instead of 4",
-        [("constexpr int kMaxPacks = 3;", "constexpr int kMaxPacks = 4;")]),
+        "xlayer", [("gather_tile.cuh", "constexpr int kMaxPacks = 3;",
+                    "constexpr int kMaxPacks = 4;")]),
     "fp32_one_pass": (
         "three fp32 passes of 4 packs at 602 (exact) instead of one of 12",
-        [("constexpr int kBig = sizeof(T) == 2 ? kMaxPacks : 4;",
-          "constexpr int kBig = sizeof(T) == 2 ? kMaxPacks"
-          " : (VEC == 1 ? 12 : 24 / VEC);")]),
+        "xlayer", [("gather_tile.cuh",
+                    "  constexpr int kBig = sizeof(T) == 2 ? kMaxPacks : 4;\n"
+                    "  switch (packs_per_lane<T>((H + VEC - 1) / VEC, 32)) {",
+                    "  constexpr int kBig = sizeof(T) == 2 ? kMaxPacks"
+                    " : (VEC == 1 ? 12 : 24 / VEC);\n"
+                    "  switch (packs_per_lane<T>((H + VEC - 1) / VEC, 32))"
+                    " {")]),
 }
 
 
-def _build(name: str, edits) -> tuple:
+def _build(name: str, target: str, edits) -> tuple:
     import chip_smoke as C
     from roc_tpu_torch.ops.kernels import build as B
-    src = (CSRC / "xlayer.cu").read_text()
-    for old, new in edits:
-        if src.count(old) != 1:
-            raise RuntimeError(f"variant {name}: {old!r} is not in "
-                               f"xlayer.cu once")
-        src = src.replace(old, new)
     d = OUT / name
-    d.mkdir(parents=True, exist_ok=True)
-    (d / "xlayer.cu").write_text(src)
-    for h in CSRC.glob("*.cuh"):
-        shutil.copy(h, d)
-    lib = d / "libroc_xlayer.so"
+    shutil.rmtree(d, ignore_errors=True)
+    shutil.copytree(CSRC, d)
+    for file, old, new in edits:
+        src = (d / file).read_text()
+        if src.count(old) != 1:
+            raise RuntimeError(f"variant {name}: {old!r} is not in {file} "
+                               f"once")
+        (d / file).write_text(src.replace(old, new))
+    source = d / SOURCES[target]
+    lib = d / f"libroc_{source.stem}.so"
     proc = subprocess.run([B._nvcc(), *B.NVCC_FLAGS, "-o", str(lib),
-                           str(d / "xlayer.cu")], capture_output=True,
-                          text=True)
+                           str(source)], capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on variant {name}:\n{proc.stderr}")
-    return name, lib, C.ptxas_report(proc.stdout + proc.stderr)
+    return name, target, lib, C.ptxas_report(proc.stdout + proc.stderr)
+
+
+def _sum_cases(ctx):
+    """(label, call) of the sum target."""
+    from roc_tpu_torch.ops.kernels import aggregate_sum as KS
+    csr, xs = ctx["csr"], ctx["x"]
+    cases = []
+    for h, prec, d in ((41, "fast", "fwd"), (41, "fast", "transposed"),
+                       (256, "fast", "fwd"), (256, "exact", "fwd"),
+                       (256, "fast", "transposed"), (602, "fast", "fwd")):
+        rp, ci = (csr.row_ptr, csr.col_idx) if d == "fwd" else \
+            (csr.t_row_ptr, csr.t_col_idx)
+        cases.append((f"H{h}_{d}_{prec}",
+                      lambda x=xs[h], rp=rp, ci=ci, prec=prec:
+                      KS.aggregate_sum(x, rp, ci, prec)))
+    return cases
+
+
+def _sum_per_edge_cases(ctx):
+    """The sum target's fast H = 41 cases on x itself (the variant's
+    per-edge rounding, kind 0 of roc_aggregate_sum), no staging launch."""
+    from roc_tpu_torch.ops.kernels import aggregate_sum as KS
+    csr, x = ctx["csr"], ctx["x"][41]
+
+    def call(rp, ci):
+        n = rp.numel() - 1
+        out = torch.empty((n, x.shape[1]), device=x.device)
+        err = KS.LIBRARY.load().roc_aggregate_sum(
+            rp.data_ptr(), ci.data_ptr(), x.data_ptr(), x.stride(0), 0,
+            KS._vec_width(x), out.data_ptr(), n, x.shape[1], KS._stream(x))
+        if err != 0:
+            raise RuntimeError(f"roc_aggregate_sum failed: CUDA error {err}")
+        return out
+    return [(f"H41_{d}_fast", lambda rp=rp, ci=ci: call(rp, ci))
+            for d, rp, ci in (("fwd", csr.row_ptr, csr.col_idx),
+                              ("transposed", csr.t_row_ptr, csr.t_col_idx))]
+
+
+def _linear_cases(ctx):
+    from roc_tpu_torch.ops.kernels import aggregate_linear as KL
+    csr, xs, ws = ctx["csr"], ctx["x"], ctx["w"]
+    cases = [(f"{hi}_{ho}_{act}_{prec}",
+              lambda hi=hi, ho=ho, act=act, prec=prec: KL.aggregate_linear(
+                  xs[hi], ws[(hi, ho)], csr.row_ptr, csr.col_idx, prec, act))
+             for hi, ho, act, prec in ((602, 256, "relu", "fast"),
+                                       (256, 41, "none", "fast"),
+                                       (602, 256, "relu", "exact"))]
+    # the backward as the first layer asks for it: u alone, 602 <- 256 relu
+    g, y = xs[256], xs[256].flip(0)
+    cases.append(("bwd_602_256_relu_u_fast",
+                  lambda: KL.aggregate_linear_bwd(
+                      g, y, ws[(602, 256)], csr.t_row_ptr, csr.t_col_idx,
+                      "fast", True, False)[0]))
+    return cases
+
+
+def _measure_cases(cases, ref: dict) -> dict:
+    import chip_smoke as C
+    rec = {}
+    for label, call in cases:
+        out = call()
+        torch.cuda.synchronize()
+        ref.setdefault(label, out)
+        rec[label] = {"ms": C.time_ms(call, reps=10, warmup=2),
+                      "bitwise": bool(torch.equal(out, ref[label]))}
+    return rec
+
+
+def _measure_xlayer(ctx, ref: dict) -> dict:
+    import chip_smoke as C
+    from roc_tpu_torch.ops.kernels import xlayer as KX
+    csr = ctx["csr"]
+    x, ws, s, gg = ctx["region"]
+    acts, depth = C.REGION_ACTS, len(C.REGION) - 1
+    rec = {}
+    for prec in ("fast", "exact"):
+        def fwd(st=None):
+            return KX.xlayer_fwd(x, ws, s, csr.row_ptr, csr.col_idx, prec,
+                                 acts, stamps=st)
+        y = fwd()
+
+        def bwd(st=None):
+            return KX.xlayer_bwd(gg, y, x, ws, s, csr.row_ptr, csr.col_idx,
+                                 csr.t_row_ptr, csr.t_col_idx, prec, acts,
+                                 False, stamps=st)
+        _, dws = bwd()
+        torch.cuda.synchronize()
+        ref.setdefault(prec, (y, dws))
+        rec[prec] = {
+            "out_bitwise": bool(torch.equal(y, ref[prec][0])),
+            "dw_bitwise": all(bool(torch.equal(a, b))
+                              for a, b in zip(dws, ref[prec][1])),
+            "fwd_ms": C.time_ms(fwd, reps=10, warmup=2),
+            "bwd_ms": C.time_ms(bwd, reps=10, warmup=2),
+            "fwd_phase_ms": C.region_phase_ms(fwd, depth, False, prec),
+            "bwd_phase_ms": C.region_phase_ms(bwd, depth, True, prec)}
+    return rec
 
 
 def main() -> int:
@@ -90,54 +343,63 @@ def main() -> int:
         print("chip_variants: torch.cuda.is_available() is False; this script "
               "runs on an NVIDIA GPU", file=sys.stderr)
         return 2
+    targets = sys.argv[1:] or list(SOURCES)
+    if not set(targets) <= set(SOURCES):
+        print(__doc__, file=sys.stderr)
+        return 2
     sys.path.insert(0, str(ROOT))
     import chip_smoke as C
     from roc_tpu_torch.graph import datasets
     from roc_tpu_torch.ops import DeviceCsr
+    from roc_tpu_torch.ops.kernels import aggregate_linear as KL
+    from roc_tpu_torch.ops.kernels import aggregate_sum as KS
+    from roc_tpu_torch.ops.kernels import build_all
     from roc_tpu_torch.ops.kernels import xlayer as KX
 
-    todo = {"checkout": []} | {k: v[1] for k, v in VARIANTS.items()}
+    todo = [(f"checkout_{t}", t, []) for t in targets] + \
+        [(k, v[1], v[2]) for k, v in VARIANTS.items() if v[1] in targets]
+    own_cases = {"sum": _sum_cases, "linear": _linear_cases}
     with ThreadPoolExecutor(len(todo)) as pool:
-        built = list(pool.map(lambda kv: _build(*kv), todo.items()))
+        built = list(pool.map(lambda a: _build(*a), todo))
+        pool.submit(build_all).result()     # the checkout's other libraries
     dev = torch.device("cuda", 0)
     g = datasets.get("reddit", seed=C.SEED).graph
     n = g.num_nodes
     csr = DeviceCsr.from_csr(g, dev)
-    scale = torch.rsqrt(torch.as_tensor(g.in_degrees, dtype=torch.float32,
-                                        device=dev))
     gen = torch.Generator(device=dev).manual_seed(C.SEED + 7)
-    x, ws, s, gg = C.region_gauss_inputs(n, C.REGION, scale, gen, dev)
-    acts, depth = C.REGION_ACTS, len(C.REGION) - 1
-    ref = {}
-    for name, path, ptxas in built + built[:1]:
+    ctx = {"csr": csr,
+           "x": {h: torch.randn((n, h), generator=gen, device=dev)
+                 for h in (41, 256, 602)},
+           "w": {k: torch.randn(k, generator=gen, device=dev)
+                 for k in ((602, 256), (256, 41))}}
+    if "xlayer" in targets:
+        scale = torch.rsqrt(torch.as_tensor(g.in_degrees,
+                                            dtype=torch.float32, device=dev))
+        ctx["region"] = C.region_gauss_inputs(n, C.REGION, scale, gen, dev)
+    modules = {"sum": KS, "linear": KL, "xlayer": KX}
+    own = {t: modules[t].LIBRARY.load() for t in targets}
+    refs = {t: {} for t in targets}
+    order = built + [b for b in built if b[0].startswith("checkout_")]
+    for name, target, path, ptxas in order:
+        mod = modules[target]
         lib = ctypes.CDLL(str(path))
-        KX._bind(lib)
-        KX.LIBRARY._lib = lib
-        rec = {"variant": name,
+        mod._bind(lib)
+        mod.LIBRARY._lib = lib
+        kernels = {"sum": ("sum_rows", "stage_kernel"),
+                   "linear": ("mega_fwd", "mega_bwd_u"),
+                   "xlayer": ("xlayer_",)}[target]
+        rec = {"variant": name, "target": target,
                "reverses": VARIANTS[name][0] if name in VARIANTS else None,
-               "ptxas": {k: v for k, v in ptxas.items() if "xlayer_" in k}}
-        for prec in ("fast", "exact"):
-            def fwd(st=None):
-                return KX.xlayer_fwd(x, ws, s, csr.row_ptr, csr.col_idx,
-                                     prec, acts, stamps=st)
-            y = fwd()
-
-            def bwd(st=None):
-                return KX.xlayer_bwd(gg, y, x, ws, s, csr.row_ptr,
-                                     csr.col_idx, csr.t_row_ptr,
-                                     csr.t_col_idx, prec, acts, False,
-                                     stamps=st)
-            _, dws = bwd()
-            torch.cuda.synchronize()
-            ref.setdefault(prec, (y, dws))
-            rec[prec] = {
-                "out_bitwise": bool(torch.equal(y, ref[prec][0])),
-                "dw_bitwise": all(bool(torch.equal(a, b))
-                                  for a, b in zip(dws, ref[prec][1])),
-                "fwd_ms": C.time_ms(fwd, reps=10, warmup=2),
-                "bwd_ms": C.time_ms(bwd, reps=10, warmup=2),
-                "fwd_phase_ms": C.region_phase_ms(fwd, depth, False, prec),
-                "bwd_phase_ms": C.region_phase_ms(bwd, depth, True, prec)}
+               "ptxas": {k: v for k, v in ptxas.items()
+                         if any(s in k for s in kernels)}}
+        if target == "xlayer":
+            rec.update(_measure_xlayer(ctx, refs[target]))
+        else:
+            spec = VARIANTS.get(name, ())
+            cases = (globals()[spec[3]] if len(spec) > 3
+                     else own_cases[target])(ctx)
+            rec["cases"] = _measure_cases(cases, refs[target])
+        mod.LIBRARY._lib = own[target]
         C.emit(rec)
     print(C.nvidia_smi(), flush=True)
     return 0

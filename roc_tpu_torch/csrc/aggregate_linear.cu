@@ -12,404 +12,257 @@
 //   [T, H_in].  Replaces binned.py:2599 _mega_bwd_kernel (pallas_call at :2762, reached by
 //   run_binned_linear_bwd at :2771).
 //
-// The function is copied, not the TPU schedule: bins, staging, one-hot MXU scatters,
-// 128-lane padding and VMEM gates are not carried over.
+// The function is copied, not the TPU schedule: bins, one-hot MXU scatters, 128-lane padding
+// and VMEM gates are not carried over.  The bf16 staging of "fast" is kept: it is the TPU
+// kernels' own (binned.py:37-39), one rounding per gathered element.
 //
-// Forward design: the row-tile gather and GEMM of row_tile.cuh (16 destination rows gathered
-//   into an fp32 shared-memory tile, then an fp32 FMA GEMM of the tile with the weight), one
-//   tile per block.
+// Forward design (the region kernel's layer, xlayer.cu, as an ordinary launch).  In
+//   "fast" x is first staged once (aggregate_sum.cu's roc_stage_plane, its own launch) into a
+//   padded bf16 plane [T, ld8(H_in)]: 1,216 B a row at 602, read once per edge in one pass of
+//   16-byte packs (three a lane; an fp32 row of 602 is aligned to 8 bytes only).  In
+//   exact x is gathered in place, fp32, up to four packs a lane a pass (three passes of
+//   2-float packs at 602).  One block per tile of 16 destination rows; each
+//   tile is gathered into shared memory (gather_tile, its loads unconditional)
+//   and multiplied by W (gather_tile.cuh's tile_gemm: W through shared memory in cp.async
+//   double-buffered slices, a 4 x 4 register tile a thread, or 1 x 4 in 64-column passes when
+//   H_out <= 64, so the 41-wide logits layer does not run a 256-column pass for 41 columns),
+//   then the relu epilogue.  W comes padded to [H_in, ld4(H_out)].
 //
 // Backward design.  (a) The masked, rounded cotangent s = round(g * [y > 0]) is staged once
-//   per source row by stage_cotangent into a plane [N, ld] (ld = H_out rounded up to 16
-//   bytes): bf16 in "fast" (the rounding is the store), fp32 in exact with relu; exact
-//   without relu gathers g itself.  Each edge then loads one 16-byte-packed row of s (512 B
-//   at H_out = 256 in fast) instead of a row of g and a row of y (2 KB), and rounds nothing.
-//   (b) u only: mega_bwd_u, lane groups of 8-32 lanes per row, no shared memory.  (c) With
-//   dx: mega_bwd_dx gathers 16 rows into a shared tile (and u), then runs its own GEMM:
-//   W^T in cp.async double-buffered k-slices through shared memory, a 4 x 4 register tile
-//   per thread.  Every u element is the sum over its edges in CSR order in fp32 from 0 of
-//   the staged values (bf16 -> fp32 is exact, so masking and rounding once per source row
-//   equals doing it per edge), and every dx element one fmaf per k in ascending k from 0, as
-//   row_tile.cuh's tile_gemm computes it in xlayer.cu's regions: a region and the chain of
-//   per-layer kernels must give the same bits.
+//   per source row by stage_cotangent (gather_tile.cuh's staging with y as the mask) into a
+//   plane [N, ld] (ld = H_out rounded up to 16 bytes): bf16 in "fast" (the rounding is the
+//   store), fp32 in exact with relu; exact without relu gathers g itself.  Each edge then
+//   loads one 16-byte-packed row of s (512 B at H_out = 256 in fast) instead of a row of g
+//   and a row of y (2 KB), and rounds nothing.  (b) u only: mega_bwd_u, lane groups of 8-32
+//   lanes a row (gather_tile.cuh's gather_row), no shared memory.  (c) With dx: mega_bwd_dx
+//   gathers 16 rows into a shared tile (and u), then runs the shared tile GEMM with W^T.
 //
-// Precision (binned.py:2304-2317, :2599-2615): ROUND = true is "fast", one bf16 rounding
-// (round to nearest even) of each gathered element (x forward; the masked g backward)
-// before its fp32 add; ROUND = false is "exact", fp32 throughout.  The relu mask is
-// y > 0 (the TPU kernel's tie rule), not the 0.5 g of maximum's VJP at a tie.
+// Bits.  Every sum (the forward's tile, u) is the sum over its edges in CSR order in fp32 from
+// 0 of the staged values (bf16 -> fp32 is exact, so rounding, and masking, once per source row
+// equals doing it per edge), and every GEMM element one fmaf per k in ascending k from 0, as
+// the region kernels compute them: a region and the chain of per-layer kernels give the same
+// bits (chip_smoke.py checks both, forward and dx).
 //
-// Bound.  Forward at Reddit shape (N = T = 232,965, E = 23.5 M, 602 -> 256): the
-// compulsory bytes are x, out, W and the CSR once, about 0.9 GB (0.27 ms at 3.35 TB/s);
-// the operations are E * H_in adds and 2 N H_in H_out FMA operations, 86 GFLOP (1.28 ms at
-// 67 TFLOP/s fp32): operations bind.  What the kernel really moves is one source row per
-// edge (E * H_in * 4 B = 57 GB, much of it from L2), as the standalone aggregation does,
-// plus the weight once per block through L2 (616 KB x 14,561 blocks = 9 GB); the gather
-// dominates.  The backward's u at 602 <- 256 needs E * 256 adds (6 GFLOP, 0.09 ms) and
-// moves g, y, u and the CSR once (0.8 GB, 0.24 ms): bytes bind, and the gather of one bf16
-// row per edge (12 GB, mostly from L2) is what it really moves.  With dx the GEMM adds
-// 72 GFLOP (1.07 ms at 67 TFLOP/s).  Splitting hub rows, prefetching the next edge's row and
-// a tensor-core hand-off GEMM under a 3xTF32 split (with xlayer.cu's, so the region chain
-// keeps its bits) are later work.
+// Precision (binned.py:2304-2317, :2599-2615): "fast" is one bf16 rounding (round to nearest
+// even) of each gathered element (x forward; the masked g backward) before its fp32 add;
+// "exact" is fp32 throughout.  The relu mask is y > 0 (the TPU kernel's tie rule), not the
+// 0.5 g of maximum's VJP at a tie.
+//
+// Bound.  Forward at Reddit shape (N = T = 232,965, E = 23.5 M, 602 -> 256): the compulsory
+// bytes are x, out, W and the CSR once, about 0.9 GB (0.27 ms at 3.35 TB/s); the operations
+// are E * H_in adds and 2 N H_in H_out FMA operations, 86 GFLOP (1.28 ms at 67 TFLOP/s fp32):
+// operations bind.  What the kernel really moves is one staged row per edge (E * 1,216 B =
+// 28.6 GB, much of it from L2) plus W once per tile through L2 (616 KB x 14,561 tiles = 9 GB,
+// as 16-byte cp.async copies into shared memory); the gather dominates.  The backward's u at 602 <- 256 needs E * 256 adds (6 GFLOP,
+// 0.09 ms) and moves g, y, u and the CSR once (0.8 GB, 0.24 ms): bytes bind, and the gather
+// of one bf16 row per edge (12 GB, mostly from L2) is what it really moves.  With dx the GEMM
+// adds 72 GFLOP (1.07 ms at 67 TFLOP/s).  Measured (chip_smoke.py, fast, Reddit): the forward
+// 9.58 ms at 602 -> 256 relu, the staging's 0.28 included (torch.sparse.mm then matmul:
+// 21.19), 3.21 at 256 -> 41 and 3.90 at 256 -> 256 relu; in
+// exact 19.99 at 602 -> 256; the backward's u at 602 <- 256 1.98 (chip_variants.py), with dx
+// 6.28 (PERF.md §6).
+// Splitting hub rows, prefetching the next edge's row and a tensor-core GEMM under a 3xTF32
+// split (with xlayer.cu's, so the region chain keeps its bits) are later work.
 
-#include "cp_async.cuh"
-#include "row_tile.cuh"
+#include "gather_tile.cuh"
 
 namespace {
 
-using roc::kThreads;
-using roc::kWarps;
-using roc::SourceRows;
-using roc::cp_async16;
-using roc::cp_async_commit;
-using roc::cp_async_wait;
+using namespace roc;
 
-// Four resident blocks per SM (64 registers a thread, a few spilled): the gather is
-// latency-bound and needs the warps; at the compiler's own choice (up to 152 registers)
-// one block ran per SM and the GEMM phase did not overlap another block's gather.
-constexpr int kMinBlocks = 4;
+// Forward: three resident blocks per SM (at most 80 registers a thread): four (64 registers)
+// spill and read 10.39 against 9.54 ms at 602 -> 256 in fast, 22.23 against 19.81 in exact
+// (chip_variants.py's linear_four_blocks, NVIDIA H100 80GB HBM3, 700 W, as every time quoted
+// in this file).
+constexpr int kMinBlocks = 3;
 
-template <int VEC, bool ROUND>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-mega_fwd(const int64_t* __restrict__ row_ptr, const int32_t* __restrict__ col_idx,
-         const float* __restrict__ x, const float* __restrict__ w, float* __restrict__ out,
-         int64_t num_rows, int64_t h_in, int64_t h_out, int rb, int stride, bool relu) {
-  extern __shared__ float4 smem[];
-  float* tile = reinterpret_cast<float*>(smem);
-  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * rb;
-  roc::gather_rows<VEC, ROUND>(row_ptr, col_idx, SourceRows{x}, row0, rb,
-                               num_rows, h_in, tile, stride, nullptr);
-  __syncthreads();
-  roc::tile_gemm(tile, stride, rb, row0, num_rows, w, h_in, h_out, out, relu, nullptr);
+struct Fwd {
+  const int64_t* row_ptr;
+  const int32_t* col_idx;
+  const void* src;    // fast: the staged bf16 plane [T, ld]; exact: x [T, *] fp32 (row stride ld)
+  int64_t ld;
+  int vec;            // exact: the fp32 vector width x is read with
+  int64_t n;          // destination rows
+  int64_t k;          // H_in
+  const float* w;     // [H_in, ldw], ldw % 4 == 0, 16-byte aligned rows
+  int64_t ldw;
+  int64_t m;          // H_out
+  float* out;         // [n, H_out]
+  bool relu;
+};
+
+// out = act((A x) W): the block's tile of 16 destination rows is gathered into shared memory
+// in one pass of packed rows (gather_tile), then multiplied by W through shared memory
+// (tile_gemm, CG column groups a pass) with the relu epilogue.  One block per tile, the
+// hardware handing tiles to SMs as they free up: tiles claimed from an atomic counter by a
+// grid of resident blocks, as the region kernels do, read 10.68 against 9.54 ms at 602 -> 256
+// (chip_variants.py's linear_tile_counter).
+template <typename T, int CG>
+__global__ void __launch_bounds__(kThreads, kMinBlocks) mega_fwd(const Fwd p) {
+  extern __shared__ float4 smem4[];
+  float* tile = reinterpret_cast<float*>(smem4);
+  const int ts = tile_stride(p.k);
+  float* wbuf = tile + kRows * ts;
+  const Epilogue<float> epi{p.relu, nullptr, nullptr, 0, p.out, p.m, nullptr, 0, p.m};
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kRows;
+  const int rb = p.n - row0 < kRows ? static_cast<int>(p.n - row0) : kRows;
+  gather_tile<T>(p.row_ptr, p.col_idx, static_cast<const T*>(p.src), p.ld, p.vec, row0, rb,
+                 p.k, tile, ts, nullptr, 0, nullptr);
+  tile_gemm<CG>(tile, ts, rb, row0, p.w, p.ldw, p.k, p.m, wbuf, epi);
 }
 
-template <int VEC, bool ROUND>
-int launch_fwd(const int64_t* rp, const int32_t* ci, const float* x, const float* w, float* out,
-               int64_t n, int64_t h_in, int64_t h_out, bool relu, cudaStream_t s) {
-  int rb, stride;
-  roc::tile_shape(h_in, &rb, &stride);
-  const size_t smem = static_cast<size_t>(rb) * stride * sizeof(float);
-  const int err = roc::prepare(mega_fwd<VEC, ROUND>, smem);
+template <typename T, int CG>
+int launch_fwd_cg(const Fwd& p, cudaStream_t s) {
+  const size_t smem =
+      (static_cast<size_t>(kRows) * tile_stride(p.k) + kWbufFloats) * sizeof(float);
+  const int err = prepare(mega_fwd<T, CG>, smem);
   if (err != 0) return err;
-  const dim3 grid(static_cast<unsigned>((n + rb - 1) / rb));
-  mega_fwd<VEC, ROUND><<<grid, kThreads, smem, s>>>(rp, ci, x, w, out, n, h_in, h_out, rb, stride,
-                                                     relu);
+  const dim3 grid(static_cast<unsigned>((p.n + kRows - 1) / kRows));
+  mega_fwd<T, CG><<<grid, kThreads, smem, s>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool ROUND>
-int fwd_vec(int vec, const int64_t* rp, const int32_t* ci, const float* x, const float* w,
-            float* out, int64_t n, int64_t h_in, int64_t h_out, bool relu, cudaStream_t s) {
-  switch (vec) {
-    case 4: return launch_fwd<4, ROUND>(rp, ci, x, w, out, n, h_in, h_out, relu, s);
-    case 2: return launch_fwd<2, ROUND>(rp, ci, x, w, out, n, h_in, h_out, relu, s);
-    case 1: return launch_fwd<1, ROUND>(rp, ci, x, w, out, n, h_in, h_out, relu, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+// Outputs at most 64 wide (the 41-wide logits layer) take 64-column GEMM passes.
+template <typename T>
+int launch_fwd(const Fwd& p, cudaStream_t s) {
+  return p.m <= 64 ? launch_fwd_cg<T, 16>(p, s) : launch_fwd_cg<T, 64>(p, s);
 }
-
 
 // ---------------------------------------------------------------------------
 // Backward.
 
-constexpr int kKSlice = 8;     // W^T rows per cp.async stage of the dx GEMM
-constexpr int kPassCols = 256; // dx columns per GEMM pass: 64 column groups of 4
-
-template <typename T, int VEC>
-struct alignas(sizeof(T) * VEC) PackT {
-  T v[VEC];
-};
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// Staging: s[n, c] = g[n, c] * [y[n, c] > 0] (g itself without relu) for c < H, stored as T
-// (bf16: round to nearest even, the "fast" rounding; fp32: as is), and 0 for H <= c < ld.
-// One warp per row, VEC columns a lane (VEC divides H and keeps g's and y's rows aligned).
-template <typename T, int VEC, bool RELU>
-__global__ void __launch_bounds__(kThreads)
-stage_cotangent(const float* __restrict__ g, const float* __restrict__ y, T* __restrict__ s,
-                int64_t rows, int64_t H, int64_t ld) {
-  const int lane = threadIdx.x & 31;
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
-  if (row >= rows) return;
-  for (int64_t c = static_cast<int64_t>(lane) * VEC; c < ld; c += 32 * VEC) {
-    PackT<T, VEC> o;
-    if (c < H) {  // H % VEC == 0: a pack is wholly inside or outside
-      const PackT<float, VEC> gv = *reinterpret_cast<const PackT<float, VEC>*>(g + row * H + c);
-      PackT<float, VEC> yv;
-      if (RELU) yv = *reinterpret_cast<const PackT<float, VEC>*>(y + row * H + c);
-#pragma unroll
-      for (int j = 0; j < VEC; ++j)
-        o.v[j] = from_f32<T>(RELU ? (yv.v[j] > 0.f ? gv.v[j] : 0.f) : gv.v[j]);
-    } else {
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) o.v[j] = from_f32<T>(0.f);
-    }
-    *reinterpret_cast<PackT<T, VEC>*>(s + row * ld + c) = o;
-  }
-}
-
-// u[row, :] = sum over the transposed CSR row's edges, in CSR order, of s[u, :] in fp32 from 0.
-// A group of lpr lanes (8, 16 or 32) owns the row; lane sl of it loads the VEC-element pack
-// at column c = c0 + sl * VEC of each edge's source row (16 bytes when VEC * sizeof(T) = 16),
-// and a row wider than lpr * VEC columns is covered in passes, re-walking its edges.  The
-// pack may run past H into the row's padding (ld >= the packs' end); columns >= H are not
-// emitted.  emit(c, acc) gets each pass's sums.
-template <typename T, int VEC, class Emit>
-__device__ __forceinline__ void gather_row(const int64_t* __restrict__ rp,
-                                           const int32_t* __restrict__ ci,
-                                           const T* __restrict__ s, int64_t ld, int64_t row,
-                                           int64_t H, int lpr, int sl, Emit emit) {
-  const int64_t beg = rp[row], end = rp[row + 1];
-  for (int64_t c0 = 0; c0 < H; c0 += static_cast<int64_t>(lpr) * VEC) {
-    const int64_t c = c0 + static_cast<int64_t>(sl) * VEC;
-    if (c >= H) continue;
-    float acc[VEC];
-#pragma unroll
-    for (int j = 0; j < VEC; ++j) acc[j] = 0.f;
-    const T* base = s + c;
-#pragma unroll 4
-    for (int64_t e = beg; e < end; ++e) {
-      const int64_t src = ci[e];
-      const PackT<T, VEC> p = *reinterpret_cast<const PackT<T, VEC>*>(base + src * ld);
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) acc[j] += to_f32(p.v[j]);
-    }
-    emit(c, acc);
-  }
-}
-
-// out[c .. c + VEC) of one fp32 row of width H, the columns below H only.
-template <int VEC>
-__device__ __forceinline__ void store_row(float* __restrict__ out, int64_t c, int64_t H,
-                                          const float (&acc)[VEC]) {
-  if (c + VEC <= H && H % VEC == 0) {  // the pack is aligned in the row and the row start too
-    PackT<float, VEC> o;
-#pragma unroll
-    for (int j = 0; j < VEC; ++j) o.v[j] = acc[j];
-    *reinterpret_cast<PackT<float, VEC>*>(out + c) = o;
-  } else {
-#pragma unroll
-    for (int j = 0; j < VEC; ++j)
-      if (c + j < H) out[c + j] = acc[j];
-  }
-}
-
 // u only (the layer's input takes no gradient): a latency-bound gather, so no shared memory,
-// no register cap beyond the block's, and 32 / lpr rows per warp.
-template <typename T, int VEC>
+// no register cap beyond the block's, and a lane group of LPR lanes a row, 32 / LPR rows a
+// warp, one pack a lane per pass over the row's edges, its load guarded, as the sum's at one
+// pack: unconditional (clamped) loads read 2.23 against 1.98 / 1.95 ms at 602 <- 256
+// (chip_variants.py's linear_u_clamped_loads).
+template <typename T, int VEC, int LPR>
 __global__ void __launch_bounds__(kThreads)
 mega_bwd_u(const int64_t* __restrict__ rp, const int32_t* __restrict__ ci,
-           const T* __restrict__ s, int64_t ld, float* __restrict__ u, int64_t rows, int64_t H,
-           int lpr) {
+           const T* __restrict__ s, int64_t ld, float* __restrict__ u, int64_t rows, int64_t H) {
   const int lane = threadIdx.x & 31;
-  const int rpw = 32 / lpr;
-  const int64_t row = (static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5)) * rpw +
-                      lane / lpr;
+  const int64_t row = (static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5)) *
+                          (32 / LPR) + lane / LPR;
   if (row >= rows) return;
   float* out = u + row * H;
-  gather_row<T, VEC>(rp, ci, s, ld, row, H, lpr, lane % lpr,
-                     [&](int64_t c, const float (&acc)[VEC]) { store_row<VEC>(out, c, H, acc); });
+  gather_row<T, VEC, 1, LPR, false, kRowEdges>(
+      rp, ci, s, ld, row, H, lane % LPR,
+      [&](int64_t c, const float (&acc)[VEC]) { store_row<VEC>(out, c, H, acc); });
 }
 
 // With dx: the block's rb <= 16 rows are gathered as above into an fp32 shared tile [rb, ts]
-// (and written to u), then dx[rows, :] = tile W^T with W^T [K, ldw] row-major (ldw % 4 == 0,
-// 16-byte aligned rows; columns N .. ldw are padding).  The GEMM walks the output in passes of
-// 256 columns.  Thread (warp w, lane l) owns the 4 columns j0 + (8 w + l % 8) * 4 and the rows
-// l / 8 + 4 i, i < 4: a 4 x 4 register tile.  W^T comes through shared memory in slices of 8
-// rows of the pass's columns, cp.async double-buffered; the tile is read as float4 along k
-// (ts / 4 odd, so the four rows a warp reads at once sit in distinct banks) and each W^T row as
-// one float4 per thread (a warp reads 128 contiguous bytes, broadcast to its 4 row groups).
-// Each output element is one fmaf per k in ascending k from 0: the bits of tile_gemm's dx.
-template <typename T, int VEC>
+// (and written to u), then dx[rows, :] = tile W^T (gather_tile.cuh's tile_gemm, 256-column
+// passes) with W^T [K, ldw] row-major (ldw % 4 == 0, 16-byte aligned rows; columns N .. ldw
+// are padding).  Each output element is one fmaf per k in ascending k from 0: the bits of the
+// region's hand-off GEMM.
+template <typename T, int VEC, int LPR>
 __global__ void __launch_bounds__(kThreads, 3)
 mega_bwd_dx(const int64_t* __restrict__ rp, const int32_t* __restrict__ ci,
             const T* __restrict__ s, int64_t ld, const float* __restrict__ wt, int64_t ldw,
             float* __restrict__ u, float* __restrict__ dx, int64_t rows, int64_t K, int64_t N,
-            int lpr, int rb, int ts) {
+            int rb, int ts) {
   extern __shared__ float4 smem[];
   float* tile = reinterpret_cast<float*>(smem);
-  float* wbuf = tile + static_cast<int64_t>(rb) * ts;  // [2][kKSlice][kPassCols]
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float* wbuf = tile + static_cast<int64_t>(rb) * ts;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int64_t row0 = static_cast<int64_t>(blockIdx.x) * rb;
-  const int rpw = 32 / lpr;
-  for (int r = warp * rpw + lane / lpr; r < rb; r += kWarps * rpw) {
+  const int rows_here = rows - row0 < rb ? static_cast<int>(rows - row0) : rb;
+  constexpr int kRpw = 32 / LPR;
+  for (int r = warp * kRpw + lane / LPR; r < rows_here; r += kWarps * kRpw) {
     const int64_t row = row0 + r;
-    if (row >= rows) break;
     float* trow = tile + static_cast<int64_t>(r) * ts;
     float* urow = u + row * K;
-    gather_row<T, VEC>(rp, ci, s, ld, row, K, lpr, lane % lpr,
-                       [&](int64_t c, const float (&acc)[VEC]) {
-                         store_row<VEC>(urow, c, K, acc);
-#pragma unroll
-                         for (int j = 0; j < VEC; ++j)
-                           if (c + j < K) trow[c + j] = acc[j];
-                       });
+    gather_row<T, VEC, 1, LPR>(rp, ci, s, ld, row, K, lane % LPR,
+                                     [&](int64_t c, const float (&acc)[VEC]) {
+                                       store_row<VEC>(urow, c, K, acc);
+                                       store_pack<VEC>(trow, c, K, acc);
+                                     });
   }
-
-  const int cg = warp * 8 + (lane & 7);  // column group: 4 columns
-  const int rg = lane >> 3;              // rows rg + 4 i
-  const int nsl = static_cast<int>((K + kKSlice - 1) / kKSlice);
-  const float* arow[4];  // a row past rb reads row rb - 1: its sums are never stored
-#pragma unroll
-  for (int i = 0; i < 4; ++i) arow[i] = tile + (rg + 4 * i < rb ? rg + 4 * i : rb - 1) * ts;
-  for (int64_t j0 = 0; j0 < N; j0 += kPassCols) {
-    const int64_t chunks = (ldw - j0) / 4 < kPassCols / 4 ? (ldw - j0) / 4 : kPassCols / 4;
-    auto load_slice = [&](int sl, int buf) {
-      float* dst = wbuf + buf * (kKSlice * kPassCols);
-      for (int q = tid; q < kKSlice * kPassCols / 4; q += kThreads) {
-        const int kk = q / (kPassCols / 4), c4 = q % (kPassCols / 4);
-        const int64_t k = static_cast<int64_t>(sl) * kKSlice + kk;
-        if (k < K && c4 < chunks)
-          cp_async16(dst + kk * kPassCols + c4 * 4, wt + k * ldw + j0 + c4 * 4);
-      }
-      cp_async_commit();
-    };
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    load_slice(0, 0);
-    for (int sl = 0; sl < nsl; ++sl) {
-      if (sl + 1 < nsl) {
-        load_slice(sl + 1, (sl + 1) & 1);
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();  // the slice (and, at sl = 0, the gathered tile) is visible to all
-      const float* b = wbuf + (sl & 1) * (kKSlice * kPassCols) + cg * 4;
-      const int64_t k0 = static_cast<int64_t>(sl) * kKSlice;
-      const int kn = K - k0 < kKSlice ? static_cast<int>(K - k0) : kKSlice;
-      int kk = 0;
-      for (; kk + 4 <= kn; kk += 4) {
-        float4 a[4], bv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          a[i] = *reinterpret_cast<const float4*>(arow[i] + k0 + kk);
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          bv[q] = *reinterpret_cast<const float4*>(b + (kk + q) * kPassCols);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float av[4] = {a[i].x, a[i].y, a[i].z, a[i].w};
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            acc[i][0] = fmaf(av[q], bv[q].x, acc[i][0]);
-            acc[i][1] = fmaf(av[q], bv[q].y, acc[i][1]);
-            acc[i][2] = fmaf(av[q], bv[q].z, acc[i][2]);
-            acc[i][3] = fmaf(av[q], bv[q].w, acc[i][3]);
-          }
-        }
-      }
-      for (; kk < kn; ++kk) {
-        const float4 bv = *reinterpret_cast<const float4*>(b + kk * kPassCols);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float av = arow[i][k0 + kk];
-          acc[i][0] = fmaf(av, bv.x, acc[i][0]);
-          acc[i][1] = fmaf(av, bv.y, acc[i][1]);
-          acc[i][2] = fmaf(av, bv.z, acc[i][2]);
-          acc[i][3] = fmaf(av, bv.w, acc[i][3]);
-        }
-      }
-      __syncthreads();  // the buffer is free for the slice after next
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = rg + 4 * i;
-      const int64_t row = row0 + r;
-      if (r >= rb || row >= rows) continue;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int64_t col = j0 + cg * 4 + j;
-        if (col < N) dx[row * N + col] = acc[i][j];
-      }
-    }
-  }
+  const Epilogue<float> epi{false, nullptr, nullptr, 0, dx, N, nullptr, 0, N};
+  tile_gemm(tile, ts, rows_here, row0, wt, ldw, K, N, wbuf, epi);
 }
 
-// Lanes per row: the fewest of 8, 16, 32 that cover a row's packs in one pass.
-int lanes_per_row(int64_t H, int vec) {
-  const int64_t packs = (H + vec - 1) / vec;
-  return packs <= 8 ? 8 : packs <= 16 ? 16 : 32;
+template <typename T, int VEC, int LPR>
+int launch_bwd_lpr(const int64_t* rp, const int32_t* ci, const T* s, int64_t ld, const float* wt,
+                   int64_t ldw, float* u, float* dx, int64_t t, int64_t K, int64_t N,
+                   cudaStream_t stream) {
+  if (dx == nullptr) {
+    const int64_t rows_per_block = static_cast<int64_t>(kWarps) * (32 / LPR);
+    const dim3 grid(static_cast<unsigned>((t + rows_per_block - 1) / rows_per_block));
+    mega_bwd_u<T, VEC, LPR><<<grid, kThreads, 0, stream>>>(rp, ci, s, ld, u, t, K);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int ts = tile_stride(K);
+  const size_t wbytes = static_cast<size_t>(kWbufFloats) * sizeof(float);
+  constexpr size_t kMaxSmem = 227 * 1024;
+  int rb = kRows;
+  while (rb > 1 && wbytes + static_cast<size_t>(rb) * ts * sizeof(float) > kMaxSmem) --rb;
+  const size_t smem = wbytes + static_cast<size_t>(rb) * ts * sizeof(float);
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  const int err = prepare(mega_bwd_dx<T, VEC, LPR>, smem);
+  if (err != 0) return err;
+  const dim3 grid(static_cast<unsigned>((t + rb - 1) / rb));
+  mega_bwd_dx<T, VEC, LPR><<<grid, kThreads, smem, stream>>>(rp, ci, s, ld, wt, ldw, u, dx, t, K,
+                                                              N, rb, ts);
+  return static_cast<int>(cudaGetLastError());
 }
-
-// The dx tile's row stride: K rounded up to 4 floats with an odd count of 16-byte chunks.
-int tile_stride(int64_t K) { return static_cast<int>(((K + 3) / 4 | 1) * 4); }
 
 template <typename T, int VEC>
 int launch_bwd(const int64_t* rp, const int32_t* ci, const T* s, int64_t ld, const float* wt,
                int64_t ldw, float* u, float* dx, int64_t t, int64_t K, int64_t N,
                cudaStream_t stream) {
-  const int lpr = lanes_per_row(K, VEC);
-  if (dx == nullptr) {
-    const int64_t rows_per_block = static_cast<int64_t>(kWarps) * (32 / lpr);
-    const dim3 grid(static_cast<unsigned>((t + rows_per_block - 1) / rows_per_block));
-    mega_bwd_u<T, VEC><<<grid, kThreads, 0, stream>>>(rp, ci, s, ld, u, t, K, lpr);
-    return static_cast<int>(cudaGetLastError());
+  switch (lanes_per_row((K + VEC - 1) / VEC)) {
+    case 8: return launch_bwd_lpr<T, VEC, 8>(rp, ci, s, ld, wt, ldw, u, dx, t, K, N, stream);
+    case 16: return launch_bwd_lpr<T, VEC, 16>(rp, ci, s, ld, wt, ldw, u, dx, t, K, N, stream);
+    default: return launch_bwd_lpr<T, VEC, 32>(rp, ci, s, ld, wt, ldw, u, dx, t, K, N, stream);
   }
-  const int ts = tile_stride(K);
-  const size_t wbytes = static_cast<size_t>(2) * kKSlice * kPassCols * sizeof(float);
-  constexpr size_t kMaxSmem = 227 * 1024;
-  int rb = roc::kMaxRows;
-  while (rb > 1 && wbytes + static_cast<size_t>(rb) * ts * sizeof(float) > kMaxSmem) --rb;
-  const size_t smem = wbytes + static_cast<size_t>(rb) * ts * sizeof(float);
-  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  const int err = roc::prepare(mega_bwd_dx<T, VEC>, smem);
-  if (err != 0) return err;
-  const dim3 grid(static_cast<unsigned>((t + rb - 1) / rb));
-  mega_bwd_dx<T, VEC><<<grid, kThreads, smem, stream>>>(rp, ci, s, ld, wt, ldw, u, dx, t, K, N, lpr,
-                                                         rb, ts);
-  return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool RELU>
+// The staged cotangent: gather_tile.cuh's staging with y as the mask (g itself without relu).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+stage_cotangent(const float* __restrict__ g, const float* __restrict__ y, int vec, int64_t H,
+                T* __restrict__ s, int64_t ld, int64_t rows) {
+  stage_plane<T>(g, y, vec, H, s, ld, rows);
+}
+
+template <typename T>
 int launch_stage(const float* g, const float* y, T* s, int64_t rows, int64_t H, int64_t ld,
                  int vec, cudaStream_t stream) {
+  if (vec != 4 && vec != 2 && vec != 1) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>((rows + kWarps - 1) / kWarps));
-  switch (vec) {
-    case 4: stage_cotangent<T, 4, RELU><<<grid, kThreads, 0, stream>>>(g, y, s, rows, H, ld); break;
-    case 1: stage_cotangent<T, 1, RELU><<<grid, kThreads, 0, stream>>>(g, y, s, rows, H, ld); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  stage_cotangent<T><<<grid, kThreads, 0, stream>>>(g, y, vec, H, s, ld, rows);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // C interface, bound with ctypes by roc_tpu_torch/ops/kernels/aggregate_linear.py.  All
-// tensors are contiguous fp32 on the device; row_ptr is int64, col_idx int32; vec is the
-// gathered width's vector load (it divides that width and the row starts stay aligned).
-// Each returns cudaGetLastError() after the launch (0 on success).
-extern "C" int roc_aggregate_linear(const void* row_ptr, const void* col_idx, const void* x,
-                                    const void* w, void* out, long long num_rows, long long h_in,
-                                    long long h_out, int round_bf16, int relu, int vec,
-                                    void* stream) {
-  if (num_rows <= 0 || h_in <= 0 || h_out <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t* rp = static_cast<const int64_t*>(row_ptr);
-  const int32_t* ci = static_cast<const int32_t*>(col_idx);
-  const float* xp = static_cast<const float*>(x);
-  const float* wp = static_cast<const float*>(w);
-  float* op = static_cast<float*>(out);
+// tensors are on the device; row_ptr is int64, col_idx int32.  Each returns
+// cudaGetLastError() after the launch (0 on success).
+
+// out [n, h_out] = act((A x) W).  src: with round_bf16 ("fast") the staged bf16 plane of x
+// [T, ld] (ld = ld8(h_in), aggregate_sum.cu's roc_stage_plane); otherwise x itself, fp32 with
+// rows ld floats apart, read with vec-float loads (vec divides h_in and ld and src is aligned
+// to it).  w is [h_in, ldw] fp32 (ldw % 4 == 0, 16-byte aligned; columns from h_out on are
+// padding).
+extern "C" int roc_aggregate_linear(const void* row_ptr, const void* col_idx, const void* src,
+                                    long long ld, int vec, const void* w, long long ldw,
+                                    void* out, long long num_rows, long long h_in,
+                                    long long h_out, int round_bf16, int relu, void* stream) {
+  if (num_rows <= 0 || h_in <= 0 || h_out <= 0 || ld < h_in || ldw < h_out || ldw % 4 != 0 ||
+      (round_bf16 && ld % 8 != 0) || (!round_bf16 && vec != 4 && vec != 2 && vec != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Fwd p{static_cast<const int64_t*>(row_ptr), static_cast<const int32_t*>(col_idx), src, ld,
+        vec, num_rows, h_in, static_cast<const float*>(w), ldw, h_out,
+        static_cast<float*>(out), relu != 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return round_bf16 ? fwd_vec<true>(vec, rp, ci, xp, wp, op, num_rows, h_in, h_out, relu != 0, s)
-                    : fwd_vec<false>(vec, rp, ci, xp, wp, op, num_rows, h_in, h_out, relu != 0, s);
+  return round_bf16 ? launch_fwd<bf16>(p, s) : launch_fwd<float>(p, s);
 }
 
-
 // s (the staged cotangent plane [rows, ld]) from g and, with relu, y (both [rows, H] fp32):
-// dtype 1 = bf16 ("fast"), 0 = fp32 (exact, relu only).  vec is 4 or 1 (4 divides H and g's
-// and y's rows are 16-byte aligned); ld >= H is a multiple of 8 (bf16) or 4 (fp32).
+// dtype 1 = bf16 ("fast"), 0 = fp32 (exact, relu only).  vec is 4, 2 or 1 (it divides H and
+// g's and y's rows are aligned to it); ld >= H is a multiple of 8 (bf16) or 4 (fp32).
 extern "C" int roc_stage_cotangent(const void* g, const void* y, void* s, long long rows,
                                    long long H, long long ld, int dtype, int relu, int vec,
                                    void* stream) {
@@ -418,13 +271,10 @@ extern "C" int roc_stage_cotangent(const void* g, const void* y, void* s, long l
   const float* gp = static_cast<const float*>(g);
   const float* yp = static_cast<const float*>(y);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    __nv_bfloat16* sp = static_cast<__nv_bfloat16*>(s);
-    return relu ? launch_stage<__nv_bfloat16, true>(gp, yp, sp, rows, H, ld, vec, st)
-                : launch_stage<__nv_bfloat16, false>(gp, yp, sp, rows, H, ld, vec, st);
-  }
+  if (!relu) yp = nullptr;
+  if (dtype == 1) return launch_stage<bf16>(gp, yp, static_cast<bf16*>(s), rows, H, ld, vec, st);
   if (dtype == 0 && relu)
-    return launch_stage<float, true>(gp, yp, static_cast<float*>(s), rows, H, ld, vec, st);
+    return launch_stage<float>(gp, yp, static_cast<float*>(s), rows, H, ld, vec, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -449,8 +299,8 @@ extern "C" int roc_aggregate_linear_bwd(const void* t_row_ptr, const void* t_col
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     if (vec != 8) return static_cast<int>(cudaErrorInvalidValue);
-    return launch_bwd<__nv_bfloat16, 8>(rp, ci, static_cast<const __nv_bfloat16*>(s), ld, wp, ldw,
-                                        up, dp, num_rows, h_out, h_in, st);
+    return launch_bwd<bf16, 8>(rp, ci, static_cast<const bf16*>(s), ld, wp, ldw, up, dp,
+                               num_rows, h_out, h_in, st);
   }
   if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
   const float* sp = static_cast<const float*>(s);

@@ -5,148 +5,203 @@
 //   _p1_kernel (binned.py:1885, and its _p1_kernel_simple variant at :1848),
 //   _p1_flat_kernel (binned.py:1991), _p2_kernel (binned.py:2107) and
 //   _fused_kernel (binned.py:2153).
-// The TPU schedule (128-lane padding, slots, bins, bf16/fp32 staging and the
-// one-hot MXU scatters) exists only because the TPU has no cache in front of
-// HBM and tiles in (8, 128).  None of it is carried over: on Hopper the gather
-// rides L2, so the kernel is a plain deterministic CSR SpMM over the
-// destination-sorted in-edge lists.
+// The TPU schedule (128-lane padding, slots, bins and the one-hot MXU scatters) exists only
+// because the TPU has no cache in front of HBM and tiles in (8, 128).  None of it is carried
+// over: on Hopper the gather rides L2, so the kernel is a deterministic CSR SpMM over the
+// destination-sorted in-edge lists.  What is kept is the TPU kernels' staging of x as bf16 in
+// "fast" (binned.py:37-39, staging_dtype :406): it is the function, one rounding per element.
 //
-// Design.  One warp owns one destination row.  It walks
-// col_idx[row_ptr[v] : row_ptr[v + 1]] in order, loads the source row x[u]
-// with vector loads of VEC elements per lane (neighbouring lanes on
-// neighbouring addresses), and accumulates in fp32 registers.  Each output row
-// is written exactly once, so there are no float atomics and the summation
-// order is the edge order: the result is the same bits on every run.  A row
-// wider than 32 * VEC elements is covered in column tiles, re-walking the
-// (cheap, 4-byte) index list once per tile; the ragged tail of H is masked per
-// lane, and the wrapper picks VEC so that H % VEC == 0.
+// Design.  Two launches in "fast" on an fp32 x, one otherwise:
+//   roc_stage_plane writes x once as a bf16 plane [T, ld8(H)] (columns from H on zero), the
+//   rounding done once per source row instead of once per edge; the whole plane is read
+//   E times by the gather, so halving its rows (512 B at H = 256) halves what every edge
+//   moves.
+//   roc_aggregate_sum is gather_tile.cuh's one-pass packed gather, one destination row per lane
+//   group: lanes own 16-byte packs (8 bf16, or in exact up to 4 fp32 read from x in place),
+//   a group of 8, 16 or 32 lanes a row, as many packs a lane as the row needs (3 at 602 bf16,
+//   one pass; up to 4 fp32, one pass at 256), so a narrow row (H = 41: 6 packs, 8 lanes) does
+//   not leave most of a warp idle: a warp then sums 4 rows.  Each output row is written once,
+//   by the one group that summed it: no atomics, the same bits on every run.
+// A bf16 x is already rounded and is gathered directly (sum_rows_bf16), the output in bf16.
 //
-// Precision (the contract of binned.py:37-46): ROUND = true is "fast" on fp32
-// input, rounding every loaded element once to bf16 (round to nearest even)
-// before the fp32 add; ROUND = false is "exact", fp32 end to end.  A bf16
-// input is already rounded, so both precisions are the same there.  The
-// output is written in the input dtype.
+// Precision (the contract of binned.py:37-46): "fast" on fp32 input sums, in fp32 from 0 in
+// CSR order, each element of x rounded once to bf16 (round to nearest even); bf16 -> fp32 is
+// exact, so the staged plane gives the bits of the per-edge rounding.  "exact" is fp32 end to
+// end.  The output is in the input dtype.
 //
-// Bound.  The compulsory traffic is reading x once, row_ptr and col_idx once,
-// and writing out once: (N_table * H + N * H) * sizeof(T) + 8 (N + 1) + 4 E
-// bytes.  The worst case reads one full source row per edge, E * H * sizeof(T)
-// bytes (about 24 GB at Reddit shape, E = 23.5 M and H = 256 in fp32).  How
-// far the kernel lands from the compulsory bound depends on how often a hot x
-// row is found in the 50 MB L2.  Prefetching the next edge's row (cp.async or
-// TMA), splitting hub rows across warps and bf16 loads are later work.
+// Bound.  The compulsory traffic is reading x once, row_ptr and col_idx once, and writing
+// out once: (T * H + N * H) * sizeof(T) + 8 (N + 1) + 4 E bytes (0.17 ms at Reddit, H = 256,
+// 3.35 TB/s); E * H adds are 6 GFLOP (0.09 ms at 67 TFLOP/s fp32): bytes bind.  What the
+// kernel really moves is one plane row per edge: E * 512 B = 12.0 GB at H = 256 in fast (an
+// fp32 row would be 24.1 GB), most of it from the 50 MB L2.  Measured (chip_variants.py's
+// checkout build, Reddit, NVIDIA H100 80GB HBM3, 700 W): fast at H = 256 3.28 ms over the CSR,
+// the staging's 0.12 included (torch.sparse.mm: 6.73 in chip_smoke.py), 1.83 over the
+// transposed CSR, 0.49 and 0.47 at H = 41, 9.96 at 602; exact 6.99 at 256 (PERF.md §6).
+// Splitting hub rows and prefetching the next edge's row are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "gather_tile.cuh"
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
+using namespace roc;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+// One row per lane group of LPR lanes, 32 / LPR rows a warp; src is [*, ld] (a bf16 plane,
+// or fp32 x in place with ld its row stride).  A lane that owns one pack a pass guards its
+// load; with more it clamps its surplus packs (gather_row's CLAMP): clamped at one pack too,
+// the transposed sum at H = 256 read 2.15 against 1.83 / 1.82 ms (chip_variants.py's
+// sum_clamped_loads), guarded at three, the 602-wide sum 11.41 against 9.96 / 9.94
+// (sum_guarded_loads; NVIDIA H100 80GB HBM3, 700 W).
+template <typename T, int VEC, int PACKS, int LPR>
+__global__ void __launch_bounds__(kThreads)
+sum_rows(const int64_t* __restrict__ rp, const int32_t* __restrict__ ci, const T* __restrict__ src,
+         int64_t ld, float* __restrict__ out, int64_t n, int64_t H) {
+  const int lane = threadIdx.x & 31;
+  const int64_t row = (static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5)) *
+                          (32 / LPR) + lane / LPR;
+  if (row >= n) return;
+  float* orow = out + row * H;
+  gather_row<T, VEC, PACKS, LPR, (PACKS > 1), kRowEdges>(
+      rp, ci, src, ld, row, H, lane % LPR,
+      [&](int64_t c, const float (&a)[VEC]) { store_row<VEC>(orow, c, H, a); });
+}
 
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
+template <typename T, int VEC, int PACKS, int LPR>
+int launch_rows(const int64_t* rp, const int32_t* ci, const T* src, int64_t ld, float* out,
+                int64_t n, int64_t H, cudaStream_t s) {
+  const int64_t rows_per_block = static_cast<int64_t>(kWarps) * (32 / LPR);
+  const dim3 grid(static_cast<unsigned>((n + rows_per_block - 1) / rows_per_block));
+  sum_rows<T, VEC, PACKS, LPR><<<grid, kThreads, 0, s>>>(rp, ci, src, ld, out, n, H);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int VEC>
-struct alignas(sizeof(T) * VEC) Pack {
-  T v[VEC];
+int launch_sum(const int64_t* rp, const int32_t* ci, const T* src, int64_t ld, float* out,
+               int64_t n, int64_t H, cudaStream_t s) {
+  const int64_t packs = (H + VEC - 1) / VEC;
+  switch (lanes_per_row(packs)) {
+    case 8: return launch_rows<T, VEC, 1, 8>(rp, ci, src, ld, out, n, H, s);
+    case 16: return launch_rows<T, VEC, 1, 16>(rp, ci, src, ld, out, n, H, s);
+    default: break;
+  }
+  switch (packs_per_lane<T>(packs, 32)) {
+    case 1: return launch_rows<T, VEC, 1, 32>(rp, ci, src, ld, out, n, H, s);
+    case 2: return launch_rows<T, VEC, 2, 32>(rp, ci, src, ld, out, n, H, s);
+    case 3: return launch_rows<T, VEC, 3, 32>(rp, ci, src, ld, out, n, H, s);
+    default:
+      return launch_rows<T, VEC, sizeof(T) == 2 ? kMaxPacks : 4, 32>(rp, ci, src, ld, out, n,
+                                                                     H, s);
+  }
+}
+
+int launch_f32(const int64_t* rp, const int32_t* ci, const float* x, int64_t ldx, float* out,
+               int64_t n, int64_t H, int vec, cudaStream_t s) {
+  switch (vec) {
+    case 4: return launch_sum<float, 4>(rp, ci, x, ldx, out, n, H, s);
+    case 2: return launch_sum<float, 2>(rp, ci, x, ldx, out, n, H, s);
+    case 1: return launch_sum<float, 1>(rp, ci, x, ldx, out, n, H, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// A bf16 x, gathered directly (already rounded): a warp per row, VEC bf16 elements a lane
+// (VEC divides H and keeps the rows aligned), column tiles of 32 VEC, the sums rounded once
+// to bf16 on the store.
+template <int VEC>
+struct alignas(2 * VEC) Bf16Pack {
+  bf16 v[VEC];
 };
 
-template <typename T, typename IdxT, int VEC, bool ROUND>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-csr_sum_rows(const IdxT* __restrict__ row_ptr, const int32_t* __restrict__ col_idx,
-             const T* __restrict__ x, T* __restrict__ out, int64_t num_rows, int64_t H) {
+template <int VEC>
+__global__ void __launch_bounds__(kThreads)
+sum_rows_bf16(const int64_t* __restrict__ rp, const int32_t* __restrict__ ci,
+              const bf16* __restrict__ x, bf16* __restrict__ out, int64_t n, int64_t H) {
   const int lane = threadIdx.x & 31;
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (row >= num_rows) return;
-  const int64_t beg = static_cast<int64_t>(row_ptr[row]);
-  const int64_t end = static_cast<int64_t>(row_ptr[row + 1]);
-  constexpr int kTile = 32 * VEC;
-  for (int64_t c0 = 0; c0 < H; c0 += kTile) {
-    const int64_t c = c0 + static_cast<int64_t>(lane) * VEC;
-    if (c >= H) continue;  // H % VEC == 0: a pack is wholly inside or outside
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+  if (row >= n) return;
+  const int64_t beg = rp[row], end = rp[row + 1];
+  for (int64_t c = static_cast<int64_t>(lane) * VEC; c < H; c += 32 * VEC) {
     float acc[VEC];
 #pragma unroll
     for (int j = 0; j < VEC; ++j) acc[j] = 0.f;
 #pragma unroll 4
     for (int64_t e = beg; e < end; ++e) {
-      const int64_t src = col_idx[e];
-      const Pack<T, VEC> p = *reinterpret_cast<const Pack<T, VEC>*>(x + src * H + c);
+      const Bf16Pack<VEC> p =
+          *reinterpret_cast<const Bf16Pack<VEC>*>(x + static_cast<int64_t>(ci[e]) * H + c);
 #pragma unroll
-      for (int j = 0; j < VEC; ++j) {
-        float v = to_f32(p.v[j]);
-        if (ROUND) v = __bfloat162float(__float2bfloat16_rn(v));
-        acc[j] += v;
-      }
+      for (int j = 0; j < VEC; ++j) acc[j] += __bfloat162float(p.v[j]);
     }
-    Pack<T, VEC> o;
+    Bf16Pack<VEC> o;
 #pragma unroll
-    for (int j = 0; j < VEC; ++j) o.v[j] = from_f32<T>(acc[j]);
-    *reinterpret_cast<Pack<T, VEC>*>(out + row * H + c) = o;
+    for (int j = 0; j < VEC; ++j) o.v[j] = to_bf16(acc[j]);
+    *reinterpret_cast<Bf16Pack<VEC>*>(out + row * H + c) = o;
   }
 }
 
-template <typename T, typename IdxT, bool ROUND>
-int launch(const void* row_ptr, const void* col_idx, const void* x, void* out,
-           int64_t num_rows, int64_t H, int vec, cudaStream_t stream) {
-  const dim3 block(kWarpsPerBlock * 32);
-  const dim3 grid(static_cast<unsigned>((num_rows + kWarpsPerBlock - 1) / kWarpsPerBlock));
-  const IdxT* rp = static_cast<const IdxT*>(row_ptr);
-  const int32_t* ci = static_cast<const int32_t*>(col_idx);
-  const T* xp = static_cast<const T*>(x);
-  T* op = static_cast<T*>(out);
-  switch (vec) {
-    case 4:
-      csr_sum_rows<T, IdxT, 4, ROUND><<<grid, block, 0, stream>>>(rp, ci, xp, op, num_rows, H);
-      break;
-    case 2:
-      csr_sum_rows<T, IdxT, 2, ROUND><<<grid, block, 0, stream>>>(rp, ci, xp, op, num_rows, H);
-      break;
-    case 1:
-      csr_sum_rows<T, IdxT, 1, ROUND><<<grid, block, 0, stream>>>(rp, ci, xp, op, num_rows, H);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+template <int VEC>
+int launch_bf16(const int64_t* rp, const int32_t* ci, const bf16* x, bf16* out, int64_t n,
+                int64_t H, cudaStream_t s) {
+  const dim3 grid(static_cast<unsigned>((n + kWarps - 1) / kWarps));
+  sum_rows_bf16<VEC><<<grid, kThreads, 0, s>>>(rp, ci, x, out, n, H);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, typename IdxT>
-int launch_round(const void* row_ptr, const void* col_idx, const void* x, void* out,
-                 int64_t num_rows, int64_t H, int vec, int round_bf16, cudaStream_t stream) {
-  return round_bf16 ? launch<T, IdxT, true>(row_ptr, col_idx, x, out, num_rows, H, vec, stream)
-                    : launch<T, IdxT, false>(row_ptr, col_idx, x, out, num_rows, H, vec, stream);
+__global__ void __launch_bounds__(kThreads)
+stage_kernel(const float* __restrict__ x, int64_t ldx, int vec, int64_t H, bf16* __restrict__ dst,
+             int64_t ld, int64_t n) {
+  stage_plane<bf16>(x, nullptr, vec, H, dst, ld, n, ldx);
 }
 
 }  // namespace
 
-// C interface, bound with ctypes by roc_tpu_torch/ops/kernels/aggregate_sum.py.
-//   dtype: 0 = float32, 1 = bfloat16 (x and out)
-//   row_ptr_64: 1 = int64 row_ptr, 0 = int32
-//   round_bf16: 1 = "fast" on float32 input (one bf16 rounding per element)
-// Returns cudaGetLastError() after the launch (0 on success).
-extern "C" int roc_aggregate_sum(const void* row_ptr, int row_ptr_64, const void* col_idx,
-                                 const void* x, void* out, long long num_rows, long long H,
-                                 int dtype, int round_bf16, int vec, void* stream) {
+// C interface, bound with ctypes by roc_tpu_torch/ops/kernels/aggregate_sum.py.  row_ptr is
+// int64 [n + 1], col_idx int32; every tensor is on the device.  Each returns cudaGetLastError()
+// after the launch (0 on success).
+
+// dst [n, ld] bf16 (ld = ld8(H)) = x [n, H] (rows ldx floats apart) rounded to nearest even,
+// columns from H on 0.  vec (4, 2 or 1) divides H and ldx and x is aligned to it.
+extern "C" int roc_stage_plane(const void* x, long long ldx, long long n, long long H, int vec,
+                               void* dst, long long ld, void* stream) {
+  if (n <= 0 || H <= 0 || ldx < H || ld < H || ld % 8 != 0 || ldx % vec != 0 || H % vec != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>((n + kWarps - 1) / kWarps));
+  stage_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), ldx, vec, H, static_cast<bf16*>(dst), ld, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out [n, H] = the sum over each CSR row's edges of src's rows.
+//   kind 0: src is fp32 [*, ld] (x in place), summed as is ("exact");
+//   kind 1: src is a staged bf16 plane [*, ld] (ld = ld8(H)), out fp32 ("fast" on fp32 x);
+//   kind 2: src is bf16 [*, H] (a bf16 x), out bf16.
+// vec: the fp32 vector width (kind 0: divides H and ld, src aligned to it) or the bf16 one
+// (kind 2: 4, 2 or 1, dividing H); ignored for kind 1.
+extern "C" int roc_aggregate_sum(const void* row_ptr, const void* col_idx, const void* src,
+                                 long long ld, int kind, int vec, void* out, long long n,
+                                 long long H, void* stream) {
+  if (n <= 0 || H <= 0 || ld < H) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t* rp = static_cast<const int64_t*>(row_ptr);
+  const int32_t* ci = static_cast<const int32_t*>(col_idx);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (num_rows <= 0 || H <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0) {
-    return row_ptr_64
-               ? launch_round<float, int64_t>(row_ptr, col_idx, x, out, num_rows, H, vec, round_bf16, s)
-               : launch_round<float, int32_t>(row_ptr, col_idx, x, out, num_rows, H, vec, round_bf16, s);
+  switch (kind) {
+    case 0:
+      return launch_f32(rp, ci, static_cast<const float*>(src), ld, static_cast<float*>(out), n,
+                        H, vec, s);
+    case 1:
+      if (ld % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+      return launch_sum<bf16, 8>(rp, ci, static_cast<const bf16*>(src), ld,
+                                 static_cast<float*>(out), n, H, s);
+    case 2: {
+      const bf16* x = static_cast<const bf16*>(src);
+      bf16* o = static_cast<bf16*>(out);
+      if (ld != H) return static_cast<int>(cudaErrorInvalidValue);
+      switch (vec) {
+        case 4: return launch_bf16<4>(rp, ci, x, o, n, H, s);
+        case 2: return launch_bf16<2>(rp, ci, x, o, n, H, s);
+        case 1: return launch_bf16<1>(rp, ci, x, o, n, H, s);
+        default: return static_cast<int>(cudaErrorInvalidValue);
+      }
+    }
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (dtype == 1) {
-    return row_ptr_64
-               ? launch<__nv_bfloat16, int64_t, false>(row_ptr, col_idx, x, out, num_rows, H, vec, s)
-               : launch<__nv_bfloat16, int32_t, false>(row_ptr, col_idx, x, out, num_rows, H, vec, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -39,8 +39,9 @@
 // megakernels (aggregate_linear.cu), which chip_smoke.py checks.  T = float is "exact":
 // fp32 throughout, x gathered in place.  Sums are fp32 from 0 in CSR order.  The GEMMs are
 // fp32 FMA (no TF32): each output element one fmaf per k in ascending k from 0, the bits of
-// row_tile.cuh's tile_gemm and of mega_bwd_dx.  The scale is multiplied, never recomputed
-// here: rsqrtf is not correctly rounded and would break parity with the per-layer chain.
+// the per-layer megakernel's forward (the same tile_gemm) and of mega_bwd_dx.  The scale is
+// multiplied, never recomputed here: rsqrtf is not correctly rounded and would break parity
+// with the per-layer chain.
 //
 // Design.  One persistent cooperative launch per pass, as the Pallas grid is one grid: the
 // grid is the occupancy limit times the SM count, and cooperative_groups' grid sync
@@ -51,14 +52,15 @@
 // so one pass over the row's edges covers up to 32 * kMaxPacks packs (768 bf16 columns: the
 // 602-wide layer in one pass, where 16-byte fp32 loads of 128-column spans took five; in
 // exact, x read in place at 602 in three passes of 2-float packs).
-// The tile [16, H] goes to shared memory (and, over the transpose, to u), then the tile's
-// GEMM: the weight comes through shared memory in cp.async double-buffered slices of 8 rows
-// by 256 columns, each thread owns a 4 x 4 register tile (mega_bwd_dx's scheme), and the
-// tile rows have an odd count of 16-byte chunks, so the float4 reads along k are free of
-// bank conflicts.  Interior planes cannot stay on chip ([N, 256] fp32 is 238.6 MB at
-// Reddit) and live in device workspaces the wrapper allocates per call.  Planes written
-// earlier in the same launch are read through L2 (ld.global.cg, cp.async.cg), never through
-// the non-coherent read-only path.
+// The staging, the gather (with guarded loads) and the tile GEMM are gather_tile.cuh's,
+// shared with the per-layer kernels.  The tile [16, H] goes to shared memory (and, over the
+// transpose, to u), then the tile's GEMM: the weight comes through shared memory in cp.async
+// double-buffered slices of 8 rows by 256 columns, each thread owns a 4 x 4 register tile
+// (mega_bwd_dx's scheme), and the tile rows have an odd count of 16-byte chunks, so the
+// float4 reads along k are free of bank conflicts.  Interior planes cannot stay on chip
+// ([N, 256] fp32 is 238.6 MB at Reddit) and live in device workspaces the wrapper allocates
+// per call.  Planes written earlier in the same launch are read through L2 (ld.global.cg,
+// cp.async.cg), never through the non-coherent read-only path.
 //
 // dW is the one GEMM whose bits no chain check pins (it is held per element against the
 // plain version).  Rows are cut into fixed chunks of kDwSplitRows; each (chunk, 64 x 128
@@ -80,19 +82,13 @@
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 
-#include "cp_async.cuh"
-#include "row_tile.cuh"
+#include "gather_tile.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-using roc::cp_async16;
-using roc::cp_async_commit;
-using roc::cp_async_wait;
-using roc::kThreads;
-using roc::kWarps;
-using bf16 = __nv_bfloat16;
+using namespace roc;  // staging, the packed gather, the tile GEMM and their constants
 
 constexpr int kMaxDepth = 8;
 // Three resident blocks per SM (80 registers a thread, some spilled): the gathers are
@@ -101,10 +97,6 @@ constexpr int kMaxDepth = 8;
 // (fast forward / backward at Reddit's depth-3 region; chip_variants.py, NVIDIA H100 80GB
 // HBM3, 700 W, as every time quoted in this file).
 constexpr int kMinBlocks = 3;
-constexpr int kRows = 16;                   // destination rows per tile
-constexpr int kKSlice = 8;                  // weight rows per cp.async stage of a tile GEMM
-constexpr int kPassCols = 256;              // output columns per GEMM pass
-constexpr int kMaxPacks = 3;                // bf16 16-byte packs per lane per pass over the edges
 constexpr int kDwK = 64;                    // dW output tile: k (rows of dW) by
 constexpr int kDwJ = 128;                   // j (columns)
 constexpr int kDwJT = kDwJ / 16;            // j columns a thread owns, in float4s 64 apart
@@ -142,15 +134,6 @@ struct Region {
   unsigned long long* stamps;               // phase split: %globaltimer stamps, or null
 };
 
-__host__ __device__ inline int64_t ld4(int64_t h) { return (h + 3) / 4 * 4; }
-__host__ __device__ inline int64_t ld8(int64_t h) { return (h + 7) / 8 * 8; }
-
-// Row stride of a T plane: 16-byte aligned rows.
-template <typename T>
-__host__ __device__ inline int64_t ld_of(int64_t h) {
-  return sizeof(T) == 2 ? ld8(h) : ld4(h);
-}
-
 // The phase split: with p.stamps set, block 0 thread 0 writes %globaltimer (ns) at the
 // kernel's start and after every grid sync, so stamp i + 1 - stamp i is phase i.  The
 // training and serving paths pass null and pay one untaken branch per phase.
@@ -164,357 +147,6 @@ __device__ __forceinline__ void stamp(const Region& p, int* k) {
   ++*k;
 }
 
-// ---------------------------------------------------------------------------
-// Conversions and packed loads.  Every plane a sweep gathers may have been written earlier
-// in the launch, so loads go through L2 (__ldcg).
-
-// fp32 -> bf16, rounded to nearest even: the "fast" rounding.
-__device__ __forceinline__ bf16 to_bf16(float v) { return __float2bfloat16_rn(v); }
-
-// The two bf16 halves of a 32-bit word as fp32 (exact): the low half is the first element.
-__device__ __forceinline__ float bf16_lo(unsigned w) { return __uint_as_float(w << 16); }
-__device__ __forceinline__ float bf16_hi(unsigned w) { return __uint_as_float(w & 0xffff0000u); }
-
-template <typename T, int VEC>
-__device__ __forceinline__ void load_pack(const T* p, float (&v)[VEC]);
-
-template <>
-__device__ __forceinline__ void load_pack<bf16, 8>(const bf16* p, float (&v)[8]) {
-  const uint4 t = __ldcg(reinterpret_cast<const uint4*>(p));
-  v[0] = bf16_lo(t.x); v[1] = bf16_hi(t.x);
-  v[2] = bf16_lo(t.y); v[3] = bf16_hi(t.y);
-  v[4] = bf16_lo(t.z); v[5] = bf16_hi(t.z);
-  v[6] = bf16_lo(t.w); v[7] = bf16_hi(t.w);
-}
-
-template <>
-__device__ __forceinline__ void load_pack<float, 4>(const float* p, float (&v)[4]) {
-  const float4 t = __ldcg(reinterpret_cast<const float4*>(p));
-  v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-}
-
-template <>
-__device__ __forceinline__ void load_pack<float, 2>(const float* p, float (&v)[2]) {
-  const float2 t = __ldcg(reinterpret_cast<const float2*>(p));
-  v[0] = t.x; v[1] = t.y;
-}
-
-template <>
-__device__ __forceinline__ void load_pack<float, 1>(const float* p, float (&v)[1]) {
-  v[0] = __ldcg(p);
-}
-
-// dst[c .. c + VEC) of an fp32 row of width H (the columns below H only); dst + c is
-// aligned to the pack when the pack is whole.
-template <int VEC>
-__device__ __forceinline__ void store_pack(float* dst, int64_t c, int64_t H,
-                                           const float (&a)[VEC]) {
-  if (c + VEC <= H) {
-    if constexpr (VEC % 4 == 0) {
-#pragma unroll
-      for (int q = 0; q < VEC / 4; ++q)
-        *reinterpret_cast<float4*>(dst + c + 4 * q) =
-            make_float4(a[4 * q], a[4 * q + 1], a[4 * q + 2], a[4 * q + 3]);
-    } else if constexpr (VEC == 2) {
-      *reinterpret_cast<float2*>(dst + c) = make_float2(a[0], a[1]);
-    } else {
-      dst[c] = a[0];
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < VEC; ++j)
-      if (c + j < H) dst[c + j] = a[j];
-  }
-}
-
-// VEC fp32 values of a read-only input at p (aligned to the pack).
-template <int VEC>
-__device__ __forceinline__ void load_in(const float* p, float (&v)[VEC]) {
-  if constexpr (VEC == 4) {
-    const float4 t = *reinterpret_cast<const float4*>(p);
-    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-  } else if constexpr (VEC == 2) {
-    const float2 t = *reinterpret_cast<const float2*>(p);
-    v[0] = t.x; v[1] = t.y;
-  } else {
-    v[0] = *p;
-  }
-}
-
-// VEC values stored as T at p (aligned to the pack): bf16 rounded to nearest even.
-template <typename T, int VEC>
-__device__ __forceinline__ void store_low(T* p, const float (&v)[VEC]) {
-  if constexpr (sizeof(T) == 4) {
-    store_pack<VEC>(reinterpret_cast<float*>(p), 0, VEC, v);
-  } else if constexpr (VEC == 1) {
-    *p = to_bf16(v[0]);
-  } else {
-    unsigned w[VEC / 2];
-#pragma unroll
-    for (int q = 0; q < VEC / 2; ++q) {
-      const __nv_bfloat162 h = __halves2bfloat162(to_bf16(v[2 * q]), to_bf16(v[2 * q + 1]));
-      w[q] = *reinterpret_cast<const unsigned*>(&h);
-    }
-    if constexpr (VEC == 4) *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
-    else *reinterpret_cast<unsigned*>(p) = w[0];
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Gather.
-
-// Row `row` of a CSR summed over its edges, in CSR order, in fp32 from 0: lane i of the warp
-// owns the packs i + 32 p (p < PACKS) of each pass of 32 * PACKS packs over the row's
-// columns; the sums go to trow[0, H) when trow is given and to urow[0, H) when urow is given.
-// A pack may run past H into the row's padding (ld >= the packs' end); those columns are
-// summed in their own registers and never stored.
-template <typename T, int VEC, int PACKS>
-__device__ __forceinline__ void gather_row(const int64_t* __restrict__ rp,
-                                           const int32_t* __restrict__ ci, const T* src,
-                                           int64_t ld, int64_t row, int64_t H, float* trow,
-                                           float* urow) {
-  const int lane = threadIdx.x & 31;
-  const int64_t beg = rp[row], end = rp[row + 1];
-  for (int64_t c0 = 0; c0 < H; c0 += 32 * VEC * PACKS) {
-    float acc[PACKS][VEC];
-#pragma unroll
-    for (int p = 0; p < PACKS; ++p)
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) acc[p][j] = 0.f;
-    const T* base = src + c0 + lane * VEC;
-#pragma unroll (PACKS <= 2 ? 4 : 2)
-    for (int64_t e = beg; e < end; ++e) {
-      const T* s = base + static_cast<int64_t>(ci[e]) * ld;
-#pragma unroll
-      for (int p = 0; p < PACKS; ++p) {
-        if (c0 + (p * 32 + lane) * VEC < H) {
-          float v[VEC];
-          load_pack<T, VEC>(s + p * 32 * VEC, v);
-#pragma unroll
-          for (int j = 0; j < VEC; ++j) acc[p][j] += v[j];
-        }
-      }
-    }
-#pragma unroll
-    for (int p = 0; p < PACKS; ++p) {
-      const int64_t c = c0 + (p * 32 + lane) * VEC;
-      if (c < H) {
-        if (trow != nullptr) store_pack<VEC>(trow, c, H, acc[p]);
-        if (urow != nullptr) store_pack<VEC>(urow, c, H, acc[p]);
-      }
-    }
-  }
-}
-
-// The block's tile: warp w sums rows row0 + w, row0 + w + 8, ... below row0 + rb.  With
-// tile == nullptr (u alone, no GEMM) the warp instead claims single rows from *counter
-// (rb is then the row count), so no warp waits for another's hub row.
-template <typename T, int VEC, int PACKS>
-__device__ __forceinline__ void gather_rows(const int64_t* rp, const int32_t* ci, const T* src,
-                                            int64_t ld, int64_t row0, int rb, int64_t H,
-                                            float* tile, int ts, float* u, int64_t ldu,
-                                            int* counter) {
-  if (tile == nullptr) {
-    for (;;) {
-      int row = 0;
-      if ((threadIdx.x & 31) == 0) row = atomicAdd(counter, 1);
-      row = __shfl_sync(0xffffffffu, row, 0);
-      if (row >= rb) return;
-      gather_row<T, VEC, PACKS>(rp, ci, src, ld, row, H, nullptr, u + row * ldu);
-    }
-  }
-  for (int r = threadIdx.x >> 5; r < rb; r += kWarps) {
-    const int64_t row = row0 + r;
-    gather_row<T, VEC, PACKS>(rp, ci, src, ld, row, H, tile + static_cast<int64_t>(r) * ts,
-                              u != nullptr ? u + row * ldu : nullptr);
-  }
-}
-
-template <typename T, int VEC>
-__device__ __forceinline__ void gather_rows_v(const int64_t* rp, const int32_t* ci, const T* src,
-                                              int64_t ld, int64_t row0, int rb, int64_t H,
-                                              float* tile, int ts, float* u, int64_t ldu,
-                                              int* counter) {
-  // packs a lane owns per pass: as many as the row needs, up to kMaxPacks bf16 packs (the
-  // 602-wide layer in one pass at 76 packs) or 4 fp32 packs (three passes of 2-float packs
-  // at 602 in exact: one pass of up to 12 read 30.45 against 22.16 ms for that layer)
-  constexpr int kBig = sizeof(T) == 2 ? kMaxPacks : 4;
-  const int64_t per_lane = ((H + VEC - 1) / VEC + 31) / 32;
-  switch (per_lane <= 1 ? 1 : per_lane == 2 ? 2 : per_lane == 3 ? 3 : kBig) {
-    case 1: gather_rows<T, VEC, 1>(rp, ci, src, ld, row0, rb, H, tile, ts, u, ldu, counter); break;
-    case 2: gather_rows<T, VEC, 2>(rp, ci, src, ld, row0, rb, H, tile, ts, u, ldu, counter); break;
-    case 3: gather_rows<T, VEC, 3>(rp, ci, src, ld, row0, rb, H, tile, ts, u, ldu, counter); break;
-    default:
-      gather_rows<T, VEC, kBig>(rp, ci, src, ld, row0, rb, H, tile, ts, u, ldu, counter);
-      break;
-  }
-}
-
-// rb rows from row0 of a T plane [*, ld] at width H into the tile (and u), or every row into
-// u alone (see gather_rows); vec is the fp32 vector width (bf16 planes are always read as
-// 8-element packs).
-template <typename T>
-__device__ __forceinline__ void gather_tile(const int64_t* rp, const int32_t* ci, const T* src,
-                                            int64_t ld, int vec, int64_t row0, int rb, int64_t H,
-                                            float* tile, int ts, float* u, int64_t ldu,
-                                            int* counter) {
-  if constexpr (sizeof(T) == 2) {
-    gather_rows_v<T, 8>(rp, ci, src, ld, row0, rb, H, tile, ts, u, ldu, counter);
-  } else {
-    switch (vec) {
-      case 4: gather_rows_v<T, 4>(rp, ci, src, ld, row0, rb, H, tile, ts, u, ldu, counter); break;
-      case 2: gather_rows_v<T, 2>(rp, ci, src, ld, row0, rb, H, tile, ts, u, ldu, counter); break;
-      default: gather_rows_v<T, 1>(rp, ci, src, ld, row0, rb, H, tile, ts, u, ldu, counter); break;
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// The tile GEMM and its epilogues.
-
-// What a tile GEMM's output element v at (row, col) becomes: relu (v < 0 -> 0; NaN passes, as
-// maximum(v, 0) lets it), then (v * s) * s with the row's scale, then 0 unless
-// mask[row, col] > 0; then it is stored to f32 (fp32 [*, ld32], columns below N) and/or to
-// low (T [*, ldl]; the columns of the last group of four from N on are 0, and a padding
-// column no group reaches is never summed into a real column by the next gather).
-template <typename T>
-struct Epilogue {
-  bool relu;
-  const float* scale;
-  const float* mask;
-  int64_t ldm;
-  float* f32;
-  int64_t ld32;
-  T* low;
-  int64_t ldl;
-  int64_t N;
-
-  // The four columns col .. col + 3 (col % 4 == 0) of row `row`.
-  __device__ __forceinline__ void operator()(int64_t row, int64_t col, const float (&a)[4]) const {
-    float v[4];
-    float s = 1.f;
-    if (scale != nullptr) s = __ldg(scale + row);
-    float m[4] = {1.f, 1.f, 1.f, 1.f};
-    if (mask != nullptr && col < ldm) {
-      const float4 t = __ldcg(reinterpret_cast<const float4*>(mask + row * ldm + col));
-      m[0] = t.x; m[1] = t.y; m[2] = t.z; m[3] = t.w;
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float t = a[j];
-      if (relu && t < 0.f) t = 0.f;
-      if (scale != nullptr) t = (t * s) * s;
-      if (mask != nullptr) t = m[j] > 0.f ? t : 0.f;
-      v[j] = col + j < N ? t : 0.f;
-    }
-    if (f32 != nullptr) {
-      if (col + 4 <= N && ld32 % 4 == 0) {
-        *reinterpret_cast<float4*>(f32 + row * ld32 + col) = make_float4(v[0], v[1], v[2], v[3]);
-      } else {
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (col + j < N) f32[row * ld32 + col + j] = v[j];
-      }
-    }
-    // ldl % 4 == 0: the four columns are all inside
-    if (low != nullptr && col < ldl) store_low<T, 4>(low + row * ldl + col, v);
-  }
-};
-
-// The tile's row stride: K rounded up to 4 floats with an odd count of 16-byte chunks.
-__host__ __device__ inline int tile_stride(int64_t K) {
-  return static_cast<int>(((K + 3) / 4 | 1) * 4);
-}
-
-// epi(row, col, v[4]) for the tile [rb, K] (row stride ts) times B [K, N] (row stride ldb,
-// ldb % 4 == 0, 16-byte aligned rows; columns N .. ldb are padding).  The output is walked
-// in passes of 256 columns; thread (warp w, lane l) owns the 4 columns (8 w + l % 8) * 4 of
-// the pass and the rows l / 8 + 4 i, i < 4.  B comes through shared memory in slices of 8
-// rows of the pass's columns, cp.async double-buffered; each output element is one fmaf per
-// k in ascending k from 0.  The first slice's __syncthreads also publishes the gathered
-// tile; on return every thread is past the last read of the tile and of wbuf.
-template <class Epi>
-__device__ __forceinline__ void tile_gemm(const float* tile, int ts, int rb, int64_t row0,
-                                          const float* __restrict__ B, int64_t ldb, int64_t K,
-                                          int64_t N, float* wbuf, const Epi& epi) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int cgp = warp * 8 + (lane & 7);  // column group: 4 columns
-  const int rg = lane >> 3;               // rows rg + 4 i
-  const int nsl = static_cast<int>((K + kKSlice - 1) / kKSlice);
-  const float* arow[4];  // a row past rb reads row rb - 1: its sums are never stored
-#pragma unroll
-  for (int i = 0; i < 4; ++i) arow[i] = tile + (rg + 4 * i < rb ? rg + 4 * i : rb - 1) * ts;
-  for (int64_t j0 = 0; j0 < N; j0 += kPassCols) {
-    const int64_t chunks = (ldb - j0) / 4 < kPassCols / 4 ? (ldb - j0) / 4 : kPassCols / 4;
-    auto load_slice = [&](int sl, int buf) {
-      float* dst = wbuf + buf * (kKSlice * kPassCols);
-      for (int q = tid; q < kKSlice * kPassCols / 4; q += kThreads) {
-        const int kk = q / (kPassCols / 4), c4 = q % (kPassCols / 4);
-        const int64_t k = static_cast<int64_t>(sl) * kKSlice + kk;
-        if (k < K && c4 < chunks)
-          cp_async16(dst + kk * kPassCols + c4 * 4, B + k * ldb + j0 + c4 * 4);
-      }
-      cp_async_commit();
-    };
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    load_slice(0, 0);
-    for (int sl = 0; sl < nsl; ++sl) {
-      if (sl + 1 < nsl) {
-        load_slice(sl + 1, (sl + 1) & 1);
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();  // the slice (and, at sl = 0, the gathered tile) is visible to all
-      const float* b = wbuf + (sl & 1) * (kKSlice * kPassCols) + cgp * 4;
-      const int64_t k0 = static_cast<int64_t>(sl) * kKSlice;
-      const int kn = K - k0 < kKSlice ? static_cast<int>(K - k0) : kKSlice;
-      int kk = 0;
-      for (; kk + 4 <= kn; kk += 4) {
-        float4 a[4], bv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = *reinterpret_cast<const float4*>(arow[i] + k0 + kk);
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          bv[q] = *reinterpret_cast<const float4*>(b + (kk + q) * kPassCols);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float av[4] = {a[i].x, a[i].y, a[i].z, a[i].w};
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            acc[i][0] = fmaf(av[q], bv[q].x, acc[i][0]);
-            acc[i][1] = fmaf(av[q], bv[q].y, acc[i][1]);
-            acc[i][2] = fmaf(av[q], bv[q].z, acc[i][2]);
-            acc[i][3] = fmaf(av[q], bv[q].w, acc[i][3]);
-          }
-        }
-      }
-      for (; kk < kn; ++kk) {
-        const float4 bv = *reinterpret_cast<const float4*>(b + kk * kPassCols);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float av = arow[i][k0 + kk];
-          acc[i][0] = fmaf(av, bv.x, acc[i][0]);
-          acc[i][1] = fmaf(av, bv.y, acc[i][1]);
-          acc[i][2] = fmaf(av, bv.z, acc[i][2]);
-          acc[i][3] = fmaf(av, bv.w, acc[i][3]);
-        }
-      }
-      __syncthreads();  // the buffer is free for the slice after next
-    }
-    const int64_t col = j0 + cgp * 4;
-    if (col < N) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        if (rg + 4 * i < rb) epi(row0 + rg + 4 * i, col, acc[i]);
-    }
-  }
-}
-
 // One sweep over a CSR: for every tile of 16 rows, the sums over each row's edges of the T
 // plane src [*, ld] at width H, to u [*, ldu] when u is given; then, when B is given, the
 // tile's GEMM with B [H, N] and its epilogue.  Tiles are claimed from *counter; without B
@@ -525,7 +157,8 @@ __device__ __forceinline__ void sweep(const int64_t* rp, const int32_t* ci, cons
                                       int64_t ldu, const float* B, int64_t ldb, int64_t N,
                                       const Epi& epi, int* counter, float* smem) {
   if (B == nullptr) {
-    gather_tile<T>(rp, ci, src, ld, vec, 0, static_cast<int>(n), H, nullptr, 0, u, ldu, counter);
+    gather_tile<T, false>(rp, ci, src, ld, vec, 0, static_cast<int>(n), H, nullptr, 0, u, ldu,
+                          counter);
     return;
   }
   const int ts = tile_stride(H);
@@ -540,7 +173,7 @@ __device__ __forceinline__ void sweep(const int64_t* rp, const int32_t* ci, cons
     if (t >= tiles) break;  // every thread read the same claim: the block leaves together
     const int64_t row0 = t * kRows;
     const int rb = n - row0 < kRows ? static_cast<int>(n - row0) : kRows;
-    gather_tile<T>(rp, ci, src, ld, vec, row0, rb, H, tile, ts, u, ldu, nullptr);
+    gather_tile<T, false>(rp, ci, src, ld, vec, row0, rb, H, tile, ts, u, ldu, nullptr);
     tile_gemm(tile, ts, rb, row0, B, ldb, H, N, wbuf, epi);
     __syncthreads();  // the tile and the claim are free again
   }
@@ -559,48 +192,7 @@ __device__ __noinline__ void sweep_outlined(const int64_t* rp, const int32_t* ci
 
 // Shared memory a sweep of gather width H needs, in bytes.
 size_t sweep_smem(int64_t H) {
-  return (4 + static_cast<size_t>(kRows) * tile_stride(H) + 2 * kKSlice * kPassCols) *
-         sizeof(float);
-}
-
-// ---------------------------------------------------------------------------
-// Staging: dst[r, c] = src[r, c] * [mask[r, c] > 0] (src itself without mask) for c < H,
-// stored as T (bf16: rounded to nearest even), and 0 for H <= c < ld.  A warp per row, rows
-// grid-strided; VEC columns a lane (VEC divides H, and src's and mask's rows are aligned to
-// it; ld is a multiple of 4).
-template <typename T, int VEC>
-__device__ void stage_rows(const float* __restrict__ src, const float* __restrict__ mask,
-                           int64_t H, T* dst, int64_t ld, int64_t n) {
-  const int lane = threadIdx.x & 31;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kWarps;
-  for (int64_t row = static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5); row < n;
-       row += stride) {
-    for (int64_t c = static_cast<int64_t>(lane) * VEC; c < ld; c += 32 * VEC) {
-      float v[VEC];
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) v[j] = 0.f;
-      if (c < H) {
-        load_in<VEC>(src + row * H + c, v);
-        if (mask != nullptr) {
-          float m[VEC];
-          load_in<VEC>(mask + row * H + c, m);
-#pragma unroll
-          for (int j = 0; j < VEC; ++j) v[j] = m[j] > 0.f ? v[j] : 0.f;
-        }
-      }
-      store_low<T, VEC>(dst + row * ld + c, v);
-    }
-  }
-}
-
-template <typename T>
-__device__ void stage_plane(const float* src, const float* mask, int vec, int64_t H, T* dst,
-                            int64_t ld, int64_t n) {
-  switch (vec) {
-    case 4: stage_rows<T, 4>(src, mask, H, dst, ld, n); break;
-    case 2: stage_rows<T, 2>(src, mask, H, dst, ld, n); break;
-    default: stage_rows<T, 1>(src, mask, H, dst, ld, n); break;
-  }
+  return (4 + static_cast<size_t>(kRows) * tile_stride(H) + kWbufFloats) * sizeof(float);
 }
 
 // ---------------------------------------------------------------------------

@@ -9,6 +9,7 @@ from roc_tpu_torch.ops.kernels import (aggregate_linear, aggregate_sum, gat,
                                        xlayer)
 
 KERNELS = {"aggregate_sum": aggregate_sum.aggregate_sum,
+           "stage_plane": aggregate_sum.stage_plane,
            "aggregate_linear": aggregate_linear.aggregate_linear,
            "aggregate_linear_bwd": aggregate_linear.aggregate_linear_bwd,
            "stage_cotangent": aggregate_linear.stage_cotangent,

@@ -27,8 +27,11 @@ Inputs and outputs are fp32.
 
 On a CUDA tensor each wrapper launches its kernel from
 ``csrc/aggregate_linear.cu`` or raises; on a CPU tensor it runs the plain
-version.  ``aggregate_linear.launches``, ``aggregate_linear_bwd.launches``
-and ``stage_cotangent.launches`` count kernel launches.  Index bounds are
+version.  In "fast" the forward first stages x once as a bf16 plane
+(``aggregate_sum.stage_plane``'s kernel, counted in
+``stage_plane.launches``).  ``aggregate_linear.launches``,
+``aggregate_linear_bwd.launches`` and ``stage_cotangent.launches`` count
+kernel launches.  Index bounds are
 the caller's, as for ``aggregate_sum`` (the graph data validates the CSR
 once).
 """
@@ -40,7 +43,10 @@ from typing import Optional, Tuple
 
 import torch
 
-from roc_tpu_torch.ops.kernels.aggregate_sum import (_check_csr, _vec_width,
+from roc_tpu_torch.ops.kernels.aggregate_sum import (_check_csr, _ld,
+                                                     _require_rows,
+                                                     _stage_launch, _stream,
+                                                     _vec_width,
                                                      aggregate_sum_plain,
                                                      check_precision)
 from roc_tpu_torch.ops.kernels.build import CudaLibrary
@@ -50,7 +56,7 @@ from roc_tpu_torch.ops.linear import linear
 def _bind(lib: ctypes.CDLL) -> None:
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     fwd = lib.roc_aggregate_linear
-    fwd.argtypes = [p, p, p, p, p, ll, ll, ll, i, i, i, p]
+    fwd.argtypes = [p, p, p, ll, i, p, ll, p, ll, ll, ll, i, i, p]
     fwd.restype = ctypes.c_int
     stage = lib.roc_stage_cotangent
     stage.argtypes = [p, p, p, ll, ll, ll, i, i, i, p]
@@ -139,30 +145,52 @@ def aggregate_linear(x: torch.Tensor, w: torch.Tensor,
                      row_ptr: torch.Tensor, col_idx: torch.Tensor,
                      precision: str = "fast",
                      activation: str = "none") -> torch.Tensor:
-    """``act((A x) W)``: x [table_rows, H_in], w [H_in, H_out] ->
-    [num_rows, H_out] fp32.  Launches the CUDA kernel for CUDA tensors,
-    runs the plain version for CPU tensors."""
+    """``act((A x) W)``: x [table_rows, H_in] (rows may be ``x.stride(0)``
+    apart), w [H_in, H_out] -> [num_rows, H_out] fp32.  For CUDA tensors it
+    stages x in "fast" (``aggregate_sum.stage_plane``'s kernel) and launches
+    the forward kernel; for CPU tensors it runs the plain version."""
     if x.device.type == "cpu":
         return aggregate_linear_plain(x, w, row_ptr, col_idx, precision,
                                       activation)
     _check_csr(x, row_ptr, col_idx)
     _check(precision, activation, x, w)
-    _require_cuda("aggregate_linear", x, w, row_ptr, col_idx)
+    _require_cuda("aggregate_linear", w, row_ptr, col_idx)
+    if x.device != w.device:
+        raise ValueError(f"aggregate_linear: every tensor must be on "
+                         f"{w.device}, got {x.device}")
+    _require_rows(x)
     _csr_int64(row_ptr)
     if w.dim() != 2 or w.shape[0] != x.shape[1]:
         raise ValueError(f"w must be [{x.shape[1]}, H_out], got "
                          f"{tuple(w.shape)}")
+    with torch.cuda.device(x.device):
+        return _linear_launch(x, w, row_ptr, col_idx, precision,
+                              activation, _stream(x))
+
+
+def _linear_launch(x, w, row_ptr, col_idx, precision, activation,
+                   stream: int) -> torch.Tensor:
+    """The card's launches for checked inputs: the staging (fast), then the
+    forward kernel on the staged plane, or on x itself (exact)."""
     n, h_in, h_out = row_ptr.numel() - 1, x.shape[1], w.shape[1]
     out = torch.empty((n, h_out), dtype=torch.float32, device=x.device)
     if n == 0 or h_in == 0 or h_out == 0:
         return out.zero_()
-    fn = LIBRARY.load().roc_aggregate_linear
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(row_ptr.data_ptr(), col_idx.data_ptr(), x.data_ptr(),
-                 w.data_ptr(), out.data_ptr(), n, h_in, h_out,
-                 int(precision == "fast"), int(activation == "relu"),
-                 _vec_width(x), stream)
+    # W [H_in, ldw], its rows padded to 16 bytes for the GEMM's cp.async
+    ldw = _ld(h_out, "exact")
+    if ldw != h_out or w.data_ptr() % 16 != 0:
+        wp = torch.zeros((h_in, ldw), dtype=torch.float32, device=w.device)
+        wp[:, :h_out] = w
+        w = wp
+    if precision == "fast":
+        src = _stage_launch(x, stream)
+        ld, vec = src.shape[1], 8
+    else:
+        src, ld, vec = x, x.stride(0), _vec_width(x)
+    err = LIBRARY.load().roc_aggregate_linear(
+        row_ptr.data_ptr(), col_idx.data_ptr(), src.data_ptr(), ld, vec,
+        w.data_ptr(), ldw, out.data_ptr(), n, h_in, h_out,
+        int(precision == "fast"), int(activation == "relu"), stream)
     if err != 0:
         raise RuntimeError(f"aggregate_linear kernel launch failed: CUDA "
                            f"error {err}")

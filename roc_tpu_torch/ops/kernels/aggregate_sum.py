@@ -15,10 +15,17 @@ A bf16 input makes the two identical.  The output is in ``x.dtype``.
 On a CUDA tensor the wrapper launches ``csrc/aggregate_sum.cu`` (built with
 ``nvcc`` for ``sm_90a`` into ``roc_tpu_torch/build/`` at first use and
 loaded with ctypes) or raises; on a CPU tensor it runs
-:func:`aggregate_sum_plain`.  ``aggregate_sum.launches`` counts kernel
-launches, so a caller can show that a run went through the kernel.
+:func:`aggregate_sum_plain`.  In "fast" on an fp32 x the card runs two
+kernels: :func:`stage_plane` writes x once as a bf16 plane (the rounding
+done once per source row, not once per edge), then the gather sums that
+plane.  ``aggregate_sum.launches`` and ``stage_plane.launches`` count the
+two kernels' launches, so a caller can show that a run went through them.
+:func:`stage_plain` is the plain twin of the staged plane, for the tests.
 Gradients flow through ``ops.aggregate``'s autograd Function, whose
 backward is this same function over the transposed CSR.
+
+x may be a column slice of a wider tensor (rows ``x.stride(0)`` elements
+apart, each row contiguous); a bf16 x must be contiguous.
 
 Index bounds are not checked per call (that would cost a device sync on
 every aggregation): ``col_idx`` must lie in ``[0, x.shape[0])`` and
@@ -30,6 +37,7 @@ it on the device.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -55,13 +63,13 @@ def check_precision(precision: str, dtype: torch.dtype) -> None:
 
 
 def _bind(lib: ctypes.CDLL) -> None:
+    p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     fn = lib.roc_aggregate_sum
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_longlong, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn.argtypes = [p, p, p, ll, i, i, p, ll, ll, p]
+    fn.restype = i
+    stage = lib.roc_stage_plane
+    stage.argtypes = [p, ll, ll, ll, i, p, ll, p]
+    stage.restype = i
 
 
 LIBRARY = CudaLibrary("aggregate_sum.cu", _bind)
@@ -110,20 +118,92 @@ def aggregate_sum_plain(x: torch.Tensor, row_ptr: torch.Tensor,
 
 
 def _vec_width(x: torch.Tensor) -> int:
-    """Widest vector load (elements per lane) that divides H and keeps every
-    row start aligned."""
+    """Widest vector load (elements per lane) that divides H and the row
+    stride and keeps every row start aligned."""
     h, es = x.shape[1], x.element_size()
     for v in (4, 2, 1):
-        if h % v == 0 and x.data_ptr() % (v * es) == 0:
+        if (h % v == 0 and x.stride(0) % v == 0
+                and x.data_ptr() % (v * es) == 0):
             return v
     return 1
+
+
+def _ld(h: int, precision: str) -> int:
+    """Row stride of a staged plane: 16-byte rows, 8 bf16 (fast) or 4 fp32
+    (exact) elements."""
+    q = 8 if precision == "fast" else 4
+    return -(-h // q) * q
+
+
+def stage_plain(src: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                precision: str = "fast") -> torch.Tensor:
+    """The kernels' staging step as plain PyTorch: ``src * [mask > 0]``
+    (``src`` itself without a mask) stored as the plane a gather reads,
+    [N, ld] with the columns from H on 0: bf16 (round to nearest even) in
+    fast, fp32 in exact.  :func:`stage_plane` stages x with no mask; the
+    region kernels stage the last layer's cotangent with the saved output
+    y."""
+    n, h = src.shape
+    dtype = torch.bfloat16 if precision == "fast" else torch.float32
+    out = torch.zeros((n, _ld(h, precision)), dtype=dtype, device=src.device)
+    v = src if mask is None else torch.where(mask > 0, src,
+                                             torch.zeros_like(src))
+    out[:, :h] = v.to(dtype)
+    return out
+
+
+def _require_rows(x: torch.Tensor) -> None:
+    """x's rows must each be contiguous, ``x.stride(0)`` >= H elements
+    apart (a column slice of a wider tensor is fine)."""
+    if x.shape[0] > 0 and x.shape[1] > 1 and x.stride(1) != 1 or \
+            x.shape[0] > 1 and x.stride(0) < x.shape[1]:
+        raise ValueError("x's rows must be contiguous (x.stride(1) == 1, "
+                         "x.stride(0) >= H)")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def stage_plane(x: torch.Tensor) -> torch.Tensor:
+    """x [rows, H] fp32 as the bf16 plane [rows, ld8(H)] a "fast" gather
+    reads: each element rounded once to bf16 (round to nearest even), the
+    columns from H on 0.  Launches the CUDA kernel for CUDA tensors; for
+    CPU tensors it is :func:`stage_plain`."""
+    if x.device.type == "cpu":
+        return stage_plain(x)
+    if x.dim() != 2 or x.dtype != torch.float32:
+        raise ValueError(f"stage_plane takes a 2-D float32 x, got "
+                         f"{x.dtype} of shape {tuple(x.shape)}")
+    if x.device.type != "cuda":
+        raise ValueError(f"stage_plane runs on cuda or cpu tensors, got "
+                         f"{x.device}")
+    _require_rows(x)
+    with torch.cuda.device(x.device):
+        return _stage_launch(x, _stream(x))
+
+
+def _stage_launch(x: torch.Tensor, stream: int) -> torch.Tensor:
+    n, h = x.shape
+    ld = _ld(h, "fast")
+    out = torch.empty((n, ld), dtype=torch.bfloat16, device=x.device)
+    if n == 0 or h == 0:
+        return out.zero_()
+    err = LIBRARY.load().roc_stage_plane(x.data_ptr(), x.stride(0), n, h,
+                                         _vec_width(x), out.data_ptr(), ld,
+                                         stream)
+    if err != 0:
+        raise RuntimeError(f"stage_plane kernel launch failed: CUDA error "
+                           f"{err}")
+    stage_plane.launches += 1
+    return out
 
 
 def aggregate_sum(x: torch.Tensor, row_ptr: torch.Tensor,
                   col_idx: torch.Tensor,
                   precision: str = "fast") -> torch.Tensor:
     """``out[v] = sum over in-edges of x[src]``: [table_rows, H] ->
-    [num_rows, H] in ``x.dtype``.  Launches the CUDA kernel for CUDA
+    [num_rows, H] in ``x.dtype``.  Launches the CUDA kernels for CUDA
     tensors, runs the plain version for CPU tensors."""
     if x.device.type == "cpu":
         return aggregate_sum_plain(x, row_ptr, col_idx, precision)
@@ -132,21 +212,36 @@ def aggregate_sum(x: torch.Tensor, row_ptr: torch.Tensor,
                          f"{x.device}")
     _check_csr(x, row_ptr, col_idx)
     check_precision(precision, x.dtype)
-    for name, t in (("x", x), ("row_ptr", row_ptr), ("col_idx", col_idx)):
+    for name, t in (("row_ptr", row_ptr), ("col_idx", col_idx)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if x.dtype == torch.bfloat16 and not x.is_contiguous():
+        raise ValueError("a bf16 x must be contiguous")
+    _require_rows(x)
+    with torch.cuda.device(x.device):
+        return _sum_launch(x, row_ptr.to(torch.int64), col_idx, precision,
+                           _stream(x))
+
+
+def _sum_launch(x: torch.Tensor, row_ptr: torch.Tensor,
+                col_idx: torch.Tensor, precision: str,
+                stream: int) -> torch.Tensor:
+    """The card's launches for checked inputs: the staging (fast on
+    fp32), then the gather."""
     n, h = row_ptr.numel() - 1, x.shape[1]
     out = torch.empty((n, h), dtype=x.dtype, device=x.device)
     if n == 0 or h == 0:
         return out
-    fn = LIBRARY.load().roc_aggregate_sum
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(row_ptr.data_ptr(), int(row_ptr.dtype == torch.int64),
-                 col_idx.data_ptr(), x.data_ptr(), out.data_ptr(), n, h,
-                 0 if x.dtype == torch.float32 else 1,
-                 int(precision == "fast" and x.dtype == torch.float32),
-                 _vec_width(x), stream)
+    if x.dtype == torch.bfloat16:
+        src, ld, kind, vec = x, h, 2, _vec_width(x)
+    elif precision == "exact":
+        src, ld, kind, vec = x, x.stride(0), 0, _vec_width(x)
+    else:
+        src = _stage_launch(x, stream)
+        ld, kind, vec = src.shape[1], 1, 8
+    err = LIBRARY.load().roc_aggregate_sum(
+        row_ptr.data_ptr(), col_idx.data_ptr(), src.data_ptr(), ld, kind,
+        vec, out.data_ptr(), n, h, stream)
     if err != 0:
         raise RuntimeError(f"aggregate_sum kernel launch failed: CUDA error "
                            f"{err}")
@@ -155,3 +250,4 @@ def aggregate_sum(x: torch.Tensor, row_ptr: torch.Tensor,
 
 
 aggregate_sum.launches = 0
+stage_plane.launches = 0

@@ -49,9 +49,10 @@ import torch
 
 from roc_tpu_torch.ops.kernels.aggregate_linear import (_csr_int64,
                                                         _require_cuda)
-from roc_tpu_torch.ops.kernels.aggregate_sum import (_check_csr,
+from roc_tpu_torch.ops.kernels.aggregate_sum import (_check_csr, _ld,
                                                      aggregate_sum_plain,
-                                                     check_precision)
+                                                     check_precision,
+                                                     stage_plain)
 from roc_tpu_torch.ops.kernels.build import CudaLibrary
 from roc_tpu_torch.ops.linear import linear
 
@@ -91,29 +92,6 @@ def phases(depth: int, backward: bool, precision: str = "fast") -> list:
     out = ["stage"] + [f"replay{l}" for l in range(depth - 1)]
     for l in reversed(range(depth)):
         out += [f"sweep{l}", f"dw_partials{l}", f"dw_reduce{l}"]
-    return out
-
-
-def _ld(h: int, precision: str) -> int:
-    """Row stride of a gathered plane: 16-byte rows, 8 bf16 (fast) or 4
-    fp32 (exact) elements."""
-    q = 8 if precision == "fast" else 4
-    return -(-h // q) * q
-
-
-def stage_plain(src: torch.Tensor, mask: Optional[torch.Tensor],
-                precision: str = "fast") -> torch.Tensor:
-    """The kernels' staging step as plain PyTorch: ``src * [mask > 0]``
-    (``src`` itself without a mask) stored as the plane a sweep gathers,
-    [N, ld] with the columns from H on 0: bf16 (round to nearest even) in
-    fast, fp32 in exact.  x is staged with no mask; the last layer's
-    cotangent with the saved output y."""
-    n, h = src.shape
-    dtype = torch.bfloat16 if precision == "fast" else torch.float32
-    out = torch.zeros((n, _ld(h, precision)), dtype=dtype, device=src.device)
-    v = src if mask is None else torch.where(mask > 0, src,
-                                             torch.zeros_like(src))
-    out[:, :h] = v.to(dtype)
     return out
 
 

@@ -42,7 +42,7 @@ def selftest(device: str = "cuda", model_name: str = "gcn") -> int:
     ds = datasets.get(cfg.dataset, seed=cfg.seed)
     model = build_model(cfg.model, cfg.layers, cfg.dropout_rate, cfg.aggr,
                         heads=cfg.heads)
-    per_forward = forward_launches(model)
+    per_forward = forward_launches(model, precision=cfg.aggregate_precision)
 
     with tempfile.TemporaryDirectory(prefix="roc_torch_serve_") as tmp:
         ckpt = os.path.join(tmp, "serve.ckpt.npz")

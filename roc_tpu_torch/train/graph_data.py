@@ -52,11 +52,15 @@ def model_gat_dims(model: Model) -> tuple:
     return 0, 0
 
 
-def forward_launches(model: Model, megafuse: bool = False) -> dict:
-    """Kernel launches of one forward of ``model`` on the kernel backend:
-    one megakernel per ``mega_matches`` layer chain (with ``megafuse``),
-    one sum aggregation per other sum/avg aggregate op, one score and one
-    attention forward per gat op."""
+def forward_launches(model: Model, megafuse: bool = False,
+                     precision: str = "fast") -> dict:
+    """Kernel launches of one forward of ``model`` on the kernel backend
+    at ``precision`` (the config's default, "fast"): one megakernel per
+    ``mega_matches`` layer chain (with ``megafuse``), one sum aggregation
+    per other sum/avg aggregate op, one score and one attention forward per
+    gat op, and the stagings: in "fast" each sum aggregation and
+    megakernel first stages its fp32 input once as a bf16 plane
+    (``stage_plane``), in "exact" none does."""
     matches = mega_matches(model) if megafuse else {}
     fused = {j for i, m in matches.items() for j in (i, *m["skip"])}
     kinds = [op.attrs.get("aggr") if op.kind == "aggregate" else op.kind
@@ -66,6 +70,8 @@ def forward_launches(model: Model, megafuse: bool = False) -> dict:
            "gat_score": gats, "gat_forward": gats}
     if megafuse:
         out["aggregate_linear"] = len(matches)
+    out["stage_plane"] = (out["aggregate_sum"] + len(matches)
+                          if precision == "fast" else 0)
     return out
 
 

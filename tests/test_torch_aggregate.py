@@ -275,6 +275,74 @@ def test_transpose_is_the_backward():
     assert float((ax * y).sum()) == float((x * aty).sum())
 
 
+def _specials(x: np.ndarray) -> np.ndarray:
+    """x with NaN, +inf, -inf and -0.0 planted in a few rows (one of them a
+    hub source), so some sums are NaN, some infinite, some a signed 0."""
+    x = x.copy()
+    x[3, 0] = np.nan
+    x[4, -1] = np.inf
+    x[5, x.shape[1] // 2] = -np.inf
+    x[6, :] = -0.0
+    x[7, 0] = -0.0
+    return x
+
+
+@pytest.mark.parametrize("data", ["integer", "gaussian"])
+@pytest.mark.parametrize("h", [1, 41, 256, 602])
+def test_staged_plane_gathered_exact_is_fast(h, data):
+    """The card's fast path stages x once as a padded bf16 plane
+    (``stage_plain`` is its plain twin) and sums the plane's rows in fp32:
+    that equals the plain fast sum (one bf16 rounding per element, applied
+    per edge) bit for bit, NaN, infinities and -0.0 included, and the
+    plane's padding columns (H .. ld8(H)) sum to exactly 0, so a padding
+    column never reaches a real one."""
+    g = _random_graph(n=300, e=2000)
+    csr = ops.DeviceCsr.from_csr(g, "cpu")
+    rng = np.random.default_rng(h)
+    x = (rng.integers(-300, 301, (g.num_nodes, h)) if data == "integer"
+         else rng.standard_normal((g.num_nodes, h))).astype(np.float32)
+    x = torch.as_tensor(_specials(x))
+    plane = K.stage_plain(x)
+    ld = -(-h // 8) * 8
+    assert plane.dtype == torch.bfloat16 and plane.shape == (g.num_nodes, ld)
+    assert bool((plane[:, h:] == 0).all())
+    got = K.aggregate_sum_plain(plane.float(), csr.row_ptr, csr.col_idx,
+                                "exact")
+    want = K.aggregate_sum_plain(x, csr.row_ptr, csr.col_idx, "fast")
+    assert torch.equal(got[:, :h].view(torch.int32), want.view(torch.int32))
+    assert torch.equal(got[:, h:].view(torch.int32),
+                       torch.zeros_like(got[:, h:]).view(torch.int32))
+    assert bool(torch.isnan(want).any()) and bool(torch.isinf(want).any())
+
+
+def test_stage_plane_on_the_cpu_is_its_plain_twin():
+    """On a CPU tensor stage_plane runs stage_plain and launches nothing;
+    a column slice of a wider tensor (rows x.stride(0) apart) is staged as
+    its own rows."""
+    rng = np.random.default_rng(2)
+    base = torch.as_tensor(rng.standard_normal((50, 48)).astype(np.float32))
+    x = base[:, 3:44]
+    before = K.stage_plane.launches
+    got = K.stage_plane(x)
+    assert torch.equal(got, K.stage_plain(x.contiguous()))
+    assert got.shape == (50, 48) and K.stage_plane.launches == before
+
+
+def test_forward_launches_count_the_stagings():
+    """forward_launches also counts the stagings: in fast (the default)
+    each sum aggregation and each megakernel stages its input once, in
+    exact none does."""
+    from roc_tpu_torch.models import build_model
+    from roc_tpu_torch.train.graph_data import forward_launches
+    gcn = build_model("gcn", [8, 16, 4], 0.0)
+    assert forward_launches(gcn, False, "fast")["stage_plane"] == 2
+    assert forward_launches(gcn, True, "fast") == {
+        "aggregate_sum": 0, "gat_score": 0, "gat_forward": 0,
+        "aggregate_linear": 2, "stage_plane": 2}
+    assert forward_launches(gcn, False, "exact")["stage_plane"] == 0
+    assert forward_launches(gcn) == forward_launches(gcn, False, "fast")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("precision", ["fast", "exact"])
 def test_kernel_matches_plain_on_card(precision):

@@ -549,7 +549,8 @@ def test_attention_takes_the_kernel_path_on_cuda(monkeypatch):
     assert calls == [("kernel", "fast"), ("kernel", "fast"), ("plain", None)]
     assert graph_data.model_gat_dims(model) == (2, 4)
     assert graph_data.forward_launches(model) == {
-        "aggregate_sum": 0, "gat_score": 2, "gat_forward": 2}
+        "aggregate_sum": 0, "gat_score": 2, "gat_forward": 2,
+        "stage_plane": 0}
 
 
 @pytest.mark.parametrize("device", ["cpu", "meta"])

@@ -52,7 +52,7 @@ def test_every_kernel_source_has_a_loader():
     from roc_tpu_torch.ops.kernels import KERNELS, LIBRARIES
     sources = {p.name for p in (PORT / "csrc").glob("*.cu")}
     assert sources == {lib.source.name for lib in LIBRARIES}
-    assert set(KERNELS) == {"aggregate_sum", "aggregate_linear",
+    assert set(KERNELS) == {"aggregate_sum", "stage_plane", "aggregate_linear",
                             "aggregate_linear_bwd", "stage_cotangent",
                             "gat_score",
                             "gat_forward", "gat_bwd_dst", "gat_bwd_src",

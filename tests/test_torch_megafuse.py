@@ -34,7 +34,8 @@ from roc_tpu_torch import ops
 from roc_tpu_torch.models import build_gcn
 from roc_tpu_torch.models.model import Model, mega_matches
 from roc_tpu_torch.ops.kernels import aggregate_linear as KL
-from roc_tpu_torch.ops.kernels.aggregate_sum import aggregate_sum_plain
+from roc_tpu_torch.ops.kernels.aggregate_sum import (aggregate_sum_plain,
+                                                     stage_plain)
 
 GF = B.Geometry(sb=256, ch=512, slot=128, rb=256, ch2=512, grt=1 << 14,
                 flat=1)
@@ -179,6 +180,41 @@ def test_plain_versions_bitwise_vs_roc_tpu_on_integers_fast(act, seed,
                 _port_autograd(csr, x, w, g, "fast", act)):
         for a, b in zip(got, want):
             np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("precision", ["fast", "exact"])
+@pytest.mark.parametrize("h,ho,act", [(602, 256, "relu"), (256, 41, "none")])
+def test_plain_forward_bitwise_vs_roc_tpu_at_ragged_widths(h, ho, act,
+                                                           precision,
+                                                           monkeypatch):
+    """The widths whose rows fill no whole 16-byte pack: 602 % 4 == 2 (fp32)
+    and 602 % 8 == 2, 41 % 8 == 1 (bf16), so the card stages x into a padded
+    plane and pads W to whole packs.  On the dominance fixture's integers
+    (every sum exact in fp32) the plain forward, and the staged plane's twin
+    summed in exact then multiplied (the card's arithmetic), both equal
+    roc_tpu's interpreted megakernel forward bit for bit (a spy asserts
+    the Pallas megakernel ran, not the two-pass fallback)."""
+    n, t, e = 48, 64, 400
+    M = 8000 if h == 602 else 4000
+    src, dst, x, w = _dom_graph(n, t, e, h, ho, M, -4, 4, -3, 3, 7)
+    plans = jops.build_binned_plans(src, dst, n, t, geom=GF)
+    calls, mega_run = [], B._mega_run
+    monkeypatch.setattr(
+        B, "_mega_run",
+        lambda *a, **k: (calls.append(1), mega_run(*a, **k))[1])
+    want = np.asarray(jops.scatter_gather_linear_binned(
+        jnp.asarray(x), jnp.asarray(w), plans, True, precision, act))
+    assert calls, "roc_tpu's megakernel forward fell back to two passes"
+    csr = _device_csr(src, dst, n, t)
+    xt, wt = torch.as_tensor(x), torch.as_tensor(w)
+    got = KL.aggregate_linear_plain(xt, wt, csr.row_ptr, csr.col_idx,
+                                    precision, act)
+    np.testing.assert_array_equal(got.numpy(), want)
+    if precision == "fast":
+        staged = aggregate_sum_plain(stage_plain(xt).float(), csr.row_ptr,
+                                     csr.col_idx, "exact")[:, :h]
+        np.testing.assert_array_equal(ops.linear(staged, wt, act).numpy(),
+                                      want)
 
 
 def _old_bwd_u(g, y, t_row_ptr, t_col_idx, precision, relu):
