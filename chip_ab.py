@@ -20,11 +20,16 @@ and measures on the Reddit graph:
                 hidden layers)
   serve_gcn     GCN 602-256-41 served (chip_smoke.py's serve phase): p50
                 and p99 request latency and peak memory
+  gat_train     GAT 602-64-41, 4 heads, fast, 10 epochs (chip_smoke.py's
+                train_gat phase): the median epoch and the peak memory
+  serve_gat     GAT 602-64-41 served, 40 requests: p50, p99, peak memory
   digests       SHA-256 of the outputs of aggregate_sum (over the CSR and
                 its transpose, H = 41, 256, 602) and aggregate_linear
                 (602->256 relu, 256->41, 256->256 relu), both precisions,
-                on Gaussian inputs from one seed: equal digests in two
-                checkouts mean equal bits
+                and of the GAT kernels at K=4, F=64 and K=1, F=41, both
+                precisions: the score, gat_forward's out, m, z and the backward's
+                dtable, dast, dadl, on Gaussian inputs from one seed: equal digests
+                in two checkouts mean equal bits
   xlayer_ptxas  the region kernels' registers and spill bytes, from the
                 build's ptxas report (empty where the library was already
                 built)
@@ -84,6 +89,31 @@ for hi, ho, act in ((602, 256, "relu"), (256, 41, "none"), (256, 256, "relu")):
     for prec in ("fast", "exact"):
         dig[f"aggregate_linear_{hi}_{ho}_{act}_{prec}"] = digest(
             KL.aggregate_linear(x, w, csr.row_ptr, csr.col_idx, prec, act))
+gcsr = DeviceCsr.from_csr(ds.graph, dev, edge_map=True)
+gen = torch.Generator(device=dev).manual_seed(C.SEED + 22)
+for k, f in ((4, 64), (1, 41)):
+    gx, a_src, a_dst = (torch.randn(s, generator=gen, device=dev)
+                       for s in ((n, k * f), (k, f), (k, f)))
+    du = torch.randn((n, k * f), generator=gen, device=dev)
+    dz = torch.randn((n, k), generator=gen, device=dev)
+    as_, ad = G.gat_score_plain(gx, a_src), G.gat_score_plain(gx, a_dst)
+    dig[f"gat_score_K{k}_F{f}"] = digest(G.gat_score(gx, a_src))
+    for prec in ("fast", "exact"):
+        tag = f"K{k}_F{f}_{prec}"
+        o, m, z = G.gat_forward(gx, as_, ad, gcsr.row_ptr, gcsr.col_idx, 0.2,
+                                prec)
+        for name, t in (("out", o), ("m", m), ("z", z)):
+            dig[f"gat_forward_{name}_{tag}"] = digest(t)
+        node = (gx, as_, ad, m, du, dz)
+        dtable, dast, dq = G.gat_bwd_src(*node, gcsr.t_row_ptr,
+                                         gcsr.t_col_idx, 0.2, prec)
+        dadl = G.gat_bwd_dst(dq, gcsr.t_pos, gcsr.row_ptr, gcsr.col_idx)
+        del dq
+        for name, t in (("dtable", dtable), ("dast", dast), ("dadl", dadl)):
+            dig[f"gat_bwd_{name}_{tag}"] = digest(t)
+        del o, m, z, dtable, dast, dadl
+    del gx, du, dz, as_, ad
+del gcsr
 out["digests"] = dig
 from roc_tpu_torch.ops.kernels import xlayer as KX
 KX.LIBRARY.load()
@@ -99,8 +129,13 @@ for name, phase in (("gcn_unfused", lambda: C.phase_train(ds, dev, False)),
     rec = phase()
     out[name] = {"median_epoch_ms_3_on": rec["median_epoch_ms_3_on"],
                  "peak_mem_bytes": rec["peak_mem_bytes"]}
+rec = C.phase_train(ds, dev, False, model="gat")
+out["gat_train"] = {"median_epoch_ms_3_on": rec["median_epoch_ms_3_on"],
+                    "peak_mem_bytes": rec["peak_mem_bytes"]}
 rec = C.phase_serve(ds, dev)
 out["serve_gcn"] = {k: rec[k] for k in ("p50_ms", "p99_ms", "peak_mem_bytes")}
+rec = C.phase_serve(ds, dev, "gat", n_requests=40)
+out["serve_gat"] = {k: rec[k] for k in ("p50_ms", "p99_ms", "peak_mem_bytes")}
 gen = torch.Generator(device=dev).manual_seed(C.SEED)
 for k, f in ((4, 64), (1, 41)):
     x = torch.randn((ds.graph.num_nodes, k * f), generator=gen, device=dev)

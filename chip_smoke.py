@@ -80,19 +80,32 @@ Phases, each printing one JSON line per record:
           at ragged head shapes (K, F) = (3, 5), (8, 8), (40, 2), (2, 200),
           (1, 41), (4, 64); then on the Reddit graph at the layer-1 (K=4,
           F=64) and layer-2 (K=1, F=41) shapes, both precisions.  The
-          score bitwise equal to the serial-order reference (products
-          rounded, added in f order from 0) everywhere, also on an x
-          that starts 4 bytes into its buffer.  Forward
-          bitwise on the integer fixture (a_src = 0, so every e is 1);
-          Gaussian data: out, m, z and dtable within 1e-5 of each row's
-          max-abs; the scores and score gradients (as, dadl, dast: signed
-          sums that may cancel to ~0) each element within 1e-5 of the sum
-          of the absolute values of its terms (the plain version run on
-          |x|, |a_src|, |du|, |dz| with every e unchanged).  Times: kernel,
-          plain, and the library: for the score torch.einsum, for the
-          forward torch.sparse.softmax over a sparse [N, N] score matrix
-          per head, then torch.sparse.mm; bound = compulsory bytes / 3.35
-          TB/s vs operations / 67 TFLOP/s fp32, the larger
+          backward is two kernels: gat_bwd_src gives dtable, dast and the
+          per-edge score gradient dq (held against gat_dq_plain), and
+          gat_bwd_dst sums dq; the composed backward is held against the
+          function's plain versions (gat_bwd_dst_plain's dadl,
+          gat_bwd_src_plain's dtable and dast), and run twice for equal
+          bits.  The score bitwise equal to the serial-order reference
+          (products rounded, added in f order from 0) everywhere, also on
+          an x that starts 4 bytes into its buffer.  Every output bitwise
+          on the integer fixture (a_src = 0 and a_dst, x >= 0, so every e
+          and lrelu' is 1; integer du and dz); Gaussian data: out, m, z
+          and dtable within 1e-5 of each row's max-abs; the scores and
+          score gradients (as, dadl, dast, dq: signed sums that may cancel
+          to ~0) each element within 1e-5 of the sum of the absolute
+          values of its terms (the plain version run on |x|, |a_src|,
+          |du|, |dz| with every e unchanged).  Times: kernel (the dst row:
+          the dst kernel alone on the src kernel's dq), plain, and the
+          library: for the score torch.einsum, for the forward
+          torch.sparse.softmax over a sparse [N, N] score matrix per head,
+          then torch.sparse.mm, for the dst kernel index_add_ of dq over
+          the transposed edges' destinations, none for the src kernel;
+          bound = compulsory bytes / 3.35 TB/s vs operations / 67 TFLOP/s
+          fp32, the larger, of each kernel's own work.  Both backward rows
+          carry the build's ptxas and the pair: pair_ms (src + dst), the
+          whole backward's bound (pair_bound_ms, each edge's dot counted
+          once) and its one library composition (pair_library_ms:
+          sampled_addmm, segment_reduce, index_add_, sparse.mm)
   train_small_gat  the Trainer with GAT 64-8-8 (2 heads) on mega-shard,
           exact, dropout 0, 3 epochs, card vs CPU: within 1e-5
   serve_gat  ServeEngine with GAT 602-64-41 (4 heads) on the Reddit graph,
@@ -737,7 +750,8 @@ def _gat_errors(k, p, terms) -> dict:
 def _gat_inputs(n, k, f, gen, dev, integer=False) -> dict:
     """Seeded inputs of the four entry points at K heads of F on an
     n-row graph (table = destination rows, as on one device).  The integer
-    fixture has a_src = 0, so every edge's e is exactly 1."""
+    fixture has a_src = 0 and a_dst, x >= 0, so every edge's e is exactly 1
+    and lrelu' is 1, and integer du and dz: every output is exact."""
     from roc_tpu_torch.ops.kernels import gat as G
     h = k * f
     if integer:
@@ -745,14 +759,16 @@ def _gat_inputs(n, k, f, gen, dev, integer=False) -> dict:
         a_src = torch.zeros((k, f), device=dev)
         a_dst = torch.randint(0, 3, (k, f), generator=gen,
                               device=dev).float()
+        du = torch.randint(-4, 5, (n, h), generator=gen, device=dev).float()
+        dz = torch.randint(-4, 5, (n, k), generator=gen, device=dev).float()
     else:
         x = torch.randn((n, h), generator=gen, device=dev)
         a_src = torch.randn((k, f), generator=gen, device=dev)
         a_dst = torch.randn((k, f), generator=gen, device=dev)
+        du = torch.randn((n, h), generator=gen, device=dev)
+        dz = torch.randn((n, k), generator=gen, device=dev)
     return {"x": x, "a_src": a_src, "as_": G.gat_score_plain(x, a_src),
-            "ad": G.gat_score_plain(x, a_dst),
-            "du": torch.randn((n, h), generator=gen, device=dev),
-            "dz": torch.randn((n, k), generator=gen, device=dev)}
+            "ad": G.gat_score_plain(x, a_dst), "du": du, "dz": dz}
 
 
 def _gat_calls(csr, prec: str) -> dict:
@@ -761,7 +777,11 @@ def _gat_calls(csr, prec: str) -> dict:
     per output, None where the output is gated on its row's max-abs, else
     the sum of the absolute values of each element's terms: the plain
     version on |x|, |a_src|, |du|, |dz| (as_, ad and m unchanged, so every
-    e and lrelu'(q) is too, and both are positive)."""
+    e and lrelu'(q) is too, and both are positive).  gat_bwd_src's outputs
+    are (dtable, dast, dq), against its plain twin (the function's plain
+    dtable and dast, and dq in transposed order); gat_bwd_dst's kernel
+    call is the composed backward, the src kernel then the dst kernel on
+    its dq."""
     from roc_tpu_torch.ops.kernels import gat as G
 
     def absolute(i):
@@ -774,23 +794,35 @@ def _gat_calls(csr, prec: str) -> dict:
         return lambda i: fn(i["x"], i["as_"], i["ad"], csr.row_ptr,
                             csr.col_idx, 0.2, prec)
 
-    def dst(fn):
-        return lambda i: fn(i["x"], i["as_"], i["ad"], i["m"], i["du"],
-                            i["dz"], csr.row_ptr, csr.col_idx, 0.2)
+    def node(i):
+        return i["x"], i["as_"], i["ad"], i["m"], i["du"], i["dz"]
 
-    def src(fn):
-        return lambda i: fn(i["x"], i["as_"], i["ad"], i["m"], i["du"],
-                            i["dz"], csr.t_row_ptr, csr.t_col_idx, 0.2, prec)
+    def dst_plain(i):
+        return G.gat_bwd_dst_plain(*node(i), csr.row_ptr, csr.col_idx, 0.2)
+
+    def src_kernel(i):
+        return G.gat_bwd_src(*node(i), csr.t_row_ptr, csr.t_col_idx, 0.2,
+                             prec)
+
+    def src_plain(i):
+        return G.gat_bwd_src_dq_plain(*node(i), csr.t_row_ptr,
+                                      csr.t_col_idx, 0.2, prec)
+
+    def composed(i):
+        return G.gat_bwd_dst(src_kernel(i)[2], csr.t_pos, csr.row_ptr,
+                             csr.col_idx)
 
     return {"gat_score": (score(G.gat_score), score(G.gat_score_plain),
                           lambda i: (score(G.gat_score_plain)(absolute(i)),)),
             "gat_forward": (fwd(G.gat_forward), fwd(G.gat_forward_plain),
                             lambda i: (None, None, None)),
-            "gat_bwd_dst": (dst(G.gat_bwd_dst), dst(G.gat_bwd_dst_plain),
-                            lambda i: (dst(G.gat_bwd_dst_plain)(absolute(i)),)),
-            "gat_bwd_src": (src(G.gat_bwd_src), src(G.gat_bwd_src_plain),
-                            lambda i: (None, src(G.gat_bwd_src_plain)(
-                                absolute(i))[1]))}
+            "gat_bwd_dst": (composed, dst_plain,
+                            lambda i: (dst_plain(absolute(i)),)),
+            "gat_bwd_src": (src_kernel, src_plain,
+                            lambda i: (None, *src_plain(absolute(i))[1:]))}
+
+
+GAT_BACKWARD = ("gat_bwd_dst", "gat_bwd_src")
 
 
 def _gat_bound(name, n, e, k, f, csr_bytes) -> dict:
@@ -805,7 +837,13 @@ def _gat_bound(name, n, e, k, f, csr_bytes) -> dict:
         return _bound(nh + 2 * nk + nh + 2 * nk + csr_bytes,
                       2 * e * h + 4 * e * k)
     if name == "gat_bwd_dst":
-        return _bound(2 * nh + 4 * nk + nk + csr_bytes, 2 * e * h + 6 * e * k)
+        # the dst kernel's own work: dq and t_pos read, row_ptr, dadl, an
+        # add per edge and head (the dots it sums are the src kernel's)
+        return _bound(e * k * 4 + e * 4 + (n + 1) * 8 + nk, e * k)
+    if name == "gat_bwd_pair":
+        # the whole backward (dtable, dast, dadl): each edge's dot once
+        return _bound(2 * nh + 4 * nk + nh + 2 * nk + csr_bytes,
+                      4 * e * h + 9 * e * k)
     return _bound(2 * nh + 4 * nk + nh + nk + csr_bytes,
                   4 * e * h + 8 * e * k)
 
@@ -855,15 +893,62 @@ def _gat_library(csr, n, dev):
     return run
 
 
+def _gat_bwd_library(csr, n, dev):
+    """The backward as library calls in fp32 (the port never calls them):
+    per head torch.sparse.sampled_addmm gives each edge's dot du[v] . x[u]
+    over the CSR's pattern, elementwise ops dq, torch.segment_reduce dadl
+    and index_add_ dast, and torch.sparse.mm of the transposed e-weighted
+    matrix times du dtable.  Returns (dtable, dast, dadl)."""
+    dst = torch.repeat_interleave(torch.arange(n, device=dev),
+                                  torch.diff(csr.row_ptr))
+    src = csr.col_idx.long()
+    t_src = torch.repeat_interleave(torch.arange(n, device=dev),
+                                    torch.diff(csr.t_row_ptr))
+    t_dst = csr.t_col_idx.long()
+    lengths = torch.diff(csr.row_ptr)
+
+    def lrelu_e(q, m):
+        return torch.exp(torch.nn.functional.leaky_relu(q, 0.2) - m)
+
+    def run(i):
+        torch.backends.cuda.matmul.allow_tf32 = False
+        k = i["as_"].shape[1]
+        f = i["x"].shape[1] // k
+        x, du = i["x"], i["du"]
+        q = i["ad"][dst] + i["as_"][src]
+        e = lrelu_e(q, i["m"][dst])
+        pattern = torch.sparse_csr_tensor(
+            csr.row_ptr, src, torch.zeros(src.numel(), device=dev), (n, n))
+        dots = torch.stack([torch.sparse.sampled_addmm(
+            pattern, du[:, hd * f:(hd + 1) * f],
+            x[:, hd * f:(hd + 1) * f].t(), beta=0.0).values()
+            for hd in range(k)], 1)
+        dq = e * (dots + i["dz"][dst]) * torch.where(q >= 0, 1.0, 0.2)
+        dadl = torch.segment_reduce(dq, "sum", lengths=lengths, axis=0)
+        dast = torch.zeros((n, k), device=dev).index_add_(0, src, dq)
+        del pattern, dots, dq, e, q
+        et = lrelu_e(i["ad"][t_dst] + i["as_"][t_src], i["m"][t_dst])
+        dtable = torch.cat([torch.sparse.mm(torch.sparse_csr_tensor(
+            csr.t_row_ptr, t_dst, et[:, hd].contiguous(), (n, n)),
+            du[:, hd * f:(hd + 1) * f]) for hd in range(k)], 1)
+        return dtable, dast, dadl
+    return run
+
+
 # (K, F): K*F not a multiple of 4 or 32, K above 32, H above one 256-column
 # tile, and the full-width model's two layers
 GAT_SHAPES = ((3, 5), (8, 8), (40, 2), (2, 200), (1, 41), (4, 64))
 
 
+def _same_bits(a, b) -> bool:
+    return all(bool(torch.equal(x, y)) for x, y in zip(a, b))
+
+
 def phase_kernel_gat_shapes(dev) -> dict:
     """The GAT kernels against their plain versions at ragged head shapes
     on a small graph: a hub row of 700 in-edges (many 32-edge batches), an
-    isolated row, rows of every small degree."""
+    isolated row, rows of every small degree.  Every output bitwise on the
+    integer fixture; the backward's two runs give equal bits."""
     from roc_tpu_torch.graph.csr import from_edges
     from roc_tpu_torch.ops import DeviceCsr
     rng = np.random.default_rng(SEED + 5)
@@ -872,7 +957,8 @@ def phase_kernel_gat_shapes(dev) -> dict:
     dst = rng.integers(0, n, 30000)
     dst[:700] = 17
     keep = dst != 29
-    csr = DeviceCsr.from_csr(from_edges(n, src[keep], dst[keep]), dev)
+    csr = DeviceCsr.from_csr(from_edges(n, src[keep], dst[keep]), dev,
+                             edge_map=True)
     gen = torch.Generator(device=dev).manual_seed(SEED + 6)
     worst = {}
     for k, f in GAT_SHAPES:
@@ -890,14 +976,15 @@ def phase_kernel_gat_shapes(dev) -> dict:
                         raise AssertionError(
                             f"gat_score K={k} F={f}: not bitwise equal to "
                             f"the serial-order reference")
-                    if integer and name in ("gat_score", "gat_forward"):
-                        ok = all(bool(torch.equal(a, b))
-                                 for a, b in zip(kk, pp))
-                        if not ok:
+                    if name in GAT_BACKWARD and not _same_bits(
+                            kk, _gat_parts(kern(inp))):
+                        raise AssertionError(f"{name} K={k} F={f} {prec}: "
+                                             f"two runs differ")
+                    if integer:
+                        if not _same_bits(kk, pp):
                             raise AssertionError(
                                 f"{name} K={k} F={f} {prec}: not bitwise "
                                 f"on the integer fixture")
-                    if integer:
                         continue
                     err = _gat_errors(kk, pp, terms(inp))
                     w = worst.setdefault(name, {"row_rel_err": 0.0,
@@ -915,11 +1002,15 @@ def phase_kernel_gat_shapes(dev) -> dict:
                             and bool((kk[1][29] == 0).all())):
                         raise AssertionError("gat_forward: the isolated row "
                                              "is not out = 0, m = 0, z = 0")
+                    if name == "gat_bwd_dst" and not bool(
+                            (kk[0][29] == 0).all()):
+                        raise AssertionError("gat_bwd_dst: the isolated row "
+                                             "is not dadl = 0")
     rec = {"phase": "kernel_gat_shapes", "nodes": n, "hub_in_degree":
            int(torch.diff(csr.row_ptr)[17]), "isolated_row": 29,
            "shapes": GAT_SHAPES,
            "worst_err": worst, "tolerance": 1e-5, "int_bitwise": True,
-           "score_serial_bitwise": True}
+           "score_serial_bitwise": True, "backward_runs_bitwise": True}
     emit(rec)
     return rec
 
@@ -927,40 +1018,69 @@ def phase_kernel_gat_shapes(dev) -> dict:
 def phase_kernel_gat(ds, dev) -> list:
     """The GAT kernels on the Reddit graph at the full-width model's two
     layer shapes (layer 1: K=4, F=64; layer 2: K=1, F=41), both
-    precisions, each against its plain version, with times and bounds."""
+    precisions, each against its plain version, with times and bounds.
+    gat_bwd_src's row holds dq against its plain twin; gat_bwd_dst's row
+    checks the composed backward and times the dst kernel alone on the src
+    kernel's dq, against its own bound and index_add_; both carry the
+    build's ``ptxas`` and the pair's time (``pair_ms``, src + dst), its
+    bound (the whole backward's, ``pair_bound_ms``) and its library
+    composition's time (``pair_library_ms``, timed once per layer
+    shape)."""
     from roc_tpu_torch.ops import DeviceCsr
+    from roc_tpu_torch.ops.kernels import gat as G
     g = ds.graph
     n, e = g.num_nodes, g.num_edges
-    csr = DeviceCsr.from_csr(g, dev)
+    csr = DeviceCsr.from_csr(g, dev, edge_map=True)
     csr_bytes = csr.row_ptr.numel() * 8 + csr.col_idx.numel() * 4
     library = _gat_library(csr, n, dev)
+    bwd_library = _gat_bwd_library(csr, n, dev)
+    ptxas = ptxas_report(G.LIBRARY.info.get("log", ""))
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     rows = []
     for k, f in ((4, 64), (1, 41)):
+        bwd_lib = {}
         for prec in ("fast", "exact"):
             calls = _gat_calls(csr, prec)
             ints = _gat_inputs(n, k, f, gen, dev, integer=True)
             gauss = _gat_inputs(n, k, f, gen, dev)
             for inp in (ints, gauss):
                 inp["m"] = calls["gat_forward"][1](inp)[1]
+            recs = []
             for name, (kern, plain, terms) in calls.items():
                 rec = {"phase": "kernel", "name": name, "K": k, "F": f,
                        "precision": prec, "nodes": n, "edges": e,
                        **_gat_bound(name, n, e, k, f, csr_bytes)}
-                if name in ("gat_score", "gat_forward"):
-                    rec["int_bitwise"] = all(
-                        bool(torch.equal(a, b)) for a, b in
-                        zip(_gat_parts(kern(ints)), _gat_parts(plain(ints))))
+                rec["int_bitwise"] = _same_bits(_gat_parts(kern(ints)),
+                                                _gat_parts(plain(ints)))
                 kk, pp = _gat_parts(kern(gauss)), _gat_parts(plain(gauss))
                 torch.cuda.synchronize()
                 rec.update(_gat_errors(kk, pp, terms(gauss)))
                 rec["tolerance"] = 1e-5
                 rec["finite"] = all(bool(torch.isfinite(a).all())
                                     for a in kk)
+                if name in GAT_BACKWARD:
+                    rec["runs_bitwise"] = _same_bits(
+                        kk, _gat_parts(kern(gauss)))
+                    rec["ptxas"] = {kn: v for kn, v in ptxas.items()
+                                    if name + "_rows" in kn}
                 del kk, pp
-                rec["kernel_ms"] = time_ms(lambda: kern(gauss), reps=20,
-                                           warmup=3)
-                rec["plain_ms"] = time_ms(lambda: plain(gauss), reps=5,
+                timed = kern
+                if name == "gat_bwd_dst":
+                    # the dst kernel alone, on the src kernel's dq
+                    dq = calls["gat_bwd_src"][0](gauss)[2]
+                    rec["dq_bytes"] = dq.numel() * 4
+                    timed = (lambda dq=dq: G.gat_bwd_dst(
+                        dq, csr.t_pos, csr.row_ptr, csr.col_idx))
+                rec["kernel_ms"] = time_ms(lambda: timed(gauss)
+                                           if timed is kern else timed(),
+                                           reps=20, warmup=3)
+                # the function's plain version (without gat_dq_plain)
+                plain_t = (plain if name != "gat_bwd_src" else
+                           lambda i: G.gat_bwd_src_plain(
+                               i["x"], i["as_"], i["ad"], i["m"], i["du"],
+                               i["dz"], csr.t_row_ptr, csr.t_col_idx, 0.2,
+                               prec))
+                rec["plain_ms"] = time_ms(lambda: plain_t(gauss), reps=5,
                                           warmup=1)
                 rec["library_ms"] = None
                 if name == "gat_score":
@@ -974,6 +1094,11 @@ def phase_kernel_gat(ds, dev) -> list:
                         lambda: _score_library(gauss), reps=20, warmup=3)
                     retime_small(rec, lambda: kern(gauss),
                                  lambda: _score_library(gauss))
+                if name == "gat_bwd_dst":
+                    rec.update(_time_dadl_library(dq, csr, plain(gauss)))
+                    retime_small(rec, timed,
+                                 lambda dq=dq: _dadl_library(dq, csr))
+                    del dq
                 if name == "gat_forward":
                     try:
                         lib = library(gauss)
@@ -984,18 +1109,68 @@ def phase_kernel_gat(ds, dev) -> list:
                                                     reps=5, warmup=1)
                     except (RuntimeError, NotImplementedError) as err:
                         rec["library_error"] = str(err)[:300]
+                if name in GAT_BACKWARD and not bwd_lib:
+                    bwd_lib.update(_time_bwd_library(bwd_library, gauss,
+                                                     csr))
+                recs.append(rec)
+            pair = {"pair_ms": sum(r["kernel_ms"] for r in recs
+                                   if r["name"] in GAT_BACKWARD),
+                    **{"pair_" + key: v for key, v in _gat_bound(
+                        "gat_bwd_pair", n, e, k, f, csr_bytes).items()},
+                    **{"pair_" + key: v for key, v in bwd_lib.items()}}
+            for rec in recs:
+                if rec["name"] in GAT_BACKWARD:
+                    rec.update(pair)
                 emit(rec)
                 rows.append(rec)
-                if not (rec["finite"] and rec.get("int_bitwise", True)
+            for rec in recs:
+                if not (rec["finite"] and rec["int_bitwise"]
+                        and rec.get("runs_bitwise", True)
                         and rec.get("serial_bitwise", True)
                         and rec["row_rel_err"] <= 1e-5
                         and rec["term_rel_err"] <= 1e-5
                         and rec.get("library_term_rel_err", 0.0) <= 1e-5):
-                    raise AssertionError(f"{name} (or its library call) "
-                                         f"disagrees with its plain "
+                    raise AssertionError(f"{rec['name']} (or its library "
+                                         f"call) disagrees with its plain "
                                          f"version: {rec}")
             del ints, gauss
     return rows
+
+
+def _dadl_library(dq, csr) -> torch.Tensor:
+    """dadl as one library call: index_add_ of dq (transposed edge order)
+    over each transposed edge's destination, t_col_idx."""
+    return torch.zeros((csr.row_ptr.numel() - 1, dq.shape[1]),
+                       device=dq.device).index_add_(0, csr.t_col_idx, dq)
+
+
+def _time_dadl_library(dq, csr, want) -> dict:
+    """The dst kernel's library call on the src kernel's ``dq``: its time
+    and its largest row error against the plain dadl."""
+    err = row_rel_err(_dadl_library(dq, csr), want)
+    return {"library_ms": time_ms(lambda: _dadl_library(dq, csr), reps=10),
+            "library_rel_err": err}
+
+
+def _time_bwd_library(library, i, csr) -> dict:
+    """The backward's library composition on ``i``: its time and its
+    largest row error against the plain fp32 versions (dtable, dast,
+    dadl), or the error it raised."""
+    from roc_tpu_torch.ops.kernels import gat as G
+    node = (i["x"], i["as_"], i["ad"], i["m"], i["du"], i["dz"])
+    try:
+        lib = library(i)
+        want = (*G.gat_bwd_src_plain(*node, csr.t_row_ptr, csr.t_col_idx,
+                                     0.2, "exact"),
+                G.gat_bwd_dst_plain(*node, csr.row_ptr, csr.col_idx, 0.2))
+        err = {name: row_rel_err(a, b) for name, a, b in
+               zip(("dtable", "dast", "dadl"), lib, want)}
+        del lib, want
+        return {"library_ms": time_ms(lambda: library(i), reps=5, warmup=1),
+                "library_rel_err": err,
+                "library_covers": "dtable, dast and dadl in one composition"}
+    except (RuntimeError, NotImplementedError, TypeError) as err:
+        return {"library_ms": None, "library_error": str(err)[:300]}
 
 
 # the cross-layer path: gcn-chain at the canonical GCN's widths with three
@@ -1765,7 +1940,10 @@ def _kernel_entry(name, source, replaces, launches, row, rows, keys):
             "shapes": [{k: r[k] for k in (*keys, "kernel_ms", "plain_ms",
                                           "library_ms", "bound_ms",
                                           "bound_by", "max_abs_err",
-                                          "row_rel_err", "term_rel_err")
+                                          "row_rel_err", "term_rel_err",
+                                          "pair_ms", "pair_bound_ms",
+                                          "pair_bound_by", "pair_library_ms",
+                                          "dq_bytes", "ptxas")
                         if k in r}
                        for r in rows]}
 

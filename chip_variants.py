@@ -2,7 +2,7 @@
 """Time design variants of the hand-written kernels against the checkout's
 own sources on one NVIDIA GPU, in one call.
 
-    python3 chip_variants.py [sum] [linear] [xlayer]     # default: all three
+    python3 chip_variants.py [sum] [linear] [xlayer] [gat]  # default: all
 
 Each variant is the checkout's roc_tpu_torch/csrc/ with one design choice
 reversed by a source edit (VARIANTS below: each names the choice, the
@@ -23,6 +23,9 @@ the checkout's and is timed at the main path's shapes:
   xlayer  the region kernels at the full-width path's region (depth 3,
           602-256-256-256, relu, the norm pair), both precisions: xlayer_fwd
           and xlayer_bwd without dx, and the phase split
+  gat     the GAT backward at the full-width GAT's two layers (K=4, F=64
+          and K=1, F=41): gat_bwd_src in fast and exact (dtable, dast, dq),
+          gat_bwd_dst on its dq, in fast
 
 Each time is the median of 10 CUDA-event timed calls on chip_smoke.py's
 Gaussian inputs; each record holds the compiler's registers and spill
@@ -49,7 +52,7 @@ ROOT = Path(__file__).resolve().parent
 CSRC = ROOT / "roc_tpu_torch" / "csrc"
 OUT = ROOT / "chip_check" / "variants"
 SOURCES = {"sum": "aggregate_sum.cu", "linear": "aggregate_linear.cu",
-           "xlayer": "xlayer.cu"}
+           "xlayer": "xlayer.cu", "gat": "gat.cu"}
 
 # The tile counter of the megakernel forward, as the region kernels claim
 # their tiles: a grid of resident blocks (the occupancy's count on every SM)
@@ -217,6 +220,37 @@ VARIANTS = {
                     " : (VEC == 1 ? 12 : 24 / VEC);\n"
                     "  switch (packs_per_lane<T>((H + VEC - 1) / VEC, 32))"
                     " {")]),
+    "gat_two_edges": (
+        "4 edges in flight in the src kernel's du gather instead of 2",
+        "gat", [("gat.cu",
+                 "#pragma unroll 4\n        for (int ii = 0; ii < m; ++ii) {",
+                 "#pragma unroll 2\n        for (int ii = 0; ii < m; ++ii) {")]),
+    "gat_four_warps": (
+        "8 warps a block in the src kernel instead of 4",
+        "gat", [("gat.cu", "  int64_t wpb = kMaxWarps;\n",
+                 "  int64_t wpb = 4;\n")]),
+    "gat_guarded_loads": (
+        "unconditional du loads in the src kernel (a surplus pack re-reads "
+        "the row's last pack) instead of guarded ones",
+        "gat", [("gat.cu",
+                 "            const Pack<VEC> gv = load_pack<VEC>(du + vv * H "
+                 "+ cl[p]);\n",
+                 "            Pack<VEC> gv = {};\n"
+                 "            if (ok[p]) gv = load_pack<VEC>(du + vv * H "
+                 "+ cl[p]);\n")]),
+    "gat_three_blocks": (
+        "2 resident blocks an SM (128 registers) in the src kernel with "
+        "4-float packs instead of 3 (80)",
+        "gat", [("gat.cu", "return vec == 4 ? 2 : 4;", "return vec == 4 ? 3 : 4;")]),
+    "gat_narrow_three_blocks": (
+        "4 resident blocks an SM (64 registers) in the src kernel with "
+        "narrower packs instead of 3 (80)",
+        "gat", [("gat.cu", "return vec == 4 ? 2 : 4;", "return vec == 4 ? 2 : 3;")]),
+    "gat_dot_edges_32": (
+        "a batch's dots formed in halves of 16 edges (8.3 KB of shared "
+        "memory a warp at K = 4) instead of all 32 at once (12.4 KB)",
+        "gat", [("gat.cu", "constexpr int kDotEdges = 16;",
+                 "constexpr int kDotEdges = 32;")]),
 }
 
 
@@ -295,15 +329,34 @@ def _linear_cases(ctx):
     return cases
 
 
+def _gat_cases(ctx):
+    """The GAT backward at the main path's two layers: the src kernel in
+    fast and exact, and the dst kernel on the checkout's fast dq."""
+    from roc_tpu_torch.ops.kernels import gat as G
+    csr = ctx["csr"]
+    cases = []
+    for (k, f), i in ctx["gat"].items():
+        args = (i["x"], i["as_"], i["ad"], i["m"], i["du"], i["dz"],
+                csr.t_row_ptr, csr.t_col_idx, 0.2)
+        for prec in ("fast", "exact"):
+            cases.append((f"src_K{k}_F{f}_{prec}",
+                          lambda a=args, p=prec: G.gat_bwd_src(*a, p)))
+        cases.append((f"dst_K{k}_F{f}",
+                      lambda dq=i["dq"]: G.gat_bwd_dst(dq, csr.t_pos,
+                                                       csr.row_ptr,
+                                                       csr.col_idx)))
+    return cases
+
+
 def _measure_cases(cases, ref: dict) -> dict:
     import chip_smoke as C
     rec = {}
     for label, call in cases:
-        out = call()
+        out = C._gat_parts(call())
         torch.cuda.synchronize()
         ref.setdefault(label, out)
         rec[label] = {"ms": C.time_ms(call, reps=10, warmup=2),
-                      "bitwise": bool(torch.equal(out, ref[label]))}
+                      "bitwise": C._same_bits(out, ref[label])}
     return rec
 
 
@@ -354,18 +407,20 @@ def main() -> int:
     from roc_tpu_torch.ops.kernels import aggregate_linear as KL
     from roc_tpu_torch.ops.kernels import aggregate_sum as KS
     from roc_tpu_torch.ops.kernels import build_all
+    from roc_tpu_torch.ops.kernels import gat as KG
     from roc_tpu_torch.ops.kernels import xlayer as KX
 
     todo = [(f"checkout_{t}", t, []) for t in targets] + \
         [(k, v[1], v[2]) for k, v in VARIANTS.items() if v[1] in targets]
-    own_cases = {"sum": _sum_cases, "linear": _linear_cases}
+    own_cases = {"sum": _sum_cases, "linear": _linear_cases,
+                 "gat": _gat_cases}
     with ThreadPoolExecutor(len(todo)) as pool:
         built = list(pool.map(lambda a: _build(*a), todo))
         pool.submit(build_all).result()     # the checkout's other libraries
     dev = torch.device("cuda", 0)
     g = datasets.get("reddit", seed=C.SEED).graph
     n = g.num_nodes
-    csr = DeviceCsr.from_csr(g, dev)
+    csr = DeviceCsr.from_csr(g, dev, edge_map="gat" in targets)
     gen = torch.Generator(device=dev).manual_seed(C.SEED + 7)
     ctx = {"csr": csr,
            "x": {h: torch.randn((n, h), generator=gen, device=dev)
@@ -376,7 +431,18 @@ def main() -> int:
         scale = torch.rsqrt(torch.as_tensor(g.in_degrees,
                                             dtype=torch.float32, device=dev))
         ctx["region"] = C.region_gauss_inputs(n, C.REGION, scale, gen, dev)
-    modules = {"sum": KS, "linear": KL, "xlayer": KX}
+    if "gat" in targets:
+        ctx["gat"] = {}
+        for k, f in ((4, 64), (1, 41)):
+            i = C._gat_inputs(n, k, f, gen, dev)
+            i["m"] = KG.gat_forward(i["x"], i["as_"], i["ad"], csr.row_ptr,
+                                    csr.col_idx, 0.2, "fast")[1]
+            i["dq"] = KG.gat_bwd_src(i["x"], i["as_"], i["ad"], i["m"],
+                                     i["du"], i["dz"], csr.t_row_ptr,
+                                     csr.t_col_idx, 0.2,
+                                     "fast")[2]
+            ctx["gat"][(k, f)] = i
+    modules = {"sum": KS, "linear": KL, "xlayer": KX, "gat": KG}
     own = {t: modules[t].LIBRARY.load() for t in targets}
     refs = {t: {} for t in targets}
     order = built + [b for b in built if b[0].startswith("checkout_")]
@@ -387,7 +453,8 @@ def main() -> int:
         mod.LIBRARY._lib = lib
         kernels = {"sum": ("sum_rows", "stage_kernel"),
                    "linear": ("mega_fwd", "mega_bwd_u"),
-                   "xlayer": ("xlayer_",)}[target]
+                   "xlayer": ("xlayer_",),
+                   "gat": ("gat_bwd_",)}[target]
         rec = {"variant": name, "target": target,
                "reverses": VARIANTS[name][0] if name in VARIANTS else None,
                "ptxas": {k: v for k, v in ptxas.items()

@@ -23,31 +23,43 @@
 // planes, the A/M/MT iota matrices, staging DMAs, head-group splitting, VMEM
 // admission).  Every kernel is a deterministic segment reduction over a CSR:
 // one warp owns one output row and walks its edge list in order; each output
-// row is written exactly once, so there are no atomics and a run is bitwise
-// reproducible.
+// element is written by one thread, so there are no atomics and a run is
+// bitwise reproducible.
 //
-// Layout of a warp's work.  Edges are taken in batches of 32: lane l loads
-// the batch's l-th index (one coalesced load) and computes that edge's
-// per-head quantities (K scores, exps, slopes) into the warp's slice of
-// shared memory.  Then the warp walks the batch edge by edge: the row
-// gathered for an edge is read as packs of VEC floats per lane, kNP packs per
-// lane, neighbouring lanes on neighbouring addresses; each column takes its
-// head's value from shared memory (a broadcast read).  A row wider than
-// 32 * VEC * kNP columns is covered in tiles, re-walking the edge list once
-// per tile.  The ragged tail of H is masked per pack (the wrapper picks VEC
-// so that H % VEC == 0) and heads may straddle packs (F need not divide VEC).
+// Forward.  Edges are taken in batches of 32: lane l loads the batch's l-th
+// index (one coalesced load) and computes that edge's per-head exps into the
+// warp's slice of shared memory.  Then the warp walks the batch edge by edge:
+// the row gathered for an edge is read as packs of VEC floats per lane, kNP
+// packs per lane, neighbouring lanes on neighbouring addresses; each column
+// takes its head's value from shared memory (a broadcast read).  A row wider
+// than 32 * VEC * kNP columns is covered in tiles, re-walking the edge list
+// once per tile.  The ragged tail of H is masked per pack (the wrapper picks
+// VEC so that H % VEC == 0) and heads may straddle packs.  It is the two-pass
+// softmax: pass 1 takes the exact per-head max over the row's edges before
+// pass 2 forms exp(s - m), so the result is the oracle's two-pass value.  A
+// row with no in-edges writes m = 0 (the oracle's isfinite guard), z = 0 and
+// out = 0.
 //
-// The forward is the two-pass softmax: pass 1 takes the exact per-head max
-// over the row's edges before pass 2 forms exp(s - m), so there is no online
-// rescaling and the result is the oracle's two-pass value.  A row with no
-// in-edges writes m = 0 (the oracle's isfinite guard), z = 0 and out = 0.
-//
-// The backward's per-head contractions are reassociated: instead of a
-// per-edge dot over the head's F columns (a segmented warp reduction per
-// edge), each column accumulates sum_e c_e * x[u, c] (or c_e * du[v, c]) over
-// the edges, with c_e = e * lrelu'(q), and one per-head reduction over the
-// columns closes the row: dadl[v, k] = sum_f du[v, kF+f] * W[kF+f] +
-// dz[v, k] * sum_e c_e.  The same sums in another order (fp32).
+// Backward, two kernels, the oracle's per-edge form (edge.py:_gat_plan_bwd):
+// the score gradient dq[e, k] = e * (sum_f du[v, kF+f] x[u, kF+f] + dz[v, k])
+// * lrelu'(q) is formed once per edge, then summed twice.
+//   gat_bwd_src_rows (row 12) walks the transposed CSR, a source row u per
+//     warp: one gather of du[v] per edge, which gives both dtable (the
+//     column sums of e * du) and, against x[u] held in registers, each
+//     head's dot; from it dq, summed into dast and written to an [E, K]
+//     buffer in transposed edge order (coalesced).  Bound: the du gather,
+//     E * H * 4 B (24 GB at Reddit's H = 256).
+//   gat_bwd_dst_rows (row 11) sums dq over each destination's in-edges,
+//     reading each in-edge's dq row through t_pos (the forward edge's
+//     position in the transpose): no gather of x or du.  Bound: dq's bytes
+//     and t_pos, once.  Writing dq at forward positions instead (a 16-byte
+//     scatter per edge at K = 4) and summing it contiguously made the src
+//     kernel the slower by far: 14.2 + 0.14 ms at Reddit's layer 1 in this
+//     design's first form (PERF.md).
+// The edge's destination state (dz, ad, m) comes as one packed row of P
+// floats (16-byte cp.async, a batch ahead).  The du gather's loads are
+// unconditional (a surplus pack re-reads the row's last pack and is
+// masked).  VEC divides F, so each pack lies in one head and takes one e.
 //
 // Precision.  ROUND = true is "fast": the product e * x (forward) and
 // e * du (dtable) takes one bf16 rounding (round to nearest even) before its
@@ -74,7 +86,7 @@ namespace {
 
 constexpr int kMaxWarps = 8;            // warps per block, fewer when K is large
 constexpr int kNP = 2;                  // column packs per lane per tile
-constexpr int kSmemBytes = 48 * 1024;   // static limit, no opt-in attribute
+constexpr int kSmemBytes = 48 * 1024;   // above this a launch opts in
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float lrelu(float q, float slope) { return q >= 0.f ? q : q * slope; }
@@ -102,22 +114,6 @@ __device__ __forceinline__ void store_pack(float* p, const Pack<VEC>& v) {
 template <int VEC>
 __device__ __forceinline__ int64_t pack_col(int64_t t0, int p, int lane) {
   return t0 + static_cast<int64_t>(p) * 32 * VEC + static_cast<int64_t>(lane) * VEC;
-}
-
-// Per-head sum of the tile's column values pbuf[0, width) into hacc[k] (each
-// head summed by one lane, columns in order), then a warp barrier.
-__device__ __forceinline__ void head_reduce(const float* pbuf, float* hacc, int64_t t0, int64_t width,
-                                            int K, int F, int lane) {
-  __syncwarp();
-  for (int k = lane; k < K; k += 32) {
-    const int64_t h0 = static_cast<int64_t>(k) * F, h1 = h0 + F;
-    const int64_t lo = h0 > t0 ? h0 : t0;
-    const int64_t hi = h1 < t0 + width ? h1 : t0 + width;
-    float acc = hacc[k];
-    for (int64_t c = lo; c < hi; ++c) acc += pbuf[c - t0];
-    hacc[k] = acc;
-  }
-  __syncwarp();
 }
 
 // ---------------------------------------------------------------------------
@@ -301,202 +297,238 @@ __global__ void gat_fwd_rows(const int64_t* __restrict__ row_ptr, const int32_t*
 }
 
 // ---------------------------------------------------------------------------
-// Backward over the forward CSR (row 11): dadl for one destination row.
-// shared memory per warp: adv[K] | mv[K] | hacc[K] | csum[K] | cbuf[32 K] | pbuf[kTile]
-template <int VEC>
-__global__ void gat_bwd_dst_rows(const int64_t* __restrict__ row_ptr,
-                                 const int32_t* __restrict__ col_idx, const float* __restrict__ x,
-                                 const float* __restrict__ as, const float* __restrict__ ad,
-                                 const float* __restrict__ m, const float* __restrict__ du,
-                                 const float* __restrict__ dz, float* __restrict__ dadl,
-                                 int64_t rows, int K, int F, float slope) {
-  extern __shared__ float smem[];
-  constexpr int kTile = 32 * VEC * kNP;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, wpb = blockDim.x >> 5;
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * wpb + warp;
-  if (row >= rows) return;
-  float* adv = smem + static_cast<int64_t>(warp) * (36 * K + kTile);
-  float* mv = adv + K;
-  float* hacc = mv + K;
-  float* csum = hacc + K;
-  float* cbuf = csum + K;
-  float* pbuf = cbuf + 32 * K;
-  const int64_t H = static_cast<int64_t>(K) * F;
-  const int64_t beg = row_ptr[row], end = row_ptr[row + 1];
+// Backward over the transposed CSR (row 12): dtable, dast and the per-edge score gradient dq
+// for one source row u per warp.  Its edges e' (u -> v) come in transposed order, and dq [E, K]
+// is written in that order.
+//
+// The warp walks u's edges in batches of 32.  Lane l takes the batch's edge l: the
+// destination's packed state row (dz | ad | m, P floats, 16-byte aligned) reaches its slice of
+// st by 16-byte cp.async, issued during the previous batch's gather (and the index a batch
+// before that), and the lane forms e for the heads of the tile into ebuf.  Then the warp walks
+// the batch edge by edge: each lane gathers its kNP packs of du[v] (unconditional loads: a
+// surplus pack re-reads the row's last pack and is masked), adds the rounded e * du into
+// dtable's column sums, and writes the pack's dot with x[u] (held in registers) to pbuf, a
+// [kDotEdges edges, 32 * kNP packs] transpose, so the batch is walked in halves.  After each
+// half, lane l of it sums its edge's slots per head (slots in column order, one head a
+// contiguous run, since F % VEC == 0), forms dq and adds it into its own per-head sum of dast
+// (dsacc; the 32 lanes' sums are added in lane order at the end).  A head that spans two tiles
+// keeps its partial dot in dq between them (the same lane reads it back, the batches being the
+// same in every tile).
+//   shared memory per warp: st[2][32 P] | pbuf[kDotEdges (32 kNP + 1)] | ebuf[32 K] |
+//   dsacc[32 K] | asv[K]: 8.3 KB at K = 4, 5.5 KB at K = 1, so the registers, not shared
+//   memory, bound the blocks an SM.
+constexpr int kSlots = 32 * kNP + 1;  // a pbuf row: one edge's packs, +1 against bank conflicts
+// pbuf rows: a batch's dots are formed in halves (all 32 at once read 8.6 and 5.4 ms against
+// 8.8 and 2.6-2.8 at Reddit's two GAT layers: gat_dot_edges_32)
+constexpr int kDotEdges = 16;
+// Resident blocks an SM the src kernel asks for: 2 (128 registers a thread) with 4-float packs,
+// 4 (64) with narrower ones; the du gather keeps 4 edges in flight a warp (#pragma unroll 4
+// below).  On Reddit, fast (chip_variants.py's gat_* variants, NVIDIA H100 80GB HBM3, 700 W):
+// at K = 4, F = 64, 8.8 ms against 10.2 at 3 blocks (80 registers) and 12.0 at 4 (64, with
+// spills); at K = 1, F = 41, 2.6-2.8 against 2.8 at 3 blocks and 3.95 with no cap.  2 edges
+// in flight read 10.6 and 3.1.
+__host__ __device__ constexpr int src_min_blocks(int vec) { return vec == 4 ? 2 : 4; }
 
-  for (int k = lane; k < K; k += 32) {
-    adv[k] = ad[row * K + k];
-    mv[k] = m[row * K + k];
-    hacc[k] = 0.f;
-  }
-  for (int64_t t0 = 0; t0 < H; t0 += kTile) {
-    float w[kNP][VEC], cs[kNP][VEC], dur[kNP][VEC];
-    int kc[kNP][VEC];
-#pragma unroll
-    for (int p = 0; p < kNP; ++p) {
-      const int64_t c = pack_col<VEC>(t0, p, lane);
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) {
-        w[p][j] = 0.f;
-        cs[p][j] = 0.f;
-        dur[p][j] = c + j < H ? du[row * H + c + j] : 0.f;
-        kc[p][j] = c + j < H ? static_cast<int>((c + j) / F) : 0;
-      }
-    }
-    for (int64_t b = beg; b < end; b += 32) {
-      const int n = end - b < 32 ? static_cast<int>(end - b) : 32;
-      int src = 0;
-      __syncwarp();
-      if (lane < n) {
-        src = col_idx[b + lane];
-        const int64_t s64 = src;
-        for (int k = 0; k < K; ++k) {
-          const float q = adv[k] + as[s64 * K + k];
-          const float e = expf(lrelu(q, slope) - mv[k]);
-          cbuf[lane * K + k] = q >= 0.f ? e : e * slope;
-        }
-      }
-      __syncwarp();
-#pragma unroll 2
-      for (int i = 0; i < n; ++i) {
-        const int64_t uu = __shfl_sync(kFull, src, i);
-        const float* cb = cbuf + i * K;
-#pragma unroll
-        for (int p = 0; p < kNP; ++p) {
-          const int64_t c = pack_col<VEC>(t0, p, lane);
-          if (c < H) {
-            const Pack<VEC> xv = load_pack<VEC>(x + uu * H + c);
-#pragma unroll
-            for (int j = 0; j < VEC; ++j) {
-              const float cc = cb[kc[p][j]];
-              w[p][j] += cc * xv.v[j];
-              cs[p][j] += cc;
-            }
-          }
-        }
-      }
-    }
-    __syncwarp();
-#pragma unroll
-    for (int p = 0; p < kNP; ++p) {
-      const int64_t c = pack_col<VEC>(t0, p, lane);
-      if (c < H) {
-#pragma unroll
-        for (int j = 0; j < VEC; ++j) {
-          pbuf[c - t0 + j] = dur[p][j] * w[p][j];
-          if ((c + j) % F == 0) csum[kc[p][j]] = cs[p][j];
-        }
-      }
-    }
-    head_reduce(pbuf, hacc, t0, kTile, K, F, lane);
-  }
-  for (int k = lane; k < K; k += 32) dadl[row * K + k] = hacc[k] + dz[row * K + k] * csum[k];
+__host__ __device__ constexpr int64_t src_floats_per_warp(int K, int P) {
+  return (64 * static_cast<int64_t>(P) + kDotEdges * kSlots + 64 * static_cast<int64_t>(K) + K +
+          3) /
+         4 * 4;
 }
 
-// ---------------------------------------------------------------------------
-// Backward over the transposed CSR (row 12): dtable and dast for one source
-// row.  shared memory per warp:
-//   asv[K] | hacc[K] | dsum[K] | ebuf[32 K] | cbuf[32 K] | cdbuf[32 K] | pbuf[kTile]
+// A lane's edge's destination state row (P floats) into shared memory by cp.async, one commit
+// group (empty for a lane past the row's end).
+__device__ __forceinline__ void stage_state(const float* state, int dst, float* to, int P,
+                                            bool valid) {
+  if (valid) {
+    const float* from = state + static_cast<int64_t>(dst) * P;
+    for (int q = 0; q < P; q += 4) roc::cp_async16(to + q, from + q);
+  }
+  roc::cp_async_commit();
+}
+
 template <int VEC, bool ROUND>
-__global__ void gat_bwd_src_rows(const int64_t* __restrict__ t_row_ptr,
-                                 const int32_t* __restrict__ t_col_idx, const float* __restrict__ x,
-                                 const float* __restrict__ as, const float* __restrict__ ad,
-                                 const float* __restrict__ m, const float* __restrict__ du,
-                                 const float* __restrict__ dz, float* __restrict__ dtable,
-                                 float* __restrict__ dast, int64_t rows, int K, int F, float slope) {
-  extern __shared__ float smem[];
+__global__ void __launch_bounds__(kMaxWarps * 32, src_min_blocks(VEC))
+    gat_bwd_src_rows(const int64_t* __restrict__ t_row_ptr, const int32_t* __restrict__ t_col_idx,
+                     const float* __restrict__ x, const float* __restrict__ as,
+                     const float* __restrict__ state, const float* __restrict__ du,
+                     float* __restrict__ dtable, float* __restrict__ dast, float* dq,
+                     int64_t rows, int K, int F, int P, float slope) {
+  extern __shared__ float4 smem4[];
   constexpr int kTile = 32 * VEC * kNP;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, wpb = blockDim.x >> 5;
   const int64_t row = static_cast<int64_t>(blockIdx.x) * wpb + warp;
   if (row >= rows) return;
-  float* asv = smem + static_cast<int64_t>(warp) * (99 * K + kTile);
-  float* hacc = asv + K;
-  float* dsum = hacc + K;
-  float* ebuf = dsum + K;
-  float* cbuf = ebuf + 32 * K;
-  float* cdbuf = cbuf + 32 * K;
-  float* pbuf = cdbuf + 32 * K;
+  float* st = reinterpret_cast<float*>(smem4) + warp * src_floats_per_warp(K, P);
+  float* pbuf = st + 64 * P;
+  float* ebuf = pbuf + kDotEdges * kSlots;
+  float* dsacc = ebuf + 32 * K;
+  float* asv = dsacc + 32 * K;
   const int64_t H = static_cast<int64_t>(K) * F;
   const int64_t beg = t_row_ptr[row], end = t_row_ptr[row + 1];
 
-  for (int k = lane; k < K; k += 32) {
-    asv[k] = as[row * K + k];
-    hacc[k] = 0.f;
-  }
+  for (int k = lane; k < K; k += 32) asv[k] = as[row * K + k];
+  for (int i = lane; i < 32 * K; i += 32) dsacc[i] = 0.f;
+  __syncwarp();
   for (int64_t t0 = 0; t0 < H; t0 += kTile) {
-    float acc[kNP][VEC], w[kNP][VEC], d[kNP][VEC], xr[kNP][VEC];
-    int kc[kNP][VEC];
+    float acc[kNP][VEC], xr[kNP][VEC];
+    int64_t cl[kNP];
+    int kc[kNP];
+    bool ok[kNP];
 #pragma unroll
     for (int p = 0; p < kNP; ++p) {
       const int64_t c = pack_col<VEC>(t0, p, lane);
+      ok[p] = c < H;
+      cl[p] = ok[p] ? c : H - VEC;
+      kc[p] = static_cast<int>(cl[p] / F);
+      const Pack<VEC> xv = load_pack<VEC>(x + row * H + cl[p]);
 #pragma unroll
       for (int j = 0; j < VEC; ++j) {
         acc[p][j] = 0.f;
-        w[p][j] = 0.f;
-        d[p][j] = 0.f;
-        xr[p][j] = c + j < H ? x[row * H + c + j] : 0.f;
-        kc[p][j] = c + j < H ? static_cast<int>((c + j) / F) : 0;
+        xr[p][j] = ok[p] ? xv.v[j] : 0.f;
       }
     }
-    for (int64_t b = beg; b < end; b += 32) {
+    // the heads whose columns meet this tile
+    const int k0 = static_cast<int>(t0 / F);
+    const int64_t t1 = t0 + kTile < H ? t0 + kTile : H;
+    const int k1 = static_cast<int>((t1 - 1) / F);
+    // the first batch's indices and state rows; each batch stages the next one's during its
+    // gather (st holds two batches' rows)
+    int dst = beg + lane < end ? t_col_idx[beg + lane] : 0;
+    stage_state(state, dst, st + lane * P, P, beg + lane < end);
+    int buf = 0;
+    for (int64_t b = beg; b < end; b += 32, buf ^= 1) {
       const int n = end - b < 32 ? static_cast<int>(end - b) : 32;
-      int dst = 0;
-      __syncwarp();
+      const int64_t te = b + lane;  // this lane's transposed edge, and its dq row
+      const bool more = b + 32 < end;
+      const int next = te + 32 < end ? t_col_idx[te + 32] : 0;
+      float* mine = st + (buf * 32 + lane) * P;  // this lane's edge: dz | ad | m
+      roc::cp_async_wait<0>();
+      __syncwarp();  // the batch's rows have landed; the previous batch's readers are done
       if (lane < n) {
-        dst = t_col_idx[b + lane];
-        const int64_t d64 = dst;
-        for (int k = 0; k < K; ++k) {
-          const float q = ad[d64 * K + k] + asv[k];
-          const float e = expf(lrelu(q, slope) - m[d64 * K + k]);
-          const float cc = q >= 0.f ? e : e * slope;
-          ebuf[lane * K + k] = e;
-          cbuf[lane * K + k] = cc;
-          cdbuf[lane * K + k] = cc * dz[d64 * K + k];
-        }
+        for (int k = k0; k <= k1; ++k)
+          ebuf[lane * K + k] = expf(lrelu(mine[K + k] + asv[k], slope) - mine[2 * K + k]);
       }
       __syncwarp();
-#pragma unroll 2
-      for (int i = 0; i < n; ++i) {
-        const int64_t vv = __shfl_sync(kFull, dst, i);
-        const float* eb = ebuf + i * K;
-        const float* cb = cbuf + i * K;
-        const float* cdb = cdbuf + i * K;
+      for (int i0 = 0; i0 < n; i0 += kDotEdges) {
+        const int m = n - i0 < kDotEdges ? n - i0 : kDotEdges;
+#pragma unroll 4
+        for (int ii = 0; ii < m; ++ii) {
+          const int i = i0 + ii;
+          const int64_t vv = __shfl_sync(kFull, dst, i);
+          float* prow = pbuf + ii * kSlots + lane;
 #pragma unroll
-        for (int p = 0; p < kNP; ++p) {
-          const int64_t c = pack_col<VEC>(t0, p, lane);
-          if (c < H) {
-            const Pack<VEC> gv = load_pack<VEC>(du + vv * H + c);
+          for (int p = 0; p < kNP; ++p) {
+            const Pack<VEC> gv = load_pack<VEC>(du + vv * H + cl[p]);
+            const float e = ebuf[i * K + kc[p]];
+            float s = 0.f;
 #pragma unroll
             for (int j = 0; j < VEC; ++j) {
-              const int kk = kc[p][j];
-              float t = eb[kk] * gv.v[j];
+              float t = e * gv.v[j];
               if (ROUND) t = round_bf16(t);
               acc[p][j] += t;
-              w[p][j] += cb[kk] * gv.v[j];
-              d[p][j] += cdb[kk];
+              s += gv.v[j] * xr[p][j];
+            }
+            if (ok[p]) prow[p * 32] = s;
+          }
+        }
+        if (i0 == 0 && more)
+          stage_state(state, next, st + ((buf ^ 1) * 32 + lane) * P, P, te + 32 < end);
+        __syncwarp();
+        if (lane >= i0 && lane < i0 + m) {
+          const float* slots = pbuf + (lane - i0) * kSlots;
+          for (int k = k0; k <= k1; ++k) {
+            const int64_t h0 = static_cast<int64_t>(k) * F, h1 = h0 + F;
+            const int s0 = static_cast<int>(((h0 > t0 ? h0 : t0) - t0) / VEC);
+            const int s1 = static_cast<int>(((h1 < t1 ? h1 : t1) - t0) / VEC);
+            float d = h0 >= t0 ? 0.f : dq[te * K + k];
+            for (int s = s0; s < s1; ++s) d += slots[s];
+            if (h1 <= t1) {  // the head's last tile: its dot is whole
+              const float q = mine[K + k] + asv[k];
+              const float g = ebuf[lane * K + k] * (d + mine[k]) * (q >= 0.f ? 1.f : slope);
+              dq[te * K + k] = g;
+              dsacc[lane * K + k] += g;
+            } else {
+              dq[te * K + k] = d;
             }
           }
         }
+        __syncwarp();  // pbuf's readers are done before the next half writes it
       }
+      dst = next;
     }
-    __syncwarp();
 #pragma unroll
     for (int p = 0; p < kNP; ++p) {
-      const int64_t c = pack_col<VEC>(t0, p, lane);
-      if (c < H) {
+      if (ok[p]) {
         Pack<VEC> o;
 #pragma unroll
-        for (int j = 0; j < VEC; ++j) {
-          o.v[j] = acc[p][j];
-          pbuf[c - t0 + j] = xr[p][j] * w[p][j];
-          if ((c + j) % F == 0) dsum[kc[p][j]] = d[p][j];
-        }
-        store_pack<VEC>(dtable + row * H + c, o);
+        for (int j = 0; j < VEC; ++j) o.v[j] = acc[p][j];
+        store_pack<VEC>(dtable + row * H + cl[p], o);
       }
     }
-    head_reduce(pbuf, hacc, t0, kTile, K, F, lane);
   }
-  for (int k = lane; k < K; k += 32) dast[row * K + k] = hacc[k] + dsum[k];
+  __syncwarp();
+  for (int k = lane; k < K; k += 32) {
+    float s = 0.f;
+    for (int l = 0; l < 32; ++l) s += dsacc[l * K + k];
+    dast[row * K + k] = s;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Backward over the forward CSR (row 11): dadl[v, k] = sum of dq[t_pos[e], k] over v's in-edges
+// e, one destination row per warp: lane l takes the edges l, l + 32, ... of the row, reads the
+// edge's position in the transpose (a coalesced load) and that dq row (K floats: one 16-, 8- or
+// 4-byte load for KV = K in {4, 2, 1}; KV = 0 takes any K, a head at a time), sums them in
+// edge order, then one warp reduction a head.  The order is fixed, so two runs give the same
+// bits.
+template <int KV>
+__global__ void gat_bwd_dst_rows(const int64_t* __restrict__ row_ptr,
+                                 const int32_t* __restrict__ t_pos, const float* __restrict__ dq,
+                                 float* __restrict__ dadl, int64_t rows, int K) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, wpb = blockDim.x >> 5;
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * wpb + warp;
+  if (row >= rows) return;
+  const int64_t beg = row_ptr[row], end = row_ptr[row + 1];
+  if constexpr (KV > 0) {
+    float acc[KV];
+#pragma unroll
+    for (int k = 0; k < KV; ++k) acc[k] = 0.f;
+#pragma unroll 4
+    for (int64_t e = beg + lane; e < end; e += 32) {
+      const float* r = dq + static_cast<int64_t>(t_pos[e]) * KV;
+      if constexpr (KV == 4) {
+        const float4 v = __ldcs(reinterpret_cast<const float4*>(r));
+        acc[0] += v.x; acc[1] += v.y; acc[2] += v.z; acc[3] += v.w;
+      } else if constexpr (KV == 2) {
+        const float2 v = __ldcs(reinterpret_cast<const float2*>(r));
+        acc[0] += v.x; acc[1] += v.y;
+      } else {
+        acc[0] += __ldcs(r);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < KV; ++k) {
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) acc[k] += __shfl_xor_sync(kFull, acc[k], off);
+    }
+    if (lane < KV) {
+      float s = acc[0];
+#pragma unroll
+      for (int k = 1; k < KV; ++k)
+        if (lane == k) s = acc[k];
+      dadl[row * KV + lane] = s;
+    }
+  } else {
+    for (int k = 0; k < K; ++k) {
+      float acc = 0.f;
+#pragma unroll 4
+      for (int64_t e = beg + lane; e < end; e += 32)
+        acc += __ldcs(dq + static_cast<int64_t>(t_pos[e]) * K + k);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(kFull, acc, off);
+      if (lane == 0) dadl[row * K + k] = acc;
+    }
+  }
 }
 
 // Warps per block so that the block's shared memory fits the static limit;
@@ -516,8 +548,6 @@ int launch(Kernel kernel, int64_t rows, int64_t floats_per_warp, cudaStream_t st
   kernel<<<grid, wpb * 32, smem, stream>>>(args...);
   return static_cast<int>(cudaGetLastError());
 }
-
-constexpr int tile_of(int vec) { return 32 * vec * kNP; }
 
 bool bad_shape(long long rows, int K, int F) { return rows <= 0 || K <= 0 || F <= 0; }
 
@@ -585,52 +615,67 @@ extern "C" int roc_gat_forward(const void* row_ptr, const void* col_idx, const v
 #undef ROC_GAT_FWD
 }
 
-extern "C" int roc_gat_bwd_dst(const void* row_ptr, const void* col_idx, const void* x,
-                               const void* as, const void* ad, const void* m, const void* du,
-                               const void* dz, void* dadl, long long rows, int K, int F, float slope,
-                               int vec, void* stream) {
-  if (bad_shape(rows, K, F)) return static_cast<int>(cudaErrorInvalidValue);
+extern "C" int roc_gat_bwd_dst(const void* row_ptr, const void* t_pos, const void* dq, void* dadl,
+                               long long rows, int K, void* stream) {
+  if (bad_shape(rows, K, 1)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t* rp = static_cast<const int64_t*>(row_ptr);
-  const int32_t* ci = static_cast<const int32_t*>(col_idx);
-  const float *xp = static_cast<const float*>(x), *asp = static_cast<const float*>(as),
-              *adp = static_cast<const float*>(ad), *mp = static_cast<const float*>(m),
-              *dup = static_cast<const float*>(du), *dzp = static_cast<const float*>(dz);
+  const int32_t* tp = static_cast<const int32_t*>(t_pos);
+  const float* dp = static_cast<const float*>(dq);
   float* op = static_cast<float*>(dadl);
-#define ROC_GAT_DST(V)                                                                         \
-  launch(gat_bwd_dst_rows<V>, rows, 36 * static_cast<int64_t>(K) + tile_of(V), s, rp, ci, xp, \
-         asp, adp, mp, dup, dzp, op, (int64_t)rows, K, F, slope)
-  switch (vec) {
-    case 4: return ROC_GAT_DST(4);
-    case 2: return ROC_GAT_DST(2);
-    case 1: return ROC_GAT_DST(1);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>((rows + kMaxWarps - 1) / kMaxWarps));
+  const int threads = kMaxWarps * 32;
+  switch (K) {
+    case 4: gat_bwd_dst_rows<4><<<grid, threads, 0, s>>>(rp, tp, dp, op, rows, K); break;
+    case 2: gat_bwd_dst_rows<2><<<grid, threads, 0, s>>>(rp, tp, dp, op, rows, K); break;
+    case 1: gat_bwd_dst_rows<1><<<grid, threads, 0, s>>>(rp, tp, dp, op, rows, K); break;
+    default: gat_bwd_dst_rows<0><<<grid, threads, 0, s>>>(rp, tp, dp, op, rows, K); break;
   }
-#undef ROC_GAT_DST
+  return static_cast<int>(cudaGetLastError());
 }
 
+// state is [N, P] (dz | ad | m | zeros), P = 3K rounded up to 4, 16-byte aligned; dq is
+// [E, K] in transposed edge order; vec divides F.
 extern "C" int roc_gat_bwd_src(const void* t_row_ptr, const void* t_col_idx, const void* x,
-                               const void* as, const void* ad, const void* m, const void* du,
-                               const void* dz, void* dtable, void* dast, long long rows, int K,
-                               int F, float slope, int round_bf16, int vec, void* stream) {
-  if (bad_shape(rows, K, F)) return static_cast<int>(cudaErrorInvalidValue);
+                               const void* as, const void* state, const void* du, void* dtable,
+                               void* dast, void* dq, long long rows, int K, int F, int P,
+                               float slope, int round_bf16, int vec, void* stream) {
+  if (bad_shape(rows, K, F) || P % 4 != 0 || P < 3 * K || F % vec != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t fpw = src_floats_per_warp(K, P);
+  constexpr int64_t kMaxSmem = 227 * 1024;
+  int64_t wpb = kMaxWarps;
+  while (wpb > 1 && wpb * fpw * 4 > kMaxSmem) wpb /= 2;
+  const int64_t smem = wpb * fpw * 4;
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>((rows + wpb - 1) / wpb));
+  const int threads = static_cast<int>(wpb) * 32;
   const int64_t* rp = static_cast<const int64_t*>(t_row_ptr);
   const int32_t* ci = static_cast<const int32_t*>(t_col_idx);
   const float *xp = static_cast<const float*>(x), *asp = static_cast<const float*>(as),
-              *adp = static_cast<const float*>(ad), *mp = static_cast<const float*>(m),
-              *dup = static_cast<const float*>(du), *dzp = static_cast<const float*>(dz);
-  float *tp = static_cast<float*>(dtable), *sp = static_cast<float*>(dast);
-#define ROC_GAT_SRC(V, R)                                                                         \
-  launch(gat_bwd_src_rows<V, R>, rows, 99 * static_cast<int64_t>(K) + tile_of(V), s, rp, ci, xp, \
-         asp, adp, mp, dup, dzp, tp, sp, (int64_t)rows, K, F, slope)
+              *stp = static_cast<const float*>(state), *dup = static_cast<const float*>(du);
+  float *tp = static_cast<float*>(dtable), *sp = static_cast<float*>(dast),
+        *qp = static_cast<float*>(dq);
+#define ROC_GAT_SRC(V, R)                                                                        \
+  do {                                                                                           \
+    auto kernel = gat_bwd_src_rows<V, R>;                                                        \
+    if (smem > kSmemBytes) {                                                                     \
+      const cudaError_t err = cudaFuncSetAttribute(                                              \
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));         \
+      if (err != cudaSuccess) return static_cast<int>(err);                                      \
+    }                                                                                            \
+    kernel<<<grid, threads, static_cast<size_t>(smem), s>>>(rp, ci, xp, asp, stp, dup, tp, sp,  \
+                                                            qp, (int64_t)rows, K, F, P, slope);  \
+    return static_cast<int>(cudaGetLastError());                                                 \
+  } while (0)
   switch (vec * 2 + (round_bf16 ? 1 : 0)) {
-    case 9: return ROC_GAT_SRC(4, true);
-    case 8: return ROC_GAT_SRC(4, false);
-    case 5: return ROC_GAT_SRC(2, true);
-    case 4: return ROC_GAT_SRC(2, false);
-    case 3: return ROC_GAT_SRC(1, true);
-    case 2: return ROC_GAT_SRC(1, false);
+    case 9: ROC_GAT_SRC(4, true);
+    case 8: ROC_GAT_SRC(4, false);
+    case 5: ROC_GAT_SRC(2, true);
+    case 4: ROC_GAT_SRC(2, false);
+    case 3: ROC_GAT_SRC(1, true);
+    case 2: ROC_GAT_SRC(1, false);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef ROC_GAT_SRC

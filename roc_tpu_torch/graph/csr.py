@@ -50,11 +50,18 @@ class Csr:
         return np.repeat(np.arange(self.num_nodes, dtype=V_DTYPE),
                          np.diff(self.row_ptr))
 
-    def transpose(self) -> "Csr":
+    def transpose_order(self) -> np.ndarray:
+        """The edge map of the transpose: its edge e' is this CSR's edge
+        ``order[e']`` (the stable argsort of ``col_idx``)."""
+        return np.argsort(self.col_idx, kind="stable")
+
+    def transpose(self, order: np.ndarray = None) -> "Csr":
         """Out-edge view as a CSR over sources: aggregating over it is the
         backward of aggregating over this one (stable, so equal element by
-        element to roc_tpu's transpose)."""
-        order = np.argsort(self.col_idx, kind="stable")
+        element to roc_tpu's transpose).  ``order`` is
+        :meth:`transpose_order`'s map, when the caller has it."""
+        if order is None:
+            order = self.transpose_order()
         new_col = self.dst_idx[order].astype(V_DTYPE)
         counts = np.bincount(self.col_idx, minlength=self.num_nodes)
         new_row = np.zeros(self.num_nodes + 1, dtype=E_DTYPE)

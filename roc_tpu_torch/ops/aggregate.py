@@ -43,20 +43,36 @@ class DeviceCsr(NamedTuple):
     being v's sources, and its transpose (``t_col_idx[t_row_ptr[u]:
     t_row_ptr[u+1]]`` are u's destinations): aggregating over the
     transpose is the backward of aggregating over the CSR.  A
-    forward-only user (serving) places no transpose."""
+    forward-only user (serving) places no transpose.  ``t_pos`` maps each
+    edge of the CSR to its position in the transpose (edge e, u -> v, is
+    transposed edge ``t_pos[e]`` of row u); only the GAT backward reads
+    it, so only a user that trains attention places it."""
     row_ptr: torch.Tensor                       # [N+1] int64
     col_idx: torch.Tensor                       # [E] int32
     t_row_ptr: Optional[torch.Tensor] = None    # [T+1] int64
     t_col_idx: Optional[torch.Tensor] = None    # [E] int32
+    t_pos: Optional[torch.Tensor] = None        # [E] int32
 
     @classmethod
-    def from_csr(cls, csr, device, transpose: bool = True) -> "DeviceCsr":
+    def from_csr(cls, csr, device, transpose: bool = True,
+                 edge_map: bool = False) -> "DeviceCsr":
         """A host ``Csr`` on ``device``, with its transpose (built once,
-        by ``Csr.transpose()``) unless ``transpose`` is False."""
+        by ``Csr.transpose()``) unless ``transpose`` is False, and with the
+        edge map ``t_pos`` (the inverse of the stable argsort of
+        ``col_idx`` that the host transpose computes) when ``edge_map`` is
+        True."""
+        if edge_map and not transpose:
+            raise ValueError("the edge map belongs to the transpose: "
+                             "edge_map=True needs transpose=True")
         arrays = [(csr.row_ptr, np.int64), (csr.col_idx, np.int32)]
         if transpose:
-            t = csr.transpose()
+            order = csr.transpose_order()
+            t = csr.transpose(order)
             arrays += [(t.row_ptr, np.int64), (t.col_idx, np.int32)]
+            if edge_map:
+                t_pos = np.empty(order.size, np.int32)
+                t_pos[order] = np.arange(order.size, dtype=np.int32)
+                arrays.append((t_pos, np.int32))
         return cls(*(torch.as_tensor(np.asarray(a, dt), device=device)
                      for a, dt in arrays))
 
@@ -71,6 +87,14 @@ class DeviceCsr(NamedTuple):
                                "(forward only): a backward needs "
                                "DeviceCsr.from_csr(..., transpose=True)")
         return self.t_row_ptr, self.t_col_idx
+
+    def edge_map(self) -> torch.Tensor:
+        """``t_pos``; raises for a CSR placed without it."""
+        if self.t_pos is None:
+            raise RuntimeError("this CSR was placed without its edge map "
+                               "into the transpose: the GAT backward needs "
+                               "DeviceCsr.from_csr(..., edge_map=True)")
+        return self.t_pos
 
 
 class _AggregateSum(torch.autograd.Function):

@@ -15,10 +15,12 @@ Two implementations, selected by the graph data's backend:
   gat_attend_kernel  an autograd Function, the counterpart of
                      ``gat_attend_binned`` / ``gat_attend_plan``: its forward
                      runs ``ops.kernels.gat``'s score and forward kernels and
-                     saves m and z; its backward runs ``gat_bwd_dst`` and
-                     ``gat_bwd_src`` and the oracle's epilogue
-                     (edge.py:636-639).  On the CPU the same Function runs
-                     the kernels' plain versions.
+                     saves m and z; its backward runs ``gat_bwd_src``
+                     (dtable, dast and the per-edge score gradient dq),
+                     then ``gat_bwd_dst`` (dq's sum per destination), and
+                     the oracle's epilogue (edge.py:636-639).  On the CPU
+                     the same Function runs the kernels' plain twins in the
+                     same order.
 
 The JAX package's ``GatPlans``, ``build_gat_plans``, ``_plan_sum``,
 ``_plan_max`` and ``_edge_contract`` are TPU schedules (host-built chunk
@@ -101,10 +103,12 @@ class _GatAttend(torch.autograd.Function):
         zc = torch.clamp_min(z, _Z_GUARD)
         du = (g / zc[:, :, None]).reshape(n, k * f).contiguous()
         dz = (-(g * out).sum(-1) / zc).contiguous()
-        dadl = gat_bwd_dst(x, as_t, ad_l, m, du, dz, csr.row_ptr,
-                           csr.col_idx, slope)
-        dtable, dast = gat_bwd_src(x, as_t, ad_l, m, du, dz,
-                                   *csr.transposed(), slope, precision)
+        # dq once per edge (src kernel, transposed order), then its sum
+        # over each destination's in-edges (dst kernel), as edge.py:478-482
+        dtable, dast, dq = gat_bwd_src(x, as_t, ad_l, m, du, dz,
+                                       *csr.transposed(), slope, precision)
+        dadl = gat_bwd_dst(dq, csr.edge_map(), csr.row_ptr, csr.col_idx)
+        del dq
         table = x.view(-1, k, f)
         dtable = dtable.view(-1, k, f) + dast[:, :, None] * a_src
         dh = dadl[:, :, None] * a_dst
@@ -117,7 +121,8 @@ def gat_attend_kernel(h, table, a_src, a_dst, csr: DeviceCsr, slope: float,
                       precision: str = "exact") -> torch.Tensor:
     """Multi-head GAT aggregation through the GAT kernels (their plain
     versions on the CPU), differentiable in h, table, a_src and a_dst; the
-    backward needs the CSR's transpose.  ``precision`` applies to the two
+    backward needs the CSR's transpose and its edge map
+    (``DeviceCsr.from_csr(..., edge_map=True)``).  ``precision`` applies to the two
     weighted feature sums only (out forward, dtable backward)."""
     check_precision(precision, h.dtype)
     return _GatAttend.apply(h, table, a_src, a_dst, csr, float(slope),

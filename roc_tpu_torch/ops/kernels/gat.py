@@ -16,14 +16,25 @@ of a TPU kernel (or of the score its body computes):
                                        m = max s, e = exp(s - m), z = sum e,
                                        out = sum e x[u] / max(z, 1e-15)
                                        (``_gat_max_kernel`` + ``_gat_sum_kernel``)
-  gat_bwd_dst(x, as_, ad, m, du, dz, row_ptr, col_idx, slope)
-                                       -> dadl [N, K] = sum over in-edges of
-                                       dq = e lrelu'(q) (sum_f du[v] x[u] + dz[v])
-                                       (``_gat_bwd_dst_kernel``)
   gat_bwd_src(x, as_, ad, m, du, dz, t_row_ptr, t_col_idx, slope, precision)
                                        -> (dtable [T, H] = sum over out-edges of
-                                       e du[v], dast [T, K] = sum of dq)
+                                       e du[v], dast [T, K] = sum of dq,
+                                       dq [E, K]): the per-edge score gradient
+                                       dq = e lrelu'(q) (sum_f du[v] x[u] + dz[v])
+                                       formed once, from the one gather of
+                                       du[v], in transposed edge order
                                        (``_gat_bwd_src_kernel``)
+  gat_bwd_dst(dq, t_pos, row_ptr, col_idx)
+                                       -> dadl [N, K] = sum of dq over in-edges:
+                                       forward edge e's row of dq is
+                                       dq[t_pos[e]] (``_gat_bwd_dst_kernel``)
+
+The backward runs src, then dst, as the JAX package's reference backward
+(``roc_tpu/ops/edge.py:_gat_plan_bwd``) forms dq once and sums it twice.
+``gat_bwd_dst_plain`` and ``gat_bwd_src_plain`` are the function's plain
+versions (dadl; dtable and dast); ``gat_bwd_src_dq_plain`` and
+``gat_dadl_plain`` are the plain twins of the two kernels, and
+``gat_dq_plain`` forms dq over the forward CSR, in its edge order.
 
 lrelu'(q) is 1 for q >= 0 and ``slope`` below, as in the JAX package
 (edge.py:479).  Precision contract (gat.py:433-438): "fast" gives the
@@ -62,9 +73,8 @@ def _bind(lib: ctypes.CDLL) -> None:
             ("roc_gat_score", [p, p, p, ll, i, i, i, p]),
             ("roc_gat_forward", [p, p, p, p, p, p, p, p, ll, i, i, f, i, i,
                                  p]),
-            ("roc_gat_bwd_dst", [p, p, p, p, p, p, p, p, p, ll, i, i, f, i,
-                                 p]),
-            ("roc_gat_bwd_src", [p, p, p, p, p, p, p, p, p, p, ll, i, i, f,
+            ("roc_gat_bwd_dst", [p, p, p, p, ll, i, p]),
+            ("roc_gat_bwd_src", [p, p, p, p, p, p, p, p, p, ll, i, i, i, f,
                                  i, i, p])):
         fn = getattr(lib, name)
         fn.argtypes = args
@@ -134,16 +144,39 @@ def _check_src_shapes(x, as_, ad, m, du, dz, t_row_ptr, t_col_idx) -> None:
     _check_f32(x, as_, ad, m, du, dz)
 
 
-def _edge_chunks(row_ptr: torch.Tensor, col_idx: torch.Tensor,
-                 width: int) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
-    """(row, col) int64 ids of each edge, in chunks whose gathered
-    [chunk, width] block stays near 2^25 elements."""
+def _check_edge_map(t_pos: torch.Tensor, col_idx: torch.Tensor) -> None:
+    if (t_pos.dim() != 1 or t_pos.dtype != torch.int32
+            or t_pos.numel() != col_idx.numel()
+            or t_pos.device != col_idx.device):
+        raise ValueError(f"t_pos must be the CSR's [E] int32 edge map "
+                         f"beside col_idx ({col_idx.numel()} edges on "
+                         f"{col_idx.device}), got {t_pos.dtype} of shape "
+                         f"{tuple(t_pos.shape)} on {t_pos.device}")
+
+
+def _check_dq(dq: torch.Tensor, t_pos: torch.Tensor, row_ptr: torch.Tensor,
+              col_idx: torch.Tensor) -> None:
+    """dq [E, K] float32, E the CSR's edges, and the edge map t_pos, on the
+    CSR's device."""
+    if dq.dim() != 2 or dq.shape[0] != col_idx.numel() or dq.shape[1] < 1:
+        raise ValueError(f"dq must be [E, K] with E = {col_idx.numel()}, "
+                         f"got {tuple(dq.shape)}")
+    _check_csr(dq, row_ptr, col_idx)
+    _check_f32(dq)
+    _check_edge_map(t_pos, col_idx)
+
+
+def _edge_spans(row_ptr: torch.Tensor, col_idx: torch.Tensor, width: int
+                ) -> Iterator[Tuple[slice, torch.Tensor, torch.Tensor]]:
+    """(span, row, col): the edges [lo, hi) as a slice and their int64 row
+    and column ids, in chunks whose gathered [chunk, width] block stays
+    near 2^25 elements."""
     num_edges = col_idx.numel()
     chunk = max(_CHUNK_TARGET_ELEMS // max(width, 1), 1024)
     for lo in range(0, num_edges, chunk):
         hi = min(lo + chunk, num_edges)
         e = torch.arange(lo, hi, dtype=row_ptr.dtype, device=row_ptr.device)
-        yield (torch.searchsorted(row_ptr, e, right=True) - 1,
+        yield (slice(lo, hi), torch.searchsorted(row_ptr, e, right=True) - 1,
                col_idx[lo:hi].long())
 
 
@@ -185,13 +218,13 @@ def gat_forward_plain(x, as_, ad, row_ptr, col_idx, slope: float = 0.2,
     k, f = _heads(x, as_)
     n, h = row_ptr.numel() - 1, x.shape[1]
     m = torch.full((n, k), float("-inf"), device=x.device)
-    for rows, cols in _edge_chunks(row_ptr, col_idx, k):
+    for _, rows, cols in _edge_spans(row_ptr, col_idx, k):
         s = _lrelu(ad[rows] + as_[cols], slope)
         m.scatter_reduce_(0, rows[:, None].expand(-1, k), s, "amax")
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     z = torch.zeros((n, k), device=x.device)
     u = torch.zeros((n, h), device=x.device)
-    for rows, cols in _edge_chunks(row_ptr, col_idx, h):
+    for _, rows, cols in _edge_spans(row_ptr, col_idx, h):
         e = torch.exp(_lrelu(ad[rows] + as_[cols], slope) - m[rows])
         z.index_add_(0, rows, e)
         t = (e[:, :, None] * x[cols].view(-1, k, f)).view(-1, h)
@@ -213,7 +246,7 @@ def gat_bwd_dst_plain(x, as_, ad, m, du, dz, row_ptr, col_idx,
                   {"du": du})
     k, f = _heads(x, as_)
     dadl = torch.zeros((row_ptr.numel() - 1, k), device=x.device)
-    for rows, cols in _edge_chunks(row_ptr, col_idx, x.shape[1]):
+    for _, rows, cols in _edge_spans(row_ptr, col_idx, x.shape[1]):
         q = ad[rows] + as_[cols]
         e = torch.exp(_lrelu(q, slope) - m[rows])
         dadl.index_add_(0, rows, _dq(q, e, du[rows], x[cols], dz[rows], k, f,
@@ -221,25 +254,72 @@ def gat_bwd_dst_plain(x, as_, ad, m, du, dz, row_ptr, col_idx,
     return dadl
 
 
-def gat_bwd_src_plain(x, as_, ad, m, du, dz, t_row_ptr, t_col_idx,
-                      slope: float = 0.2, precision: str = "exact"):
-    """(dtable, dast) over the transposed CSR (row u, its destinations v),
-    on any device."""
+def _src_plain(x, as_, ad, m, du, dz, t_row_ptr, t_col_idx, slope,
+               precision, with_dq: bool):
+    """dtable, dast and, when asked, dq in transposed edge order."""
     _check_src_shapes(x, as_, ad, m, du, dz, t_row_ptr, t_col_idx)
     check_precision(precision, x.dtype)
     k, f = _heads(x, as_)
     t, h = x.shape
     dtable = torch.zeros((t, h), device=x.device)
     dast = torch.zeros((t, k), device=x.device)
-    for rows, cols in _edge_chunks(t_row_ptr, t_col_idx, h):
+    dq = (torch.empty((t_col_idx.numel(), k), device=x.device) if with_dq
+          else None)
+    for span, rows, cols in _edge_spans(t_row_ptr, t_col_idx, h):
         q = ad[cols] + as_[rows]
         e = torch.exp(_lrelu(q, slope) - m[cols])
         g = du[cols]
         prod = (e[:, :, None] * g.view(-1, k, f)).view(-1, h)
         dtable.index_add_(0, rows, _round(prod, precision))
-        dast.index_add_(0, rows, _dq(q, e, g, x[rows], dz[cols], k, f,
-                                     slope))
-    return dtable, dast
+        dqc = _dq(q, e, g, x[rows], dz[cols], k, f, slope)
+        dast.index_add_(0, rows, dqc)
+        if dq is not None:
+            dq[span] = dqc
+    return dtable, dast, dq
+
+
+def gat_bwd_src_plain(x, as_, ad, m, du, dz, t_row_ptr, t_col_idx,
+                      slope: float = 0.2, precision: str = "exact"):
+    """(dtable, dast) over the transposed CSR (row u, its destinations v),
+    on any device."""
+    return _src_plain(x, as_, ad, m, du, dz, t_row_ptr, t_col_idx, slope,
+                      precision, False)[:2]
+
+
+def gat_bwd_src_dq_plain(x, as_, ad, m, du, dz, t_row_ptr, t_col_idx,
+                         slope: float = 0.2, precision: str = "exact"):
+    """The plain twin of the src kernel, on any device: (dtable, dast) as
+    :func:`gat_bwd_src_plain`, and dq [E, K], each edge's score gradient
+    in transposed edge order."""
+    return _src_plain(x, as_, ad, m, du, dz, t_row_ptr, t_col_idx, slope,
+                      precision, True)
+
+
+def gat_dq_plain(x, as_, ad, m, du, dz, row_ptr, col_idx,
+                 slope: float = 0.2) -> torch.Tensor:
+    """dq [E, K] over the forward CSR, in its edge order, on any device."""
+    _check_shapes(x, as_, ad, row_ptr, col_idx, {"m": m, "dz": dz},
+                  {"du": du})
+    k, f = _heads(x, as_)
+    dq = torch.empty((col_idx.numel(), k), device=x.device)
+    for span, rows, cols in _edge_spans(row_ptr, col_idx, x.shape[1]):
+        q = ad[rows] + as_[cols]
+        e = torch.exp(_lrelu(q, slope) - m[rows])
+        dq[span] = _dq(q, e, du[rows], x[cols], dz[rows], k, f, slope)
+    return dq
+
+
+def gat_dadl_plain(dq: torch.Tensor, t_pos: torch.Tensor,
+                   row_ptr: torch.Tensor, col_idx: torch.Tensor
+                   ) -> torch.Tensor:
+    """The plain twin of the dst kernel, on any device: dadl [N, K], the
+    sum over each destination's in-edges e of dq[t_pos[e]] (dq in
+    transposed edge order)."""
+    _check_dq(dq, t_pos, row_ptr, col_idx)
+    dadl = torch.zeros((row_ptr.numel() - 1, dq.shape[1]), device=dq.device)
+    for span, rows, _ in _edge_spans(row_ptr, col_idx, dq.shape[1]):
+        dadl.index_add_(0, rows, dq[t_pos[span].long()])
+    return dadl
 
 
 # -- the kernels ------------------------------------------------------------
@@ -263,8 +343,9 @@ def _csr_int64(row_ptr: torch.Tensor) -> None:
 
 
 def _vec_width(h: int, *packed: torch.Tensor) -> int:
-    """Widest vector (floats per lane) that divides H and keeps every row
-    start of each tensor read or written in packs aligned."""
+    """Widest vector (floats per lane) that divides ``h`` (H, or F where a
+    pack must lie in one head) and keeps every row start of each tensor
+    read or written in packs aligned."""
     for v in (4, 2, 1):
         if h % v == 0 and all(t.data_ptr() % (v * 4) == 0 for t in packed):
             return v
@@ -327,38 +408,26 @@ def gat_forward(x, as_, ad, row_ptr, col_idx, slope: float = 0.2,
     return out, m, z
 
 
-def gat_bwd_dst(x, as_, ad, m, du, dz, row_ptr, col_idx,
-                slope: float = 0.2) -> torch.Tensor:
-    """dadl [N, K] over the in-edge CSR.  Launches the CUDA kernel for CUDA
-    tensors, runs the plain version for CPU tensors."""
-    if x.device.type == "cpu":
-        return gat_bwd_dst_plain(x, as_, ad, m, du, dz, row_ptr, col_idx,
-                                 slope)
-    _check_shapes(x, as_, ad, row_ptr, col_idx, {"m": m, "dz": dz},
-                  {"du": du})
-    _require_cuda("gat_bwd_dst", x, as_, ad, m, du, dz, row_ptr, col_idx)
-    _csr_int64(row_ptr)
-    k, f = _heads(x, as_)
-    n = row_ptr.numel() - 1
-    dadl = torch.empty((n, k), device=x.device)
-    if n == 0:
-        return dadl
-    _launch("gat_bwd_dst", LIBRARY.load().roc_gat_bwd_dst,
-            row_ptr.data_ptr(), col_idx.data_ptr(), x.data_ptr(),
-            as_.data_ptr(), ad.data_ptr(), m.data_ptr(), du.data_ptr(),
-            dz.data_ptr(), dadl.data_ptr(), n, k, f, float(slope),
-            _vec_width(x.shape[1], x), x.device)
-    gat_bwd_dst.launches += 1
-    return dadl
+def _state_rows(dz: torch.Tensor, ad: torch.Tensor,
+               m: torch.Tensor) -> torch.Tensor:
+    """[N, P] rows (dz | ad | m | 0), P = 3K rounded up to 4: each
+    destination's state as the src kernel loads it, in 16-byte packs."""
+    n, k = dz.shape
+    st = torch.empty((n, (3 * k + 3) // 4 * 4), device=dz.device)
+    for i, t in enumerate((dz, ad, m)):
+        st[:, i * k:(i + 1) * k] = t
+    st[:, 3 * k:] = 0
+    return st
 
 
 def gat_bwd_src(x, as_, ad, m, du, dz, t_row_ptr, t_col_idx,
                 slope: float = 0.2, precision: str = "exact"):
-    """(dtable [T, H], dast [T, K]) over the transposed CSR.  Launches the
-    CUDA kernel for CUDA tensors, runs the plain version for CPU tensors."""
+    """(dtable [T, H], dast [T, K], dq [E, K]) over the transposed CSR,
+    dq in its edge order.  Launches the CUDA kernel for CUDA tensors, runs
+    the plain twin for CPU tensors."""
     if x.device.type == "cpu":
-        return gat_bwd_src_plain(x, as_, ad, m, du, dz, t_row_ptr, t_col_idx,
-                                 slope, precision)
+        return gat_bwd_src_dq_plain(x, as_, ad, m, du, dz, t_row_ptr,
+                                    t_col_idx, slope, precision)
     _check_src_shapes(x, as_, ad, m, du, dz, t_row_ptr, t_col_idx)
     check_precision(precision, x.dtype)
     _require_cuda("gat_bwd_src", x, as_, ad, m, du, dz, t_row_ptr, t_col_idx)
@@ -367,16 +436,42 @@ def gat_bwd_src(x, as_, ad, m, du, dz, t_row_ptr, t_col_idx,
     t, h = x.shape
     dtable = torch.empty((t, h), device=x.device)
     dast = torch.empty((t, k), device=x.device)
+    dq = torch.empty((t_col_idx.numel(), k), device=x.device)
     if t == 0:
-        return dtable, dast
+        return dtable, dast, dq
+    st = _state_rows(dz, ad, m)
     _launch("gat_bwd_src", LIBRARY.load().roc_gat_bwd_src,
             t_row_ptr.data_ptr(), t_col_idx.data_ptr(), x.data_ptr(),
-            as_.data_ptr(), ad.data_ptr(), m.data_ptr(), du.data_ptr(),
-            dz.data_ptr(), dtable.data_ptr(), dast.data_ptr(), t, k, f,
+            as_.data_ptr(), st.data_ptr(), du.data_ptr(), dtable.data_ptr(),
+            dast.data_ptr(), dq.data_ptr(), t, k, f, st.shape[1],
             float(slope), int(precision == "fast"),
-            _vec_width(h, du, dtable), x.device)
+            _vec_width(f, x, du, dtable), x.device)
     gat_bwd_src.launches += 1
-    return dtable, dast
+    return dtable, dast, dq
+
+
+def gat_bwd_dst(dq: torch.Tensor, t_pos: torch.Tensor, row_ptr: torch.Tensor,
+                col_idx: torch.Tensor) -> torch.Tensor:
+    """dadl [N, K], the sum over each destination's in-edges e of
+    dq[t_pos[e]] (dq [E, K] in transposed edge order, as ``gat_bwd_src``
+    gives it).  Launches the CUDA kernel for CUDA tensors, runs the plain
+    twin for CPU tensors."""
+    if dq.device.type == "cpu":
+        return gat_dadl_plain(dq, t_pos, row_ptr, col_idx)
+    _check_dq(dq, t_pos, row_ptr, col_idx)
+    _require_cuda("gat_bwd_dst", dq, t_pos, row_ptr, col_idx)
+    _csr_int64(row_ptr)
+    if dq.data_ptr() % 16:
+        raise ValueError("gat_bwd_dst: dq must start 16-byte aligned")
+    n, k = row_ptr.numel() - 1, dq.shape[1]
+    dadl = torch.empty((n, k), device=dq.device)
+    if n == 0:
+        return dadl
+    _launch("gat_bwd_dst", LIBRARY.load().roc_gat_bwd_dst,
+            row_ptr.data_ptr(), t_pos.data_ptr(), dq.data_ptr(),
+            dadl.data_ptr(), n, k, dq.device)
+    gat_bwd_dst.launches += 1
+    return dadl
 
 
 gat_score.launches = 0

@@ -43,7 +43,8 @@ from roc_tpu_torch.optim.adam import Adam
 from roc_tpu_torch.train import checkpoint
 from roc_tpu_torch.train.config import Config
 from roc_tpu_torch.train.graph_data import (dense_graph_data,
-                                            effective_backend, make_gctx)
+                                            effective_backend, make_gctx,
+                                            model_has_gat)
 
 
 @dataclasses.dataclass
@@ -92,9 +93,10 @@ class Trainer:
 
     def _setup(self):
         cfg, ds, dev = self.config, self.dataset, self.device
+        backend = effective_backend(cfg, self.model, dev)
         self.gdata = dense_graph_data(
-            ds.graph, effective_backend(cfg, self.model, dev),
-            cfg.aggregate_precision, dev)
+            ds.graph, backend, cfg.aggregate_precision, dev,
+            edge_map=backend == "kernel" and model_has_gat(self.model))
         self.gctx = make_gctx(self.gdata, cfg.megafuse, cfg.fusion_depth)
         self.x = torch.as_tensor(ds.features, dtype=torch.float32,
                                  device=dev)

@@ -96,18 +96,20 @@ def effective_backend(config: Config, model: Model,
 
 
 def dense_graph_data(graph, backend: str, precision: str,
-                     device: torch.device,
-                     transpose: bool = True) -> DenseGraphData:
+                     device: torch.device, transpose: bool = True,
+                     edge_map: bool = False) -> DenseGraphData:
     """Validate ``graph`` (a host Csr) once and put it on ``device``, with
     its transpose unless ``transpose`` is False (forward-only users: the
-    host transpose of a Reddit-size graph takes seconds)."""
+    host transpose of a Reddit-size graph takes seconds), and with the
+    transpose's edge map when ``edge_map`` is True (a GAT model trained on
+    the kernel backend: [E] int32, 94 MB at Reddit)."""
     if backend not in ("kernel", "xla"):
         raise ValueError(f"backend={backend!r}: kernel|xla")
     if precision not in ("fast", "exact"):
         raise ValueError(f"precision={precision!r}: fast|exact")
     graph.validate()
     return DenseGraphData(
-        csr=ops.DeviceCsr.from_csr(graph, device, transpose),
+        csr=ops.DeviceCsr.from_csr(graph, device, transpose, edge_map),
         in_degree=torch.as_tensor(graph.in_degrees, dtype=torch.float32,
                                   device=device),
         backend=backend, precision=precision)

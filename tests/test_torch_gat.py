@@ -101,7 +101,8 @@ def _setup(monkeypatch, n=150, seed=3):
                                      g.num_nodes, geom="auto",
                                      fuse_linear=True)
     eidx = (jnp.asarray(g.col_idx), jnp.asarray(g.dst_idx))
-    return g, gplans, bplans, eidx, ops.DeviceCsr.from_csr(pg, "cpu")
+    return g, gplans, bplans, eidx, ops.DeviceCsr.from_csr(pg, "cpu",
+                                                           edge_map=True)
 
 
 def _spy(monkeypatch, name):
@@ -291,8 +292,17 @@ def test_plain_backward_kernels_match_the_pallas_grids(monkeypatch,
     dtable, dast = G.gat_bwd_src_plain(x, as_t, ad, m, du, dz,
                                        csr.t_row_ptr, csr.t_col_idx, SLOPE,
                                        precision)
+    # the composed plain backward, the kernels' order: the src twin (dtable,
+    # dast, dq in transposed order), then dq's sum per destination
+    ctable, cast, dq = G.gat_bwd_src_dq_plain(
+        x, as_t, ad, m, du, dz, csr.t_row_ptr, csr.t_col_idx, SLOPE,
+        precision)
+    cadl = G.gat_dadl_plain(dq, csr.t_pos, csr.row_ptr, csr.col_idx)
     for name, a, b in (("dtable", want[0], dtable.view(n, k, f)),
-                       ("dast", want[1], dast), ("dadl", want[2], dadl)):
+                       ("dast", want[1], dast), ("dadl", want[2], dadl),
+                       ("composed dtable", want[0], ctable.view(n, k, f)),
+                       ("composed dast", want[1], cast),
+                       ("composed dadl", want[2], cadl)):
         print(f"{precision} {name}: {norm_ulps(a, b.numpy()):.2f} norm-ULPs")
         assert norm_ulps(a, b.numpy()) <= 32, name
 
@@ -346,7 +356,7 @@ def test_isolated_node_gives_zero_output_and_finite_residuals():
     src, dst = src[keep], dst[keep]
     g, jg = from_edges(n, src, dst), jfrom_edges(n, src, dst)
     assert g.row_ptr[6] == g.row_ptr[5]
-    csr = ops.DeviceCsr.from_csr(g, "cpu")
+    csr = ops.DeviceCsr.from_csr(g, "cpu", edge_map=True)
     h, a_src, a_dst = _gaussian(n, k, f, seed=4)
     x = torch.as_tensor(h).view(n, k * f)
     as_t = G.gat_score_plain(x, torch.as_tensor(a_src))
@@ -555,9 +565,10 @@ def test_attention_takes_the_kernel_path_on_cuda(monkeypatch):
 
 @pytest.mark.parametrize("device", ["cpu", "meta"])
 def test_backward_wrappers_reject_mis_shaped_node_tensors(device):
-    """du must be [N, H] and m, dz [N, K]: the kernels read N * H floats of
-    du, so a [N, K] du must be refused before any launch (on "meta" the
-    wrappers take their kernel branch, which checks shapes first)."""
+    """du must be [N, H] and m, dz [N, K]: the src kernel reads N * H
+    floats of du, so a [N, K] du must be refused before any launch (on
+    "meta" the wrappers take their kernel branch, which checks shapes
+    first); the plain dadl takes the same checks."""
     n, k, f = 4, 2, 3
     x = torch.zeros((n, k * f), device=device)
     s = torch.zeros((n, k), device=device)
@@ -566,9 +577,30 @@ def test_backward_wrappers_reject_mis_shaped_node_tensors(device):
     for du, m in ((s, s), (x, x)):
         bad = "du" if du is s else "m"
         with pytest.raises(ValueError, match=f"{bad} must be"):
-            G.gat_bwd_dst(x, s, s, m, du, s, rp, ci)
+            G.gat_bwd_dst_plain(x, s, s, m, du, s, rp, ci)
         with pytest.raises(ValueError, match=f"{bad} must be"):
             G.gat_bwd_src(x, s, s, m, du, s, rp, ci)
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_dst_wrapper_rejects_a_mis_shaped_dq(device):
+    """dq must be [E, K] float32 over the CSR's E edges, and t_pos the
+    CSR's [E] int32 edge map: the dst kernel reads a K-float row of dq
+    for each of the E entries of t_pos."""
+    e, k = 6, 2
+    rp = torch.tensor([0, 2, 2, 5, 6], dtype=torch.int64, device=device)
+    ci = torch.zeros(e, dtype=torch.int32, device=device)
+    t_pos = torch.arange(e, dtype=torch.int32, device=device)
+    for bad in (torch.zeros((e + 1, k)), torch.zeros((e - 1, k)),
+                torch.zeros((e * k,)), torch.zeros((e, 0)),
+                torch.zeros((e, k), dtype=torch.float64)):
+        with pytest.raises(ValueError, match="dq must be|float32"):
+            G.gat_bwd_dst(bad.to(device), t_pos, rp, ci)
+    for bad in (torch.zeros(e - 1, dtype=torch.int32),
+                torch.zeros(e, dtype=torch.int64)):
+        with pytest.raises(ValueError, match="t_pos must be"):
+            G.gat_bwd_dst(torch.zeros((e, k), device=device),
+                          bad.to(device), rp, ci)
 
 
 def test_only_cpu_tensors_take_the_plain_versions():
@@ -577,9 +609,158 @@ def test_only_cpu_tensors_take_the_plain_versions():
     s = torch.zeros((4, 2), device="meta")
     rp = torch.zeros(5, dtype=torch.int64, device="meta")
     ci = torch.zeros(0, dtype=torch.int32, device="meta")
+    dq = torch.zeros((0, 2), device="meta")
     for call in (lambda: G.gat_score(t, torch.zeros((2, 2), device="meta")),
                  lambda: G.gat_forward(t, s, s, rp, ci),
-                 lambda: G.gat_bwd_dst(t, s, s, s, t, s, rp, ci),
+                 lambda: G.gat_bwd_dst(dq, ci, rp, ci),
                  lambda: G.gat_bwd_src(t, s, s, s, t, s, rp, ci)):
         with pytest.raises(ValueError, match="cuda or cpu"):
             call()
+
+
+# -- the edge map and the new backward's steps -------------------------------
+
+def _map_graphs():
+    """A graph with parallel edges (1 -> 2 three times), self edges, an
+    isolated row (4: no in-edges), a row with no out-edges (3), and an
+    empty graph."""
+    src = np.array([1, 1, 1, 0, 2, 2, 3, 0, 5, 5, 0], np.int32)
+    dst = np.array([2, 2, 2, 0, 2, 0, 1, 5, 5, 1, 3], np.int32)
+    src[6] = 2          # row 3 sends nothing
+    return [from_edges(6, src, dst), from_edges(6, src[:0], dst[:0]),
+            from_edges(0, src[:0], dst[:0])]
+
+
+@pytest.mark.parametrize("which", [0, 1, 2], ids=["mixed", "edgeless",
+                                                  "empty"])
+def test_edge_map_is_the_transposes_permutation(which):
+    """t_pos[e] is forward edge e's position in the transpose: a
+    permutation, the inverse of the transpose's stable order (which gives
+    the same map on the card as torch.argsort(col_idx, stable=True))."""
+    g = _map_graphs()[which]
+    csr = ops.DeviceCsr.from_csr(g, "cpu", edge_map=True)
+    t_pos = csr.edge_map()
+    e = g.num_edges
+    assert t_pos.dtype == torch.int32 and t_pos.shape == (e,)
+    # a permutation of the edges
+    assert torch.equal(torch.sort(t_pos.long()).values, torch.arange(e))
+    order = torch.argsort(csr.col_idx.long(), stable=True)
+    assert torch.equal(order[t_pos.long()], torch.arange(e))
+    # forward edge e (u -> v) sits in the transpose's row u ...
+    t_rows = torch.repeat_interleave(torch.arange(g.num_nodes),
+                                     torch.diff(csr.t_row_ptr))
+    assert torch.equal(t_rows[t_pos.long()], csr.col_idx.long())
+    # ... as the transposed edge to v
+    dst = torch.as_tensor(g.dst_idx.astype(np.int64))
+    assert torch.equal(csr.t_col_idx[t_pos.long()].long(), dst)
+    if which == 0:
+        assert g.row_ptr[5] == g.row_ptr[4]                      # isolated
+        assert csr.t_row_ptr[4] == csr.t_row_ptr[3]              # no out
+        assert (g.col_idx == g.dst_idx).any()                    # self edge
+        assert (np.unique(np.stack([g.col_idx, g.dst_idx]), axis=1).shape[1]
+                < e)                                             # parallel
+
+
+def test_edge_map_is_placed_only_where_attention_trains():
+    """The forward-only CSR and the default CSR carry no map, and the GAT
+    backward refuses a CSR without it; the trainer places it for a GAT
+    model on the kernel backend only."""
+    g = _map_graphs()[0]
+    assert ops.DeviceCsr.from_csr(g, "cpu").t_pos is None
+    with pytest.raises(ValueError, match="edge_map"):
+        ops.DeviceCsr.from_csr(g, "cpu", transpose=False, edge_map=True)
+    with pytest.raises(RuntimeError, match="edge map"):
+        ops.DeviceCsr.from_csr(g, "cpu").edge_map()
+    ts = [torch.randn((6, 2, 3), requires_grad=True) for _ in range(2)] + \
+        [torch.randn((2, 3), requires_grad=True) for _ in range(2)]
+    out = ops.gat_attend_kernel(*ts, ops.DeviceCsr.from_csr(g, "cpu"), SLOPE)
+    with pytest.raises(RuntimeError, match="edge map"):
+        out.sum().backward()
+    for model, backend, want in (("gat", "binned", True),
+                                 ("gat", "xla", False),
+                                 ("gcn", "binned", False)):
+        cfg = Config(dataset="mega-shard", layers=_LAYERS, device="cpu",
+                     aggregate_backend=backend,
+                     **{**_TRAIN, "model": model})
+        tr = Trainer(cfg, datasets.get("mega-shard", seed=1),
+                     build_model(model, _LAYERS, 0.0, heads=2))
+        assert (tr.gdata.csr.t_pos is not None) == want, (model, backend)
+
+
+def _bwd_inputs(n, k, f, csr, integer, seed):
+    """Seeded residuals of the backward: x, as, ad, m, du, dz."""
+    rng = np.random.default_rng(seed)
+    if integer:
+        h = rng.integers(0, 8, size=(n, k * f))
+        a_src = np.zeros((k, f))
+        a_dst = rng.integers(0, 3, size=(k, f))
+        du = rng.integers(-4, 5, size=(n, k * f))
+        dz = rng.integers(-4, 5, size=(n, k))
+    else:
+        h, a_src, a_dst, du, dz = (rng.normal(size=s) for s in (
+            (n, k * f), (k, f), (k, f), (n, k * f), (n, k)))
+    x, a_src, a_dst, du, dz = (torch.as_tensor(np.asarray(v, np.float32))
+                               for v in (h, a_src, a_dst, du, dz))
+    as_t, ad = G.gat_score_plain(x, a_src), G.gat_score_plain(x, a_dst)
+    m = G.gat_forward_plain(x, as_t, ad, csr.row_ptr, csr.col_idx, SLOPE)[1]
+    return x, as_t, ad, m, du, dz
+
+
+@pytest.mark.parametrize("integer", [True, False], ids=["int", "gauss"])
+@pytest.mark.parametrize("k,f", [(2, 4), (3, 5), (1, 41)])
+def test_dq_twins_and_their_segmented_sum(monkeypatch, k, f, integer):
+    """The per-edge score gradient: ``gat_dq_plain`` is roc_tpu's ``_dq``
+    formula on the forward edge order (edge.py:478-479, in jax at
+    "highest"), the src twin gives the same bits in transposed order (row
+    t_pos[e] of its dq is forward edge e's), and ``gat_dadl_plain``'s sum
+    of it over each destination's in-edges gives
+    ``gat_bwd_dst_plain``'s dadl (within 1e-6 of each row's max-abs;
+    bitwise on integer data, where e = 1 and lrelu' = 1)."""
+    g, _, _, _, csr = _setup(monkeypatch)
+    n = g.num_nodes
+    x, as_t, ad, m, du, dz = _bwd_inputs(n, k, f, csr, integer, 17)
+    dq = G.gat_dq_plain(x, as_t, ad, m, du, dz, csr.row_ptr, csr.col_idx,
+                        SLOPE)
+    assert dq.shape == (g.num_edges, k) and dq.dtype == torch.float32
+    # roc_tpu's per-edge form on the same residuals
+    src, dst = g.col_idx, g.dst_idx
+    jq = jnp.asarray(ad.numpy())[dst] + jnp.asarray(as_t.numpy())[src]
+    je = jnp.exp(jnp.where(jq >= 0, jq, SLOPE * jq)
+                 - jnp.asarray(m.numpy())[dst])
+    jde = jnp.einsum("ekf,ekf->ek",
+                     jnp.asarray(du.numpy()).reshape(n, k, f)[dst],
+                     jnp.asarray(x.numpy()).reshape(n, k, f)[src],
+                     precision="highest") + jnp.asarray(dz.numpy())[dst]
+    want = np.asarray(je * jde * jnp.where(jq >= 0, 1.0, SLOPE))
+    if integer:
+        np.testing.assert_array_equal(dq.numpy(), want)
+    else:
+        assert norm_ulps(want, dq.numpy()) <= 32
+    _, _, tq = G.gat_bwd_src_dq_plain(x, as_t, ad, m, du, dz, csr.t_row_ptr,
+                                      csr.t_col_idx, SLOPE)
+    np.testing.assert_array_equal(tq[csr.t_pos.long()].numpy().view(np.int32),
+                                  dq.numpy().view(np.int32))
+    dadl = G.gat_dadl_plain(tq, csr.t_pos, csr.row_ptr, csr.col_idx)
+    ref = G.gat_bwd_dst_plain(x, as_t, ad, m, du, dz, csr.row_ptr,
+                              csr.col_idx, SLOPE)
+    if integer:
+        assert torch.equal(dadl, ref)
+    else:
+        assert _row_rel_err(dadl.numpy(), ref.numpy()) <= 1e-6
+
+
+def test_backward_twins_on_an_isolated_row_and_a_silent_source():
+    """A destination with no in-edges gets dadl = 0; a source with no
+    out-edges gets dtable = 0 and dast = 0; every dq slot is written."""
+    g = _map_graphs()[0]
+    csr = ops.DeviceCsr.from_csr(g, "cpu", edge_map=True)
+    x, as_t, ad, m, du, dz = _bwd_inputs(6, 2, 3, csr, False, 2)
+    dtable, dast, dq = G.gat_bwd_src(x, as_t, ad, m, du, dz, csr.t_row_ptr,
+                                     csr.t_col_idx, SLOPE)
+    dadl = G.gat_bwd_dst(dq, csr.t_pos, csr.row_ptr, csr.col_idx)
+    assert torch.equal(dadl[4], torch.zeros(2))
+    assert torch.equal(dtable[3], torch.zeros(6))
+    assert torch.equal(dast[3], torch.zeros(2))
+    assert bool(torch.isfinite(dq).all()) and bool((dq != 0).all())
+    assert torch.equal(dq[csr.t_pos.long()], G.gat_dq_plain(
+        x, as_t, ad, m, du, dz, csr.row_ptr, csr.col_idx, SLOPE))
