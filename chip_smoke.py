@@ -74,11 +74,16 @@ Phases, each printing one JSON line per record:
           stage_cotangent and no aggregate_sum with -megafuse
   ab      the same model in exact, dropout 0, 3 epochs from the same
           params, -megafuse vs unfused: final loss within 1e-3 relative
-  kernel  (gat) the four GAT entry points (gat_score, gat_forward,
-          gat_bwd_dst, gat_bwd_src) against their plain versions on the
+  kernel  (gat) the GAT entry points (gat_score, gat_forward, gat_bwd_dst,
+          gat_bwd_src, and gat_stage, the fp32 plane the forward first
+          stages a single head of 41 columns into, aggregate_sum.cu's
+          staging kernel in fp32) against their plain versions on the
           card: first on a small graph with a hub row and an isolated node
           at ragged head shapes (K, F) = (3, 5), (8, 8), (40, 2), (2, 200),
-          (1, 41), (4, 64); then on the Reddit graph at the layer-1 (K=4,
+          (4, 6), (2, 2), (1, 41), (4, 64), and gat_forward also on a graph
+          with a hub row of 20,000 in-edges, on x and on a column slice of
+          a wider tensor (rows not 16-byte aligned), against the plain
+          version on the CPU; then on the Reddit graph at the layer-1 (K=4,
           F=64) and layer-2 (K=1, F=41) shapes, both precisions.  The
           backward is two kernels: gat_bwd_src gives dtable, dast and the
           per-edge score gradient dq (held against gat_dq_plain), and
@@ -101,7 +106,13 @@ Phases, each printing one JSON line per record:
           then torch.sparse.mm, for the dst kernel index_add_ of dq over
           the transposed edges' destinations, none for the src kernel;
           bound = compulsory bytes / 3.35 TB/s vs operations / 67 TFLOP/s
-          fp32, the larger, of each kernel's own work.  Both backward rows
+          fp32, the larger, of each kernel's own work.  The forward row
+          carries its geometry (forward_geometry: floats a pack, lanes a
+          row, packs a lane, staged or not), its instantiation's ptxas and,
+          where it stages, the staging's time alone (stage_ms) and its
+          ptxas; the gat_stage row has its own, with
+          torch.nn.functional.pad as the library call;
+          both backward rows
           carry the build's ptxas and the pair: pair_ms (src + dst), the
           whole backward's bound (pair_bound_ms, each edge's dot counted
           once) and its one library composition (pair_library_ms:
@@ -110,11 +121,12 @@ Phases, each printing one JSON line per record:
           exact, dropout 0, 3 epochs, card vs CPU: within 1e-5
   serve_gat  ServeEngine with GAT 602-64-41 (4 heads) on the Reddit graph,
           fast, seeded weights: 40 requests; the score and forward kernels
-          each ran twice per forward; served rows vs predict_logits <= 32
-          ULPs
+          each ran twice per forward and the staging once; served rows vs
+          predict_logits <= 32 ULPs
   train_gat  the Trainer with GAT 602-64-41 (4 heads) on the Reddit graph,
           fast, -lr 0.01 -decay 0.0001 -dropout 0.5, 10 epochs: as train,
-          with 2 launches per step of each GAT kernel and no aggregate_sum
+          with 2 launches per step of each GAT kernel, 1 of gat_stage and
+          no aggregate_sum
 
   kernel_xlayer_shapes  the region kernels (xlayer_fwd, xlayer_bwd) against
           their plain versions on a small graph with a hub row of 700
@@ -936,8 +948,10 @@ def _gat_bwd_library(csr, n, dev):
 
 
 # (K, F): K*F not a multiple of 4 or 32, K above 32, H above one 256-column
-# tile, and the full-width model's two layers
-GAT_SHAPES = ((3, 5), (8, 8), (40, 2), (2, 200), (1, 41), (4, 64))
+# tile, H a multiple of 4 whose F is not (a 4-float pack would straddle two
+# heads), and the full-width model's two layers
+GAT_SHAPES = ((3, 5), (8, 8), (40, 2), (2, 200), (4, 6), (2, 2), (1, 41),
+              (4, 64))
 
 
 def _same_bits(a, b) -> bool:
@@ -1010,9 +1024,108 @@ def phase_kernel_gat_shapes(dev) -> dict:
            int(torch.diff(csr.row_ptr)[17]), "isolated_row": 29,
            "shapes": GAT_SHAPES,
            "worst_err": worst, "tolerance": 1e-5, "int_bitwise": True,
-           "score_serial_bitwise": True, "backward_runs_bitwise": True}
+           "score_serial_bitwise": True, "backward_runs_bitwise": True,
+           "forward": _gat_forward_shapes(dev)}
     emit(rec)
     return rec
+
+
+def _forward_in_csr_order(inp, csr, prec: str):
+    """gat_forward_plain's function and arithmetic with its sums in CSR
+    order: m from the plain version on the card (a max takes no order);
+    each edge's e = exp(lrelu(ad + as) - m) and term e x (rounded to bf16
+    in fast) formed on the card as the plain version forms them; z and u
+    summed on the CPU by index_add_, which adds in index order; out = u /
+    max(z, 1e-15); returned on the CPU."""
+    from roc_tpu_torch.ops.kernels import gat as G
+    x, as_, ad = inp["x"], inp["as_"], inp["ad"]
+    k, f = G._heads(x, as_)
+    n, h = csr.row_ptr.numel() - 1, x.shape[1]
+    m = G.gat_forward_plain(x, as_, ad, csr.row_ptr, csr.col_idx, 0.2,
+                            prec)[1]
+    rows = torch.repeat_interleave(torch.arange(n, device=x.device),
+                                   torch.diff(csr.row_ptr))
+    cols = csr.col_idx.long()
+    e = torch.exp(G._lrelu(ad[rows] + as_[cols], 0.2) - m[rows])
+    t = G._round((e[:, :, None] * x[cols].view(-1, k, f)).view(-1, h), prec)
+    rows = rows.cpu()
+    z = torch.zeros((n, k)).index_add_(0, rows, e.cpu())
+    u = torch.zeros((n, h)).index_add_(0, rows, t.cpu())
+    out = u.view(n, k, f) / torch.clamp_min(z, G.Z_GUARD)[:, :, None]
+    return out.view(n, h), m.cpu(), z
+
+
+def _gat_forward_shapes(dev) -> dict:
+    """gat_forward at every GAT_SHAPES shape on a graph with a hub row of
+    20,000 in-edges (625 to 2,500 edge batches) and an isolated row, both
+    precisions, on x contiguous and on a column slice of a wider tensor
+    (rows not 16-byte aligned): every output bitwise on the integer fixture
+    and within 1e-5 of each row's max-abs on Gaussian data, against
+    :func:`_forward_in_csr_order` (the plain version's arithmetic with its
+    sums in CSR order: on the card index_add_'s atomics would reorder the
+    hub's 20,000 terms, up to 1e-5 of a row at F = 5 in a CPU
+    simulation); the slice bitwise equal to x itself; the isolated row all
+    zero."""
+    from roc_tpu_torch.graph.csr import from_edges
+    from roc_tpu_torch.ops import DeviceCsr
+    from roc_tpu_torch.ops.kernels import gat as G
+    from roc_tpu_torch.ops.kernels.aggregate_sum import stage_plain
+    rng = np.random.default_rng(SEED + 8)
+    n, hub, iso = 2000, 17, 29
+    src = rng.integers(0, n, 40000)
+    dst = rng.integers(0, n, 40000)
+    dst[:20000] = hub
+    keep = dst != iso
+    graph = from_edges(n, src[keep], dst[keep])
+    csr = DeviceCsr.from_csr(graph, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    worst, geometry = 0.0, {}
+    for k, f in GAT_SHAPES:
+        h = k * f
+        for integer in (True, False):
+            inp = _gat_inputs(n, k, f, gen, dev, integer)
+            wide = torch.zeros((n, h + 3), device=dev)
+            wide[:, 1:1 + h] = inp["x"]
+            xs = wide[:, 1:1 + h]
+            ld = (h + 3) // 4 * 4
+            for t in (inp["x"], xs):
+                if k == 1 and not torch.equal(
+                        G.gat_stage(t), stage_plain(t, precision="exact")):
+                    raise AssertionError(f"gat_stage H={h}: not equal to "
+                                         f"its plain version")
+            for prec in ("fast", "exact"):
+                args = (inp["as_"], inp["ad"], csr.row_ptr, csr.col_idx, 0.2,
+                        prec)
+                kk = G.gat_forward(inp["x"], *args)
+                ks = G.gat_forward(xs, *args)
+                pp = _forward_in_csr_order(inp, csr, prec)
+                kk = tuple(t.cpu() for t in kk)
+                tag = f"gat_forward K={k} F={f} {prec}"
+                if not _same_bits(kk, tuple(t.cpu() for t in ks)):
+                    raise AssertionError(f"{tag}: the column slice differs "
+                                         f"from x itself")
+                if not all(bool((t[iso] == 0).all()) for t in kk):
+                    raise AssertionError(f"{tag}: the isolated row is not "
+                                         f"out = 0, m = 0, z = 0")
+                if integer:
+                    if not _same_bits(kk, pp):
+                        raise AssertionError(f"{tag}: not bitwise on the "
+                                             f"integer fixture")
+                    continue
+                err = max(row_rel_err(a, b) for a, b in zip(kk, pp))
+                worst = max(worst, err)
+                if err > 1e-5 or not all(bool(torch.isfinite(a).all())
+                                         for a in kk):
+                    raise AssertionError(f"{tag}: row error {err}")
+        geometry[f"K{k}_F{f}"] = {
+            layout: G.forward_geometry(k, f, t.stride(0),
+                                       t.data_ptr())._asdict()
+            for layout, t in (("contiguous", inp["x"]), ("slice", xs))}
+    return {"nodes": n, "hub_in_degree": int(torch.diff(csr.row_ptr)[hub]),
+            "isolated_row": iso, "layouts": ["contiguous", "column_slice"],
+            "int_bitwise": True, "slice_bitwise": True,
+            "worst_row_rel_err": worst, "tolerance": 1e-5,
+            "geometry": geometry}
 
 
 def phase_kernel_gat(ds, dev) -> list:
@@ -1027,6 +1140,7 @@ def phase_kernel_gat(ds, dev) -> list:
     composition's time (``pair_library_ms``, timed once per layer
     shape)."""
     from roc_tpu_torch.ops import DeviceCsr
+    from roc_tpu_torch.ops.kernels import aggregate_sum as KS
     from roc_tpu_torch.ops.kernels import gat as G
     g = ds.graph
     n, e = g.num_nodes, g.num_edges
@@ -1035,6 +1149,8 @@ def phase_kernel_gat(ds, dev) -> list:
     library = _gat_library(csr, n, dev)
     bwd_library = _gat_bwd_library(csr, n, dev)
     ptxas = ptxas_report(G.LIBRARY.info.get("log", ""))
+    stage_ptxas = {kn: v for kn, v in ptxas_report(
+        KS.LIBRARY.info.get("log", "")).items() if "stage_kernel_f32" in kn}
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     rows = []
     for k, f in ((4, 64), (1, 41)):
@@ -1063,6 +1179,15 @@ def phase_kernel_gat(ds, dev) -> list:
                         kk, _gat_parts(kern(gauss)))
                     rec["ptxas"] = {kn: v for kn, v in ptxas.items()
                                     if name + "_rows" in kn}
+                if name == "gat_forward":
+                    geo = G.forward_geometry(k, f, gauss["x"].stride(0),
+                                             gauss["x"].data_ptr())
+                    rec["geometry"] = geo._asdict()
+                    rec["ptxas"] = _fwd_ptxas(ptxas, geo, prec)
+                    if geo.staged:  # the staging launch alone
+                        rec["ptxas"].update(stage_ptxas)
+                        rec["stage_ms"] = per_launch_ms(
+                            lambda: G.gat_stage(gauss["x"]))
                 del kk, pp
                 timed = kern
                 if name == "gat_bwd_dst":
@@ -1113,6 +1238,8 @@ def phase_kernel_gat(ds, dev) -> list:
                     bwd_lib.update(_time_bwd_library(bwd_library, gauss,
                                                      csr))
                 recs.append(rec)
+            if k == 1 and prec == "fast":
+                recs.append(_gat_stage_row(ints, gauss, n))
             pair = {"pair_ms": sum(r["kernel_ms"] for r in recs
                                    if r["name"] in GAT_BACKWARD),
                     **{"pair_" + key: v for key, v in _gat_bound(
@@ -1125,6 +1252,7 @@ def phase_kernel_gat(ds, dev) -> list:
                 rows.append(rec)
             for rec in recs:
                 if not (rec["finite"] and rec["int_bitwise"]
+                        and rec.get("gauss_bitwise", True)
                         and rec.get("runs_bitwise", True)
                         and rec.get("serial_bitwise", True)
                         and rec["row_rel_err"] <= 1e-5
@@ -1135,6 +1263,54 @@ def phase_kernel_gat(ds, dev) -> list:
                                          f"version: {rec}")
             del ints, gauss
     return rows
+
+
+def _gat_stage_row(ints, gauss, n) -> dict:
+    """gat_stage (the forward's fp32 plane of a single head's 41 columns,
+    16-byte rows of 44) against its plain version: a copy, so bitwise on
+    both inputs; its time (per launch over 100), the plain version's and
+    torch.nn.functional.pad's (one call of the same function); bound: x
+    read and the plane written once."""
+    from roc_tpu_torch.ops.kernels import gat as G
+    from roc_tpu_torch.ops.kernels.aggregate_sum import stage_plain
+    x = gauss["x"]
+    h = x.shape[1]
+    ld = (h + 3) // 4 * 4
+
+    def kern():
+        return G.gat_stage(x)
+
+    def plain(t):
+        return stage_plain(t, precision="exact")
+
+    def library():
+        return torch.nn.functional.pad(x, (0, ld - h))
+    got, want = kern(), plain(x)
+    rec = {"phase": "kernel", "name": "gat_stage", "K": 1, "F": h, "H": h,
+           "ld": ld, "precision": "fast", "nodes": n,
+           **_bound(n * h * 4 + n * ld * 4, 0),
+           "int_bitwise": bool(torch.equal(G.gat_stage(ints["x"]),
+                                           plain(ints["x"]))),
+           "gauss_bitwise": bool(torch.equal(got, want)),
+           "library_bitwise": bool(torch.equal(library(), want)),
+           "max_abs_err": float((got - want).abs().max()),
+           "row_rel_err": row_rel_err(got, want), "term_rel_err": 0.0,
+           "tolerance": 0.0, "finite": bool(torch.isfinite(got).all()),
+           "kernel_ms": time_ms(kern, reps=20, warmup=3),
+           "plain_ms": time_ms(lambda: plain(x), reps=5, warmup=1),
+           "library_ms": time_ms(library, reps=20, warmup=3)}
+    retime_small(rec, kern, library)
+    return rec
+
+
+def _fwd_ptxas(ptxas: dict, geo, prec: str) -> dict:
+    """The ptxas lines of the forward instantiation that ``geo`` launches
+    (gat_fwd_rows<VEC, PACKS, LANES, ROUND>); every gat_fwd_rows line where
+    the names are not demangled."""
+    want = (f"gat_fwd_rows<{geo.vec}, {geo.packs}, {geo.lanes}, "
+            f"{'true' if prec == 'fast' else 'false'}>")
+    out = {kn: v for kn, v in ptxas.items() if want in kn}
+    return out or {kn: v for kn, v in ptxas.items() if "gat_fwd_rows" in kn}
 
 
 def _dadl_library(dq, csr) -> torch.Tensor:
@@ -1695,8 +1871,9 @@ def step_launches(model: str, megafuse: bool) -> dict:
     fast: each sum aggregation and megakernel forward stages its input
     once (stage_plane)."""
     if model == "gat":
-        return launch_dict(gat_score=2, gat_forward=2, gat_bwd_dst=2,
-                           gat_bwd_src=2)
+        # layer 2's single head of 41 columns is staged (gat_stage) first
+        return launch_dict(gat_score=2, gat_stage=1, gat_forward=2,
+                           gat_bwd_dst=2, gat_bwd_src=2)
     if megafuse:
         return launch_dict(aggregate_linear=2, stage_plane=2,
                            aggregate_linear_bwd=2, stage_cotangent=2)
@@ -1943,7 +2120,8 @@ def _kernel_entry(name, source, replaces, launches, row, rows, keys):
                                           "row_rel_err", "term_rel_err",
                                           "pair_ms", "pair_bound_ms",
                                           "pair_bound_by", "pair_library_ms",
-                                          "dq_bytes", "ptxas")
+                                          "dq_bytes", "stage_ms", "geometry",
+                                          "ptxas")
                         if k in r}
                        for r in rows]}
 
@@ -2049,6 +2227,12 @@ def main() -> int:
           for name, line in (("gat_score", "310"), ("gat_forward", "328"),
                              ("gat_bwd_dst", "536"),
                              ("gat_bwd_src", "632"))),
+        _kernel_entry(
+            "gat_stage", src + "aggregate_sum.cu",
+            "roc_tpu/ops/pallas/gat.py:428",
+            {"serve_gat": serve_gat["launches"]["gat_stage"],
+             "train_gat": train_gat["launches"]["gat_stage"]},
+            pick("gat_stage", K=1), named("gat_stage"), ("H", "ld")),
         _kernel_entry(
             "xlayer_fwd", src + "xlayer.cu", pallas + "2949",
             chain_launches("xlayer_fwd"),

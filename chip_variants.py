@@ -2,7 +2,8 @@
 """Time design variants of the hand-written kernels against the checkout's
 own sources on one NVIDIA GPU, in one call.
 
-    python3 chip_variants.py [sum] [linear] [xlayer] [gat]  # default: all
+    python3 chip_variants.py [sum] [linear] [xlayer] [gat] [gat_fwd]
+                                                    # default: all
 
 Each variant is the checkout's roc_tpu_torch/csrc/ with one design choice
 reversed by a source edit (VARIANTS below: each names the choice, the
@@ -26,6 +27,9 @@ the checkout's and is timed at the main path's shapes:
   gat     the GAT backward at the full-width GAT's two layers (K=4, F=64
           and K=1, F=41): gat_bwd_src in fast and exact (dtable, dast, dq),
           gat_bwd_dst on its dq, in fast
+  gat_fwd the GAT forward (gat_forward: out, m, z) at the same two layers,
+          fast and exact (a staging launch included where the geometry
+          stages x)
 
 Each time is the median of 10 CUDA-event timed calls on chip_smoke.py's
 Gaussian inputs; each record holds the compiler's registers and spill
@@ -52,7 +56,7 @@ ROOT = Path(__file__).resolve().parent
 CSRC = ROOT / "roc_tpu_torch" / "csrc"
 OUT = ROOT / "chip_check" / "variants"
 SOURCES = {"sum": "aggregate_sum.cu", "linear": "aggregate_linear.cu",
-           "xlayer": "xlayer.cu", "gat": "gat.cu"}
+           "xlayer": "xlayer.cu", "gat": "gat.cu", "gat_fwd": "gat.cu"}
 
 # The tile counter of the megakernel forward, as the region kernels claim
 # their tiles: a grid of resident blocks (the occupancy's count on every SM)
@@ -117,6 +121,37 @@ _ROUND_PER_EDGE = [
     for load, indent in (
         ("          load_pack<T, VEC>(s + off[p], v);", 10),
         ("            load_pack<T, VEC>(s + p * LPR * VEC, v);", 12))]
+
+
+# The GAT forward's gather with guarded loads: a surplus pack (past the row's
+# last) is skipped instead of re-reading the last pack.
+_FWD_GUARDED = [
+    ("gat.cu", "      off[q] = c > last ? last : c;\n",
+     "      off[q] = c;\n"),
+    ("gat.cu", "          const Pack<VEC> xv = load_pack<VEC>(xr + off[q]);\n",
+     "          if (off[q] >= H) continue;\n"
+     "          const Pack<VEC> xv = load_pack<VEC>(xr + off[q]);\n")]
+
+# The GAT forward's rows in a static order: lane group g of block b takes row
+# b * groups + g, one block for every groups rows, instead of claiming rows
+# from the counter over the resident blocks.
+_FWD_STATIC = [
+    ("gat.cu",
+     "  for (;;) {\n"
+     "    int row = 0;\n"
+     "    if (sl == 0) row = atomicAdd(p.claimed, 1);\n"
+     "    row = __shfl_sync(gm, row, 0, LPR);\n"
+     "    if (row >= p.rows) return;\n"
+     "    fwd_row<VEC, PACKS, LPR, ROUND>(p, row, sl, gm, adv, mv, ebuf);\n"
+     "    __syncwarp(gm);  // the row's readers of the group's shared memory "
+     "are done\n"
+     "  }\n",
+     "  const int64_t row = static_cast<int64_t>(blockIdx.x) * "
+     "(blockDim.x / LPR) + group;\n"
+     "  if (row >= p.rows) return;\n"
+     "  fwd_row<VEC, PACKS, LPR, ROUND>(p, row, sl, gm, adv, mv, ebuf);\n"),
+    ("gat.cu", "  blocks = blocks < resident ? blocks : resident;\n",
+     "  (void)resident;\n")]
 
 
 # name -> (the design choice it reverses, target, [(file, old, new)]
@@ -251,6 +286,46 @@ VARIANTS = {
         "memory a warp at K = 4) instead of all 32 at once (12.4 KB)",
         "gat", [("gat.cu", "constexpr int kDotEdges = 16;",
                  "constexpr int kDotEdges = 32;")]),
+    "gat_fwd_four_edges": (
+        "2 edges in flight a lane group where a forward lane owns several "
+        "packs a pass (layer 1) instead of 4",
+        "gat_fwd", [("gat.cu", "constexpr int kFwdEdgesMany = 2;",
+                     "constexpr int kFwdEdgesMany = 4;")]),
+    "gat_fwd_two_edges": (
+        "4 edges in flight a lane group where a forward lane owns one pack a "
+        "pass (layer 2's staged plane) instead of 2",
+        "gat_fwd", [("gat.cu", "constexpr int kFwdEdgesOne = 4;",
+                     "constexpr int kFwdEdgesOne = 2;")]),
+    "gat_fwd_guarded_loads": (
+        "unconditional loads in the forward's gather (a surplus pack re-reads "
+        "the row's last pack) instead of guarded ones",
+        "gat_fwd", _FWD_GUARDED),
+    "gat_fwd_static_rows": (
+        "rows claimed from a counter by the resident blocks instead of a "
+        "static order (a lane group's row from its block and place)",
+        "gat_fwd", _FWD_STATIC),
+    "gat_fwd_unsigned_rows": (
+        "a claimed row held as a signed int instead of an unsigned one",
+        "gat_fwd", [("gat.cu", "    int row = 0;\n"
+                     "    if (sl == 0) row = atomicAdd(p.claimed, 1);\n",
+                     "    unsigned row = 0;\n"
+                     "    if (sl == 0) row = atomicAdd(reinterpret_cast<"
+                     "unsigned*>(p.claimed), 1u);\n"),
+                    ("gat.cu", "    if (row >= p.rows) return;\n"
+                     "    fwd_row<VEC, PACKS, LPR, ROUND>(p, row, sl",
+                     "    if (row >= static_cast<unsigned>(p.rows)) return;\n"
+                     "    fwd_row<VEC, PACKS, LPR, ROUND>(p, static_cast<int64_t>"
+                     "(row), sl")]),
+    "gat_fwd_in_place_at_41": (
+        "layer 2 (K = 1, 41 columns, 4-byte aligned rows) staged as an fp32 "
+        "plane of 44 columns (one more launch) and gathered as 16 lanes x 1 "
+        "four-float pack instead of gathered in place as 16 lanes x 3 "
+        "one-float packs",
+        "gat_fwd", [], "_gat_fwd_in_place_cases"),
+    "gat_fwd_warp_at_41": (
+        "layer 2 staged, in 16-lane groups, instead of gathered in place by "
+        "a full warp a row (2 one-float packs a lane, the earlier geometry)",
+        "gat_fwd", [], "_gat_fwd_warp_cases"),
 }
 
 
@@ -348,6 +423,48 @@ def _gat_cases(ctx):
     return cases
 
 
+def _gat_fwd_cases(ctx, geometry=None, shapes=((4, 64), (1, 41))):
+    """The GAT forward at the main path's two layers, fast and exact, at
+    the checkout's geometry or at ``geometry(k, f)``'s (the staging launch
+    included where it stages)."""
+    from roc_tpu_torch.ops.kernels import gat as G
+    csr = ctx["csr"]
+
+    def call(i, prec, geo):
+        k, f = G._heads(i["x"], i["as_"])
+        if geo is None:
+            return G.gat_forward(i["x"], i["as_"], i["ad"], csr.row_ptr,
+                                 csr.col_idx, 0.2, prec)
+        return G._forward_launch(i["x"], i["as_"], i["ad"], csr.row_ptr,
+                                 csr.col_idx, 0.2, prec, geo)[:3]
+    cases = []
+    for (k, f), i in ctx["gat"].items():
+        if (k, f) not in shapes:
+            continue
+        geo = geometry(k, f) if geometry else None
+        for prec in ("fast", "exact"):
+            cases.append((f"fwd_K{k}_F{f}_{prec}",
+                          lambda i=i, p=prec, g=geo: call(i, p, g)))
+    return cases
+
+
+def _gat_fwd_in_place_cases(ctx):
+    """Layer 2's forward gathered from x in place (no staging)."""
+    from roc_tpu_torch.ops.kernels import gat as G
+    return _gat_fwd_cases(ctx, lambda k, f: G.FwdGeometry(1, 16, 3, False,
+                                                          k * f),
+                          shapes=((1, 41),))
+
+
+def _gat_fwd_warp_cases(ctx):
+    """Layer 2's forward with a full warp a row, 2 one-float packs a lane
+    (the parent's geometry)."""
+    from roc_tpu_torch.ops.kernels import gat as G
+    return _gat_fwd_cases(ctx, lambda k, f: G.FwdGeometry(1, 32, 2, False,
+                                                          k * f),
+                          shapes=((1, 41),))
+
+
 def _measure_cases(cases, ref: dict) -> dict:
     import chip_smoke as C
     rec = {}
@@ -413,7 +530,7 @@ def main() -> int:
     todo = [(f"checkout_{t}", t, []) for t in targets] + \
         [(k, v[1], v[2]) for k, v in VARIANTS.items() if v[1] in targets]
     own_cases = {"sum": _sum_cases, "linear": _linear_cases,
-                 "gat": _gat_cases}
+                 "gat": _gat_cases, "gat_fwd": _gat_fwd_cases}
     with ThreadPoolExecutor(len(todo)) as pool:
         built = list(pool.map(lambda a: _build(*a), todo))
         pool.submit(build_all).result()     # the checkout's other libraries
@@ -431,18 +548,19 @@ def main() -> int:
         scale = torch.rsqrt(torch.as_tensor(g.in_degrees,
                                             dtype=torch.float32, device=dev))
         ctx["region"] = C.region_gauss_inputs(n, C.REGION, scale, gen, dev)
-    if "gat" in targets:
+    if {"gat", "gat_fwd"} & set(targets):
         ctx["gat"] = {}
         for k, f in ((4, 64), (1, 41)):
             i = C._gat_inputs(n, k, f, gen, dev)
             i["m"] = KG.gat_forward(i["x"], i["as_"], i["ad"], csr.row_ptr,
                                     csr.col_idx, 0.2, "fast")[1]
-            i["dq"] = KG.gat_bwd_src(i["x"], i["as_"], i["ad"], i["m"],
-                                     i["du"], i["dz"], csr.t_row_ptr,
-                                     csr.t_col_idx, 0.2,
-                                     "fast")[2]
+            if "gat" in targets:
+                i["dq"] = KG.gat_bwd_src(i["x"], i["as_"], i["ad"], i["m"],
+                                         i["du"], i["dz"], csr.t_row_ptr,
+                                         csr.t_col_idx, 0.2, "fast")[2]
             ctx["gat"][(k, f)] = i
-    modules = {"sum": KS, "linear": KL, "xlayer": KX, "gat": KG}
+    modules = {"sum": KS, "linear": KL, "xlayer": KX, "gat": KG,
+               "gat_fwd": KG}
     own = {t: modules[t].LIBRARY.load() for t in targets}
     refs = {t: {} for t in targets}
     order = built + [b for b in built if b[0].startswith("checkout_")]
@@ -454,7 +572,8 @@ def main() -> int:
         kernels = {"sum": ("sum_rows", "stage_kernel"),
                    "linear": ("mega_fwd", "mega_bwd_u"),
                    "xlayer": ("xlayer_",),
-                   "gat": ("gat_bwd_",)}[target]
+                   "gat": ("gat_bwd_",),
+                   "gat_fwd": ("gat_fwd_",)}[target]
         rec = {"variant": name, "target": target,
                "reverses": VARIANTS[name][0] if name in VARIANTS else None,
                "ptxas": {k: v for k, v in ptxas.items()

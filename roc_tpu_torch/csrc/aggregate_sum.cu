@@ -151,21 +151,34 @@ stage_kernel(const float* __restrict__ x, int64_t ldx, int vec, int64_t H, bf16*
   stage_plane<bf16>(x, nullptr, vec, H, dst, ld, n, ldx);
 }
 
+// The same plane in fp32 (no rounding): the GAT forward's 16-byte rows of a narrow x.
+__global__ void __launch_bounds__(kThreads)
+stage_kernel_f32(const float* __restrict__ x, int64_t ldx, int vec, int64_t H,
+                 float* __restrict__ dst, int64_t ld, int64_t n) {
+  stage_plane<float>(x, nullptr, vec, H, dst, ld, n, ldx);
+}
+
 }  // namespace
 
 // C interface, bound with ctypes by roc_tpu_torch/ops/kernels/aggregate_sum.py.  row_ptr is
 // int64 [n + 1], col_idx int32; every tensor is on the device.  Each returns cudaGetLastError()
 // after the launch (0 on success).
 
-// dst [n, ld] bf16 (ld = ld8(H)) = x [n, H] (rows ldx floats apart) rounded to nearest even,
-// columns from H on 0.  vec (4, 2 or 1) divides H and ldx and x is aligned to it.
+// dst [n, ld] = x [n, H] (rows ldx floats apart), columns from H on 0: bf16 rounded to nearest
+// even (ld = ld8(H)), or with fp32 = 1 fp32 as it is (ld = ld4(H)).  vec (4, 2 or 1) divides H
+// and ldx and x is aligned to it.
 extern "C" int roc_stage_plane(const void* x, long long ldx, long long n, long long H, int vec,
-                               void* dst, long long ld, void* stream) {
-  if (n <= 0 || H <= 0 || ldx < H || ld < H || ld % 8 != 0 || ldx % vec != 0 || H % vec != 0)
+                               void* dst, long long ld, int fp32, void* stream) {
+  if (n <= 0 || H <= 0 || ldx < H || ld < H || ld % (fp32 ? 4 : 8) != 0 || ldx % vec != 0 ||
+      H % vec != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>((n + kWarps - 1) / kWarps));
-  stage_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), ldx, vec, H, static_cast<bf16*>(dst), ld, n);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* xf = static_cast<const float*>(x);
+  if (fp32)
+    stage_kernel_f32<<<grid, kThreads, 0, s>>>(xf, ldx, vec, H, static_cast<float*>(dst), ld, n);
+  else
+    stage_kernel<<<grid, kThreads, 0, s>>>(xf, ldx, vec, H, static_cast<bf16*>(dst), ld, n);
   return static_cast<int>(cudaGetLastError());
 }
 

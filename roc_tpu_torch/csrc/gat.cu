@@ -22,23 +22,18 @@
 // None of the TPU schedule carries over (the binned plan, the 128-lane alpha
 // planes, the A/M/MT iota matrices, staging DMAs, head-group splitting, VMEM
 // admission).  Every kernel is a deterministic segment reduction over a CSR:
-// one warp owns one output row and walks its edge list in order; each output
+// one warp (or lane group) owns one output row and walks its edge list in order; each output
 // element is written by one thread, so there are no atomics and a run is
 // bitwise reproducible.
 //
-// Forward.  Edges are taken in batches of 32: lane l loads the batch's l-th
-// index (one coalesced load) and computes that edge's per-head exps into the
-// warp's slice of shared memory.  Then the warp walks the batch edge by edge:
-// the row gathered for an edge is read as packs of VEC floats per lane, kNP
-// packs per lane, neighbouring lanes on neighbouring addresses; each column
-// takes its head's value from shared memory (a broadcast read).  A row wider
-// than 32 * VEC * kNP columns is covered in tiles, re-walking the edge list
-// once per tile.  The ragged tail of H is masked per pack (the wrapper picks
-// VEC so that H % VEC == 0) and heads may straddle packs.  It is the two-pass
-// softmax: pass 1 takes the exact per-head max over the row's edges before
-// pass 2 forms exp(s - m), so the result is the oracle's two-pass value.  A
-// row with no in-edges writes m = 0 (the oracle's isfinite guard), z = 0 and
-// out = 0.
+// Forward, one kernel (gat_fwd_rows, its design below): a lane group of 8, 16 or 32 lanes per
+// destination row.  Pass 1 takes each head's exact max over the row's edges in one sweep;
+// pass 2 forms each edge's exps once and gathers the source rows in packs, unconditional
+// loads with 2 edges in flight where a lane owns 2 packs a pass and 4 where it owns 1, one
+// weight a pack (a pack lies in one head).  So it is the two-pass softmax, and the result is
+// the oracle's two-pass value; a row with no in-edges writes m = 0 (the oracle's isfinite
+// guard), z = 0 and out = 0.  A K = 1 row that is not 16-byte aligned is first staged as a
+// padded fp32 plane (aggregate_sum.cu's roc_stage_plane; the wrapper decides).
 //
 // Backward, two kernels, the oracle's per-edge form (edge.py:_gat_plan_bwd):
 // the score gradient dq[e, k] = e * (sum_f du[v, kF+f] x[u, kF+f] + dz[v, k])
@@ -72,8 +67,8 @@
 // out, m, z once, against E * H multiply-adds.  Each edge gathers a full
 // source row (E * H * 4 B, 24 GB at the Reddit shape for H = 256), so the
 // time depends on how often a hot row is found in the 50 MB L2, as for
-// aggregate_sum.cu.  Prefetching the next edge's row and splitting hub rows
-// across warps are later work.
+// aggregate_sum.cu.  Splitting hub rows across groups would reassociate the
+// sums and is not done.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -81,11 +76,12 @@
 #include <stdint.h>
 
 #include "cp_async.cuh"
+#include "gather_tile.cuh"
 
 namespace {
 
-constexpr int kMaxWarps = 8;            // warps per block, fewer when K is large
-constexpr int kNP = 2;                  // column packs per lane per tile
+constexpr int kMaxWarps = 8;            // warps per block of the backward kernels
+constexpr int kNP = 2;                  // column packs per lane per tile (src kernel)
 constexpr int kSmemBytes = 48 * 1024;   // above this a launch opts in
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -198,102 +194,260 @@ gat_score_rows(const float* __restrict__ x, const float* __restrict__ a, float* 
 }
 
 // ---------------------------------------------------------------------------
-// Forward (rows 9 and 10): out, m, z for one destination row per warp.
-// shared memory per warp: adv[K] | mv[K] | ebuf[32 K]
-template <int VEC, bool ROUND>
-__global__ void gat_fwd_rows(const int64_t* __restrict__ row_ptr, const int32_t* __restrict__ col_idx,
-                             const float* __restrict__ x, const float* __restrict__ as,
-                             const float* __restrict__ ad, float* __restrict__ out,
-                             float* __restrict__ m_out, float* __restrict__ z_out, int64_t rows, int K,
-                             int F, float slope) {
-  extern __shared__ float smem[];
-  constexpr int kTile = 32 * VEC * kNP;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, wpb = blockDim.x >> 5;
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * wpb + warp;
-  if (row >= rows) return;
-  float* adv = smem + static_cast<int64_t>(warp) * (34 * K);
-  float* mv = adv + K;
-  float* ebuf = mv + K;
-  const int64_t H = static_cast<int64_t>(K) * F;
-  const int64_t beg = row_ptr[row], end = row_ptr[row + 1];
+// Forward (rows 9 and 10): out, m, z for one destination row per lane group.
+//
+// Geometry (chosen by the wrapper, ops/kernels/gat.py:forward_geometry): a group of LPR lanes
+// (8, 16 or 32; 32 / LPR rows a warp) owns a row; lane sl of it owns the packs sl + LPR p
+// (p < PACKS) of VEC floats of each pass of LPR * PACKS packs over the row's H columns.  VEC
+// divides F (or K = 1), so a pack lies in one head and takes one weight.  src is x itself
+// ([*, ld], a column slice allowed) or, for K = 1 rows that are not 16-byte aligned, x staged
+// once as an fp32 plane [T, ld4(H)] whose padding columns are 0 (roc_stage_plane: no rounding,
+// so the function is the same).  Passes are re-walks of the edge list: one at the main path's
+// shapes (256 columns as 32 lanes x 2 packs of 4; 41, staged to 44, as 16 lanes x 1 pack of 4:
+// in place, 16 x 3 packs of 1 read 2.44 ms and a warp of 2 packs of 1 1.66, against 1.56-1.60
+// staged, the staging's 0.04 included; chip_variants.py's gat_fwd_in_place_at_41 and
+// gat_fwd_warp_at_41, fast, Reddit, NVIDIA H100 80GB HBM3, 700 W).
+//   pass 1, the maxima: lane sl walks the edges beg + sl, beg + sl + LPR, ... once, keeping up
+//     to 4 heads' running maxima in registers (as[u] one 16-byte load at K = 4), then a
+//     butterfly in the group: one read of col_idx instead of one a head.  A max takes no
+//     order, so m is the parent's.
+//   pass 2, the weighted gather: batches of LPR edges; lane sl holds the batch's edge sl (its
+//     source and, for the first 4 heads, its scores, loaded a batch ahead), forms its exps
+//     e[k] = exp(lrelu(ad + as) - m) once into the group's slice of shared memory, then the
+//     group walks the batch edge by edge, EDGES edges in flight (4 loads a lane: 2 edges of 2
+//     packs, 4 of 1): each lane reads its packs of the edge's source row (unconditional
+//     loads: a surplus pack re-reads the row's last pack, and its sums are never stored), one
+//     weight a pack from shared memory, and adds e * x (rounded to bf16 in fast) to the
+//     pack's sums and e to the pack's z, in CSR order from 0.  Every element of u and z is
+//     the parent's serial sum, so out = u / max(z, 1e-15) keeps its bits; the lane whose pack
+//     starts a head writes its z.
+//   Rows are claimed one at a time from a counter (zeroed by the wrapper) by a grid of
+//     resident blocks, so a hub row holds one group, not a block.
+// shared memory per group: adv[K] | mv[K] | ebuf[LPR K]; a block holds kFwdThreads / LPR groups,
+// fewer where their shared memory would pass a block's 227 KB (K above about 200 at LPR 32).
+// Bound: the gather of an fp32 source row per edge (E * H * 4 B, 24 GB at Reddit's layer 1),
+// most of it from L2: the fp32 sum at H = 256 (7.0 ms exact, PERF.md) is its floor.
+constexpr int kFwdThreads = 256;
+// Edges a lane group keeps in flight in the weighted gather where a lane owns one pack a pass
+// (kFwdEdgesOne) and where it owns more (kFwdEdgesMany).  chip_variants.py's gat_fwd_* variants
+// reverse each, and patch in guarded loads and static rows; in one call (fast, Reddit, NVIDIA
+// H100 80GB HBM3, 700 W) layer 1 read 7.92-7.99 ms against 8.10 with 4 edges, 8.57 guarded and
+// 9.14 static (80 registers, not 59), layer 2 1.56-1.60 against 1.80 with 2 edges and 1.69
+// static (PERF.md §6).
+constexpr int kFwdEdgesOne = 4;
+constexpr int kFwdEdgesMany = 2;
 
-  for (int k = lane; k < K; k += 32) adv[k] = ad[row * K + k];
-  __syncwarp();
-  // pass 1: the per-head max of the row's scores
-  for (int k = 0; k < K; ++k) {
-    const float adk = adv[k];
-    float mx = -INFINITY;
-    for (int64_t e = beg + lane; e < end; e += 32) {
-      const int64_t u = col_idx[e];
-      mx = fmaxf(mx, lrelu(adk + as[u * K + k], slope));
+struct FwdArgs {
+  const int64_t* row_ptr;
+  const int32_t* col_idx;
+  const float* src;  // x, or its staged plane
+  int64_t ld;        // src's row stride
+  const float* as;
+  const float* ad;
+  float* out;
+  float* m;
+  float* z;
+  int64_t rows;
+  int K, F;
+  float slope;
+  int as4;       // K % 4 == 0 and as 16-byte aligned: 4 heads' scores in one load
+  int* claimed;  // rows claimed so far: 0 at the launch
+};
+
+__host__ __device__ constexpr int64_t fwd_floats_per_group(int K, int lpr) {
+  return (2 + static_cast<int64_t>(lpr)) * K;
+}
+
+template <int LPR>
+__device__ __forceinline__ unsigned group_mask(int lane) {
+  if constexpr (LPR == 32) {
+    return kFull;
+  } else {
+    return ((1u << LPR) - 1u) << (lane / LPR * LPR);
+  }
+}
+
+// Scores of heads k0 .. k0 + 3 of source u (those below K; the others 0).
+__device__ __forceinline__ void load_scores(const float* __restrict__ as, int64_t u, int K, int k0,
+                                            bool as4, float (&s)[4]) {
+  if (as4) {
+    const float4 t = *reinterpret_cast<const float4*>(as + u * K + k0);
+    s[0] = t.x; s[1] = t.y; s[2] = t.z; s[3] = t.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[j] = k0 + j < K ? as[u * K + k0 + j] : 0.f;
+  }
+}
+
+template <int VEC, int PACKS, int LPR, bool ROUND,
+          int EDGES = (PACKS > 1 ? kFwdEdgesMany : kFwdEdgesOne)>
+__device__ __forceinline__ void fwd_row(const FwdArgs& p, int64_t row, int sl, unsigned gm,
+                                        float* adv, float* mv, float* ebuf) {
+  const int K = p.K, F = p.F;
+  const int64_t H = static_cast<int64_t>(K) * F;
+  const int64_t beg = p.row_ptr[row], end = p.row_ptr[row + 1];
+  for (int k = sl; k < K; k += LPR) adv[k] = p.ad[row * K + k];
+  __syncwarp(gm);
+
+  // pass 1: one sweep of the row's edges for each 4 heads
+  for (int k0 = 0; k0 < K; k0 += 4) {
+    const bool as4 = p.as4 != 0;
+    float a[4], mx[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      a[j] = k0 + j < K ? adv[k0 + j] : 0.f;
+      mx[j] = -INFINITY;
+    }
+#pragma unroll 4
+    for (int64_t e = beg + sl; e < end; e += LPR) {
+      float s[4];
+      load_scores(p.as, p.col_idx[e], K, k0, as4, s);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) mx[j] = fmaxf(mx[j], lrelu(a[j] + s[j], p.slope));
     }
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, off));
-    if (lane == 0) mv[k] = end > beg ? mx : 0.f;
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int off = LPR / 2; off > 0; off >>= 1)
+        mx[j] = fmaxf(mx[j], __shfl_xor_sync(gm, mx[j], off));
+      if (sl == 0 && k0 + j < K) mv[k0 + j] = end > beg ? mx[j] : 0.f;
+    }
   }
-  __syncwarp();
-  for (int k = lane; k < K; k += 32) m_out[row * K + k] = mv[k];
+  __syncwarp(gm);
+  for (int k = sl; k < K; k += LPR) p.m[row * K + k] = mv[k];
 
   // pass 2: z and the weighted sum, then the normalised output
-  for (int64_t t0 = 0; t0 < H; t0 += kTile) {
-    float u[kNP][VEC], z[kNP][VEC];
-    int kc[kNP][VEC];
+  const int64_t last = (H + VEC - 1) / VEC * VEC - VEC;  // the row's last pack
+  for (int64_t c0 = 0; c0 < H; c0 += static_cast<int64_t>(LPR) * VEC * PACKS) {
+    float u[PACKS][VEC], z[PACKS];
+    int64_t off[PACKS];
+    int kc[PACKS];
 #pragma unroll
-    for (int p = 0; p < kNP; ++p) {
-      const int64_t c = pack_col<VEC>(t0, p, lane);
+    for (int q = 0; q < PACKS; ++q) {
+      const int64_t c = c0 + static_cast<int64_t>(q * LPR + sl) * VEC;
+      off[q] = c > last ? last : c;
+      kc[q] = static_cast<int>(off[q] / F);
+      z[q] = 0.f;
 #pragma unroll
-      for (int j = 0; j < VEC; ++j) {
-        u[p][j] = 0.f;
-        z[p][j] = 0.f;
-        kc[p][j] = c + j < H ? static_cast<int>((c + j) / F) : 0;
-      }
+      for (int j = 0; j < VEC; ++j) u[q][j] = 0.f;
     }
-    for (int64_t b = beg; b < end; b += 32) {
-      const int n = end - b < 32 ? static_cast<int>(end - b) : 32;
-      int src = 0;
-      __syncwarp();  // the previous batch's readers are done with ebuf
-      if (lane < n) {
-        src = col_idx[b + lane];
-        const int64_t s64 = src;
-        for (int k = 0; k < K; ++k)
-          ebuf[lane * K + k] = expf(lrelu(adv[k] + as[s64 * K + k], slope) - mv[k]);
+    // the first batch's sources and scores; each batch loads the next one's before its walk
+    int src = 0;
+    float sa[4] = {0.f, 0.f, 0.f, 0.f};
+    if (beg + sl < end) {
+      src = p.col_idx[beg + sl];
+      load_scores(p.as, src, K, 0, p.as4 != 0, sa);
+    }
+    for (int64_t b = beg; b < end; b += LPR) {
+      const int n = end - b < LPR ? static_cast<int>(end - b) : LPR;
+      __syncwarp(gm);  // the previous batch's readers are done with ebuf
+      if (sl < n) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          if (k < K) ebuf[sl * K + k] = expf(lrelu(adv[k] + sa[k], p.slope) - mv[k]);
+        for (int k = 4; k < K; ++k)
+          ebuf[sl * K + k] =
+              expf(lrelu(adv[k] + p.as[static_cast<int64_t>(src) * K + k], p.slope) - mv[k]);
       }
-      __syncwarp();
-#pragma unroll 2
+      __syncwarp(gm);
+      const int cur = src;
+      if (b + LPR + sl < end) {
+        src = p.col_idx[b + LPR + sl];
+        load_scores(p.as, src, K, 0, p.as4 != 0, sa);
+      }
+#pragma unroll EDGES
       for (int i = 0; i < n; ++i) {
-        const int64_t uu = __shfl_sync(kFull, src, i);
+        const int64_t uu = __shfl_sync(gm, cur, i, LPR);
+        const float* xr = p.src + uu * p.ld;
         const float* eb = ebuf + i * K;
 #pragma unroll
-        for (int p = 0; p < kNP; ++p) {
-          const int64_t c = pack_col<VEC>(t0, p, lane);
-          if (c < H) {
-            const Pack<VEC> xv = load_pack<VEC>(x + uu * H + c);
+        for (int q = 0; q < PACKS; ++q) {
+          const Pack<VEC> xv = load_pack<VEC>(xr + off[q]);
+          const float e = eb[kc[q]];
 #pragma unroll
-            for (int j = 0; j < VEC; ++j) {
-              const float e = eb[kc[p][j]];
-              float t = e * xv.v[j];
-              if (ROUND) t = round_bf16(t);
-              z[p][j] += e;
-              u[p][j] += t;
-            }
+          for (int j = 0; j < VEC; ++j) {
+            float t = e * xv.v[j];
+            if (ROUND) t = round_bf16(t);
+            u[q][j] += t;
           }
+          z[q] += e;
         }
       }
     }
+    float* orow = p.out + row * H;
 #pragma unroll
-    for (int p = 0; p < kNP; ++p) {
-      const int64_t c = pack_col<VEC>(t0, p, lane);
+    for (int q = 0; q < PACKS; ++q) {
+      const int64_t c = c0 + static_cast<int64_t>(q * LPR + sl) * VEC;
       if (c < H) {
-        Pack<VEC> o;
+        float o[VEC];
 #pragma unroll
-        for (int j = 0; j < VEC; ++j) {
-          o.v[j] = u[p][j] / fmaxf(z[p][j], 1e-15f);
-          if ((c + j) % F == 0) z_out[row * K + kc[p][j]] = z[p][j];
-        }
-        store_pack<VEC>(out + row * H + c, o);
+        for (int j = 0; j < VEC; ++j) o[j] = u[q][j] / fmaxf(z[q], 1e-15f);
+        roc::store_row<VEC>(orow, c, H, o);
+        if (c % F == 0) p.z[row * K + c / F] = z[q];
       }
     }
   }
+}
+
+template <int VEC, int PACKS, int LPR, bool ROUND>
+__global__ void __launch_bounds__(kFwdThreads) gat_fwd_rows(const FwdArgs p) {
+  extern __shared__ float4 smem4[];
+  constexpr int kGroups = 32 / LPR;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, sl = lane % LPR;
+  const int group = warp * kGroups + lane / LPR;  // the block's group
+  const unsigned gm = group_mask<LPR>(lane);
+  float* adv = reinterpret_cast<float*>(smem4) + group * fwd_floats_per_group(p.K, LPR);
+  float* mv = adv + p.K;
+  float* ebuf = mv + p.K;
+  for (;;) {
+    int row = 0;
+    if (sl == 0) row = atomicAdd(p.claimed, 1);
+    row = __shfl_sync(gm, row, 0, LPR);
+    if (row >= p.rows) return;
+    fwd_row<VEC, PACKS, LPR, ROUND>(p, row, sl, gm, adv, mv, ebuf);
+    __syncwarp(gm);  // the row's readers of the group's shared memory are done
+  }
+}
+
+template <int VEC, int PACKS, int LPR, bool ROUND>
+int launch_fwd(const FwdArgs& p, cudaStream_t s) {
+  auto kernel = gat_fwd_rows<VEC, PACKS, LPR, ROUND>;
+  // kFwdThreads a block, halved (down to one warp) while the groups' shared memory passes 227 KB
+  constexpr int64_t kMaxSmem = 227 * 1024;
+  int threads = kFwdThreads;
+  auto smem_of = [&](int t) { return t / LPR * fwd_floats_per_group(p.K, LPR) * 4; };
+  while (threads > 32 && smem_of(threads) > kMaxSmem) threads /= 2;
+  const int64_t smem = smem_of(threads);
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > kSmemBytes) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int64_t groups_per_block = threads / LPR;
+  int64_t blocks = (p.rows + groups_per_block - 1) / groups_per_block;
+  // the resident blocks, at most one a row's group
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                    static_cast<size_t>(smem)) != cudaSuccess ||
+      per_sm < 1)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int64_t resident = static_cast<int64_t>(per_sm) * sms;
+  blocks = blocks < resident ? blocks : resident;
+  kernel<<<dim3(static_cast<unsigned>(blocks)), threads, static_cast<size_t>(smem), s>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// (lanes, packs) pairs of forward_geometry's FWD_GROUPS
+template <int VEC, bool ROUND>
+int launch_fwd_group(const FwdArgs& p, int lanes, int packs, cudaStream_t s) {
+  if (lanes == 8 && packs == 1) return launch_fwd<VEC, 1, 8, ROUND>(p, s);
+  if (lanes == 16 && packs == 1) return launch_fwd<VEC, 1, 16, ROUND>(p, s);
+  if (lanes == 16 && packs == 3) return launch_fwd<VEC, 3, 16, ROUND>(p, s);
+  if (lanes == 32 && packs == 2) return launch_fwd<VEC, 2, 32, ROUND>(p, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // ---------------------------------------------------------------------------
@@ -531,24 +685,6 @@ __global__ void gat_bwd_dst_rows(const int64_t* __restrict__ row_ptr,
   }
 }
 
-// Warps per block so that the block's shared memory fits the static limit;
-// 0 when not even one warp's slice fits.
-int warps_for(int64_t floats_per_warp) {
-  const int64_t bytes = floats_per_warp * static_cast<int64_t>(sizeof(float));
-  const int64_t w = bytes > 0 ? kSmemBytes / bytes : kMaxWarps;
-  return static_cast<int>(w < kMaxWarps ? w : kMaxWarps);
-}
-
-template <typename Kernel, typename... Args>
-int launch(Kernel kernel, int64_t rows, int64_t floats_per_warp, cudaStream_t stream, Args... args) {
-  const int wpb = warps_for(floats_per_warp);
-  if (wpb < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>((rows + wpb - 1) / wpb));
-  const size_t smem = static_cast<size_t>(wpb) * floats_per_warp * sizeof(float);
-  kernel<<<grid, wpb * 32, smem, stream>>>(args...);
-  return static_cast<int>(cudaGetLastError());
-}
-
 bool bad_shape(long long rows, int K, int F) { return rows <= 0 || K <= 0 || F <= 0; }
 
 }  // namespace
@@ -589,30 +725,45 @@ extern "C" int roc_gat_score(const void* x, const void* a, void* as, long long r
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int roc_gat_forward(const void* row_ptr, const void* col_idx, const void* x,
-                               const void* as, const void* ad, void* out, void* m, void* z,
-                               long long rows, int K, int F, float slope, int round_bf16, int vec,
-                               void* stream) {
-  if (bad_shape(rows, K, F)) return static_cast<int>(cudaErrorInvalidValue);
+// src is x [*, ld] (a column slice allowed) or its staged plane; vec divides F (or K = 1) and
+// ld, src is aligned to it, and the row's packs end within ld; (lanes, packs) is one of
+// launch_fwd_group's pairs; claimed is one int32, 0 at the launch, so rows < 2^30 (the claims
+// past the last row, one a lane group, stay below 2^31).  An unsigned row is slower at Reddit's
+// layer 2 in fast (chip_variants.py's gat_fwd_unsigned_rows; PERF.md §6).
+extern "C" int roc_gat_forward(const void* row_ptr, const void* col_idx, const void* src,
+                               long long ld, const void* as, const void* ad, void* out, void* m,
+                               void* z, long long rows, int K, int F, float slope, int round_bf16,
+                               int vec, int lanes, int packs, void* claimed, void* stream) {
+  const int64_t H = static_cast<int64_t>(K) * F;
+  if (bad_shape(rows, K, F) || rows >= (1ll << 30) || (vec != 4 && vec != 2 && vec != 1) ||
+      (K != 1 && F % vec != 0) || ld % vec != 0 || (H + vec - 1) / vec * vec > ld)
+    return static_cast<int>(cudaErrorInvalidValue);
+  FwdArgs p;
+  p.row_ptr = static_cast<const int64_t*>(row_ptr);
+  p.col_idx = static_cast<const int32_t*>(col_idx);
+  p.src = static_cast<const float*>(src);
+  p.ld = ld;
+  p.as = static_cast<const float*>(as);
+  p.ad = static_cast<const float*>(ad);
+  p.out = static_cast<float*>(out);
+  p.m = static_cast<float*>(m);
+  p.z = static_cast<float*>(z);
+  p.rows = rows;
+  p.K = K;
+  p.F = F;
+  p.slope = slope;
+  p.as4 = K % 4 == 0 && reinterpret_cast<uintptr_t>(as) % 16 == 0;
+  p.claimed = static_cast<int*>(claimed);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t* rp = static_cast<const int64_t*>(row_ptr);
-  const int32_t* ci = static_cast<const int32_t*>(col_idx);
-  const float *xp = static_cast<const float*>(x), *asp = static_cast<const float*>(as),
-              *adp = static_cast<const float*>(ad);
-  float *op = static_cast<float*>(out), *mp = static_cast<float*>(m), *zp = static_cast<float*>(z);
-  const int64_t fpw = 34 * static_cast<int64_t>(K);
-#define ROC_GAT_FWD(V, R) \
-  launch(gat_fwd_rows<V, R>, rows, fpw, s, rp, ci, xp, asp, adp, op, mp, zp, (int64_t)rows, K, F, slope)
   switch (vec * 2 + (round_bf16 ? 1 : 0)) {
-    case 9: return ROC_GAT_FWD(4, true);
-    case 8: return ROC_GAT_FWD(4, false);
-    case 5: return ROC_GAT_FWD(2, true);
-    case 4: return ROC_GAT_FWD(2, false);
-    case 3: return ROC_GAT_FWD(1, true);
-    case 2: return ROC_GAT_FWD(1, false);
+    case 9: return launch_fwd_group<4, true>(p, lanes, packs, s);
+    case 8: return launch_fwd_group<4, false>(p, lanes, packs, s);
+    case 5: return launch_fwd_group<2, true>(p, lanes, packs, s);
+    case 4: return launch_fwd_group<2, false>(p, lanes, packs, s);
+    case 3: return launch_fwd_group<1, true>(p, lanes, packs, s);
+    case 2: return launch_fwd_group<1, false>(p, lanes, packs, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-#undef ROC_GAT_FWD
 }
 
 extern "C" int roc_gat_bwd_dst(const void* row_ptr, const void* t_pos, const void* dq, void* dadl,

@@ -14,6 +14,7 @@ KERNELS = {"aggregate_sum": aggregate_sum.aggregate_sum,
            "aggregate_linear_bwd": aggregate_linear.aggregate_linear_bwd,
            "stage_cotangent": aggregate_linear.stage_cotangent,
            "gat_score": gat.gat_score,
+           "gat_stage": gat.gat_stage,
            "gat_forward": gat.gat_forward,
            "gat_bwd_dst": gat.gat_bwd_dst,
            "gat_bwd_src": gat.gat_bwd_src,

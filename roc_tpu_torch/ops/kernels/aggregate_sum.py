@@ -68,7 +68,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     fn.argtypes = [p, p, p, ll, i, i, p, ll, ll, p]
     fn.restype = i
     stage = lib.roc_stage_plane
-    stage.argtypes = [p, ll, ll, ll, i, p, ll, p]
+    stage.argtypes = [p, ll, ll, ll, i, p, ll, i, p]
     stage.restype = i
 
 
@@ -169,7 +169,8 @@ def stage_plane(x: torch.Tensor) -> torch.Tensor:
     """x [rows, H] fp32 as the bf16 plane [rows, ld8(H)] a "fast" gather
     reads: each element rounded once to bf16 (round to nearest even), the
     columns from H on 0.  Launches the CUDA kernel for CUDA tensors; for
-    CPU tensors it is :func:`stage_plain`."""
+    CPU tensors it is :func:`stage_plain`.  (``gat.gat_stage`` launches the
+    same kernel's fp32 plane, counted as its own.)"""
     if x.device.type == "cpu":
         return stage_plain(x)
     if x.dim() != 2 or x.dtype != torch.float32:
@@ -184,18 +185,28 @@ def stage_plane(x: torch.Tensor) -> torch.Tensor:
 
 
 def _stage_launch(x: torch.Tensor, stream: int) -> torch.Tensor:
+    out = plane_launch(x, stream, "fast")
+    stage_plane.launches += 1
+    return out
+
+
+def plane_launch(x: torch.Tensor, stream: int,
+                 precision: str) -> torch.Tensor:
+    """The staging kernel on a checked fp32 x: the plane ``stage_plain``
+    gives, bf16 in fast and fp32 in exact.  Its caller counts it."""
     n, h = x.shape
-    ld = _ld(h, "fast")
-    out = torch.empty((n, ld), dtype=torch.bfloat16, device=x.device)
+    ld = _ld(h, precision)
+    exact = precision == "exact"
+    out = torch.empty((n, ld), device=x.device,
+                      dtype=torch.float32 if exact else torch.bfloat16)
     if n == 0 or h == 0:
         return out.zero_()
     err = LIBRARY.load().roc_stage_plane(x.data_ptr(), x.stride(0), n, h,
                                          _vec_width(x), out.data_ptr(), ld,
-                                         stream)
+                                         int(exact), stream)
     if err != 0:
         raise RuntimeError(f"stage_plane kernel launch failed: CUDA error "
                            f"{err}")
-    stage_plane.launches += 1
     return out
 
 

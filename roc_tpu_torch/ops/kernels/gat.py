@@ -15,7 +15,13 @@ of a TPU kernel (or of the score its body computes):
                                        q = ad[v] + as[u], s = lrelu(q),
                                        m = max s, e = exp(s - m), z = sum e,
                                        out = sum e x[u] / max(z, 1e-15)
-                                       (``_gat_max_kernel`` + ``_gat_sum_kernel``)
+                                       (``_gat_max_kernel`` + ``_gat_sum_kernel``);
+                                       x may be a column slice.  The kernel's
+                                       geometry is ``forward_geometry``'s;
+                                       where it stages, ``gat_stage(x)``
+                                       first writes x as an fp32 plane of
+                                       16-byte rows (its own launch of
+                                       aggregate_sum's staging kernel)
   gat_bwd_src(x, as_, ad, m, du, dz, t_row_ptr, t_col_idx, slope, precision)
                                        -> (dtable [T, H] = sum over out-edges of
                                        e du[v], dast [T, K] = sum of dq,
@@ -52,13 +58,15 @@ chunks (unchunked, [E, K, F] at the Reddit shape is 24 GB).  Each wrapper's
 from __future__ import annotations
 
 import ctypes
-from typing import Iterator, Tuple
+from typing import Iterator, NamedTuple, Tuple
 
 import torch
 
 from roc_tpu_torch.ops.kernels.aggregate_sum import (_CHUNK_TARGET_ELEMS,
                                                      _check_csr,
-                                                     check_precision)
+                                                     check_precision,
+                                                     plane_launch,
+                                                     stage_plain)
 from roc_tpu_torch.ops.kernels.build import CudaLibrary
 
 # Normalizer guard of every softmax division (roc_tpu/ops/edge.py:39): live
@@ -71,8 +79,8 @@ def _bind(lib: ctypes.CDLL) -> None:
                    ctypes.c_float)
     for name, args in (
             ("roc_gat_score", [p, p, p, ll, i, i, i, p]),
-            ("roc_gat_forward", [p, p, p, p, p, p, p, p, ll, i, i, f, i, i,
-                                 p]),
+            ("roc_gat_forward", [p, p, p, ll, p, p, p, p, p, ll, i, i, f, i,
+                                 i, i, i, p, p]),
             ("roc_gat_bwd_dst", [p, p, p, p, ll, i, p]),
             ("roc_gat_bwd_src", [p, p, p, p, p, p, p, p, p, ll, i, i, i, f,
                                  i, i, p])):
@@ -324,16 +332,24 @@ def gat_dadl_plain(dq: torch.Tensor, t_pos: torch.Tensor,
 
 # -- the kernels ------------------------------------------------------------
 
-def _require_cuda(name: str, *tensors) -> None:
-    dev = tensors[0].device
+def _require_cuda(name: str, *tensors, rows=()) -> None:
+    """Every tensor on one CUDA device and contiguous; those in ``rows``
+    need only their rows' elements adjacent (a column slice)."""
+    dev = (*tensors, *rows)[0].device
     if dev.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu tensors, got {dev}")
-    for t in tensors:
+    for t in (*tensors, *rows):
         if t.device != dev:
             raise ValueError(f"{name}: every tensor must be on {dev}, got "
                              f"{t.device}")
+    for t in tensors:
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
+    for t in rows:
+        if t.dim() != 2 or (t.shape[1] > 1 and t.stride(1) != 1) \
+                or t.stride(0) < t.shape[1]:
+            raise ValueError(f"{name}: {tuple(t.shape)} with strides "
+                             f"{t.stride()} is not a row-major matrix")
 
 
 def _csr_int64(row_ptr: torch.Tensor) -> None:
@@ -380,18 +396,65 @@ def gat_score(x: torch.Tensor, a_src: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def gat_forward(x, as_, ad, row_ptr, col_idx, slope: float = 0.2,
-                precision: str = "exact"):
-    """(out [N, H], m [N, K], z [N, K]) over the in-edge CSR.  Launches the
-    CUDA kernel for CUDA tensors, runs the plain version for CPU
-    tensors."""
+# (lanes, packs a lane a pass) of the forward's lane groups, narrowest
+# first: a row takes the first pair whose lanes * packs cover its packs, or
+# the last in several passes (csrc/gat.cu:launch_fwd_group)
+FWD_GROUPS = ((8, 1), (16, 1), (16, 3), (32, 2))
+
+
+class FwdGeometry(NamedTuple):
+    """How ``gat_fwd_rows`` covers a row: ``vec`` floats a pack, ``lanes``
+    lanes a row, ``packs`` packs a lane a pass, gathered from x in place
+    (row stride ``ld``) or, ``staged``, from a plane of ``ld`` columns."""
+    vec: int
+    lanes: int
+    packs: int
+    staged: bool
+    ld: int
+
+
+def forward_geometry(k: int, f: int, ld: int, ptr: int) -> FwdGeometry:
+    """The forward kernel's geometry for K heads of F over x whose rows are
+    ``ld`` floats apart from address ``ptr``.  ``vec`` is the widest of 4,
+    2, 1 floats that divides F (so a pack lies in one head and takes one
+    weight) and ld and the address's alignment.  A K = 1 row that is not
+    16-byte aligned (layer 2's 41 columns) is gathered from an fp32 plane
+    of ld4(H) columns, staged once a forward (``gat_stage``), as 4-float
+    packs (chip_variants.py's gat_fwd_in_place_at_41 reads the in-place
+    gather slower)."""
+    h = k * f
+    vec = next(v for v in (4, 2, 1)
+               if f % v == 0 and ld % v == 0 and ptr % (4 * v) == 0)
+    staged = k == 1 and vec < 4
+    if staged:
+        vec, ld = 4, (h + 3) // 4 * 4
+    packs = -(-h // vec)
+    lanes, per = next(((n, q) for n, q in FWD_GROUPS if packs <= n * q),
+                      FWD_GROUPS[-1])
+    return FwdGeometry(vec, lanes, per, staged, ld)
+
+
+def gat_stage(x: torch.Tensor) -> torch.Tensor:
+    """The forward's staged plane [T, ld4(H)] of x [T, H] (rows
+    ``x.stride(0)`` apart): x's columns in fp32, then 0, the exact plane of
+    ``aggregate_sum.stage_plain``.  Launches aggregate_sum's staging kernel
+    for CUDA tensors (counted here), runs ``stage_plain`` for CPU tensors."""
     if x.device.type == "cpu":
-        return gat_forward_plain(x, as_, ad, row_ptr, col_idx, slope,
-                                 precision)
-    _check_shapes(x, as_, ad, row_ptr, col_idx)
-    check_precision(precision, x.dtype)
-    _require_cuda("gat_forward", x, as_, ad, row_ptr, col_idx)
-    _csr_int64(row_ptr)
+        return stage_plain(x, precision="exact")
+    _check_f32(x)
+    _require_cuda("gat_stage", rows=(x,))
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        plane = plane_launch(x, stream, "exact")
+    if x.shape[0]:
+        gat_stage.launches += 1
+    return plane
+
+
+def _forward_launch(x, as_, ad, row_ptr, col_idx, slope, precision,
+                    geo: FwdGeometry):
+    """The kernel at geometry ``geo``, staging x first where it says so:
+    (out, m, z)."""
     k, f = _heads(x, as_)
     n, h = row_ptr.numel() - 1, x.shape[1]
     out = torch.empty((n, h), device=x.device)
@@ -399,13 +462,36 @@ def gat_forward(x, as_, ad, row_ptr, col_idx, slope: float = 0.2,
     z = torch.empty((n, k), device=x.device)
     if n == 0:
         return out, m, z
+    src = gat_stage(x) if geo.staged else x
+    claimed = torch.zeros(1, dtype=torch.int32, device=x.device)  # rows taken
     _launch("gat_forward", LIBRARY.load().roc_gat_forward,
-            row_ptr.data_ptr(), col_idx.data_ptr(), x.data_ptr(),
+            row_ptr.data_ptr(), col_idx.data_ptr(), src.data_ptr(), geo.ld,
             as_.data_ptr(), ad.data_ptr(), out.data_ptr(), m.data_ptr(),
             z.data_ptr(), n, k, f, float(slope), int(precision == "fast"),
-            _vec_width(h, x, out), x.device)
+            geo.vec, geo.lanes, geo.packs, claimed.data_ptr(), x.device)
     gat_forward.launches += 1
     return out, m, z
+
+
+def gat_forward(x, as_, ad, row_ptr, col_idx, slope: float = 0.2,
+                precision: str = "exact"):
+    """(out [N, H], m [N, K], z [N, K]) over the in-edge CSR; x may be a
+    column slice (rows ``x.stride(0)`` apart).  Launches the CUDA kernel
+    (after ``gat_stage`` where ``forward_geometry`` stages x) for CUDA
+    tensors, runs the plain version for CPU tensors."""
+    if x.device.type == "cpu":
+        return gat_forward_plain(x, as_, ad, row_ptr, col_idx, slope,
+                                 precision)
+    _check_shapes(x, as_, ad, row_ptr, col_idx)
+    check_precision(precision, x.dtype)
+    _require_cuda("gat_forward", as_, ad, row_ptr, col_idx, rows=(x,))
+    _csr_int64(row_ptr)
+    if row_ptr.numel() > 1 << 30:   # the kernel claims rows with an int32
+        raise ValueError(f"gat_forward takes fewer than 2^30 rows, got "
+                         f"{row_ptr.numel() - 1}")
+    k, f = _heads(x, as_)
+    return _forward_launch(x, as_, ad, row_ptr, col_idx, slope, precision,
+                           forward_geometry(k, f, x.stride(0), x.data_ptr()))
 
 
 def _state_rows(dz: torch.Tensor, ad: torch.Tensor,
@@ -475,6 +561,7 @@ def gat_bwd_dst(dq: torch.Tensor, t_pos: torch.Tensor, row_ptr: torch.Tensor,
 
 
 gat_score.launches = 0
+gat_stage.launches = 0
 gat_forward.launches = 0
 gat_bwd_dst.launches = 0
 gat_bwd_src.launches = 0

@@ -26,6 +26,7 @@ import torch
 
 from roc_tpu_torch import ops
 from roc_tpu_torch.models.model import GraphCtx, Model, mega_matches
+from roc_tpu_torch.ops.kernels.gat import forward_geometry
 from roc_tpu_torch.train.config import Config
 
 
@@ -60,14 +61,19 @@ def forward_launches(model: Model, megafuse: bool = False,
     per other sum/avg aggregate op, one score and one attention forward per
     gat op, and the stagings: in "fast" each sum aggregation and
     megakernel first stages its fp32 input once as a bf16 plane
-    (``stage_plane``), in "exact" none does."""
+    (``stage_plane``), in "exact" none does; an attention forward whose
+    single head's rows are not 16-byte aligned stages them as an fp32
+    plane (``gat_stage``) in both."""
     matches = mega_matches(model) if megafuse else {}
     fused = {j for i, m in matches.items() for j in (i, *m["skip"])}
     kinds = [op.attrs.get("aggr") if op.kind == "aggregate" else op.kind
              for i, op in enumerate(model.ops) if i not in fused]
     gats = kinds.count("gat")
+    dims = [(int(op.attrs["heads"]), int(op.attrs["head_dim"]))
+            for op in model.ops if op.kind == "gat"]
+    staged = sum(forward_geometry(k, f, k * f, 0).staged for k, f in dims)
     out = {"aggregate_sum": kinds.count("sum") + kinds.count("avg"),
-           "gat_score": gats, "gat_forward": gats}
+           "gat_score": gats, "gat_stage": staged, "gat_forward": gats}
     if megafuse:
         out["aggregate_linear"] = len(matches)
     out["stage_plane"] = (out["aggregate_sum"] + len(matches)

@@ -337,7 +337,7 @@ def test_forward_launches_count_the_stagings():
     gcn = build_model("gcn", [8, 16, 4], 0.0)
     assert forward_launches(gcn, False, "fast")["stage_plane"] == 2
     assert forward_launches(gcn, True, "fast") == {
-        "aggregate_sum": 0, "gat_score": 0, "gat_forward": 0,
+        "aggregate_sum": 0, "gat_score": 0, "gat_stage": 0, "gat_forward": 0,
         "aggregate_linear": 2, "stage_plane": 2}
     assert forward_launches(gcn, False, "exact")["stage_plane"] == 0
     assert forward_launches(gcn) == forward_launches(gcn, False, "fast")

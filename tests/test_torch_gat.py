@@ -559,8 +559,11 @@ def test_attention_takes_the_kernel_path_on_cuda(monkeypatch):
     assert calls == [("kernel", "fast"), ("kernel", "fast"), ("plain", None)]
     assert graph_data.model_gat_dims(model) == (2, 4)
     assert graph_data.forward_launches(model) == {
-        "aggregate_sum": 0, "gat_score": 2, "gat_forward": 2,
+        "aggregate_sum": 0, "gat_score": 2, "gat_stage": 0, "gat_forward": 2,
         "stage_plane": 0}
+    # a single head of 41 columns (4-byte rows) is staged first
+    assert graph_data.forward_launches(build_gat([602, 64, 41], 0.0,
+                                                 heads=4))["gat_stage"] == 1
 
 
 @pytest.mark.parametrize("device", ["cpu", "meta"])
@@ -764,3 +767,105 @@ def test_backward_twins_on_an_isolated_row_and_a_silent_source():
     assert bool(torch.isfinite(dq).all()) and bool((dq != 0).all())
     assert torch.equal(dq[csr.t_pos.long()], G.gat_dq_plain(
         x, as_t, ad, m, du, dz, csr.row_ptr, csr.col_idx, SLOPE))
+
+
+# -- the forward kernel's geometry -------------------------------------------
+
+FWD_SHAPES = [(3, 5), (8, 8), (40, 2), (2, 200), (4, 6), (2, 2), (1, 41),
+              (4, 64), (1, 1), (1, 256)]
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "slice", "pair_slice"])
+@pytest.mark.parametrize("k,f", FWD_SHAPES)
+def test_forward_geometry_covers_each_row_in_whole_head_packs(k, f, layout):
+    """``forward_geometry`` (what gat_fwd_rows is launched with): every pack
+    of ``vec`` floats lies in one head (vec divides F, or K = 1) and ends
+    within the row's ``ld`` floats; the (lanes, packs) pair is one the
+    kernel instantiates, and its passes cover the H columns; the source's
+    rows are aligned to the pack.  A staged plane (exactly the K = 1 rows
+    that are not 16-byte aligned) has 16-byte rows of ld >= H."""
+    h = k * f
+    ld, ptr = {"contiguous": (h, 1 << 20), "slice": (h + 3, 4 + 8),
+               "pair_slice": (h + 2, 8 + 16)}[layout]
+    geo = G.forward_geometry(k, f, ld, ptr)
+    assert (geo.lanes, geo.packs) in G.FWD_GROUPS
+    assert geo.vec in (4, 2, 1)
+    aligned16 = ld % 4 == 0 and ptr % 16 == 0
+    assert geo.staged == (k == 1 and not aligned16)
+    if geo.staged:
+        assert geo.vec == 4 and geo.ld % 4 == 0 and h <= geo.ld < h + 4
+    else:
+        assert geo.ld == ld and ptr % (4 * geo.vec) == 0
+    assert geo.ld % geo.vec == 0
+    packs = -(-h // geo.vec)
+    assert packs * geo.vec <= geo.ld
+    per_pass = geo.lanes * geo.packs
+    passes = -(-packs // per_pass)
+    assert passes * per_pass * geo.vec >= h
+    if passes > 1:
+        assert (geo.lanes, geo.packs) == G.FWD_GROUPS[-1]
+    for c in range(0, h, geo.vec):
+        last = min(c + geo.vec, h) - 1
+        assert k == 1 or c // f == last // f, (c, geo)
+    # the narrowest group that covers the row in one pass
+    fits = [g for g in G.FWD_GROUPS if packs <= g[0] * g[1]]
+    assert (geo.lanes, geo.packs) == (fits[0] if fits else G.FWD_GROUPS[-1])
+
+
+def test_forward_geometry_of_the_main_path():
+    """The full-width GAT's two layers: 256 columns as 32 lanes x 2 packs
+    of 4 (the parent's pass), 41 columns (4-byte rows) staged as a plane of
+    44 columns in 16 lanes x 1 pack of 4 (the in-place gather that
+    chip_variants.py times against it, 16 lanes x 3 packs of 1, is a group
+    the kernel instantiates)."""
+    assert G.forward_geometry(4, 64, 256, 0) == (4, 32, 2, False, 256)
+    assert G.forward_geometry(1, 41, 41, 0) == (4, 16, 1, True, 44)
+    assert (16, 3) in G.FWD_GROUPS
+    # a 4-float pack would straddle heads at F = 6 and 2: 2-float packs
+    assert G.forward_geometry(4, 6, 24, 0).vec == 2
+    assert G.forward_geometry(2, 2, 4, 0).vec == 2
+
+
+@pytest.mark.parametrize("h,ld", [(41, 44), (1, 4), (256, 256), (7, 8)])
+def test_staged_plane_pads_with_zeros(h, ld):
+    """``gat_stage`` on the CPU (aggregate_sum's exact ``stage_plain``, the
+    staging kernel's plain version): x's columns in fp32, then zeros to
+    ld = ld4(H) (the columns a surplus pack reads), on a column slice
+    too."""
+    rng = np.random.default_rng(h)
+    wide = torch.as_tensor(rng.normal(size=(9, h + 2)).astype(np.float32))
+    x = wide[:, 1:1 + h]
+    plane = G.gat_stage(x)
+    assert plane.dtype == torch.float32
+    assert plane.shape == (9, ld) and plane.is_contiguous()
+    assert torch.equal(plane[:, :h], x)
+    assert torch.equal(plane[:, h:], torch.zeros((9, ld - h)))
+
+
+@pytest.mark.parametrize("precision", ["exact", "fast"])
+def test_forward_takes_a_column_slice(monkeypatch, precision):
+    """gat_forward of a column slice of a wider tensor (rows not 16-byte
+    aligned, as the kernel takes them) equals the forward of its
+    contiguous copy bit for bit; in exact it matches roc_tpu's plan within
+    32 norm-ULPs."""
+    g, gplans, _, eidx, csr = _setup(monkeypatch)
+    k, f = 1, 41
+    h, a_src, a_dst = _gaussian(g.num_nodes, k, f, seed=13)
+    wide = torch.zeros((g.num_nodes, k * f + 3))
+    wide[:, 1:1 + k * f] = torch.as_tensor(h.reshape(g.num_nodes, -1))
+    xs = wide[:, 1:1 + k * f]
+    x = xs.contiguous()
+    as_t = G.gat_score_plain(x, torch.as_tensor(a_src))
+    ad = G.gat_score_plain(x, torch.as_tensor(a_dst))
+    got = G.gat_forward(xs, as_t, ad, csr.row_ptr, csr.col_idx, SLOPE,
+                        precision)
+    want = G.gat_forward(x, as_t, ad, csr.row_ptr, csr.col_idx, SLOPE,
+                         precision)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    if precision == "exact":
+        ref = jops.gat_attend_plan(*(jnp.asarray(v) for v in
+                                     (h, h, a_src, a_dst)), gplans, eidx,
+                                   SLOPE, "highest")
+        assert norm_ulps(np.asarray(ref).reshape(g.num_nodes, -1),
+                         got[0].numpy()) <= 32

@@ -54,7 +54,7 @@ def test_every_kernel_source_has_a_loader():
     assert sources == {lib.source.name for lib in LIBRARIES}
     assert set(KERNELS) == {"aggregate_sum", "stage_plane", "aggregate_linear",
                             "aggregate_linear_bwd", "stage_cotangent",
-                            "gat_score",
+                            "gat_score", "gat_stage",
                             "gat_forward", "gat_bwd_dst", "gat_bwd_src",
                             "xlayer_fwd", "xlayer_bwd"}
 
