@@ -51,6 +51,13 @@ Phases, each printing one JSON line per record:
           under 0.2 ms (the stagings, the GAT score) is timed per launch
           over 100 launches between one event pair (kernel_ms; the lone
           launch is kept as kernel_one_launch_ms), its library call too
+  kernel  (dropout) the dropout kernel (jax.random's threefry masks,
+          csrc/dropout.cu) against its plain version (ops/prng.py) on the
+          Reddit graph at H = 602 and 256, rate 0.5: forward and backward
+          bitwise, the kept fraction; times of the kernel, the plain
+          version and torch's own dropout (other masks: a yardstick, not
+          the library call, which is null); bound: 8 bytes an element vs
+          80 integer operations an element over the fp32 rate
   small   the port's GCN forward on the audit graph, card vs CPU (exact)
   train_small  the port's Trainer on mega-shard (GCN 64-16-8, exact,
           dropout 0, 3 epochs), card vs CPU, unfused and megafuse: final
@@ -71,7 +78,9 @@ Phases, each printing one JSON line per record:
           the run (counts set to 0 just before, read just after) and in
           one more step: 4 aggregate_sum and 4 stage_plane unfused; 2
           aggregate_linear, 2 stage_plane, 2 aggregate_linear_bwd, 2
-          stage_cotangent and no aggregate_sum with -megafuse
+          stage_cotangent and no aggregate_sum with -megafuse; 3 dropout
+          in both (2 forward, 1 backward: the first dropout's input, x,
+          takes no gradient)
   ab      the same model in exact, dropout 0, 3 epochs from the same
           params, -megafuse vs unfused: final loss within 1e-3 relative
   kernel  (gat) the GAT entry points (gat_score, gat_forward, gat_bwd_dst,
@@ -125,8 +134,8 @@ Phases, each printing one JSON line per record:
           predict_logits <= 32 ULPs
   train_gat  the Trainer with GAT 602-64-41 (4 heads) on the Reddit graph,
           fast, -lr 0.01 -decay 0.0001 -dropout 0.5, 10 epochs: as train,
-          with 2 launches per step of each GAT kernel, 1 of gat_stage and
-          no aggregate_sum
+          with 2 launches per step of each GAT kernel, 1 of gat_stage, 3
+          of dropout and no aggregate_sum
 
   kernel_xlayer_shapes  the region kernels (xlayer_fwd, xlayer_bwd) against
           their plain versions on a small graph with a hub row of 700
@@ -163,6 +172,31 @@ Phases, each printing one JSON line per record:
           2 aggregate_linear, 2 stage_plane and no aggregate_sum launches
           per forward,
           served rows vs predict_logits <= 32 ULPs
+  graph_file  the graph input layer, in a temporary directory the phase
+          removes: the Reddit graph written with the port's lux writers
+          (.add_self_edge.lux, a binary-only .feats.bin, .label, .mask)
+          and read back through load_roc_dataset (what -file calls),
+          eager and -lazy, every array bitwise equal to the in-memory one
+          (graph_file_io: bytes, write and read seconds); GCN 602-256-41
+          trained from the files as in train (unfused, fast, 10 epochs,
+          launches per step 4 + 4) on Reddit in id order and in RCM order
+          (-reorder on; -reorder auto's note beside it), and on the same
+          shape with ring inter-community edges (seed 1, read -lazy) in id
+          order and under -reorder auto, which must keep the order: per
+          graph the RCM and reorder seconds, the occupancy statistic of
+          auto (padded_rows) and its seconds, epoch ms, peak memory, the
+          loss (finite and falling) and the sum kernel's ms over the CSR
+          and its transpose at H = 256 and 41; Reddit in id and RCM order
+          in exact, dropout 0, 3 epochs: final losses within 2e-4
+          relative (graph_file_isomorphic); then karate, davis and lesmis
+          written by the converter CLI and trained through python -m
+          roc_tpu_torch -file with the docs/GOLDEN.md recipe on the card,
+          the pins read from the final checkpoint's forward (golden):
+          karate test 31/32 with node 8 the sole miss, davis 15/16 with
+          node 15, lesmis val >= 13/19, test >= 43/48, loss <= 1.0; the
+          same run on the CPU (plain versions, fast, the same parameters
+          and masks: roc_tpu's random streams) within 1e-3 of the card's
+          train loss
 
 Then the ``kernels`` line, the card's name and power limit as nvidia-smi
 gives them, and last ``{"ok": true, "device": {...}}``.  Any failure
@@ -549,6 +583,62 @@ def _check_row(rec: dict, kern, plain, int_args, gauss_args, library,
         raise AssertionError(f"{rec['name']} disagrees with its plain "
                              f"version: {rec}")
     return rec
+
+
+# integer operations an element of the dropout kernel: 20 threefry rounds of
+# add, funnel shift and xor, the key injections, the float's construction,
+# the compare and the division (csrc/dropout.cu)
+DROPOUT_OPS = 80
+
+
+def phase_kernel_dropout(ds, dev) -> list:
+    """The dropout kernel (jax.random's masks, csrc/dropout.cu) against its
+    plain version at the GCN's two dropout widths on the Reddit graph,
+    forward and backward (the same launch on the cotangent), bitwise."""
+    from roc_tpu_torch.ops import prng
+    from roc_tpu_torch.ops.kernels.dropout import dropout, dropout_plain
+    n, rate = ds.graph.num_nodes, 0.5
+    key = prng.fold_in(prng.fold_in(prng.prng_key(SEED), 3), 1)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    rows = []
+    for h in (602, 256):
+        x = torch.randn((n, h), generator=gen, device=dev)
+        g = torch.randn((n, h), generator=gen, device=dev)
+
+        def fwd_bwd(fn):
+            xr = x.detach().requires_grad_(True)
+            out = fn(xr, rate, key)
+            out.backward(g)
+            return out.detach().view(torch.int32), xr.grad.view(torch.int32)
+
+        k, p = fwd_bwd(dropout), fwd_bwd(dropout_plain)
+        torch.cuda.synchronize()
+        rec = {"phase": "kernel", "name": "dropout", "H": h, "rate": rate,
+               "nodes": n, "forward_bitwise": bool(torch.equal(k[0], p[0])),
+               "backward_bitwise": bool(torch.equal(k[1], p[1])),
+               "kept_fraction": float((k[0] != 0).float().mean()),
+               "max_abs_err": float((k[0].view(torch.float32)
+                                     - p[0].view(torch.float32)).abs()
+                                    .max()),
+               **_bound(n * h * 8, n * h * DROPOUT_OPS)}
+        del k, p
+        rec["kernel_ms"] = time_ms(lambda: dropout(x, rate, key), reps=20,
+                                   warmup=3)
+        rec["plain_ms"] = time_ms(lambda: dropout_plain(x, rate, key),
+                                  reps=5, warmup=1)
+        # no PyTorch call draws jax.random's masks; torch's own dropout
+        # (other masks) is timed beside it as a yardstick
+        rec["library_ms"] = None
+        rec["torch_dropout_ms"] = time_ms(
+            lambda: torch.nn.functional.dropout(x, rate, True))
+        emit(rec)
+        rows.append(rec)
+        if not (rec["forward_bitwise"] and rec["backward_bitwise"]
+                and 0.49 < rec["kept_fraction"] < 0.51):
+            raise AssertionError(f"dropout disagrees with its plain "
+                                 f"version: {rec}")
+        del x, g
+    return rows
 
 
 def phase_kernel_train(ds, dev) -> list:
@@ -1870,26 +1960,35 @@ def step_launches(model: str, megafuse: bool) -> dict:
     """Kernel launches of one training step of the full-width model, in
     fast: each sum aggregation and megakernel forward stages its input
     once (stage_plane)."""
+    # two dropouts forward, and one backward: the first one's input is x,
+    # which takes no gradient
     if model == "gat":
         # layer 2's single head of 41 columns is staged (gat_stage) first
         return launch_dict(gat_score=2, gat_stage=1, gat_forward=2,
-                           gat_bwd_dst=2, gat_bwd_src=2)
+                           gat_bwd_dst=2, gat_bwd_src=2, dropout=3)
     if megafuse:
         return launch_dict(aggregate_linear=2, stage_plane=2,
-                           aggregate_linear_bwd=2, stage_cotangent=2)
-    return launch_dict(aggregate_sum=4, stage_plane=4)
+                           aggregate_linear_bwd=2, stage_cotangent=2,
+                           dropout=3)
+    return launch_dict(aggregate_sum=4, stage_plane=4, dropout=3)
 
 
-def phase_train(ds, dev, megafuse: bool, epochs: int = 10,
-                model: str = "gcn") -> dict:
-    """GCN 602-256-41 (or GAT 602-64-41, 4 heads) on the Reddit graph as
-    test.sh trains GCN."""
-    from roc_tpu_torch.train.graph_data import model_gat_dims
-    layers = LAYERS[model]
-    tr = _trainer(ds, layers, dev, num_epochs=epochs, learning_rate=0.01,
-                  weight_decay=0.0001, dropout_rate=0.5, eval_every=5,
-                  aggregate_precision="fast", megafuse=megafuse,
-                  model=model, heads=4)
+def _recipe_trainer(ds, dev, megafuse: bool = False, epochs: int = 10,
+                    model: str = "gcn"):
+    """GCN 602-256-41 (or GAT 602-64-41, 4 heads) as test.sh trains GCN:
+    fast, -lr 0.01 -decay 0.0001 -dropout 0.5, eval every 5 epochs."""
+    return _trainer(ds, LAYERS[model], dev, num_epochs=epochs,
+                    learning_rate=0.01, weight_decay=0.0001,
+                    dropout_rate=0.5, eval_every=5,
+                    aggregate_precision="fast", megafuse=megafuse,
+                    model=model, heads=4)
+
+
+def _train_run(tr, dev) -> dict:
+    """Train ``tr``, then one more step: synced epoch times (median of
+    epochs 3-10), peak memory, the first and last train_loss and the
+    launches of each kernel in the run (counts set to 0 just before, read
+    just after) and in the step."""
     lines = []
     reset_launches()
     stats = tr.train(print_fn=lines.append)
@@ -1900,19 +1999,23 @@ def phase_train(ds, dev, megafuse: bool, epochs: int = 10,
     tr.run_epoch()
     torch.cuda.synchronize(dev)
     per_step = read_launches()
-    steady = stats.epoch_times[2:]
-    expected = step_launches(model, megafuse)
-    rec = {"phase": "train" if model == "gcn" else "train_gat",
-           "model": model, "heads_head_dim": model_gat_dims(tr.model),
-           "layers": layers,
-           "dataset": ds.name, "precision": "fast", "megafuse": megafuse,
-           "epochs": epochs, "epoch_ms": [t * 1e3 for t in stats.epoch_times],
-           "median_epoch_ms_3_on": statistics.median(steady) * 1e3,
+    rec = {"epochs": tr.config.num_epochs,
+           "epoch_ms": [t * 1e3 for t in stats.epoch_times],
+           "median_epoch_ms_3_on": statistics.median(
+               stats.epoch_times[2:]) * 1e3,
            "peak_mem_bytes": max(stats.peak_mem_bytes, default=0),
            "first_train_loss": first, "last_train_loss": last,
            "final_step_loss": stats.final_loss, "metric_lines": lines,
            "launches": launches, "launches_per_step": per_step}
-    emit(rec)
+    return rec
+
+
+def _check_train(rec: dict, expected: dict) -> None:
+    """Fails unless the run launched exactly the kernels ``expected``
+    names, its extra step launched ``expected``, and the loss is finite
+    and falling."""
+    launches, per_step = rec["launches"], rec["launches_per_step"]
+    first, last = rec["first_train_loss"], rec["last_train_loss"]
     ran = {k: v > 0 for k, v in launches.items()}
     if ran != {k: v > 0 for k, v in expected.items()}:
         raise AssertionError(f"the training run launched {launches}")
@@ -1921,6 +2024,22 @@ def phase_train(ds, dev, megafuse: bool, epochs: int = 10,
                              f"expected {expected}")
     if not (np.isfinite(first) and np.isfinite(last) and last < first):
         raise AssertionError(f"train_loss did not fall: {first} -> {last}")
+
+
+def phase_train(ds, dev, megafuse: bool, epochs: int = 10,
+                model: str = "gcn") -> dict:
+    """GCN 602-256-41 (or GAT 602-64-41, 4 heads) on the Reddit graph as
+    test.sh trains GCN."""
+    from roc_tpu_torch.train.graph_data import model_gat_dims
+    tr = _recipe_trainer(ds, dev, megafuse, epochs, model)
+    rec = {"phase": "train" if model == "gcn" else "train_gat",
+           "model": model, "heads_head_dim": model_gat_dims(tr.model),
+           "layers": LAYERS[model], "dataset": ds.name, "precision": "fast",
+           "megafuse": megafuse}
+    expected = step_launches(model, megafuse)
+    rec.update(_train_run(tr, dev))
+    emit(rec)
+    _check_train(rec, expected)
     return rec
 
 
@@ -2027,6 +2146,290 @@ def phase_ab(ds, dev, epochs: int = 3) -> dict:
         raise AssertionError(f"megafuse and unfused training disagree: "
                              f"{rec}")
     return rec
+
+
+def _same_array_bits(a, b) -> bool:
+    a, b = np.asarray(a), np.asarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape and bool(
+        np.array_equal(a.view(np.uint8), b.view(np.uint8)))
+
+
+def _read_back(prefix, want, lazy: bool) -> dict:
+    """Read a written dataset through ``load_roc_dataset`` (what ``-file``
+    calls) and hold every array against the in-memory one, bitwise."""
+    from roc_tpu_torch.graph import datasets
+    t0 = time.perf_counter()
+    got = datasets.load_roc_dataset(prefix, want.in_dim, want.num_classes,
+                                    lazy=lazy)
+    read_s = time.perf_counter() - t0
+    same = {"row_ptr": _same_array_bits(got.graph.row_ptr, want.graph.row_ptr),
+            "col_idx": _same_array_bits(got.graph.col_idx, want.graph.col_idx),
+            "features": _same_array_bits(got.features, want.features),
+            "label_ids": _same_array_bits(got.label_ids, want.label_ids),
+            "mask": _same_array_bits(got.mask, want.mask),
+            "onehot_labels": _same_array_bits(got.onehot_labels(), want.labels)}
+    rec = {"lazy": lazy, "read_s": read_s, "bitwise": same,
+           "features_memmap": isinstance(got.features, np.memmap)}
+    if not all(same.values()) or rec["features_memmap"] != lazy:
+        raise AssertionError(f"the file read back differs: {rec}")
+    return got, rec
+
+
+def _write_files(ds, prefix) -> float:
+    """The reference's files for ``ds`` with the port's lux writers: the
+    graph, a binary-only feature file, the labels and the mask (no
+    ``.feats.csv``: its text of 140 M floats would take minutes)."""
+    from roc_tpu_torch.graph import lux
+    t0 = time.perf_counter()
+    lux.write_lux(prefix + lux.LUX_SUFFIX, ds.graph)
+    lux.write_features_bin(prefix, ds.features)
+    lux.write_labels(prefix, ds.label_ids)
+    lux.write_mask(prefix, ds.mask)
+    return time.perf_counter() - t0
+
+
+def _sum_times(csr, n, dev) -> dict:
+    """The sum kernel (fast, its staging included) over the CSR and its
+    transpose at the unfused GCN's widths, CUDA events."""
+    from roc_tpu_torch.ops.kernels.aggregate_sum import aggregate_sum
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    out = {}
+    for h in (256, 41):
+        x = torch.randn((n, h), generator=gen, device=dev)
+        out[f"fwd_H{h}_ms"] = time_ms(
+            lambda: aggregate_sum(x, csr.row_ptr, csr.col_idx, "fast"),
+            reps=20, warmup=3)
+        out[f"transposed_H{h}_ms"] = time_ms(
+            lambda: aggregate_sum(x, csr.t_row_ptr, csr.t_col_idx, "fast"),
+            reps=20, warmup=3)
+    return out
+
+
+def _train_file_graph(tag, ds, dev, order, **extra) -> dict:
+    """GCN 602-256-41 on one graph read from a file, in the train phase's
+    recipe (unfused, fast, kernel backend), with the occupancy statistic
+    of -reorder auto (``padded_rows``) and the sum kernel's times."""
+    from roc_tpu_torch.graph.reorder import padded_rows
+    t0 = time.perf_counter()
+    stat = padded_rows(ds.graph)
+    stat_s = time.perf_counter() - t0
+    tr = _recipe_trainer(ds, dev)
+    rec = {"phase": "graph_file", "graph": tag, "order": order, **extra,
+           "padded_rows": stat, "statistic_s": stat_s,
+           "nodes": ds.graph.num_nodes, "edges": ds.graph.num_edges,
+           "layers": LAYERS["gcn"], "precision": "fast",
+           "features_memmap": isinstance(ds.features, np.memmap)}
+    rec.update(_train_run(tr, dev))
+    rec["sum_kernel"] = _sum_times(tr.gdata.csr, ds.graph.num_nodes, dev)
+    emit(rec)
+    _check_train(rec, step_launches("gcn", False))
+    return rec
+
+
+def _timed_reorder(ds, mode):
+    """``maybe_reorder_dataset`` as the CLI calls it, with its seconds and
+    those of the RCM order alone."""
+    from roc_tpu_torch.graph.reorder import maybe_reorder_dataset, rcm_order
+    t0 = time.perf_counter()
+    rcm_order(ds.graph)
+    rcm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out, applied, note = maybe_reorder_dataset(ds, mode)
+    return out, applied, {"mode": mode, "note": note, "rcm_s": rcm_s,
+                          "reorder_s": time.perf_counter() - t0}
+
+
+def _isomorphic_losses(ds, dsr, dev, epochs: int = 3) -> dict:
+    """The two orders in exact, dropout 0, from the same seeded params:
+    final losses within 2e-4 relative (the graphs are isomorphic; the
+    sums only reassociate)."""
+    losses = []
+    for d in (ds, dsr):
+        tr = _trainer(d, LAYERS["gcn"], dev, num_epochs=epochs,
+                      learning_rate=0.01, weight_decay=0.0001,
+                      dropout_rate=0.0, eval_every=1000,
+                      aggregate_precision="exact")
+        losses.append(tr.train(print_fn=_quiet).final_loss)
+        del tr
+    rel = abs(losses[1] - losses[0]) / abs(losses[0])
+    rec = {"phase": "graph_file_isomorphic", "precision": "exact",
+           "epochs": epochs, "id_order_loss": losses[0],
+           "rcm_order_loss": losses[1], "loss_rel_err": rel,
+           "tolerance": 2e-4}
+    emit(rec)
+    if not (np.isfinite(rel) and rel <= 2e-4):
+        raise AssertionError(f"training on the reordered graph is not "
+                             f"isomorphic: {rec}")
+    return rec
+
+
+# docs/GOLDEN.md: name -> (layers, epochs); -lr 0.01 -decay 0.0005
+# -dropout 0.5 at the default seed
+GOLDEN = {"karate": ("34-16-2", 100), "davis": ("32-16-2", 100),
+          "lesmis": ("77-16-5", 200)}
+
+
+def _golden_run(prefix, layers, epochs, ckpt, extra=()) -> dict:
+    """``python -m roc_tpu_torch -file PREFIX`` with the docs/GOLDEN.md
+    recipe (``extra`` appended) and a checkpoint at the end, then the
+    checkpoint's forward on the run's device: its metrics, the scored
+    nodes it misses, its last metric line, its seconds and the kernel
+    launches of the training run."""
+    import contextlib
+    import io
+    from roc_tpu_torch.__main__ import main as train_main
+    from roc_tpu_torch.graph import datasets
+    from roc_tpu_torch.models import build_model
+    from roc_tpu_torch.ops.softmax import perf_metrics
+    from roc_tpu_torch.train.config import parse_args
+    from roc_tpu_torch.train.frozen import load_frozen
+    argv = ["-file", prefix, "-layers", layers, "-e", str(epochs), "-lr",
+            "0.01", "-decay", "0.0005", "-dropout", "0.5", "-ckpt", ckpt,
+            *extra]
+    out, err = io.StringIO(), io.StringIO()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = train_main(argv)
+    train_s = time.perf_counter() - t0
+    launches = read_launches()
+    if rc != 0:
+        raise AssertionError(f"{argv} exited {rc}: {err.getvalue()}")
+    cfg = parse_args(argv)
+    ds = datasets.load_roc_dataset(prefix, cfg.layers[0], cfg.layers[-1])
+    b = load_frozen(cfg, ds, build_model(cfg.model, cfg.layers, 0.0),
+                    device=cfg.device)
+    logits = b.predict_logits()
+    m = perf_metrics(logits, torch.as_tensor(ds.onehot_labels(),
+                                             device=b.device),
+                     torch.as_tensor(ds.mask, device=b.device))
+    pred = logits.argmax(-1).cpu().numpy()
+    scored = ds.mask != 3           # MASK_NONE: davis's event nodes
+    return {"argv": argv[2:], "device": str(b.device), "train_s": train_s,
+            "last_metric_line": out.getvalue().splitlines()[-1],
+            "train_loss": float(m.train_loss),
+            "val": [int(m.val_correct), int(m.val_all)],
+            "test": [int(m.test_correct), int(m.test_all)],
+            "misses": np.flatnonzero(scored & (pred != ds.label_ids))
+            .tolist(), "pred": pred, "launches": launches}
+
+
+def _golden(name, tmp) -> dict:
+    """Convert a vendored graph with the converter CLI and train it through
+    ``python -m roc_tpu_torch -file`` on the card (kernel backend, fast)
+    with the docs/GOLDEN.md recipe; the pins, read from the final
+    checkpoint's forward: karate test 31/32 with node 8 the sole miss,
+    davis 15/16 with node 15 the sole miss, lesmis val >= 13/19, test >=
+    43/48, train loss <= 1.0.  The same run on the CPU (the kernels'
+    plain versions, fast; the same parameters and dropout masks, roc_tpu's
+    random streams) must end within 1e-3 of the card's train loss; how
+    many predictions agree is recorded."""
+    import contextlib
+    import io
+    import os
+    from roc_tpu_torch.graph.__main__ import main as convert_main
+    prefix = os.path.join(tmp, name, name)
+    with contextlib.redirect_stderr(io.StringIO()):
+        if convert_main([name, "-o", prefix]) != 0:
+            raise AssertionError(f"the converter failed on {name}")
+    layers, epochs = GOLDEN[name]
+    card = _golden_run(prefix, layers, epochs,
+                       os.path.join(tmp, name + "_card.npz"))
+    cpu = _golden_run(prefix, layers, epochs,
+                      os.path.join(tmp, name + "_cpu.npz"),
+                      ["-device", "cpu", "-aggr-backend", "binned"])
+    rec = {"phase": "golden", "graph": name,
+           **{k: v for k, v in card.items() if k != "pred"},
+           "cpu": {k: cpu[k] for k in ("train_loss", "val", "test",
+                                       "misses")},
+           "cpu_loss_rel_err": abs(card["train_loss"] - cpu["train_loss"])
+           / abs(cpu["train_loss"]),
+           "cpu_predictions_equal": int((card["pred"] == cpu["pred"]).sum()),
+           "nodes": int(card["pred"].size)}
+    emit(rec)
+    pins = {"karate": rec["test"] == [31, 32] and rec["misses"] == [8],
+            "davis": rec["test"] == [15, 16] and rec["misses"] == [15],
+            "lesmis": rec["val"][1] == 19 and rec["val"][0] >= 13
+            and rec["test"][1] == 48 and rec["test"][0] >= 43
+            and rec["train_loss"] <= 1.0}[name]
+    if not pins or rec["launches"]["aggregate_sum"] == 0 \
+            or rec["launches"]["dropout"] == 0:
+        raise AssertionError(f"the {name} golden pins fail on the card: "
+                             f"{rec}")
+    if not rec["cpu_loss_rel_err"] <= 1e-3:
+        raise AssertionError(f"the {name} golden run on the card and on "
+                             f"the CPU disagree: {rec}")
+    return rec
+
+
+def phase_graph_file(ds, dev) -> dict:
+    """The graph input layer on the card: Reddit written to the
+    reference's files and read back (eager and -lazy) bitwise; GCN
+    602-256-41 trained from the files in id order and in RCM order, on
+    Reddit and on its ring-inter twin (-reorder auto must keep the order
+    there); the two Reddit orders isomorphic in exact; the golden curves
+    of the vendored graphs through the CLI.  Returns every kernel's
+    launches over the phase's training runs."""
+    import os
+    import shutil
+    import tempfile
+    from roc_tpu_torch.graph import datasets
+    total = dict.fromkeys(read_launches(), 0)
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] += v
+
+    with tempfile.TemporaryDirectory(prefix="roc_graph_file_") as tmp:
+        prefix = os.path.join(tmp, "reddit", "reddit")
+        os.makedirs(os.path.dirname(prefix))
+        write_s = _write_files(ds, prefix)
+        eager, eager_rec = _read_back(prefix, ds, lazy=False)
+        _, lazy_rec = _read_back(prefix, ds, lazy=True)
+        emit({"phase": "graph_file_io", "graph": "reddit",
+              "bytes": {f: os.path.getsize(os.path.join(
+                  os.path.dirname(prefix), f)) for f in sorted(
+                      os.listdir(os.path.dirname(prefix)))},
+              "write_s": write_s, "eager": eager_rec, "lazy": lazy_rec})
+        shutil.rmtree(os.path.dirname(prefix))
+
+        _, _, auto = _timed_reorder(eager, "auto")
+        runs = [_train_file_graph("reddit", eager, dev, "id", auto=auto)]
+        rcm, _, on = _timed_reorder(eager, "on")
+        runs.append(_train_file_graph("reddit", rcm, dev, "rcm", on=on))
+        iso = _isomorphic_losses(eager, rcm, dev)
+        del eager, rcm
+
+        n, deg, in_dim, classes, ntr, nva, nte = datasets._REGISTRY["reddit"]
+        t0 = time.perf_counter()
+        ring = datasets.synthetic("reddit-ring", n, deg, in_dim, classes,
+                                  n_train=ntr, n_val=nva, n_test=nte,
+                                  seed=1, inter_mode="ring")
+        gen_s = time.perf_counter() - t0
+        prefix = os.path.join(tmp, "ring", "ring")
+        os.makedirs(os.path.dirname(prefix))
+        ring_write_s = _write_files(ring, prefix)
+        lazy_ring, ring_rec = _read_back(prefix, ring, lazy=True)
+        emit({"phase": "graph_file_io", "graph": "reddit-ring",
+              "host_gen_s": gen_s, "write_s": ring_write_s,
+              "lazy": ring_rec})
+        del ring
+        kept, applied, auto = _timed_reorder(lazy_ring, "auto")
+        if not (applied and "kept" in auto["note"]):
+            raise AssertionError(f"-reorder auto did not keep the order on "
+                                 f"the ring graph: {auto}")
+        runs.append(_train_file_graph("reddit-ring", lazy_ring, dev, "id"))
+        runs.append(_train_file_graph("reddit-ring", kept, dev, "rcm",
+                                      auto=auto))
+        del kept, lazy_ring
+        shutil.rmtree(os.path.dirname(prefix))
+        for r in runs:
+            add(r["launches"])
+        goldens = [_golden(name, tmp) for name in GOLDEN]
+        for r in goldens:
+            add(r["launches"])
+    return {"launches": total, "runs": runs, "isomorphic": iso,
+            "goldens": goldens}
 
 
 def phase_serve(ds, dev, model_name: str = "gcn",
@@ -2149,6 +2552,7 @@ def main() -> int:
     serve_mega = phase_serve(ds, dev, n_requests=40, megafuse=True)
     rows += phase_kernel(ds, dev)
     rows += phase_kernel_train(ds, dev)
+    rows += phase_kernel_dropout(ds, dev)
     phase_kernel_gat_shapes(dev)
     rows += phase_kernel_gat(ds, dev)
     phase_small(dev)
@@ -2159,6 +2563,7 @@ def main() -> int:
     train = {mf: phase_train(ds, dev, mf) for mf in (False, True)}
     train_gat = phase_train(ds, dev, False, model="gat")
     phase_ab(ds, dev)
+    graph_file = phase_graph_file(ds, dev)
 
     def pick(name, **want):
         return next(r for r in rows if r["name"] == name and all(
@@ -2176,7 +2581,8 @@ def main() -> int:
     sum_entry = _kernel_entry(
         "aggregate_sum", src + "aggregate_sum.cu", pallas + "1885",
         {"serve": serve["launches"]["aggregate_sum"],
-         "train": train[False]["launches"]["aggregate_sum"]},
+         "train": train[False]["launches"]["aggregate_sum"],
+         "graph_file": graph_file["launches"]["aggregate_sum"]},
         pick("aggregate_sum", H=256, precision="fast", csr=None),
         named("aggregate_sum"), ("H", "precision", "csr"))
     sum_entry["also_replaces"] = [pallas + "1991", pallas + "2107",
@@ -2187,6 +2593,7 @@ def main() -> int:
          "serve_mega": serve_mega["launches"]["stage_plane"],
          "train": train[False]["launches"]["stage_plane"],
          "train_megafuse": train[True]["launches"]["stage_plane"],
+         "graph_file": graph_file["launches"]["stage_plane"],
          **chain_launches("stage_plane")},
         pick("stage_plane", H=256), named("stage_plane"), ("H", "ld"))
     stage_entry["also_replaces"] = [pallas + "1991", pallas + "2107",
@@ -2233,6 +2640,15 @@ def main() -> int:
             {"serve_gat": serve_gat["launches"]["gat_stage"],
              "train_gat": train_gat["launches"]["gat_stage"]},
             pick("gat_stage", K=1), named("gat_stage"), ("H", "ld")),
+        {**_kernel_entry(
+            "dropout", src + "dropout.cu", "roc_tpu/ops/dropout.py:21",
+            {"train": train[False]["launches"]["dropout"],
+             "train_megafuse": train[True]["launches"]["dropout"],
+             "train_gat": train_gat["launches"]["dropout"],
+             "graph_file": graph_file["launches"]["dropout"]},
+            pick("dropout", H=602), named("dropout"), ("H", "rate")),
+         "replaces_kind": "jax.random.bernoulli and jnp.where (XLA ops, "
+                          "not a Pallas kernel)"},
         _kernel_entry(
             "xlayer_fwd", src + "xlayer.cu", pallas + "2949",
             chain_launches("xlayer_fwd"),

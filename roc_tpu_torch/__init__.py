@@ -1,16 +1,20 @@
 """roc_tpu_torch: the PyTorch/CUDA port of roc_tpu, for one NVIDIA H100.
 
 The JAX package ``roc_tpu`` stays the reference; this package never imports
-it (nor jax).  Each module mirrors its counterpart's path.  The port so far
-covers the GCN serving path:
+it (nor jax).  Each module mirrors its counterpart's path:
 
-  graph/     in-edge CSR, the synthetic dataset registry
-  ops/       norm, activation, element, dropout, init, linear, aggregate;
+  graph/     in-edge CSR, the dataset registry (synthetic and the vendored
+             real graphs), the reference's on-disk format (lux), the
+             converters (python -m roc_tpu_torch.graph), the RCM reorder
+  fault/     the non-finite step guard, fault injection, retries, durable
+             file replacement
+  ops/       norm, activation, element, dropout, init, linear, aggregate,
+             edge attention; prng (jax.random's threefry streams);
              ops/kernels/ holds the hand-written CUDA kernels' loaders
   csrc/      CUDA C++ sources, built with nvcc for sm_90a at first use
-  models/    op-IR builder and GCN
+  models/    op-IR builder, GCN, gcn-chain, SAGE, GIN, GAT
   train/     config, npz checkpoints shared with roc_tpu, graph data,
-             frozen-parameter loading
+             frozen-parameter loading, the single-device trainer
   serve/     ServeEngine, microbatch queue, load generator, parity metric
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.

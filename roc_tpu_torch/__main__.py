@@ -1,18 +1,23 @@
-"""CLI entry: ``python -m roc_tpu_torch -dataset reddit -layers 602-256-41
--e 10 [-model gcn|gcn-chain|sage|gin|gat] [-heads K] [-aggr A] [-megafuse
-[-fusion-depth N]] [-device cpu]`` (roc_tpu/__main__.py).
+"""CLI entry: ``python -m roc_tpu_torch (-file PREFIX [-lazy] | -dataset
+NAME) -layers 602-256-41 -e 10 [-reorder [on|auto]] [-model
+gcn|gcn-chain|sage|gin|gat] [-heads K] [-aggr A] [-megafuse [-fusion-depth
+N]] [-device cpu]`` (roc_tpu/__main__.py).
 
-Trains on one NVIDIA GPU; ``-device cpu`` runs on the CPU instead, and
-without a GPU and without that flag the command exits non-zero.  Reading
-ROC-format files (``-file``) is not ported yet (ROADMAP queue A).
+``-file`` reads the reference's on-disk format (``PREFIX.add_self_edge.lux``
+and its sidecars; ``python -m roc_tpu_torch.graph`` writes it), as
+``./gnn ... -file dataset/reddit-dgl`` does (test.sh:8).  Trains on one
+NVIDIA GPU; ``-device cpu`` runs on the CPU instead, and without a GPU and
+without that flag the command exits non-zero.
 """
 
 from __future__ import annotations
 
 import sys
+import time
 
 from roc_tpu_torch.device import resolve_device
 from roc_tpu_torch.graph import datasets
+from roc_tpu_torch.graph.reorder import maybe_reorder_dataset
 from roc_tpu_torch.models import build_model
 from roc_tpu_torch.train.config import parse_args
 from roc_tpu_torch.train.driver import make_trainer
@@ -24,10 +29,6 @@ def main(argv=None) -> int:
         print("error: -layers is required (e.g. -layers 602-256-41)",
               file=sys.stderr)
         return 2
-    if not cfg.dataset:
-        print("error: -dataset is required (-file is not ported yet)",
-              file=sys.stderr)
-        return 2
     try:
         resolve_device(cfg.device)
     except RuntimeError as e:
@@ -35,21 +36,33 @@ def main(argv=None) -> int:
         return 1
     # Config banner, as gnn.cc:48-60 prints it.
     print("        ===== GNN settings =====", file=sys.stderr)
-    print(f"        dataset = {cfg.dataset} seed = {cfg.seed}\n"
+    print(f"        dataset = {cfg.filename or cfg.dataset} seed = {cfg.seed}\n"
           f"        num_epochs = {cfg.num_epochs} learning_rate = {cfg.learning_rate:.4f}\n"
           f"        weight_decay = {cfg.weight_decay:.4f} dropout_rate = {cfg.dropout_rate:.4f}\n"
           f"        decay_rate = {cfg.decay_rate:.4f} decay_steps = {cfg.decay_steps}",
           file=sys.stderr)
     print(f"        Layers: {' '.join(map(str, cfg.layers))}", file=sys.stderr)
-    ds = datasets.get(cfg.dataset, seed=cfg.seed)
-    if ds.in_dim != cfg.layers[0]:
-        print(f"error: -layers head {cfg.layers[0]} != dataset in_dim "
-              f"{ds.in_dim}", file=sys.stderr)
+    if cfg.filename:
+        ds = datasets.load_roc_dataset(cfg.filename, cfg.layers[0],
+                                       cfg.layers[-1], lazy=cfg.lazy_load)
+    elif cfg.dataset:
+        ds = datasets.get(cfg.dataset, seed=cfg.seed)
+        if ds.in_dim != cfg.layers[0]:
+            print(f"error: -layers head {cfg.layers[0]} != dataset in_dim "
+                  f"{ds.in_dim}", file=sys.stderr)
+            return 2
+        if ds.num_classes != cfg.layers[-1]:
+            print(f"error: -layers tail {cfg.layers[-1]} != dataset classes "
+                  f"{ds.num_classes}", file=sys.stderr)
+            return 2
+    else:
+        print("error: one of -file or -dataset is required", file=sys.stderr)
         return 2
-    if ds.num_classes != cfg.layers[-1]:
-        print(f"error: -layers tail {cfg.layers[-1]} != dataset classes "
-              f"{ds.num_classes}", file=sys.stderr)
-        return 2
+    if cfg.reorder != "off":
+        t0 = time.perf_counter()
+        ds, _, note = maybe_reorder_dataset(ds, cfg.reorder)
+        print(f"# {note} ({ds.graph.num_nodes} nodes, "
+              f"{time.perf_counter() - t0:.1f}s)", file=sys.stderr)
     model = build_model(cfg.model, cfg.layers, cfg.dropout_rate, cfg.aggr,
                         heads=cfg.heads)
     make_trainer(cfg, ds, model).train()

@@ -4,8 +4,8 @@ A NaN or Inf loss or gradient must not poison the parameters, and finding
 it on the host would cost a device-to-host sync every step.  So the update
 is computed unconditionally and ``torch.where`` selects between the new and
 the old params and optimizer state on one finiteness flag that stays on the
-device.  The chaos harness of the JAX package (``nan_scale``, ``inject``)
-is not ported yet.
+device.  The JAX package's NaN injection into a step (``nan_scale``) is
+not ported yet.
 """
 
 from __future__ import annotations

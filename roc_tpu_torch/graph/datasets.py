@@ -1,10 +1,11 @@
-"""Deterministic synthetic datasets, as in roc_tpu/graph/datasets.py.
+"""Dataset registry (roc_tpu/graph/datasets.py): the reference's on-disk
+format through :func:`load_roc_dataset`, the vendored real graphs
+(karate, davis, lesmis; graph/convert.py) and deterministic synthetic
+graphs.
 
 ``synthetic()`` draws from ``np.random.default_rng(seed)`` in the same
 order as the JAX package, so the same name and seed give the same graph,
-features and masks, byte for byte.  Reading ROC-format files and the
-vendored real graphs (karate, davis, lesmis) are not ported yet
-(ROADMAP queue A).
+features and masks, byte for byte.
 """
 
 from __future__ import annotations
@@ -21,12 +22,42 @@ from roc_tpu_torch.graph.csr import Csr, add_self_edges, from_edges
 class Dataset:
     name: str
     graph: Csr              # includes self-edges
-    features: np.ndarray    # [N, in_dim] float32
-    labels: np.ndarray      # [N, C] one-hot float32
+    features: np.ndarray    # [N, in_dim] float32 (may be a read-only memmap)
+    labels: "np.ndarray | None"  # [N, C] one-hot float32, or None when lazy
     label_ids: np.ndarray   # [N] int64
     mask: np.ndarray        # [N] int32 in {TRAIN, VAL, TEST, NONE}
     in_dim: int
     num_classes: int
+
+    def onehot_labels(self) -> np.ndarray:
+        """One-hot labels, made on demand when the dataset was loaded lazily
+        (which skips the [N, C] float32 array)."""
+        if self.labels is not None:
+            return self.labels
+        return lux.one_hot(self.label_ids, self.num_classes)
+
+
+def load_roc_dataset(prefix: str, in_dim: int, num_classes: int,
+                     name: str = "", lazy: bool = False,
+                     graph_stub: bool = False) -> Dataset:
+    """Load a dataset laid out in the reference's on-disk format.
+
+    ``in_dim``/``num_classes`` come from the layer spec exactly as in the
+    reference CLI (`-layers 602-256-41` supplies both, gnn.cc:68-69).
+    ``lazy=True`` memory-maps the features and defers the one-hot labels.
+    ``graph_stub`` (the JAX package's per-host loading, ``-perhost``) waits
+    for the multi-device port and is refused."""
+    if graph_stub:
+        raise NotImplementedError(
+            "graph_stub (-perhost loading) is not ported: it belongs to the "
+            "multi-device trainer (ROADMAP queue A item 8)")
+    g = lux.read_lux(prefix + lux.LUX_SUFFIX)
+    feats = lux.load_features(prefix, g.num_nodes, in_dim, mmap=lazy)
+    ids = lux.load_label_ids(prefix, g.num_nodes, num_classes)
+    mask = lux.load_mask(prefix, g.num_nodes)
+    onehot = None if lazy else lux.one_hot(ids, num_classes)
+    return Dataset(name or prefix, g, feats, onehot, ids, mask, in_dim,
+                   num_classes)
 
 
 def synthetic(name: str, num_nodes: int, avg_degree: float, in_dim: int,
@@ -101,16 +132,21 @@ _REGISTRY = {
     "mega-shard":   (448,     4.0, 64,    8,   128,   64,   64),
 }
 
-_REAL = ("karate", "davis", "lesmis")
+# Vendored real graphs (data/*/README.md), fetched by the same names as the
+# synthetic stand-ins: name -> constructor on graph/convert.py.  ``seed``
+# does not apply: karate and davis use the canonical published splits, and
+# lesmis pins its golden-curve split (docs/GOLDEN.md).
+_REAL = {"karate": "karate_club", "davis": "davis_women",
+         "lesmis": "les_miserables"}
 
 
 def get(name: str, seed: int = 0) -> Dataset:
-    """Fetch a named synthetic dataset (seeded).  ``roc-audit`` pins its
-    seed to 7, as the JAX package does."""
+    """Fetch a named dataset: a vendored real graph (fixed canonical split;
+    ``seed`` ignored), or a deterministic synthetic stand-in (seeded;
+    ``roc-audit`` pins its seed to 7, as the JAX package does)."""
     if name in _REAL:
-        raise NotImplementedError(
-            f"dataset {name!r} is a vendored real graph; reading ROC-format "
-            f"files is not ported yet (ROADMAP queue A, graph layer)")
+        from roc_tpu_torch.graph import convert
+        return getattr(convert, _REAL[name])()
     if name == "roc-audit":
         seed = 7
     n, deg, in_dim, classes, ntr, nva, nte = _REGISTRY[name]
@@ -119,4 +155,4 @@ def get(name: str, seed: int = 0) -> Dataset:
 
 
 def names():
-    return sorted(_REGISTRY)
+    return sorted(_REGISTRY) + list(_REAL)

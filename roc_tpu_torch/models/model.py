@@ -19,6 +19,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional
 import torch
 
 from roc_tpu_torch import ops
+from roc_tpu_torch.ops import prng
 
 
 class GraphCtx(NamedTuple):
@@ -360,37 +361,45 @@ class Model:
         return t
 
     # -- parameters -------------------------------------------------------
-    def init_params(self, generator: torch.Generator,
+    def init_params(self, key: prng.Key,
                     device=None) -> Dict[str, torch.Tensor]:
-        """Glorot-uniform, drawn in op order from one generator: a
-        linear op's ``[in, out]`` weight; a gat op's ``_w`` ``[in, K*F]``,
-        then ``_asrc`` and ``_adst`` ``[K, F]`` (each drawn as a
-        ``[K*F, 1]`` Glorot matrix, model.py:461-471)."""
+        """Glorot-uniform, roc_tpu's parameters bit for bit
+        (model.py:449-472): the i-th linear or gat op draws from
+        ``fold_in(key, i)``; a linear op its ``[in, out]`` weight, a gat op
+        its ``_w`` ``[in, K*F]``, then ``_asrc`` and ``_adst`` ``[K, F]``
+        from ``fold_in(k, 1)`` and ``fold_in(k, 2)`` (each drawn as a
+        ``[K*F, 1]`` Glorot matrix)."""
         params = {}
+        i = 0
         for op in self.ops:
             a = op.attrs
             if op.kind == "linear":
                 params[a["param"]] = ops.glorot_uniform(
-                    a["in_dim"], a["out_dim"], generator, device=device)
+                    prng.fold_in(key, i), a["in_dim"], a["out_dim"],
+                    device=device)
+                i += 1
             elif op.kind == "gat":
+                k = prng.fold_in(key, i)
                 kf = a["heads"] * a["head_dim"]
                 params[a["param"] + "_w"] = ops.glorot_uniform(
-                    a["in_dim"], kf, generator, device=device)
-                for suffix in ("_asrc", "_adst"):
+                    k, a["in_dim"], kf, device=device)
+                for j, suffix in enumerate(("_asrc", "_adst")):
                     params[a["param"] + suffix] = ops.glorot_uniform(
-                        kf, 1, generator, device=device).reshape(
-                            a["heads"], a["head_dim"])
+                        prng.fold_in(k, j + 1), kf, 1,
+                        device=device).reshape(a["heads"], a["head_dim"])
+                i += 1
         return params
 
     # -- execution --------------------------------------------------------
     def apply(self, params: Dict[str, torch.Tensor], x: torch.Tensor,
-              gctx: GraphCtx, generator: Optional[torch.Generator] = None,
+              gctx: GraphCtx, key: Optional[prng.Key] = None,
               train: bool = False) -> torch.Tensor:
-        """Run the op list; returns logits [N, C].  Training dropout draws
-        from ``generator``.  With ``gctx.fuse_region`` set and a fusion
-        depth other than 1, each ``mega_regions`` chain runs through that
-        hook; with ``gctx.fuse_linear`` set, each remaining
-        ``mega_matches`` chain runs through its own (model.py:486-523)."""
+        """Run the op list; returns logits [N, C].  Training dropout slot s
+        draws its mask from ``fold_in(key, s)``, as roc_tpu's does.  With
+        ``gctx.fuse_region`` set and a fusion depth other than 1, each
+        ``mega_regions`` chain runs through that hook; with
+        ``gctx.fuse_linear`` set, each remaining ``mega_matches`` chain
+        runs through its own (model.py:486-523)."""
         vals: Dict[int, torch.Tensor] = {0: x}
         matches = mega_matches(self) if gctx.fuse_linear is not None else {}
         regions = (mega_regions(self, gctx.fusion_depth, train)
@@ -417,7 +426,10 @@ class Model:
                 skipped.update(m["skip"])
                 continue
             if op.kind == "dropout":
-                out = ops.dropout(a, op.attrs["rate"], train, generator)
+                live = train and op.attrs["rate"] != 0.0
+                k = (prng.fold_in(key, op.attrs["slot"])
+                     if live and key is not None else None)
+                out = ops.dropout(a, op.attrs["rate"], train, k)
             elif op.kind == "linear":
                 out = ops.linear(a, params[op.attrs["param"]],
                                  op.attrs["activation"])
@@ -446,10 +458,9 @@ class Model:
         return vals[self.logits.id]
 
     def loss(self, params, x, labels, mask, gctx,
-             generator: Optional[torch.Generator] = None,
+             key: Optional[prng.Key] = None,
              train: bool = True) -> torch.Tensor:
         """The masked softmax cross-entropy (a sum over train rows) of the
         model's logits."""
-        logits = self.apply(params, x, gctx, generator=generator,
-                            train=train)
+        logits = self.apply(params, x, gctx, key=key, train=train)
         return ops.masked_softmax_cross_entropy(logits, labels, mask)

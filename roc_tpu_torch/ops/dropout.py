@@ -1,8 +1,9 @@
-"""Inverted dropout (roc_tpu/ops/dropout.py) with an explicit generator.
+"""Inverted dropout (roc_tpu/ops/dropout.py) with an explicit PRNG key.
 
-Keep with probability 1 - rate and scale by 1 / (1 - rate).  The identity
-at eval or rate 0.  The masks are torch's own bits, not jax.random's: parity
-with the JAX package is tested at rate 0 or eval.
+Keep with probability 1 - rate and scale by 1 / (1 - rate); the identity
+at eval or rate 0.  The masks are jax.random's bits for the same key
+(ops/prng.py), drawn on the card by ``csrc/dropout.cu``: a run draws the
+masks roc_tpu draws, on any device.
 """
 
 from __future__ import annotations
@@ -11,13 +12,14 @@ from typing import Optional
 
 import torch
 
+from roc_tpu_torch.ops import prng
+from roc_tpu_torch.ops.kernels import dropout as _kernel
+
 
 def dropout(x: torch.Tensor, rate: float, train: bool,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+            key: Optional[prng.Key] = None) -> torch.Tensor:
     if not train or rate == 0.0:
         return x
-    if generator is None:
-        raise ValueError("training dropout needs a torch.Generator")
-    keep = torch.rand(x.shape, generator=generator, device=x.device) \
-        < (1.0 - rate)
-    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+    if key is None:
+        raise ValueError("training dropout needs a PRNG key")
+    return _kernel.dropout(x, rate, key)

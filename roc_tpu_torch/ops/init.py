@@ -1,17 +1,19 @@
-"""Glorot-uniform initialization (roc_tpu/ops/init.py) from a
-``torch.Generator``: uniform in ±sqrt(6 / (fan_in + fan_out)).  The bits
-differ from jax.random's; parity with the JAX package goes through carried
-weights (train/checkpoint.py)."""
+"""Glorot-uniform initialization (roc_tpu/ops/init.py): uniform in
+±sqrt(6 / (fan_in + fan_out)), drawn from a jax.random key with the JAX
+package's bits (ops/prng.py), so the port starts from roc_tpu's
+parameters."""
 
 from __future__ import annotations
 
 import torch
 
+from roc_tpu_torch.ops import prng
 
-def glorot_uniform(in_dim: int, out_dim: int, generator: torch.Generator,
-                   device=None, dtype=torch.float32) -> torch.Tensor:
+
+def glorot_uniform(key: prng.Key, in_dim: int, out_dim: int,
+                   device=None) -> torch.Tensor:
+    """[in_dim, out_dim] float32, drawn on the CPU and placed on
+    ``device``."""
     scale = (6.0 / (in_dim + out_dim)) ** 0.5
-    u = torch.rand((in_dim, out_dim), generator=generator,
-                   device=generator.device, dtype=dtype)
-    return (u * (2.0 * scale) - scale).to(device if device is not None
-                                           else generator.device)
+    w = prng.uniform(key, (in_dim, out_dim), -scale, scale)
+    return w if device is None else w.to(device)

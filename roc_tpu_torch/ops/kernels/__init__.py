@@ -5,8 +5,8 @@ is compiled at its first launch, or all of them at once by
 
 from concurrent.futures import ThreadPoolExecutor
 
-from roc_tpu_torch.ops.kernels import (aggregate_linear, aggregate_sum, gat,
-                                       xlayer)
+from roc_tpu_torch.ops.kernels import (aggregate_linear, aggregate_sum,
+                                       dropout, gat, xlayer)
 
 KERNELS = {"aggregate_sum": aggregate_sum.aggregate_sum,
            "stage_plane": aggregate_sum.stage_plane,
@@ -19,10 +19,11 @@ KERNELS = {"aggregate_sum": aggregate_sum.aggregate_sum,
            "gat_bwd_dst": gat.gat_bwd_dst,
            "gat_bwd_src": gat.gat_bwd_src,
            "xlayer_fwd": xlayer.xlayer_fwd,
-           "xlayer_bwd": xlayer.xlayer_bwd}
+           "xlayer_bwd": xlayer.xlayer_bwd,
+           "dropout": dropout.dropout}
 
 LIBRARIES = (aggregate_sum.LIBRARY, aggregate_linear.LIBRARY, gat.LIBRARY,
-             xlayer.LIBRARY)
+             xlayer.LIBRARY, dropout.LIBRARY)
 
 
 def build_all() -> None:
@@ -34,4 +35,4 @@ def build_all() -> None:
 
 
 __all__ = ["KERNELS", "LIBRARIES", "aggregate_linear", "aggregate_sum",
-           "build_all", "gat", "xlayer"]
+           "build_all", "dropout", "gat", "xlayer"]

@@ -25,10 +25,10 @@ import tempfile
 
 def selftest(device: str = "cuda", model_name: str = "gcn") -> int:
     import numpy as np
-    import torch
 
     from roc_tpu_torch.graph import datasets
     from roc_tpu_torch.models import build_model
+    from roc_tpu_torch.ops import prng
     from roc_tpu_torch.ops.kernels import KERNELS
     from roc_tpu_torch.serve import ServeEngine, max_ulp_diff, run_load
     from roc_tpu_torch.train import checkpoint
@@ -46,7 +46,7 @@ def selftest(device: str = "cuda", model_name: str = "gcn") -> int:
 
     with tempfile.TemporaryDirectory(prefix="roc_torch_serve_") as tmp:
         ckpt = os.path.join(tmp, "serve.ckpt.npz")
-        params = model.init_params(torch.Generator().manual_seed(cfg.seed))
+        params = model.init_params(prng.prng_key(cfg.seed))
         checkpoint.save(ckpt, params)
         with ServeEngine(cfg, ds, model, checkpoint_path=ckpt,
                          device=device) as eng:

@@ -8,19 +8,20 @@ the i-th leaf in jax's pytree flatten order, which sorts dict keys
 lexicographically: ``linear_10`` comes before ``linear_2``.
 
 A save writes a temp file, fsyncs it, renames it over the target and
-fsyncs the directory, so a crash leaves the old checkpoint or the new one.
+fsyncs the directory (``fault.durable.fsync_replace``), so a crash leaves
+the old checkpoint or the new one.
 """
 
 from __future__ import annotations
 
 import json
-import os
 import zlib
 from typing import Any, Dict, List
 
 import numpy as np
 import torch
 
+from roc_tpu_torch.fault.durable import fsync_replace
 from roc_tpu_torch.optim.adam import AdamState
 
 _FORMAT_VERSION = 1
@@ -64,23 +65,6 @@ def _payload_crc(arrays: Dict[str, np.ndarray]) -> int:
     return crc & 0xFFFFFFFF
 
 
-def _fsync_replace(tmp_path: str, path: str) -> None:
-    fd = os.open(tmp_path, os.O_RDONLY)
-    try:
-        os.fsync(fd)
-    finally:
-        os.close(fd)
-    os.replace(tmp_path, path)
-    try:
-        dfd = os.open(os.path.dirname(os.path.abspath(path)), os.O_RDONLY)
-    except OSError:     # platforms without directory opens lose only the
-        return          # directory fsync
-    try:
-        os.fsync(dfd)
-    finally:
-        os.close(dfd)
-
-
 def save(path: str, params, opt_state=None, epoch: int = 0,
          alpha: float = 0.0, extra: Dict[str, Any] | None = None) -> None:
     """Durable atomic save of ``params`` (a dict of tensors or arrays) and
@@ -93,7 +77,7 @@ def save(path: str, params, opt_state=None, epoch: int = 0,
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
         np.savez(f, **payload)
-    _fsync_replace(tmp, path)
+    fsync_replace(tmp, path)
 
 
 def _read_verified(path: str):

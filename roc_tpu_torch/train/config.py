@@ -1,6 +1,7 @@
 """Run configuration and CLI (roc_tpu/train/config.py), holding the fields
-the ported serving and training paths read.  Defaults and flag names match
-the JAX package's (config.py:399-441); ``-device`` is the port's own."""
+the ported serving, training and graph-input paths read.  Defaults, flag
+names and dests match the JAX package's (config.py:398-466); ``-device``
+is the port's own."""
 
 from __future__ import annotations
 
@@ -13,7 +14,8 @@ BACKENDS = ("auto", "xla", "matmul", "pallas", "binned")
 
 @dataclasses.dataclass
 class Config:
-    dataset: str = ""             # synthetic registry name
+    filename: str = ""            # ROC-format dataset prefix (-file)
+    dataset: str = ""             # registry name (synthetic or vendored)
     layers: List[int] = dataclasses.field(default_factory=list)
     num_epochs: int = 1
     learning_rate: float = 0.01
@@ -40,6 +42,10 @@ class Config:
     fusion_depth: int = 1         # cross-layer fusion-region cap (needs
                                   # megafuse): 1 off, N chains of at most
                                   # N layers, 0 unlimited
+    lazy_load: bool = False       # memmap features / defer one-hot labels
+    reorder: str = "off"          # RCM vertex order before training:
+                                  # off | on | auto (kept on a >=10% cut
+                                  # of graph/reorder.py:padded_rows)
     device: str = "cuda"          # cuda, or cpu when asked for
     serve_batch: int = 64         # microbatch cap and top of the bucket ladder
     serve_wait_ms: float = 2.0    # max ms a serving window stays open
@@ -74,6 +80,7 @@ def parse_args(argv: List[str]) -> Config:
     p = argparse.ArgumentParser(
         prog="roc_tpu_torch",
         description="full-graph GNN training on one NVIDIA GPU")
+    p.add_argument("-file", dest="filename", default="")
     p.add_argument("-dataset", default="")
     p.add_argument("-layers", default="",
                    help="dash-separated widths, e.g. 602-256-41")
@@ -109,6 +116,9 @@ def parse_args(argv: List[str]) -> Config:
                    help="cross-layer fusion-region cap (needs -megafuse): "
                         "1 per-layer only (default), 2 chain two layers, "
                         "0 full chain")
+    p.add_argument("-lazy", dest="lazy_load", action="store_true")
+    p.add_argument("-reorder", nargs="?", const="on", default="off",
+                   choices=["on", "off", "auto"])
     p.add_argument("-device", default="cuda",
                    help="cuda (default) or cpu")
     ns = p.parse_args(argv)

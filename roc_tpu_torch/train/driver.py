@@ -12,11 +12,11 @@ Per epoch, as the reference's loop (gnn.cc:99-111) and the JAX driver
   * every ``eval_every`` epochs an inference forward prints the reference's
     metric line.
 
-Dropout draws from a ``torch.Generator`` on the run's device, seeded for
-each epoch with ``seed * 2**32 + epoch``: a run is reproducible on one
-device, and a resumed run draws the masks the unbroken run would have.
-The masks are torch's bits, not jax.random's, so parity with the JAX
-package is tested at dropout 0.
+The parameters and the dropout masks are roc_tpu's bits (ops/prng.py):
+the run's key is ``PRNGKey(seed)``, the Glorot init draws from it, and
+epoch e's masks from ``fold_in(key, e)`` (driver.py:917), on any device.
+So the port starts and steps as the JAX package does, and a resumed run
+draws the masks the unbroken run would have.
 
 Not ported yet (ROADMAP queue A): obs spans and metrics, the profiler
 window, the online balancer, signal handling, the memory planner, the
@@ -37,13 +37,15 @@ from roc_tpu_torch.device import resolve_device
 from roc_tpu_torch.fault.guard import guarded_update
 from roc_tpu_torch.graph.datasets import Dataset
 from roc_tpu_torch.models.model import Model
+from roc_tpu_torch.ops import prng
 from roc_tpu_torch.ops.softmax import PerfMetrics, format_metrics, \
     perf_metrics
 from roc_tpu_torch.optim.adam import Adam
 from roc_tpu_torch.train import checkpoint
 from roc_tpu_torch.train.config import Config
 from roc_tpu_torch.train.graph_data import (dense_graph_data,
-                                            effective_backend, make_gctx,
+                                            effective_backend,
+                                            host_to_device, make_gctx,
                                             model_has_gat)
 
 
@@ -65,10 +67,9 @@ def device_sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def dropout_generator(seed: int, epoch: int,
-                      device: torch.device) -> torch.Generator:
-    """The generator an epoch's dropout masks draw from."""
-    return torch.Generator(device=device).manual_seed(seed * 2 ** 32 + epoch)
+def dropout_key(seed: int, epoch: int) -> prng.Key:
+    """The key an epoch's dropout masks draw from."""
+    return prng.fold_in(prng.prng_key(seed), epoch)
 
 
 class Trainer:
@@ -98,21 +99,20 @@ class Trainer:
             ds.graph, backend, cfg.aggregate_precision, dev,
             edge_map=backend == "kernel" and model_has_gat(self.model))
         self.gctx = make_gctx(self.gdata, cfg.megafuse, cfg.fusion_depth)
-        self.x = torch.as_tensor(ds.features, dtype=torch.float32,
-                                 device=dev)
-        self.labels = torch.as_tensor(ds.labels, dtype=torch.float32,
-                                      device=dev)
+        self.x = host_to_device(ds.features, dev)
+        self.labels = torch.as_tensor(ds.onehot_labels(),
+                                      dtype=torch.float32, device=dev)
         self.mask = torch.as_tensor(ds.mask, dtype=torch.int32, device=dev)
-        self.params = self.model.init_params(
-            torch.Generator().manual_seed(cfg.seed), device=dev)
+        self.params = self.model.init_params(prng.prng_key(cfg.seed),
+                                             device=dev)
         self.opt_state = self.optimizer.init(self.params)
 
     # -- one step ---------------------------------------------------------
-    def _train_step(self, generator: torch.Generator, alpha: float):
+    def _train_step(self, key: prng.Key, alpha: float):
         params = {k: p.detach().requires_grad_(True)
                   for k, p in self.params.items()}
         loss = self.model.loss(params, self.x, self.labels, self.mask,
-                               self.gctx, generator=generator, train=True)
+                               self.gctx, key=key, train=True)
         keys = sorted(params)
         grads = dict(zip(keys, torch.autograd.grad(
             loss, [params[k] for k in keys])))
@@ -128,8 +128,8 @@ class Trainer:
         cfg = self.config
         if self.epoch != 0 and self.epoch % cfg.decay_steps == 0:
             self.optimizer.alpha *= cfg.decay_rate  # gnn.cc:100-101
-        gen = dropout_generator(cfg.seed, self.epoch, self.device)
-        loss = self._train_step(gen, self.optimizer.alpha)
+        loss = self._train_step(dropout_key(cfg.seed, self.epoch),
+                                self.optimizer.alpha)
         self.epoch += 1
         return loss
 

@@ -19,10 +19,12 @@ import torch
 from roc_tpu_torch.device import resolve_device
 from roc_tpu_torch.graph.datasets import Dataset
 from roc_tpu_torch.models.model import Model
+from roc_tpu_torch.ops import prng
 from roc_tpu_torch.train import checkpoint
 from roc_tpu_torch.train.config import Config
 from roc_tpu_torch.train.graph_data import (DenseGraphData, dense_graph_data,
-                                            effective_backend, make_gctx)
+                                            effective_backend,
+                                            host_to_device, make_gctx)
 
 
 @dataclasses.dataclass
@@ -56,17 +58,16 @@ def load_frozen(config: Config, dataset: Dataset, model: Model,
     unless the caller asks for the CPU).
 
     Weights come from ``params`` (a dict of tensors), else from
-    ``checkpoint_path`` or ``config.checkpoint_path``, else Glorot init from
-    a generator seeded with ``config.seed``."""
+    ``checkpoint_path`` or ``config.checkpoint_path``, else roc_tpu's Glorot
+    init from ``PRNGKey(config.seed)``."""
     dev = resolve_device(device)
     backend = effective_backend(config, model, dev)
     gdata = dense_graph_data(dataset.graph, backend,
                              config.aggregate_precision, dev,
                              transpose=False)
-    x = torch.as_tensor(dataset.features, dtype=torch.float32, device=dev)
+    x = host_to_device(dataset.features, dev)
     if params is None:
-        gen = torch.Generator().manual_seed(config.seed)
-        params = model.init_params(gen, device=dev)
+        params = model.init_params(prng.prng_key(config.seed), device=dev)
         path = checkpoint_path or config.checkpoint_path
         if path:
             params = checkpoint.load_params(path, params)

@@ -1,7 +1,8 @@
 """Graph data on the device and the aggregation backend (the parts of
 roc_tpu/train/driver.py that the trainer and the frozen loader call:
 ``effective_backend``, ``dense_graph_data``, ``make_gctx``,
-``model_has_gat``, ``model_gat_dims``).
+``model_has_gat``, ``model_gat_dims``, and ``host_to_device`` for a
+dataset's per-vertex arrays).
 
 Backends:
   kernel  sum/avg through ops.scatter_gather at the configured precision,
@@ -22,6 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from roc_tpu_torch import ops
@@ -38,6 +40,24 @@ class DenseGraphData:
     in_degree: torch.Tensor     # [N] float32
     backend: str = "xla"
     precision: str = "exact"
+
+
+_COPY_BLOCK_BYTES = 64 << 20
+
+
+def host_to_device(a: np.ndarray, device: torch.device,
+                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """A dataset's host array on ``device``, the same bits.  A read-only
+    array (a lazy dataset's memmap) is copied in blocks of rows: no whole
+    host copy, and no warning from torch about a non-writable array."""
+    if a.flags.writeable:
+        return torch.as_tensor(a, dtype=dtype, device=device)
+    out = torch.empty(a.shape, dtype=dtype, device=device)
+    row_bytes = a.dtype.itemsize * max(1, int(np.prod(a.shape[1:])))
+    step = max(1, _COPY_BLOCK_BYTES // row_bytes)
+    for i in range(0, a.shape[0], step):
+        out[i:i + step] = torch.from_numpy(np.array(a[i:i + step]))
+    return out
 
 
 def model_has_gat(model: Model) -> bool:

@@ -33,7 +33,7 @@ from roc_tpu_torch.models import build_gcn
 from roc_tpu_torch.ops import activation
 from roc_tpu_torch.train import checkpoint
 from roc_tpu_torch.train.config import Config
-from roc_tpu_torch.train.driver import Trainer, dropout_generator
+from roc_tpu_torch.train.driver import Trainer, dropout_key
 
 X = np.array([-2.0, -0.0, 0.0, 1.5, np.nan], np.float32)
 G = np.array([3.0, -1.5, 2.0, 0.25, -7.0], np.float32)
@@ -116,7 +116,7 @@ def test_unfused_gcn_step_gradients_match_roc_tpu_at_exact_zeros(tmp_path):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(activation, "relu", spy)
         loss = tr.model.loss(params, tr.x, tr.labels, tr.mask, tr.gctx,
-                             generator=dropout_generator(1, 0, tr.device),
+                             key=dropout_key(1, 0),
                              train=True)
     keys = sorted(params)
     got = dict(zip(keys, torch.autograd.grad(loss,

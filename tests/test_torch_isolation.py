@@ -26,6 +26,11 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "roc_tpu" or m.startswith("roc_tpu."))
 need = {"roc_tpu_torch.__main__", "roc_tpu_torch.fault.guard",
+        "roc_tpu_torch.fault.durable", "roc_tpu_torch.fault.inject",
+        "roc_tpu_torch.fault.retry", "roc_tpu_torch.graph.__main__",
+        "roc_tpu_torch.graph.convert", "roc_tpu_torch.graph.lux",
+        "roc_tpu_torch.graph.reorder", "roc_tpu_torch.ops.prng",
+        "roc_tpu_torch.ops.kernels.dropout",
         "roc_tpu_torch.ops.kernels.aggregate_linear",
         "roc_tpu_torch.ops.kernels.build", "roc_tpu_torch.ops.kernels.gat",
         "roc_tpu_torch.ops.edge", "roc_tpu_torch.ops.softmax",
@@ -56,7 +61,7 @@ def test_every_kernel_source_has_a_loader():
                             "aggregate_linear_bwd", "stage_cotangent",
                             "gat_score", "gat_stage",
                             "gat_forward", "gat_bwd_dst", "gat_bwd_src",
-                            "xlayer_fwd", "xlayer_bwd"}
+                            "xlayer_fwd", "xlayer_bwd", "dropout"}
 
 
 def _imported_modules(path: Path):

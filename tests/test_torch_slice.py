@@ -31,6 +31,7 @@ from roc_tpu.train.config import Config as JConfig
 from roc_tpu.train.frozen import load_frozen as jload_frozen
 from roc_tpu_torch.graph import datasets
 from roc_tpu_torch.models import build_model
+from roc_tpu_torch.ops import prng
 from roc_tpu_torch.serve import (ServeEngine, bucket_sizes, max_ulp_diff,
                                  run_load)
 from roc_tpu_torch.serve.__main__ import selftest
@@ -206,7 +207,7 @@ def test_ulp_metric_matches_roc_tpu():
 
 def test_glorot_init_shapes_and_range():
     model = build_model("gcn", RESIDUAL)
-    params = model.init_params(torch.Generator().manual_seed(0))
+    params = model.init_params(prng.prng_key(0))
     assert sorted(params) == [f"linear_{i}" for i in range(6)]
     for op in model.ops:
         if op.kind == "linear":
@@ -214,5 +215,5 @@ def test_glorot_init_shapes_and_range():
             fan = op.attrs["in_dim"] + op.attrs["out_dim"]
             assert w.shape == (op.attrs["in_dim"], op.attrs["out_dim"])
             assert float(w.abs().max()) <= (6.0 / fan) ** 0.5
-    again = model.init_params(torch.Generator().manual_seed(0))
+    again = model.init_params(prng.prng_key(0))
     assert all(torch.equal(params[k], again[k]) for k in params)

@@ -20,6 +20,7 @@ from roc_tpu.train.driver import Trainer as JTrainer
 from roc_tpu_torch import __main__ as cli
 from roc_tpu_torch.graph import datasets
 from roc_tpu_torch.models import build_model
+from roc_tpu_torch.ops import prng
 from roc_tpu_torch.train import checkpoint
 from roc_tpu_torch.train.config import Config, parse_args
 from roc_tpu_torch.train.driver import Trainer
@@ -64,10 +65,13 @@ def test_build_model_matches_roc_tpu(name, aggr):
     got = build_model(name, layers, 0.3, aggr, heads=3)
     assert _ir(got) == _ir(want)
     assert got.logits.id == want.logits.id
-    ours = got.init_params(torch.Generator().manual_seed(0))
+    ours = got.init_params(prng.prng_key(0))
     ref = want.init_params(jax.random.PRNGKey(0))
     assert {k: tuple(v.shape) for k, v in ours.items()} == \
         {k: tuple(v.shape) for k, v in ref.items()}
+    for k, v in ref.items():      # roc_tpu's parameters, bit for bit
+        assert np.array_equal(ours[k].numpy().view(np.uint32),
+                              np.asarray(v).view(np.uint32)), k
 
 
 def test_unknown_model_is_refused():
