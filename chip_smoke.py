@@ -53,11 +53,17 @@ Phases, each printing one JSON line per record:
           launch is kept as kernel_one_launch_ms), its library call too
   kernel  (dropout) the dropout kernel (jax.random's threefry masks,
           csrc/dropout.cu) against its plain version (ops/prng.py) on the
-          Reddit graph at H = 602 and 256, rate 0.5: forward and backward
-          bitwise, the kept fraction; times of the kernel, the plain
-          version and torch's own dropout (other masks: a yardstick, not
-          the library call, which is null); bound: 8 bytes an element vs
-          80 integer operations an element over the fp32 rate
+          Reddit graph: fp32 at H = 602 and 256, rate 0.5, and bf16 (the
+          -bf16 variant: bf16(f32(x) / f32(bf16(1 - rate))) where kept) at
+          H = 602 and 256, rates 0.5 and 0.1: forward and backward
+          bitwise, the kept fraction within 0.01 of 1 - rate; times of the
+          kernel, the plain version and torch's own dropout (other masks:
+          a yardstick, not the library call, which is null); bound: the
+          bytes (8 an element in fp32, 4 in bf16) against the function's
+          41 INT32-pipe instructions an element (threefry2x32-20's
+          rotates and xors) over the INT32 rate, 64 lanes an SM (a
+          quarter of the fp32 rate), or its 78 instructions at the least
+          over the issue rate (half the fp32 rate), the larger
   small   the port's GCN forward on the audit graph, card vs CPU (exact)
   train_small  the port's Trainer on mega-shard (GCN 64-16-8, exact,
           dropout 0, 3 epochs), card vs CPU, unfused and megafuse: final
@@ -81,6 +87,19 @@ Phases, each printing one JSON line per record:
           stage_cotangent and no aggregate_sum with -megafuse; 3 dropout
           in both (2 forward, 1 backward: the first dropout's input, x,
           takes no gradient)
+  train_bf16  the same under -bf16 (x placed in bf16), unfused and
+          -megafuse: the bf16 dropout kernel at 602 columns, the bf16
+          first GEMM, then the fp32 sums, stagings and megakernel rows
+          (GCN's norm promotes); the launches per step are train's, the
+          last train_loss within 5e-2 relative of train's (fp32 features
+          and GEMM), epoch ms and peak memory beside fp32's
+  profile_split  the unfused GCN step as train, fp32 and -bf16, under
+          -profile (epochs 3-4 of 5): the trace's device kernel time per
+          step, by kernel and by group (sums, staging, dropout, GEMMs,
+          elementwise, reductions)
+  serve_bf16  ServeEngine with GCN 602-256-41 under -bf16, 40 requests:
+          x in bf16, launches as serve's, served rows vs predict_logits <=
+          32 ULPs and vs the plain fp32 aggregation at -bf16 <= 5e-3
   ab      the same model in exact, dropout 0, 3 epochs from the same
           params, -megafuse vs unfused: final loss within 1e-3 relative
   kernel  (gat) the GAT entry points (gat_score, gat_forward, gat_bwd_dst,
@@ -198,6 +217,20 @@ Phases, each printing one JSON line per record:
           and masks: roc_tpu's random streams) within 1e-3 of the card's
           train loss
 
+  run_controls  on small graphs on the card (GCN 8-4-3 on an 80-node
+          synthetic graph, tests/test_fault.py's fixture): -fault
+          seed=3,step.nan=1 a bitwise no-op against the clean shorter
+          run (params, Adam m and v); the non-finite ladder (rung 1 turns
+          -megafuse off with the params kept, rung 2 restores the
+          checkpoint, or without one carries on); SIGTERM sent to
+          python -m roc_tpu_torch after its first metric line: exit 0 and
+          a checkpoint holding rng_key; -obs: trace.json passes
+          validate_chrome_trace, one metrics record an epoch with
+          roc_tpu's keys; -profile: a Chrome trace holding device kernel
+          events; the resume under -seed 2 from a -seed 1 checkpoint
+          equal to the unbroken run (1e-6 relative), the seed's own masks
+          far off
+
 Then the ``kernels`` line, the card's name and power limit as nvidia-smi
 gives them, and last ``{"ok": true, "device": {...}}``.  Any failure
 raises and the exit code is non-zero; without CUDA the script exits 2
@@ -206,8 +239,10 @@ before printing any result.
 
 from __future__ import annotations
 
+import gc
 import json
 import re
+import select
 import statistics
 import subprocess
 import sys
@@ -585,42 +620,78 @@ def _check_row(rec: dict, kern, plain, int_args, gauss_args, library,
     return rec
 
 
-# integer operations an element of the dropout kernel: 20 threefry rounds of
-# add, funnel shift and xor, the key injections, the float's construction,
-# the compare and the division (csrc/dropout.cu)
-DROPOUT_OPS = 80
+# The dropout function's instructions an element, whatever kernel computes
+# it: threefry2x32-20's 20 funnel-shift rotates and 21 xors (20 rounds and
+# the closing one) have no pipe but the INT32 one, 64 lanes an SM; its 32
+# adds (20 rounds, 12 key injections) may go to the FMA pipe.  Issued, the
+# element takes at least those 73 and 5 more: the uniform's shift, the
+# compare, the scaling, the select and a share of the load and store.
+DROPOUT_INT32_OPS = 41
+DROPOUT_MIN_INSTRUCTIONS = 78
+# 64 INT32 lanes an SM against the 128 fp32 ones whose rate counts an FMA as
+# two operations; the issue rate is one warp instruction a clock in each of
+# an SM's four partitions, 128 lanes
+INT32_OPS_PER_S = FP32_FLOPS / 4
+ISSUE_PER_S = FP32_FLOPS / 2
+
+
+def dropout_bound(n: int, itemsize: int) -> dict:
+    """The larger of the bytes bound (x read once, out written once) and
+    the operations bound: the function's INT32-pipe instructions over the
+    INT32 rate, or all its instructions over the issue rate, the larger."""
+    b = n * 2 * itemsize / HBM_BYTES_PER_S
+    f = n * max(DROPOUT_INT32_OPS / INT32_OPS_PER_S,
+                DROPOUT_MIN_INSTRUCTIONS / ISSUE_PER_S)
+    return {"bound_bytes": n * 2 * itemsize,
+            "bound_int32_ops": n * DROPOUT_INT32_OPS,
+            "bound_instructions": n * DROPOUT_MIN_INSTRUCTIONS,
+            "bound_bytes_ms": b * 1e3, "bound_ops_ms": f * 1e3,
+            "bound_ms": max(b, f) * 1e3,
+            "bound_by": "bytes" if b >= f else "operations"}
+
+
+# (dtype, H, rate) of the dropout rows: the GCN's two dropout widths, fp32
+# as the unfused and -megafuse runs take them, bf16 as -bf16 takes the
+# first, at the recipe's rate and at 0.1 (where a fp32 divisor would differ)
+DROPOUT_ROWS = ((torch.float32, 602, 0.5), (torch.float32, 256, 0.5),
+                (torch.bfloat16, 602, 0.5), (torch.bfloat16, 602, 0.1),
+                (torch.bfloat16, 256, 0.5), (torch.bfloat16, 256, 0.1))
 
 
 def phase_kernel_dropout(ds, dev) -> list:
     """The dropout kernel (jax.random's masks, csrc/dropout.cu) against its
-    plain version at the GCN's two dropout widths on the Reddit graph,
-    forward and backward (the same launch on the cotangent), bitwise."""
+    plain version on the Reddit graph, fp32 and bf16, forward and backward
+    (the same launch on the cotangent), bitwise.  The operations bound
+    is the function's INT32-pipe count over the INT32 rate."""
     from roc_tpu_torch.ops import prng
-    from roc_tpu_torch.ops.kernels.dropout import dropout, dropout_plain
-    n, rate = ds.graph.num_nodes, 0.5
+    from roc_tpu_torch.ops.kernels.dropout import (LIBRARY, dropout,
+                                                   dropout_plain)
+    n = ds.graph.num_nodes
     key = prng.fold_in(prng.fold_in(prng.prng_key(SEED), 3), 1)
     gen = torch.Generator(device=dev).manual_seed(SEED + 11)
     rows = []
-    for h in (602, 256):
-        x = torch.randn((n, h), generator=gen, device=dev)
-        g = torch.randn((n, h), generator=gen, device=dev)
+    for dtype, h, rate in DROPOUT_ROWS:
+        x = torch.randn((n, h), generator=gen, device=dev).to(dtype)
+        g = torch.randn((n, h), generator=gen, device=dev).to(dtype)
+        ibits = torch.int16 if dtype == torch.bfloat16 else torch.int32
 
         def fwd_bwd(fn):
             xr = x.detach().requires_grad_(True)
             out = fn(xr, rate, key)
             out.backward(g)
-            return out.detach().view(torch.int32), xr.grad.view(torch.int32)
+            return out.detach().view(ibits), xr.grad.view(ibits)
 
         k, p = fwd_bwd(dropout), fwd_bwd(dropout_plain)
         torch.cuda.synchronize()
         rec = {"phase": "kernel", "name": "dropout", "H": h, "rate": rate,
-               "nodes": n, "forward_bitwise": bool(torch.equal(k[0], p[0])),
+               "dtype": str(dtype).split(".")[-1], "nodes": n,
+               "forward_bitwise": bool(torch.equal(k[0], p[0])),
                "backward_bitwise": bool(torch.equal(k[1], p[1])),
                "kept_fraction": float((k[0] != 0).float().mean()),
-               "max_abs_err": float((k[0].view(torch.float32)
-                                     - p[0].view(torch.float32)).abs()
+               "max_abs_err": float((k[0].view(dtype).float()
+                                     - p[0].view(dtype).float()).abs()
                                     .max()),
-               **_bound(n * h * 8, n * h * DROPOUT_OPS)}
+               **dropout_bound(n * h, x.element_size())}
         del k, p
         rec["kernel_ms"] = time_ms(lambda: dropout(x, rate, key), reps=20,
                                    warmup=3)
@@ -634,7 +705,7 @@ def phase_kernel_dropout(ds, dev) -> list:
         emit(rec)
         rows.append(rec)
         if not (rec["forward_bitwise"] and rec["backward_bitwise"]
-                and 0.49 < rec["kept_fraction"] < 0.51):
+                and abs(rec["kept_fraction"] - (1 - rate)) < 0.01):
             raise AssertionError(f"dropout disagrees with its plain "
                                  f"version: {rec}")
         del x, g
@@ -1974,14 +2045,14 @@ def step_launches(model: str, megafuse: bool) -> dict:
 
 
 def _recipe_trainer(ds, dev, megafuse: bool = False, epochs: int = 10,
-                    model: str = "gcn"):
+                    model: str = "gcn", **kw):
     """GCN 602-256-41 (or GAT 602-64-41, 4 heads) as test.sh trains GCN:
     fast, -lr 0.01 -decay 0.0001 -dropout 0.5, eval every 5 epochs."""
     return _trainer(ds, LAYERS[model], dev, num_epochs=epochs,
                     learning_rate=0.01, weight_decay=0.0001,
                     dropout_rate=0.5, eval_every=5,
                     aggregate_precision="fast", megafuse=megafuse,
-                    model=model, heads=4)
+                    model=model, heads=4, **kw)
 
 
 def _train_run(tr, dev) -> dict:
@@ -1990,6 +2061,9 @@ def _train_run(tr, dev) -> dict:
     launches of each kernel in the run (counts set to 0 just before, read
     just after) and in the step."""
     lines = []
+    # what an earlier phase left for the collector would count in this
+    # run's peak memory
+    gc.collect()
     reset_launches()
     stats = tr.train(print_fn=lines.append)
     launches = read_launches()
@@ -2067,6 +2141,9 @@ def phase_train_chain(ds, dev, depth: int, epochs: int = 10) -> dict:
                   eval_every=1, aggregate_precision="fast", megafuse=True,
                   fusion_depth=depth)
     lines = []
+    # what an earlier phase left for the collector would count in this
+    # run's peak memory
+    gc.collect()
     reset_launches()
     stats = tr.train(print_fn=lines.append)
     launches = read_launches()
@@ -2122,6 +2199,291 @@ def phase_ab_chain(ds, dev, epochs: int = 3) -> dict:
     if not (np.isfinite(rel) and rel <= 1e-3):
         raise AssertionError(f"-fusion-depth 0 and 1 training disagree: "
                              f"{rec}")
+    return rec
+
+
+def phase_train_bf16(ds, dev, megafuse: bool, fp32: dict) -> dict:
+    """GCN 602-256-41 on the Reddit graph as ``train`` under -bf16: x in
+    bf16, the bf16 dropout kernel on it, the bf16 first GEMM, then the fp32
+    sums, stagings and megakernel rows as before (the norm promotes).  The
+    launches per step are fp32's; the loss is held within 5e-2 relative of
+    the fp32 run's (``fp32``, that phase's record): bf16 features and
+    first GEMM, the same masks and init."""
+    tr = _recipe_trainer(ds, dev, megafuse, use_bf16=True)
+    rec = {"phase": "train_bf16", "model": "gcn", "layers": LAYERS["gcn"],
+           "dataset": ds.name, "precision": "fast", "bf16": True,
+           "megafuse": megafuse, "x_dtype": str(tr.x.dtype).split(".")[-1]}
+    expected = step_launches("gcn", megafuse)
+    rec.update(_train_run(tr, dev))
+    del tr
+    rec["fp32_median_epoch_ms_3_on"] = fp32["median_epoch_ms_3_on"]
+    rec["fp32_peak_mem_bytes"] = fp32["peak_mem_bytes"]
+    rec["fp32_last_train_loss"] = fp32["last_train_loss"]
+    rec["last_loss_rel_gap_vs_fp32"] = abs(
+        rec["last_train_loss"] - fp32["last_train_loss"]) \
+        / abs(fp32["last_train_loss"])
+    emit(rec)
+    _check_train(rec, expected)
+    if rec["x_dtype"] != "bfloat16" or \
+            not rec["last_loss_rel_gap_vs_fp32"] <= 5e-2:
+        raise AssertionError(f"-bf16 training is off: {rec}")
+    return rec
+
+
+def _kernel_group(name: str) -> str:
+    """The part of the step a device kernel belongs to, by its name."""
+    for key, group in (("dropout_kernel", "dropout"),
+                       ("stage_kernel", "stage_plane"),
+                       ("sum_rows", "aggregate_sum"), ("gemm", "gemm"),
+                       ("xmma", "gemm"), ("cutlass", "gemm"),
+                       ("reduce_kernel", "reduce"),
+                       ("elementwise", "elementwise"),
+                       ("CatArrayBatched", "elementwise")):
+        if key in name:
+            return group
+    return "other"
+
+
+def phase_profile_split(ds, dev) -> dict:
+    """Where the unfused GCN step's device time goes (PERF.md section 5's
+    unsplit GEMMs, elementwise passes and Adam): the Trainer as ``train``
+    and as ``train_bf16`` under -profile for epochs 3-4 of 5, the trace's
+    kernel events summed by kernel and by group, per step."""
+    import os
+    import tempfile
+    rec = {"phase": "profile_split", "model": "gcn", "layers": LAYERS["gcn"],
+           "window_epochs": [3, 4]}
+    for name, kw in (("fp32", {}), ("bf16", {"use_bf16": True})):
+        with tempfile.TemporaryDirectory(prefix="roc_prof_") as d:
+            tr = _recipe_trainer(ds, dev, epochs=5, profile_dir=d,
+                                 profile_epochs="3:2", **kw)
+            tr.train(print_fn=_quiet)
+            del tr
+            with open(os.path.join(d, "trace.json")) as f:
+                events = json.load(f)["traceEvents"]
+        per = {}
+        for ev in events:
+            if ev.get("cat") == "kernel":
+                per[ev["name"]] = per.get(ev["name"], 0.0) + ev["dur"]
+        groups = {}
+        for k, us in per.items():
+            g = _kernel_group(k)
+            groups[g] = groups.get(g, 0.0) + us / 2e3
+        top = sorted(per.items(), key=lambda kv: -kv[1])[:12]
+        rec[name] = {"device_ms_per_step": sum(per.values()) / 2e3,
+                     "groups_ms_per_step": groups,
+                     "top_kernels_ms_per_step": [[k[:160], us / 2e3]
+                                                 for k, us in top]}
+    emit(rec)
+    for name in ("fp32", "bf16"):
+        if not rec[name]["device_ms_per_step"] > 0:
+            raise AssertionError(f"the profiler saw no device time: {rec}")
+    return rec
+
+
+def _small_control_trainer(dev, num_epochs, **kw):
+    """GCN 8-4-3 on an 80-node synthetic graph (tests/test_fault.py's
+    fixture), on the card."""
+    from roc_tpu_torch.graph import datasets
+    from roc_tpu_torch.models import build_gcn
+    from roc_tpu_torch.train.config import Config
+    from roc_tpu_torch.train.driver import Trainer
+    ds = datasets.synthetic("t", 80, 3.0, 8, 3, n_train=20, n_val=20,
+                            n_test=20, seed=13)
+    kw.setdefault("eval_every", 10 ** 9)
+    kw.setdefault("dropout_rate", 0.0)
+    cfg = Config(layers=[8, 4, 3], num_epochs=num_epochs,
+                 device=str(dev), **kw)
+    return Trainer(cfg, ds, build_gcn(cfg.layers, cfg.dropout_rate))
+
+
+def _control_nan(dev) -> dict:
+    """A step.nan step is a bitwise no-op: 4 epochs with the first step's
+    loss scaled by NaN equal 3 clean epochs (params, Adam m and v)."""
+    from roc_tpu_torch.fault import inject
+    tr_a = _small_control_trainer(dev, 4, fault="seed=3,step.nan=1")
+    tr_a.train(print_fn=_quiet)
+    inject.configure("")
+    tr_b = _small_control_trainer(dev, 3)
+    tr_b.train(print_fn=_quiet)
+    same = all(torch.equal(tr_a.params[k], tr_b.params[k])
+               and torch.equal(tr_a.opt_state.m[k], tr_b.opt_state.m[k])
+               and torch.equal(tr_a.opt_state.v[k], tr_b.opt_state.v[k])
+               for k in tr_b.params)
+    return {"skipped": tr_a.nonfinite_skips, "bitwise_noop": bool(same),
+            "ok": bool(same) and tr_a.nonfinite_skips == 1}
+
+
+def _control_ladder(dev, tmp) -> dict:
+    """The escalation ladder as tests/test_fault.py:204-233 drives it: 3
+    skips turn -megafuse off (params kept), 3 more restore the checkpoint;
+    without one, 6 skips leave the run at rung 2, still stepping."""
+    import os
+    path = os.path.join(tmp, "ladder.npz")
+    tr = _small_control_trainer(dev, 4, checkpoint_path=path,
+                                aggregate_backend="binned")
+    tr.save_checkpoint(path)
+    saved = tr.epoch
+    tr.config.megafuse = True
+    before = {k: v.clone() for k, v in tr.params.items()}
+    tr._last_nonfinite = torch.tensor(True, device=dev)
+    for _ in range(3):
+        tr._check_nonfinite(1, _quiet)
+    rung1 = (tr._nf_stage == 1 and tr.config.megafuse is False
+             and all(torch.equal(before[k], tr.params[k]) for k in before))
+    tr.epoch = 99
+    for _ in range(3):
+        tr._check_nonfinite(2, _quiet)
+    rung2 = bool(tr._nf_stage == 2 and tr.epoch == saved)
+    bare = _small_control_trainer(dev, 2)
+    bare._last_nonfinite = torch.tensor(True, device=dev)
+    for _ in range(6):
+        bare._check_nonfinite(0, _quiet)
+    bare._last_nonfinite = None
+    loss = bare.train(print_fn=_quiet).final_loss
+    no_ckpt = bool(bare._nf_stage == 2 and np.isfinite(loss))
+    return {"rung1_unfuse": rung1, "rung2_restore": rung2,
+            "rung2_without_checkpoint": no_ckpt,
+            "ok": rung1 and rung2 and no_ckpt}
+
+
+def _control_sigterm(tmp) -> dict:
+    """SIGTERM sent to ``python -m roc_tpu_torch`` (on the card) after its
+    first metric line: exit 0, and the final checkpoint holds the key."""
+    import os
+    import signal as _signal
+    from roc_tpu_torch.train import checkpoint
+    path = os.path.join(tmp, "sigterm.npz")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "roc_tpu_torch", "-dataset", "roc-audit",
+         "-layers", "8-16-4", "-e", "100000", "-eval-every", "1", "-ckpt",
+         path, "-seed", "5"], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        # the first metric line, or nothing within 300 s
+        ready = select.select([proc.stdout], [], [], 300)[0]
+        first = proc.stdout.readline() if ready else ""
+        proc.send_signal(_signal.SIGTERM)
+        out, err = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    meta = checkpoint._read_verified(path)[0] if os.path.exists(path) \
+        else {}
+    rec = {"first_line": first.strip(), "exit_code": proc.returncode,
+           "said": "SIGTERM received" in out,
+           "checkpoint_epoch": meta.get("epoch"),
+           "rng_key": meta.get("extra", {}).get("rng_key")}
+    rec["ok"] = ("[INFER][0]" in first and proc.returncode == 0
+                 and rec["said"] and rec["rng_key"] == [0, 5])
+    if not rec["ok"]:
+        rec["stderr_tail"] = err[-2000:]
+    return rec
+
+
+def _control_obs(dev, tmp) -> dict:
+    """-obs: trace.json passes validate_chrome_trace; one metrics record
+    an epoch with roc_tpu's keys."""
+    import os
+    from roc_tpu_torch import obs
+    was = obs.enabled()
+    d = os.path.join(tmp, "obs")
+    tr = _small_control_trainer(dev, 4, obs=True, obs_dir=d, eval_every=2,
+                                checkpoint_every=2,
+                                checkpoint_path=os.path.join(tmp, "o.npz"))
+    tr.train(print_fn=_quiet)
+    obs.enable(was)
+    with open(os.path.join(d, "trace.json")) as f:
+        problems = obs.validate_chrome_trace(json.load(f))
+    recs = obs.load_jsonl(os.path.join(d, "metrics.jsonl"))
+    metrics = [r for r in recs if r["type"] == "metrics"]
+    keys = {"epoch", "wall_s", "loss", "grad_norm", "param_norm",
+            "wire_bytes", "edges_per_shard"}
+    rec = {"trace_problems": problems,
+           "span_types": sorted(obs.get_tracer().span_types()),
+           "metrics_records": len(metrics),
+           "keys_ok": all(set(r) == keys | {"type"} for r in metrics),
+           "last": recs[-1]}
+    rec["ok"] = problems == [] and len(metrics) == 4 and rec["keys_ok"]
+    return rec
+
+
+def _control_profile(dev, tmp) -> dict:
+    """-profile DIR -profile-epochs 1:2: a Chrome trace under DIR holding
+    the card's kernel events (torch.profiler through CUPTI)."""
+    import os
+    d = os.path.join(tmp, "prof")
+    lines = []
+    tr = _small_control_trainer(dev, 4, profile_dir=d, profile_epochs="1:2",
+                                aggregate_backend="binned")
+    tr.train(print_fn=lines.append)
+    with open(os.path.join(d, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    cats = {}
+    for ev in events:
+        cats[ev.get("cat", "")] = cats.get(ev.get("cat", ""), 0) + 1
+    ours = sorted({ev["name"][:120] for ev in events
+                   if ev.get("cat") == "kernel"
+                   and "anonymous namespace" in ev["name"]
+                   and "at::" not in ev["name"]})
+    rec = {"said": any("profiler trace written" in ln for ln in lines),
+           "events_by_category": cats, "device_kernel_events":
+           cats.get("kernel", 0), "port_kernels_seen": ours}
+    rec["ok"] = rec["said"] and rec["device_kernel_events"] > 0
+    if not rec["device_kernel_events"]:
+        rec["error"] = ("torch.profiler wrote a trace with no device kernel "
+                        "events: the profiler cannot reach the card's "
+                        "counters on this machine")
+    return rec
+
+
+def _control_resume(dev, tmp) -> dict:
+    """Two epochs under -seed 1 and a checkpoint, two more resumed by a
+    run started with -seed 2: the unbroken 4-epoch run's loss (the
+    checkpoint's key decides the masks), dropout 0.5; with -seed 2's own
+    masks it would be far off."""
+    import os
+    path = os.path.join(tmp, "resume.npz")
+    kw = dict(dropout_rate=0.5, aggregate_backend="binned")
+    straight = _small_control_trainer(dev, 4, seed=1, **kw)
+    want = straight.train(print_fn=_quiet).final_loss
+    first = _small_control_trainer(dev, 2, seed=1, checkpoint_path=path,
+                                   **kw)
+    first.train(print_fn=_quiet)
+    resumed = _small_control_trainer(dev, 2, seed=2, **kw)
+    resumed.restore(path)
+    got = resumed.train(print_fn=_quiet).final_loss
+    stray = _small_control_trainer(dev, 2, seed=2, **kw)
+    stray.restore(path)
+    stray.key = (0, 2)
+    off = stray.train(print_fn=_quiet).final_loss
+    rec = {"unbroken_loss": want, "resumed_loss": got,
+           "rel_gap": abs(got - want) / abs(want), "tolerance": 1e-6,
+           "with_seed2_masks_rel_gap": abs(off - want) / abs(want),
+           "key_after_restore": list(resumed.key)}
+    rec["ok"] = rec["rel_gap"] <= 1e-6 and \
+        rec["with_seed2_masks_rel_gap"] > 1e-3
+    return rec
+
+
+def phase_run_controls(dev) -> dict:
+    """The run controls on the card, on small graphs: step.nan, the ladder,
+    SIGTERM to the CLI, -obs, -profile and the resume under another
+    -seed; each leg's record carries its own ``ok``."""
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="roc_controls_") as tmp:
+        rec = {"phase": "run_controls",
+               "step_nan": _control_nan(dev),
+               "ladder": _control_ladder(dev, tmp),
+               "sigterm": _control_sigterm(tmp),
+               "obs": _control_obs(dev, tmp),
+               "profile": _control_profile(dev, tmp),
+               "resume": _control_resume(dev, tmp)}
+    emit(rec)
+    bad = [k for k, v in rec.items() if isinstance(v, dict) and not v["ok"]]
+    if bad:
+        raise AssertionError(f"run controls failed: {bad}: {rec}")
     return rec
 
 
@@ -2433,11 +2795,12 @@ def phase_graph_file(ds, dev) -> dict:
 
 
 def phase_serve(ds, dev, model_name: str = "gcn",
-                n_requests: int = 120, megafuse: bool = False) -> dict:
+                n_requests: int = 120, megafuse: bool = False,
+                bf16: bool = False) -> dict:
     """ServeEngine on the Reddit graph (GCN 602-256-41, or GAT 602-64-41
-    with 4 heads), with -megafuse when asked; GCN's logits are also held
-    against the plain fp32 aggregation (GAT's plain composition does not
-    fit at this size)."""
+    with 4 heads), with -megafuse or -bf16 when asked; GCN's logits are
+    also held against the plain fp32 aggregation at the same -bf16 (GAT's
+    plain composition does not fit at this size)."""
     from roc_tpu_torch.models import build_model
     from roc_tpu_torch.serve import ServeEngine, max_ulp_diff, run_load
     from roc_tpu_torch.train.config import Config
@@ -2445,7 +2808,7 @@ def phase_serve(ds, dev, model_name: str = "gcn",
     from roc_tpu_torch.train.graph_data import forward_launches
     cfg = Config(dataset="reddit", layers=LAYERS[model_name], seed=SEED,
                  aggregate_precision="fast", model=model_name, heads=4,
-                 megafuse=megafuse)
+                 megafuse=megafuse, use_bf16=bf16)
     model = build_model(cfg.model, cfg.layers, cfg.dropout_rate,
                         heads=cfg.heads)
     per_forward = launch_dict(**forward_launches(
@@ -2471,16 +2834,19 @@ def phase_serve(ds, dev, model_name: str = "gcn",
         plain_err = None
         if model_name == "gcn":
             plain_cfg = Config(dataset="reddit", layers=cfg.layers,
-                               seed=SEED, aggregate_backend="xla")
+                               seed=SEED, aggregate_backend="xla",
+                               use_bf16=bf16)
             plain = load_frozen(plain_cfg, ds, model, device=dev,
                                 params=eng.bundle.params).predict_logits()
             plain_err = row_rel_err(logits, plain)
         finite = bool(torch.isfinite(logits).all())
         shape = list(logits.shape)
+        x_dtype = str(eng.bundle.x.dtype).split(".")[-1]
     finally:
         eng.close()
-    rec = {"phase": ("serve_mega" if megafuse else "serve")
-           if model_name == "gcn" else "serve_gat",
+    name = "serve_gat" if model_name == "gat" else \
+        "serve_bf16" if bf16 else "serve_mega" if megafuse else "serve"
+    rec = {"phase": name, "x_dtype": x_dtype,
            "model": model_name, "layers": cfg.layers, "megafuse": megafuse,
            "dataset": "reddit", "nodes": ds.graph.num_nodes,
            "edges": ds.graph.num_edges, "precision": cfg.aggregate_precision,
@@ -2502,7 +2868,8 @@ def phase_serve(ds, dev, model_name: str = "gcn",
         raise AssertionError(f"the kernels ran {launches} times over "
                              f"{forwards} forwards; expected {want}")
     if ulps > 32 or (plain_err is not None and plain_err > 5e-3) \
-            or not finite or shape != [ds.graph.num_nodes, cfg.layers[-1]]:
+            or not finite or shape != [ds.graph.num_nodes, cfg.layers[-1]] \
+            or x_dtype != ("bfloat16" if bf16 else "float32"):
         raise AssertionError(f"served logits are wrong: {rec}")
     return rec
 
@@ -2561,9 +2928,14 @@ def main() -> int:
     serve = phase_serve(ds, dev)
     serve_gat = phase_serve(ds, dev, "gat", n_requests=40)
     train = {mf: phase_train(ds, dev, mf) for mf in (False, True)}
+    train_bf16 = {mf: phase_train_bf16(ds, dev, mf, train[mf])
+                  for mf in (False, True)}
+    phase_profile_split(ds, dev)
+    serve_bf16 = phase_serve(ds, dev, n_requests=40, bf16=True)
     train_gat = phase_train(ds, dev, False, model="gat")
     phase_ab(ds, dev)
     graph_file = phase_graph_file(ds, dev)
+    phase_run_controls(dev)
 
     def pick(name, **want):
         return next(r for r in rows if r["name"] == name and all(
@@ -2581,7 +2953,9 @@ def main() -> int:
     sum_entry = _kernel_entry(
         "aggregate_sum", src + "aggregate_sum.cu", pallas + "1885",
         {"serve": serve["launches"]["aggregate_sum"],
+         "serve_bf16": serve_bf16["launches"]["aggregate_sum"],
          "train": train[False]["launches"]["aggregate_sum"],
+         "train_bf16": train_bf16[False]["launches"]["aggregate_sum"],
          "graph_file": graph_file["launches"]["aggregate_sum"]},
         pick("aggregate_sum", H=256, precision="fast", csr=None),
         named("aggregate_sum"), ("H", "precision", "csr"))
@@ -2591,8 +2965,12 @@ def main() -> int:
         "stage_plane", src + "aggregate_sum.cu", pallas + "1885",
         {"serve": serve["launches"]["stage_plane"],
          "serve_mega": serve_mega["launches"]["stage_plane"],
+         "serve_bf16": serve_bf16["launches"]["stage_plane"],
          "train": train[False]["launches"]["stage_plane"],
          "train_megafuse": train[True]["launches"]["stage_plane"],
+         "train_bf16": train_bf16[False]["launches"]["stage_plane"],
+         "train_bf16_megafuse":
+         train_bf16[True]["launches"]["stage_plane"],
          "graph_file": graph_file["launches"]["stage_plane"],
          **chain_launches("stage_plane")},
         pick("stage_plane", H=256), named("stage_plane"), ("H", "ld"))
@@ -2604,6 +2982,8 @@ def main() -> int:
         _kernel_entry(
             "aggregate_linear", src + "aggregate_linear.cu", pallas + "2300",
             {"train_megafuse": train[True]["launches"]["aggregate_linear"],
+             "train_bf16_megafuse":
+             train_bf16[True]["launches"]["aggregate_linear"],
              "serve_mega": serve_mega["launches"]["aggregate_linear"],
              **chain_launches("aggregate_linear")},
             pick("aggregate_linear", H_in=602, precision="fast"),
@@ -2614,6 +2994,8 @@ def main() -> int:
             pallas + "2599",
             {"train_megafuse":
              train[True]["launches"]["aggregate_linear_bwd"],
+             "train_bf16_megafuse":
+             train_bf16[True]["launches"]["aggregate_linear_bwd"],
              **chain_launches("aggregate_linear_bwd")},
             pick("aggregate_linear_bwd", H_in=602, dx=False,
                  precision="fast"),
@@ -2622,6 +3004,8 @@ def main() -> int:
         _kernel_entry(
             "stage_cotangent", src + "aggregate_linear.cu", pallas + "2599",
             {"train_megafuse": train[True]["launches"]["stage_cotangent"],
+             "train_bf16_megafuse":
+             train_bf16[True]["launches"]["stage_cotangent"],
              **chain_launches("stage_cotangent")},
             pick("stage_cotangent", H=256, precision="fast"),
             named("stage_cotangent"), ("H", "relu", "precision")),
@@ -2644,9 +3028,13 @@ def main() -> int:
             "dropout", src + "dropout.cu", "roc_tpu/ops/dropout.py:21",
             {"train": train[False]["launches"]["dropout"],
              "train_megafuse": train[True]["launches"]["dropout"],
+             "train_bf16": train_bf16[False]["launches"]["dropout"],
+             "train_bf16_megafuse":
+             train_bf16[True]["launches"]["dropout"],
              "train_gat": train_gat["launches"]["dropout"],
              "graph_file": graph_file["launches"]["dropout"]},
-            pick("dropout", H=602), named("dropout"), ("H", "rate")),
+            pick("dropout", H=602, dtype="float32"), named("dropout"),
+            ("H", "rate", "dtype")),
          "replaces_kind": "jax.random.bernoulli and jnp.where (XLA ops, "
                           "not a Pallas kernel)"},
         _kernel_entry(

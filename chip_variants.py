@@ -3,7 +3,7 @@
 own sources on one NVIDIA GPU, in one call.
 
     python3 chip_variants.py [sum] [linear] [xlayer] [gat] [gat_fwd]
-                                                    # default: all
+                             [dropout]              # default: all
 
 Each variant is the checkout's roc_tpu_torch/csrc/ with one design choice
 reversed by a source edit (VARIANTS below: each names the choice, the
@@ -30,6 +30,10 @@ the checkout's and is timed at the main path's shapes:
   gat_fwd the GAT forward (gat_forward: out, m, z) at the same two layers,
           fast and exact (a staging launch included where the geometry
           stages x)
+  dropout the dropout kernel's forward at H = 602 and 256, fp32 and bf16,
+          rate 0.5; each record also holds the SASS of its grid-stride
+          loop (cuobjdump -sass): instructions an element in all, on the
+          INT32 pipe and as integer IMADs on the FMA pipe
 
 Each time is the median of 10 CUDA-event timed calls on chip_smoke.py's
 Gaussian inputs; each record holds the compiler's registers and spill
@@ -44,6 +48,7 @@ fails.
 from __future__ import annotations
 
 import ctypes
+import re
 import shutil
 import subprocess
 import sys
@@ -56,7 +61,8 @@ ROOT = Path(__file__).resolve().parent
 CSRC = ROOT / "roc_tpu_torch" / "csrc"
 OUT = ROOT / "chip_check" / "variants"
 SOURCES = {"sum": "aggregate_sum.cu", "linear": "aggregate_linear.cu",
-           "xlayer": "xlayer.cu", "gat": "gat.cu", "gat_fwd": "gat.cu"}
+           "xlayer": "xlayer.cu", "gat": "gat.cu", "gat_fwd": "gat.cu",
+           "dropout": "dropout.cu"}
 
 # The tile counter of the megakernel forward, as the region kernels claim
 # their tiles: a grid of resident blocks (the occupancy's count on every SM)
@@ -326,6 +332,14 @@ VARIANTS = {
         "layer 2 staged, in 16-lane groups, instead of gathered in place by "
         "a full warp a row (2 one-float packs a lane, the earlier geometry)",
         "gat_fwd", [], "_gat_fwd_warp_cases"),
+    "dropout_one_element": (
+        "one element a thread an iteration (2- or 4-byte loads and stores, "
+        "the address arithmetic, loop control and first key injection per "
+        "element) instead of 16-byte packs of 4 fp32 or 8 bf16",
+        "dropout",
+        [("dropout.cu",
+          "  constexpr int N = kPackBytes / static_cast<int>(sizeof(T));\n",
+          "  constexpr int N = 1;\n")]),
 }
 
 
@@ -465,6 +479,77 @@ def _gat_fwd_warp_cases(ctx):
                           shapes=((1, 41),))
 
 
+def _dropout_cases(ctx):
+    """The dropout kernel's forward at the GCN's two dropout widths, fp32
+    and bf16 (the -bf16 first layer), rate 0.5, chip_smoke.py's key."""
+    import chip_smoke as C
+    from roc_tpu_torch.ops import prng
+    from roc_tpu_torch.ops.kernels import dropout as D
+    key = prng.fold_in(prng.fold_in(prng.prng_key(C.SEED), 3), 1)
+    return [(f"H{h}_{str(dt).split('.')[-1]}",
+             lambda x=ctx["x"][h].to(dt): D.dropout(x, 0.5, key))
+            for dt in (torch.float32, torch.bfloat16) for h in (602, 256)]
+
+
+_SASS_INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[0-9T]+\s+)?"
+                         r"([A-Z][A-Z0-9_.]*)\s*([^;]*);")
+_SASS_HEX = re.compile(r"0x([0-9a-f]+)")
+# opcodes issued to the INT32 pipe (64 lanes an SM on the H100), and the
+# integer ones the FMA pipe takes (the compiler issues many adds as IMAD)
+_INT_PIPE = ("IADD3", "LOP3", "SHF", "ISETP", "LEA", "SEL", "PRMT", "IABS",
+             "IMNMX", "FLO", "POPC", "BMSK", "SGXT", "IADD", "SHL", "SHR",
+             "LOP")
+_FMA_INT = ("IMAD", "VIADD")
+
+
+def _store_bytes(op: str) -> int:
+    mods = op.split(".")[1:]
+    for mod, n in (("128", 16), ("64", 8), ("U16", 2), ("16", 2),
+                   ("U8", 1)):
+        if mod in mods:
+            return n
+    return 4
+
+
+def sass_loop(lib: Path, symbol: str, itemsize: int) -> dict:
+    """Instructions an element of kernel ``symbol``'s grid-stride loop, from
+    ``cuobjdump -sass`` of the built library: the instructions from the
+    target of the widest backward branch to the branch, each counted once,
+    over the elements the loop's global stores write."""
+    out = subprocess.run([str(Path(_nvcc_dir()) / "cuobjdump"), "-sass",
+                          str(lib)], capture_output=True, text=True,
+                         timeout=120, check=True).stdout
+    body = next(f for f in out.split("Function : ")[1:]
+                if symbol in f.splitlines()[0])
+    instrs, loop = [], None
+    for m in _SASS_INSTR.finditer(body):
+        addr, op = int(m.group(1), 16), m.group(2)
+        instrs.append((addr, op))
+        tgt = _SASS_HEX.findall(m.group(3))
+        if op.startswith("BRA") and tgt and int(tgt[-1], 16) < addr:
+            span = (int(tgt[-1], 16), addr)
+            if loop is None or span[1] - span[0] > loop[1] - loop[0]:
+                loop = span
+    ops = [op for a, op in instrs if loop and loop[0] <= a <= loop[1]]
+    per = sum(_store_bytes(op) for op in ops
+              if op.split(".")[0] in ("STG", "ST")) / itemsize or 1
+    counts = {}
+    for op in ops:
+        counts[op.split(".")[0]] = counts.get(op.split(".")[0], 0) + 1
+    return {"elements_an_iteration": per,
+            "per_element": {"all": len(ops) / per,
+                            "int32_pipe": sum(counts.get(o, 0)
+                                              for o in _INT_PIPE) / per,
+                            "fma_int": sum(counts.get(o, 0)
+                                           for o in _FMA_INT) / per},
+            "opcodes": counts}
+
+
+def _nvcc_dir() -> str:
+    from roc_tpu_torch.ops.kernels import build as B
+    return str(Path(B._nvcc()).parent)
+
+
 def _measure_cases(cases, ref: dict) -> dict:
     import chip_smoke as C
     rec = {}
@@ -524,13 +609,15 @@ def main() -> int:
     from roc_tpu_torch.ops.kernels import aggregate_linear as KL
     from roc_tpu_torch.ops.kernels import aggregate_sum as KS
     from roc_tpu_torch.ops.kernels import build_all
+    from roc_tpu_torch.ops.kernels import dropout as KD
     from roc_tpu_torch.ops.kernels import gat as KG
     from roc_tpu_torch.ops.kernels import xlayer as KX
 
     todo = [(f"checkout_{t}", t, []) for t in targets] + \
         [(k, v[1], v[2]) for k, v in VARIANTS.items() if v[1] in targets]
     own_cases = {"sum": _sum_cases, "linear": _linear_cases,
-                 "gat": _gat_cases, "gat_fwd": _gat_fwd_cases}
+                 "gat": _gat_cases, "gat_fwd": _gat_fwd_cases,
+                 "dropout": _dropout_cases}
     with ThreadPoolExecutor(len(todo)) as pool:
         built = list(pool.map(lambda a: _build(*a), todo))
         pool.submit(build_all).result()     # the checkout's other libraries
@@ -560,7 +647,7 @@ def main() -> int:
                                          csr.t_col_idx, 0.2, "fast")[2]
             ctx["gat"][(k, f)] = i
     modules = {"sum": KS, "linear": KL, "xlayer": KX, "gat": KG,
-               "gat_fwd": KG}
+               "gat_fwd": KG, "dropout": KD}
     own = {t: modules[t].LIBRARY.load() for t in targets}
     refs = {t: {} for t in targets}
     order = built + [b for b in built if b[0].startswith("checkout_")]
@@ -573,7 +660,8 @@ def main() -> int:
                    "linear": ("mega_fwd", "mega_bwd_u"),
                    "xlayer": ("xlayer_",),
                    "gat": ("gat_bwd_",),
-                   "gat_fwd": ("gat_fwd_",)}[target]
+                   "gat_fwd": ("gat_fwd_",),
+                   "dropout": ("dropout_kernel",)}[target]
         rec = {"variant": name, "target": target,
                "reverses": VARIANTS[name][0] if name in VARIANTS else None,
                "ptxas": {k: v for k, v in ptxas.items()
@@ -585,6 +673,11 @@ def main() -> int:
             cases = (globals()[spec[3]] if len(spec) > 3
                      else own_cases[target])(ctx)
             rec["cases"] = _measure_cases(cases, refs[target])
+        if target == "dropout":
+            rec["sass"] = {dt: sass_loop(path, f"dropout_kernel{tag}", size)
+                           for dt, tag, size in (
+                               ("float32", "If", 4),
+                               ("bfloat16", "I13__nv_bfloat16", 2))}
         mod.LIBRARY._lib = own[target]
         C.emit(rec)
     print(C.nvidia_smi(), flush=True)

@@ -6,15 +6,19 @@ it (nor jax).  Each module mirrors its counterpart's path:
   graph/     in-edge CSR, the dataset registry (synthetic and the vendored
              real graphs), the reference's on-disk format (lux), the
              converters (python -m roc_tpu_torch.graph), the RCM reorder
-  fault/     the non-finite step guard, fault injection, retries, durable
-             file replacement
+  fault/     the non-finite step guard and its step.nan scale, fault
+             injection, retries, durable file replacement
+  obs/       span tracer (Chrome trace), metrics registry (JSONL,
+             Prometheus textfile), the perf watchdog
   ops/       norm, activation, element, dropout, init, linear, aggregate,
              edge attention; prng (jax.random's threefry streams);
              ops/kernels/ holds the hand-written CUDA kernels' loaders
   csrc/      CUDA C++ sources, built with nvcc for sm_90a at first use
-  models/    op-IR builder, GCN, gcn-chain, SAGE, GIN, GAT
+  models/    op-IR builder, GCN, gcn-chain, SAGE, GIN, GAT; the
+             region-plan dump (python -m roc_tpu_torch.models)
   train/     config, npz checkpoints shared with roc_tpu, graph data,
-             frozen-parameter loading, the single-device trainer
+             frozen-parameter loading, the single-device trainer and its
+             run controls (-bf16, -fault, signals, -profile, -obs)
   serve/     ServeEngine, microbatch queue, load generator, parity metric
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.

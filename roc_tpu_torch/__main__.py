@@ -1,13 +1,17 @@
 """CLI entry: ``python -m roc_tpu_torch (-file PREFIX [-lazy] | -dataset
 NAME) -layers 602-256-41 -e 10 [-reorder [on|auto]] [-model
 gcn|gcn-chain|sage|gin|gat] [-heads K] [-aggr A] [-megafuse [-fusion-depth
-N]] [-device cpu]`` (roc_tpu/__main__.py).
+N]] [-bf16] [-bf16-storage] [-fault SPEC] [-ckpt PATH [-ckpt-every N]
+[-resume]] [-profile DIR [-profile-epochs START:COUNT]] [-obs [-obs-dir
+DIR]] [-device cpu]`` (roc_tpu/__main__.py).
 
 ``-file`` reads the reference's on-disk format (``PREFIX.add_self_edge.lux``
 and its sidecars; ``python -m roc_tpu_torch.graph`` writes it), as
 ``./gnn ... -file dataset/reddit-dgl`` does (test.sh:8).  Trains on one
 NVIDIA GPU; ``-device cpu`` runs on the CPU instead, and without a GPU and
-without that flag the command exits non-zero.
+without that flag the command exits non-zero.  ``-profile DIR`` prints
+where the trace went; SIGTERM or SIGINT ends the run after the epoch in
+flight, with its final checkpoint, and exit code 0.
 """
 
 from __future__ import annotations

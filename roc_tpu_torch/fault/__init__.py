@@ -8,11 +8,12 @@ writes through.
               counters
   durable.py  fsync-before-rename (``fsync_replace``), shared by every
               atomic writer of the port
-  guard.py    the non-finite step guard (``guarded_update``)
+  guard.py    the non-finite step guard (``guarded_update``) and the
+              ``step.nan`` loss scale (``nan_scale``)
 """
 
 from roc_tpu_torch.fault.durable import fsync_replace
-from roc_tpu_torch.fault.guard import global_norm, guarded_update
+from roc_tpu_torch.fault.guard import global_norm, guarded_update, nan_scale
 from roc_tpu_torch.fault.inject import (InjectedFault, SimulatedCrash, armed,
                                         attach, configure, counters, detach,
                                         emit_event, parse_spec, point, spec)
@@ -22,6 +23,6 @@ from roc_tpu_torch.fault.retry import (reset_retry_counts, retry_counts,
 __all__ = [
     "InjectedFault", "SimulatedCrash", "armed", "attach", "configure",
     "counters", "detach", "emit_event", "fsync_replace", "global_norm",
-    "guarded_update", "parse_spec", "point", "reset_retry_counts",
+    "guarded_update", "nan_scale", "parse_spec", "point", "reset_retry_counts",
     "retry_counts", "retrying", "spec",
 ]

@@ -4,25 +4,15 @@ A NaN or Inf loss or gradient must not poison the parameters, and finding
 it on the host would cost a device-to-host sync every step.  So the update
 is computed unconditionally and ``torch.where`` selects between the new and
 the old params and optimizer state on one finiteness flag that stays on the
-device.  The JAX package's NaN injection into a step (``nan_scale``) is
-not ported yet.
+device.  ``nan_scale`` is the host side of the ``step.nan`` injection site:
+the step multiplies its loss by it before the backward.
 """
 
 from __future__ import annotations
 
-from typing import Dict
-
 import torch
 
-
-def global_norm(tree: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """L2 norm over every tensor of a dict (fp32 accumulation), as
-    roc_tpu/obs/channel.py:global_norm."""
-    leaves = list(tree.values())
-    if not leaves:
-        return torch.zeros(())
-    total = sum(torch.sum(torch.square(t.to(torch.float32))) for t in leaves)
-    return torch.sqrt(total)
+from roc_tpu_torch.obs.channel import global_norm
 
 
 def guarded_update(optimizer, params, grads, opt_state, alpha, loss=None):
@@ -47,3 +37,12 @@ def guarded_update(optimizer, params, grads, opt_state, alpha, loss=None):
                                   sel(new_opt.v, opt_state.v),
                                   torch.where(finite, new_opt.t, opt_state.t))
         return sel(new_params, params), out_opt, ~finite, gnorm
+
+
+def nan_scale(site: str = "step.nan") -> float:
+    """The loss scale of this step: 1.0, or NaN when the fault harness
+    fires ``site`` (roc_tpu/fault/guard.py:50-59).  A Python float, so an
+    unarmed step does no host tensor work for it, and the step skips the
+    multiply at 1.0: an unarmed run keeps its bits and its launches."""
+    from roc_tpu_torch.fault import inject
+    return float("nan") if inject.point(site) else 1.0

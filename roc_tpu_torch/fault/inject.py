@@ -24,7 +24,9 @@ Spec grammar (comma-separated tokens)::
 The probabilistic form hashes ``(seed, site, call_index)``: two runs with
 the same spec fire at the same call indices.
 
-Registered sites in the port (grep for ``fault.point``): ``lux.read``.
+Registered sites in the port: ``lux.read`` (graph/lux.py) and
+``step.nan`` (fault/guard.py:nan_scale, once per training step).  The
+trainer arms ``Config.fault`` when it differs from the armed spec.
 """
 
 from __future__ import annotations

@@ -1,6 +1,10 @@
 """``python -m roc_tpu_torch.serve --selftest [--device cuda|cpu]
-[--model gcn|gat]``: the serving smoke gate (the contracts of
-roc_tpu/serve/__main__.py, without the dynamic-delta leg).
+[--model gcn|gat] [-serve-batch N] [-serve-wait-ms MS] [-serve-queue-max N]
+[-bf16]``: the serving smoke gate (the contracts of
+roc_tpu/serve/__main__.py, without the dynamic-delta leg).  The serving
+flags reach the ``ServeEngine`` (window size, wait, queue cap) and
+``-bf16`` reaches ``load_frozen`` (x placed in bf16), as in the trainer's
+CLI.
 
 On the tiny audit graph (GCN 8-16-4, or GAT 8-4-4 with 2 heads): write a
 checkpoint, cold-start a ServeEngine from it, and assert in one process that
@@ -23,7 +27,9 @@ import sys
 import tempfile
 
 
-def selftest(device: str = "cuda", model_name: str = "gcn") -> int:
+def selftest(device: str = "cuda", model_name: str = "gcn",
+             serve_batch: int = 8, serve_wait_ms: float = 1.0,
+             serve_queue_max: int = 4096, use_bf16: bool = False) -> int:
     import numpy as np
 
     from roc_tpu_torch.graph import datasets
@@ -37,8 +43,9 @@ def selftest(device: str = "cuda", model_name: str = "gcn") -> int:
 
     cfg = Config(dataset="roc-audit", model=model_name, heads=2,
                  layers=[8, 16, 4] if model_name == "gcn" else [8, 4, 4],
-                 aggregate_backend="binned", serve_batch=8,
-                 serve_wait_ms=1.0)
+                 aggregate_backend="binned", serve_batch=serve_batch,
+                 serve_wait_ms=serve_wait_ms,
+                 serve_queue_max=serve_queue_max, use_bf16=use_bf16)
     ds = datasets.get(cfg.dataset, seed=cfg.seed)
     model = build_model(cfg.model, cfg.layers, cfg.dropout_rate, cfg.aggr,
                         heads=cfg.heads)
@@ -52,7 +59,8 @@ def selftest(device: str = "cuda", model_name: str = "gcn") -> int:
                          device=device) as eng:
             cs = eng.cold_start_stats
             print(f"# serve selftest: cold start {cs['cold_start_s']:.3f}s "
-                  f"on {eng.device}, buckets={cs['buckets']}")
+                  f"on {eng.device}, buckets={cs['buckets']}, x "
+                  f"{eng.bundle.x.dtype}")
 
             oracle = eng.bundle.predict_logits().cpu().numpy()
             ids = np.arange(ds.graph.num_nodes, dtype=np.int32)
@@ -93,11 +101,18 @@ def main(argv) -> int:
     p.add_argument("--selftest", action="store_true")
     p.add_argument("--device", default="cuda")
     p.add_argument("--model", default="gcn", choices=["gcn", "gat"])
+    p.add_argument("-serve-batch", dest="serve_batch", type=int, default=8)
+    p.add_argument("-serve-wait-ms", dest="serve_wait_ms", type=float,
+                   default=1.0)
+    p.add_argument("-serve-queue-max", dest="serve_queue_max", type=int,
+                   default=4096)
+    p.add_argument("-bf16", dest="use_bf16", action="store_true")
     args = p.parse_args(argv)
     if not args.selftest:
         p.print_usage(sys.stderr)
         return 2
-    return selftest(args.device, args.model)
+    return selftest(args.device, args.model, args.serve_batch,
+                    args.serve_wait_ms, args.serve_queue_max, args.use_bf16)
 
 
 if __name__ == "__main__":

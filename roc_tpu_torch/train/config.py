@@ -1,12 +1,14 @@
 """Run configuration and CLI (roc_tpu/train/config.py), holding the fields
-the ported serving, training and graph-input paths read.  Defaults, flag
-names and dests match the JAX package's (config.py:398-466); ``-device``
-is the port's own."""
+the ported serving, training, graph-input and run-control paths read.
+Defaults, flag names, dests, environment mirrors and refusals match the
+JAX package's (config.py:264-392, 398-508): a bad value exits with
+SystemExit.  ``-device`` is the port's own."""
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 from typing import List, Optional
 
 BACKENDS = ("auto", "xla", "matmul", "pallas", "binned")
@@ -51,29 +53,94 @@ class Config:
     serve_wait_ms: float = 2.0    # max ms a serving window stays open
     serve_queue_max: int = 4096   # pending requests before submit() sheds;
                                   # 0 = unbounded
+    use_bf16: bool = False        # x and the activations up to the first
+                                  # promotion in bf16 (-bf16)
+    bf16_storage: bool = False    # bf16 feature storage, fp32 accumulation
+                                  # (-bf16-storage): on one device in fast
+                                  # the sums already stage bf16, so it
+                                  # changes no bit there
+    fault: str = ""               # fault-injection spec (fault/inject.py),
+                                  # e.g. "seed=3,step.nan=1"; "" = disarmed
+    profile_dir: str = ""         # torch.profiler trace directory
+    profile_epochs: str = ""      # profiler window "START:COUNT" from the
+                                  # call's first epoch ("" = "3:3")
+    obs: bool = False             # spans, per-epoch metrics and the
+                                  # watchdog, exported under obs_dir
+    obs_dir: str = ""             # "" with obs on -> "roc_obs"
 
     def __post_init__(self):
+        env = os.environ
         if self.aggregate_backend not in BACKENDS:
-            raise ValueError(f"aggregate_backend={self.aggregate_backend!r}:"
+            raise SystemExit(f"aggregate_backend={self.aggregate_backend!r}:"
                              f" one of {'|'.join(BACKENDS)}")
         if self.aggregate_precision not in ("fast", "exact"):
-            raise ValueError(f"aggregate_precision="
+            raise SystemExit(f"aggregate_precision="
                              f"{self.aggregate_precision!r}: fast|exact")
-        if self.serve_batch < 1:
-            raise ValueError(f"serve_batch={self.serve_batch}: the serving "
-                             "window must admit at least one query")
-        if self.serve_wait_ms < 0:
-            raise ValueError(f"serve_wait_ms={self.serve_wait_ms} must be "
-                             ">= 0 (0 drains after every request)")
-        if self.serve_queue_max < 0:
-            raise ValueError(f"serve_queue_max={self.serve_queue_max} must "
-                             "be >= 0 (0 disables the depth cap)")
+        if self.eval_every < 1 or self.decay_steps < 1:
+            raise SystemExit(f"eval_every={self.eval_every} and decay_steps="
+                             f"{self.decay_steps} must be >= 1")
+        if env.get("ROC_BF16_STORAGE"):
+            self.bf16_storage = env["ROC_BF16_STORAGE"] == "1"
         if self.fusion_depth < 0:
             raise SystemExit(f"bad fusion_depth {self.fusion_depth} "
                              "(0 = full, 1 = off, >=2 = cap)")
-        if self.eval_every < 1 or self.decay_steps < 1:
-            raise ValueError(f"eval_every={self.eval_every} and decay_steps="
-                             f"{self.decay_steps} must be >= 1")
+        if self.bf16_storage and self.aggregate_precision == "exact":
+            raise SystemExit("-bf16-storage is incompatible with "
+                             "-aggr-precision exact (bf16 storage rounds "
+                             "features; exact promises fp32 end to end)")
+        if env.get("ROC_OBS"):
+            self.obs = env["ROC_OBS"] == "1"
+        if env.get("ROC_OBS_DIR"):
+            self.obs_dir = env["ROC_OBS_DIR"]
+        if self.obs and not self.obs_dir:
+            self.obs_dir = "roc_obs"
+        if env.get("ROC_PROFILE_EPOCHS"):
+            self.profile_epochs = env["ROC_PROFILE_EPOCHS"]
+        self.profile_window()  # validate eagerly (SystemExit if bad)
+        try:
+            if "ROC_SERVE_BATCH" in env:
+                self.serve_batch = int(env["ROC_SERVE_BATCH"])
+            if "ROC_SERVE_WAIT_MS" in env:
+                self.serve_wait_ms = float(env["ROC_SERVE_WAIT_MS"])
+        except ValueError:
+            raise SystemExit("ROC_SERVE_BATCH must be an integer and "
+                             "ROC_SERVE_WAIT_MS numeric")
+        if self.serve_batch < 1:
+            raise SystemExit(f"serve_batch={self.serve_batch}: the serving "
+                             "window must admit at least one query")
+        if self.serve_wait_ms < 0:
+            raise SystemExit(f"serve_wait_ms={self.serve_wait_ms} must be "
+                             ">= 0 (0 drains after every request)")
+        try:
+            if "ROC_SERVE_QUEUE_MAX" in env:
+                self.serve_queue_max = int(env["ROC_SERVE_QUEUE_MAX"])
+        except ValueError:
+            raise SystemExit("ROC_SERVE_QUEUE_MAX must be an integer")
+        if self.serve_queue_max < 0:
+            raise SystemExit(f"serve_queue_max={self.serve_queue_max} must "
+                             "be >= 0 (0 disables the depth cap)")
+        if env.get("ROC_FAULT"):
+            self.fault = env["ROC_FAULT"]
+        if self.fault:
+            from roc_tpu_torch.fault import inject
+            try:
+                inject.parse_spec(self.fault)
+            except ValueError as e:
+                raise SystemExit(f"bad -fault spec {self.fault!r}: {e}")
+
+    def profile_window(self) -> tuple:
+        """-profile-epochs "START:COUNT" -> (start_offset, count), START
+        relative to the train() call's first epoch; "" is "3:3"."""
+        spec = self.profile_epochs or "3:3"
+        try:
+            start_s, count_s = spec.split(":")
+            start, count = int(start_s), int(count_s)
+            if start < 0 or count < 1:
+                raise ValueError
+        except ValueError:
+            raise SystemExit(f"bad profile_epochs {spec!r} "
+                             "(want START:COUNT, e.g. 0:1 or 3:3)")
+        return start, count
 
 
 def parse_args(argv: List[str]) -> Config:
@@ -119,6 +186,30 @@ def parse_args(argv: List[str]) -> Config:
     p.add_argument("-lazy", dest="lazy_load", action="store_true")
     p.add_argument("-reorder", nargs="?", const="on", default="off",
                    choices=["on", "off", "auto"])
+    p.add_argument("-bf16", dest="use_bf16", action="store_true")
+    p.add_argument("-bf16-storage", dest="bf16_storage",
+                   action="store_true")
+    p.add_argument("-profile", dest="profile_dir", default="")
+    p.add_argument("-profile-epochs", dest="profile_epochs", default="",
+                   help="profiler window START:COUNT relative to the first "
+                        "epoch (default 3:3)")
+    p.add_argument("-obs", action="store_true",
+                   help="runtime observability: host spans, per-epoch "
+                        "metrics and the perf watchdog (roc_tpu_torch/obs)")
+    p.add_argument("-obs-dir", dest="obs_dir", default="",
+                   help="obs artifact dir (default roc_obs)")
+    p.add_argument("-serve-batch", dest="serve_batch", type=int, default=64,
+                   help="serving microbatch cap: window drains at this "
+                        "many queries; bucket ladder tops out here")
+    p.add_argument("-serve-wait-ms", dest="serve_wait_ms", type=float,
+                   default=2.0, help="max ms a serving window waits to "
+                        "fill before draining (0 = drain per request)")
+    p.add_argument("-serve-queue-max", dest="serve_queue_max", type=int,
+                   default=4096, help="max pending serve requests before "
+                        "submits shed with Overloaded (0 = unbounded)")
+    p.add_argument("-fault", default="",
+                   help="fault-injection spec (roc_tpu_torch/fault), e.g. "
+                        "'seed=3,step.nan=1'; empty = off")
     p.add_argument("-device", default="cuda",
                    help="cuda (default) or cpu")
     ns = p.parse_args(argv)

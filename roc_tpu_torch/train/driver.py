@@ -6,37 +6,62 @@ Per epoch, as the reference's loop (gnn.cc:99-111) and the JAX driver
     multiplied by ``decay_rate``;
   * one train step: forward, backward (autograd; every aggregation,
     megakernel and attention layer has its own backward kernels) and the
-    guarded Adam update;
+    guarded Adam update, the loss first multiplied by the ``step.nan``
+    scale when the fault harness fires it (``fault.nan_scale``: NaN
+    then, else 1.0 and no multiply);
   * the epoch ends with a device sync, and ``epoch_times`` are the synced
-    times;
+    times (the ``epoch`` span's durations);
   * every ``eval_every`` epochs an inference forward prints the reference's
     metric line.
 
 The parameters and the dropout masks are roc_tpu's bits (ops/prng.py):
 the run's key is ``PRNGKey(seed)``, the Glorot init draws from it, and
 epoch e's masks from ``fold_in(key, e)`` (driver.py:917), on any device.
-So the port starts and steps as the JAX package does, and a resumed run
-draws the masks the unbroken run would have.
+A checkpoint carries the key (``extra["rng_key"]``, driver.py:1050), and a
+resumed run takes it back, so it draws the masks the unbroken run would
+have, whatever ``-seed`` it was started with.
 
-Not ported yet (ROADMAP queue A): obs spans and metrics, the profiler
-window, the online balancer, signal handling, the memory planner, the
-non-finite escalation ladder (skips are counted and reported), and the
-SPMD and streaming trainers.
+Run controls (driver.py:475-1027):
+  * non-finite steps are skipped by the guard; after
+    ``NONFINITE_ESCALATE_AFTER`` in a row the ladder's rung 1 turns
+    ``-megafuse`` off and rebuilds the graph context (params, Adam state
+    and epoch kept), rung 2 restores the checkpoint or, without one,
+    carries on with skipped updates;
+  * SIGTERM and SIGINT only set a flag: the loop finishes the epoch in
+    flight, stops, writes the final checkpoint and restores the previous
+    handlers (installed on the main thread only);
+  * ``-profile DIR`` traces ``-profile-epochs`` START:COUNT epochs with
+    torch.profiler into DIR/trace.json (Chrome trace), closed in a
+    ``finally``;
+  * ``-obs`` records the spans ``train``, ``epoch``, ``step_dispatch``,
+    ``device_sync``, ``metrics_fetch``, ``eval`` and ``checkpoint``, one
+    ``metrics`` record an epoch (fetched after the timed window), the
+    watchdog's alerts and a closing ``train`` record, into
+    ``obs_dir``'s trace.json, metrics.jsonl and metrics.prom.
+
+Not ported yet (ROADMAP queue A): the online balancer, the memory planner,
+the calibration ledger and roofline fields, and the SPMD and streaming
+trainers.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-import time
+import signal
+import threading
 from typing import Optional
 
+import numpy as np
 import torch
 
+from roc_tpu_torch import obs
 from roc_tpu_torch.device import resolve_device
-from roc_tpu_torch.fault.guard import guarded_update
+from roc_tpu_torch.fault import inject
+from roc_tpu_torch.fault.guard import guarded_update, nan_scale
 from roc_tpu_torch.graph.datasets import Dataset
 from roc_tpu_torch.models.model import Model
+from roc_tpu_torch.obs.channel import global_norm
 from roc_tpu_torch.ops import prng
 from roc_tpu_torch.ops.softmax import PerfMetrics, format_metrics, \
     perf_metrics
@@ -47,6 +72,11 @@ from roc_tpu_torch.train.graph_data import (dense_graph_data,
                                             effective_backend,
                                             host_to_device, make_gctx,
                                             model_has_gat)
+
+# Consecutive skipped steps before the escalation ladder engages
+# (driver.py:475): one bad batch skips silently; K in a row means the run
+# is not recovering on its own.
+NONFINITE_ESCALATE_AFTER = 3
 
 
 @dataclasses.dataclass
@@ -68,7 +98,8 @@ def device_sync(device: torch.device) -> None:
 
 
 def dropout_key(seed: int, epoch: int) -> prng.Key:
-    """The key an epoch's dropout masks draw from."""
+    """The key an epoch's dropout masks draw from in a run started with
+    ``seed`` and never resumed."""
     return prng.fold_in(prng.prng_key(seed), epoch)
 
 
@@ -83,43 +114,130 @@ class Trainer:
         self.device = resolve_device(config.device)
         self.optimizer = Adam(alpha=config.learning_rate,
                               weight_decay=config.weight_decay)
+        self.key = prng.prng_key(config.seed)
+        self.dtype = torch.bfloat16 if config.use_bf16 else torch.float32
         self.epoch = 0
         self.epoch_times: list = []
+        # the fault harness arms -fault specs that came by the flag (the
+        # ROC_FAULT path armed at import); the host side of the guard
+        if config.fault and config.fault != inject.spec():
+            inject.configure(config.fault)
         self.nonfinite_skips = 0
+        self._nf_streak = 0
+        self._nf_stage = 0
         self._last_nonfinite = None
+        self._last_gnorm = None
+        self._stop_signal = None
+        self._obs_init()
         self._setup()
         if config.resume and config.checkpoint_path and \
                 os.path.exists(config.checkpoint_path):
             self.restore(config.checkpoint_path)
 
     def _setup(self):
+        """Place the graph data, features, labels and mask, build the graph
+        context and init the params and Adam state (the ladder's rung 1
+        calls it again and puts back what it keeps)."""
         cfg, ds, dev = self.config, self.dataset, self.device
         backend = effective_backend(cfg, self.model, dev)
         self.gdata = dense_graph_data(
             ds.graph, backend, cfg.aggregate_precision, dev,
             edge_map=backend == "kernel" and model_has_gat(self.model))
         self.gctx = make_gctx(self.gdata, cfg.megafuse, cfg.fusion_depth)
-        self.x = host_to_device(ds.features, dev)
+        self.x = host_to_device(ds.features, dev, self.dtype)
         self.labels = torch.as_tensor(ds.onehot_labels(),
                                       dtype=torch.float32, device=dev)
         self.mask = torch.as_tensor(ds.mask, dtype=torch.int32, device=dev)
-        self.params = self.model.init_params(prng.prng_key(cfg.seed),
-                                             device=dev)
+        self.params = self.model.init_params(self.key, device=dev)
         self.opt_state = self.optimizer.init(self.params)
 
+    # -- observability ----------------------------------------------------
+    def _obs_init(self):
+        """Arm the obs layer before _setup (driver.py:534-577)."""
+        cfg = self.config
+        self._metrics = None
+        self.watchdog = None
+        if not cfg.obs:
+            return
+        obs.enable(True)
+        jsonl = os.path.join(cfg.obs_dir, "metrics.jsonl") \
+            if cfg.obs_dir else ""
+        if jsonl:
+            try:
+                os.makedirs(cfg.obs_dir, exist_ok=True)
+            except OSError:
+                jsonl = ""  # keep the in-memory registry; skip the file
+        self._metrics = obs.MetricsRegistry(jsonl_path=jsonl)
+        # retry and injection events land in the same stream (detached in
+        # _obs_finish)
+        inject.attach(self._metrics.emit)
+        # what roc_tpu's single-device step reports: no wire, and the sum
+        # of the in-degrees as the one shard's edges
+        self._obs_edges = [int(np.sum(self.dataset.graph.in_degrees))]
+        self.watchdog = obs.PerfWatchdog()
+
+    def _obs_epoch(self, epoch: int, wall_s: float, loss, print_fn):
+        """The per-epoch record, read after the timed window
+        (driver.py:579-607), and the watchdog's verdict on the epoch."""
+        if self._metrics is None:
+            return
+        with obs.span("metrics_fetch"):
+            loss_v, gnorm, pnorm = torch.stack(
+                [loss.to(torch.float32), self._last_gnorm,
+                 global_norm(self.params)]).tolist()
+        self._metrics.emit(
+            "metrics", epoch=int(epoch), wall_s=round(float(wall_s), 6),
+            loss=loss_v, grad_norm=gnorm, param_norm=pnorm, wire_bytes=0,
+            edges_per_shard=self._obs_edges)
+        alert = self.watchdog.observe_epoch(epoch, wall_s)
+        if alert is not None:
+            self._metrics.emit("watchdog", **alert)
+            if self.config.verbose:
+                print_fn(f"# watchdog: epoch {epoch} took "
+                         f"{alert['ratio']:.2f}x the EWMA "
+                         f"({alert['wall_s'] * 1e3:.1f} ms vs "
+                         f"{alert['ewma_s'] * 1e3:.1f} ms)")
+
+    def _obs_finish(self, stats: "TrainStats", print_fn):
+        """The closing ``train`` record and the artifacts under obs_dir."""
+        if self._metrics is None:
+            return
+        cfg = self.config
+        inject.detach()
+        verdict = self.watchdog.verdict()
+        self._metrics.emit(
+            "train", epochs=stats.epochs, total_s=round(stats.total_s, 6),
+            final_loss=stats.final_loss, watchdog_verdict=verdict,
+            watchdog_alerts=len(self.watchdog.alerts))
+        if cfg.obs_dir:
+            trace_path = os.path.join(cfg.obs_dir, "trace.json")
+            ok = obs.get_tracer().write_chrome_trace(trace_path)
+            self._metrics.write_prometheus(
+                os.path.join(cfg.obs_dir, "metrics.prom"))
+            if cfg.verbose and ok:
+                print_fn(f"# obs: trace -> {trace_path} "
+                         f"({len(obs.get_tracer().span_types())} span "
+                         f"types); watchdog verdict: {verdict}")
+
     # -- one step ---------------------------------------------------------
-    def _train_step(self, key: prng.Key, alpha: float):
+    def _train_step(self, key: prng.Key, alpha: float, scale: float):
         params = {k: p.detach().requires_grad_(True)
                   for k, p in self.params.items()}
         loss = self.model.loss(params, self.x, self.labels, self.mask,
                                self.gctx, key=key, train=True)
+        # 1.0 on every healthy step, which adds no multiply (nor its
+        # launch); NaN when the fault harness fires step.nan, which the
+        # guard skips
+        if scale != 1.0:
+            loss = loss * scale
         keys = sorted(params)
         grads = dict(zip(keys, torch.autograd.grad(
             loss, [params[k] for k in keys])))
         loss = loss.detach()
-        self.params, self.opt_state, self._last_nonfinite, _ = \
-            guarded_update(self.optimizer, self.params, grads,
-                           self.opt_state, alpha, loss=loss)
+        (self.params, self.opt_state, self._last_nonfinite,
+         self._last_gnorm) = guarded_update(
+            self.optimizer, self.params, grads, self.opt_state, alpha,
+            loss=loss)
         return loss
 
     def run_epoch(self) -> torch.Tensor:
@@ -128,21 +246,64 @@ class Trainer:
         cfg = self.config
         if self.epoch != 0 and self.epoch % cfg.decay_steps == 0:
             self.optimizer.alpha *= cfg.decay_rate  # gnn.cc:100-101
-        loss = self._train_step(dropout_key(cfg.seed, self.epoch),
-                                self.optimizer.alpha)
+        loss = self._train_step(prng.fold_in(self.key, self.epoch),
+                                self.optimizer.alpha, nan_scale())
         self.epoch += 1
         return loss
 
+    # -- the non-finite guard's host side (driver.py:848-903) -------------
     def _check_nonfinite(self, epoch: int, print_fn) -> None:
-        """Count a skipped step (the flag is already on the host side of
-        the epoch's sync, so reading it costs no stall)."""
-        if self._last_nonfinite is None or \
-                not bool(self._last_nonfinite):
+        """Read the step's skip flag (the epoch's sync has landed, so the
+        read costs no stall), track the streak of skipped steps, and walk
+        the escalation ladder when the guard alone stops recovering."""
+        if self._last_nonfinite is None:
             return
+        if not bool(self._last_nonfinite):
+            self._nf_streak = 0
+            return
+        self._nf_streak += 1
         self.nonfinite_skips += 1
+        if self.watchdog is not None:
+            alert = self.watchdog.observe_nonfinite(epoch, self._nf_streak)
+            self._metrics.emit("watchdog", **alert)
         if self.config.verbose:
             print_fn(f"# fault: non-finite loss/grads at epoch {epoch}; "
-                     f"update skipped ({self.nonfinite_skips} so far)")
+                     f"update skipped (streak {self._nf_streak})")
+        if self._nf_streak >= NONFINITE_ESCALATE_AFTER:
+            self._escalate_nonfinite(epoch, print_fn)
+            self._nf_streak = 0
+
+    def _escalate_nonfinite(self, epoch: int, print_fn) -> None:
+        """Rung 1: a -megafuse run drops to the unfused program, rebuilding
+        the graph context with params, Adam state and epoch kept.  Rung 2:
+        restore the last checkpoint, or carry on with skipped updates."""
+        cfg = self.config
+        if self._nf_stage == 0 and cfg.megafuse:
+            self._nf_stage = 1
+            inject.emit_event("nonfinite_escalation", stage="unfuse",
+                              epoch=int(epoch), streak=self._nf_streak)
+            print_fn(f"# fault: {self._nf_streak} consecutive non-finite "
+                     f"steps — disabling -megafuse (two-pass fallback) and "
+                     f"rebuilding the train step")
+            cfg.megafuse = False
+            keep = self.params, self.opt_state, self.epoch
+            self._setup()
+            self.params, self.opt_state, self.epoch = keep
+            return
+        self._nf_stage = 2
+        path = cfg.checkpoint_path
+        if path and os.path.exists(path):
+            inject.emit_event("nonfinite_escalation", stage="restore",
+                              epoch=int(epoch), streak=self._nf_streak)
+            print_fn(f"# fault: non-finite streak persists — restoring "
+                     f"from checkpoint {path}")
+            self.restore(path)
+        else:
+            inject.emit_event("nonfinite_escalation", stage="no_checkpoint",
+                              epoch=int(epoch), streak=self._nf_streak)
+            print_fn("# fault: non-finite streak persists and no "
+                     "checkpoint is available; continuing with skipped "
+                     "updates")
 
     # -- inference --------------------------------------------------------
     def predict_logits(self) -> torch.Tensor:
@@ -157,6 +318,40 @@ class Trainer:
                                 self.mask)
 
     # -- the loop ---------------------------------------------------------
+    def _install_stop_handlers(self) -> dict:
+        """SIGTERM/SIGINT set a flag the loop reads at the epoch's end;
+        returns the previous handlers (none off the main thread, where
+        Python cannot install any)."""
+        self._stop_signal = None
+        if threading.current_thread() is not threading.main_thread():
+            return {}
+
+        def _on_stop(signum, frame):
+            del frame
+            self._stop_signal = signum
+
+        installed = {}
+        for s in (signal.SIGTERM, signal.SIGINT):
+            installed[s] = signal.signal(s, _on_stop)
+        return installed
+
+    def _start_profiler(self):
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=acts)
+        prof.__enter__()
+        return prof
+
+    def _stop_profiler(self, prof) -> str:
+        """Close the profiler session and write its Chrome trace."""
+        device_sync(self.device)
+        prof.__exit__(None, None, None)
+        os.makedirs(self.config.profile_dir, exist_ok=True)
+        path = os.path.join(self.config.profile_dir, "trace.json")
+        prof.export_chrome_trace(path)
+        return path
+
     def train(self, print_fn=print) -> TrainStats:
         cfg, dev = self.config, self.device
         on_cuda = dev.type == "cuda"
@@ -164,28 +359,59 @@ class Trainer:
         peaks = []
         loss: Optional[torch.Tensor] = None
         start = self.epoch
-        t0 = time.perf_counter()
-        for epoch in range(start, start + cfg.num_epochs):
-            if on_cuda:
-                torch.cuda.reset_peak_memory_stats(dev)
-            # the sync is the measurement: an epoch ends when its work
-            # on the device does, not when its launches return
-            e0 = time.perf_counter()
-            loss = self.run_epoch()
+        # the profiler window, clamped into the run (driver.py:928-931)
+        p_off, p_cnt = cfg.profile_window()
+        prof_start = start + min(p_off, max(cfg.num_epochs - 1, 0))
+        prof_stop = min(prof_start + p_cnt, start + cfg.num_epochs)
+        prof = None
+        installed = self._install_stop_handlers()
+        with obs.span("train", epochs=cfg.num_epochs) as sp_train:
+            try:
+                for epoch in range(start, start + cfg.num_epochs):
+                    if cfg.profile_dir and epoch == prof_start:
+                        prof = self._start_profiler()
+                    if on_cuda:
+                        torch.cuda.reset_peak_memory_stats(dev)
+                    # the sync is the measurement: an epoch ends when its
+                    # work on the device does, not when its launches return
+                    with obs.span("epoch", epoch=epoch) as sp_epoch:
+                        with obs.span("step_dispatch"):
+                            loss = self.run_epoch()
+                        with obs.span("device_sync"):
+                            device_sync(dev)
+                    self.epoch_times.append(sp_epoch.dur_s)
+                    if on_cuda:
+                        peaks.append(torch.cuda.max_memory_allocated(dev))
+                    self._obs_epoch(epoch, sp_epoch.dur_s, loss, print_fn)
+                    self._check_nonfinite(epoch, print_fn)
+                    if prof is not None and epoch + 1 == prof_stop:
+                        path = self._stop_profiler(prof)
+                        prof = None
+                        print_fn(f"# profiler trace written to {path}")
+                    if epoch % cfg.eval_every == 0:
+                        with obs.span("eval", epoch=epoch):
+                            print_fn(format_metrics(epoch, self.evaluate()))
+                    if (cfg.checkpoint_path and cfg.checkpoint_every and
+                            (epoch + 1) % cfg.checkpoint_every == 0):
+                        with obs.span("checkpoint", epoch=epoch):
+                            self.save_checkpoint(cfg.checkpoint_path)
+                    if self._stop_signal is not None:
+                        name = signal.Signals(self._stop_signal).name
+                        print_fn(f"# fault: {name} received — epoch "
+                                 f"{epoch} finished; checkpointing and "
+                                 f"exiting cleanly")
+                        break
+            finally:
+                # a failure inside the window still closes the session
+                if prof is not None:
+                    prof.__exit__(None, None, None)
+                for s, h in installed.items():
+                    signal.signal(s, h)
             device_sync(dev)
-            self.epoch_times.append(time.perf_counter() - e0)
-            if on_cuda:
-                peaks.append(torch.cuda.max_memory_allocated(dev))
-            self._check_nonfinite(epoch, print_fn)
-            if epoch % cfg.eval_every == 0:
-                print_fn(format_metrics(epoch, self.evaluate()))
-            if (cfg.checkpoint_path and cfg.checkpoint_every and
-                    (epoch + 1) % cfg.checkpoint_every == 0):
-                self.save_checkpoint(cfg.checkpoint_path)
-        device_sync(dev)
-        dt = time.perf_counter() - t0
+        dt = sp_train.dur_s
         if cfg.checkpoint_path:
-            self.save_checkpoint(cfg.checkpoint_path)
+            with obs.span("checkpoint"):
+                self.save_checkpoint(cfg.checkpoint_path)
         if cfg.verbose and self.epoch_times:
             steady = sorted(self.epoch_times[2:] or self.epoch_times)
             med = steady[len(steady) // 2]
@@ -193,23 +419,39 @@ class Trainer:
                      f"(median {med * 1e3:.1f} ms/epoch post-warmup, "
                      f"{self.dataset.graph.num_edges / med / 1e6:.1f}M "
                      f"edges/s)")
-        return TrainStats(
+        stats = TrainStats(
             epoch_times=list(self.epoch_times), total_s=dt,
             epochs=cfg.num_epochs,
             final_loss=float("nan") if loss is None else float(loss),
             peak_mem_bytes=peaks)
+        self._obs_finish(stats, print_fn)
+        return stats
 
     # -- checkpoint / resume (the JAX package's npz layout) ---------------
+    def _resume_extra(self) -> dict:
+        """The host state a resume needs beyond the arrays
+        (driver.py:1040-1056): the base PRNG key, the skip count and the
+        watchdog's EWMA."""
+        extra = {"rng_key": [int(self.key[0]), int(self.key[1])],
+                 "nonfinite_skips": int(self.nonfinite_skips)}
+        if self.watchdog is not None:
+            extra["watchdog"] = self.watchdog.state_dict()
+        return extra
+
     def save_checkpoint(self, path: str) -> None:
         checkpoint.save(path, self.params, self.opt_state, self.epoch,
-                        self.optimizer.alpha,
-                        extra={"nonfinite_skips": self.nonfinite_skips})
+                        self.optimizer.alpha, extra=self._resume_extra())
 
     def restore(self, path: str) -> None:
-        """Params, Adam state, epoch and learning rate from a checkpoint
-        written by either package."""
+        """Params, Adam state, epoch, learning rate, PRNG key, skip count
+        and watchdog state from a checkpoint written by either package."""
         (self.params, self.opt_state, self.epoch, self.optimizer.alpha,
          extra) = checkpoint.load(path, self.params, self.opt_state)
+        if "rng_key" in extra:
+            k0, k1 = (int(v) for v in extra["rng_key"])
+            self.key = (k0, k1)
+        if self.watchdog is not None and "watchdog" in extra:
+            self.watchdog.load_state(extra["watchdog"])
         self.nonfinite_skips = int(extra.get("nonfinite_skips", 0))
 
 

@@ -6,8 +6,8 @@ backend resolution as training (``graph_data.effective_backend``), with
 the CSR alone: a forward-only consumer runs only forward kernels.  Under
 ``megafuse`` the forward runs each eligible layer through the megakernel,
 as the trainer's eval does; serving stays at fusion depth 1, as the JAX
-package's frozen path does.  The streaming executor's branch is not ported
-yet (ROADMAP queue A)."""
+package's frozen path does.  ``-bf16`` places the features in bf16.  The
+streaming executor's branch is not ported yet (ROADMAP queue A)."""
 
 from __future__ import annotations
 
@@ -65,7 +65,9 @@ def load_frozen(config: Config, dataset: Dataset, model: Model,
     gdata = dense_graph_data(dataset.graph, backend,
                              config.aggregate_precision, dev,
                              transpose=False)
-    x = host_to_device(dataset.features, dev)
+    # -bf16 places x in bf16, as roc_tpu/train/frozen.py:120 does
+    x = host_to_device(dataset.features, dev,
+                       torch.bfloat16 if config.use_bf16 else torch.float32)
     if params is None:
         params = model.init_params(prng.prng_key(config.seed), device=dev)
         path = checkpoint_path or config.checkpoint_path

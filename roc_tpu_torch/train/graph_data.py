@@ -47,9 +47,11 @@ _COPY_BLOCK_BYTES = 64 << 20
 
 def host_to_device(a: np.ndarray, device: torch.device,
                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """A dataset's host array on ``device``, the same bits.  A read-only
-    array (a lazy dataset's memmap) is copied in blocks of rows: no whole
-    host copy, and no warning from torch about a non-writable array."""
+    """A dataset's host array on ``device`` in ``dtype``: the same bits, or
+    under ``-bf16`` each value rounded to nearest even, as
+    ``jnp.asarray(..., bfloat16)`` rounds.  A read-only array (a lazy
+    dataset's memmap) is copied and cast in blocks of rows: no whole host
+    copy, and no warning from torch about a non-writable array."""
     if a.flags.writeable:
         return torch.as_tensor(a, dtype=dtype, device=device)
     out = torch.empty(a.shape, dtype=dtype, device=device)
@@ -128,7 +130,11 @@ def dense_graph_data(graph, backend: str, precision: str,
     its transpose unless ``transpose`` is False (forward-only users: the
     host transpose of a Reddit-size graph takes seconds), and with the
     transpose's edge map when ``edge_map`` is True (a GAT model trained on
-    the kernel backend: [E] int32, 94 MB at Reddit)."""
+    the kernel backend: [E] int32, 94 MB at Reddit).
+
+    roc_tpu threads ``-bf16-storage`` here, into its binned plans' staging
+    unit; a CSR has none, and the kernels already stage bf16 once in fast,
+    so on one device the flag changes no bit in either package."""
     if backend not in ("kernel", "xla"):
         raise ValueError(f"backend={backend!r}: kernel|xla")
     if precision not in ("fast", "exact"):
@@ -161,7 +167,12 @@ def make_gctx(g: DenseGraphData, megafuse: bool = False,
         return ops.scatter_gather(x, g.csr, aggr, g.precision)
 
     def attend(h, a_src, a_dst, slope):
-        # one device: the source table is the layer's own h
+        # one device: the source table is the layer's own h.  A bf16 h
+        # (-bf16's first layer) is upcast here: roc_tpu's kernels upcast
+        # their table (pallas/gat.py:769) and its xla composition promotes
+        # against the fp32 attention vectors, so the output is fp32 on
+        # every backend, and an exact upcast changes no value
+        h = h.to(torch.float32)
         if g.backend == "xla":
             n = g.csr.num_rows
             dst = torch.repeat_interleave(
@@ -177,17 +188,22 @@ def make_gctx(g: DenseGraphData, megafuse: bool = False,
         # post-scale, so it stays in the kernel.  avg: (D^-1 A) W =
         # D^-1 (A W); the activation moves out with the division, which
         # it must follow.
+        # The kernels take fp32: a bf16 x (-bf16's SAGE or GIN first layer;
+        # the fold's norm promotes GCN's to fp32 first) is upcast exactly,
+        # and the output takes x's dtype, as roc_tpu's hook returns it.
         if fold:
             x = ops.indegree_norm(x, g.in_degree)
+        dtype = x.dtype
         out = ops.scatter_gather_linear(
-            x, w, g.csr, g.precision, "none" if aggr == "avg" else activation)
+            x.to(torch.float32), w, g.csr, g.precision,
+            "none" if aggr == "avg" else activation)
         if aggr == "avg":
             out = ops.divide_by_degree(out, g.in_degree)
         if fold:
             out = ops.indegree_norm(out, g.in_degree)
         if aggr == "avg":
             out = ops.apply_activation(out, activation)
-        return out
+        return out.to(dtype)
 
     def fuse_region(x, ws, activations, fold=False):
         # the region kernels own the interior norm pairs; the head's
@@ -195,11 +211,12 @@ def make_gctx(g: DenseGraphData, megafuse: bool = False,
         # per-layer hook
         if fold:
             x = ops.indegree_norm(x, g.in_degree)
-        out = ops.region_linear(x, ws, g.in_degree, g.csr, g.precision,
-                                activations, fold)
+        dtype = x.dtype
+        out = ops.region_linear(x.to(torch.float32), ws, g.in_degree, g.csr,
+                                g.precision, activations, fold)
         if fold:
             out = ops.indegree_norm(out, g.in_degree)
-        return out
+        return out.to(dtype)
 
     fused = megafuse and g.backend == "kernel"
     regions = fused and fusion_depth != 1

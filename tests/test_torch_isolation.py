@@ -34,7 +34,12 @@ need = {"roc_tpu_torch.__main__", "roc_tpu_torch.fault.guard",
         "roc_tpu_torch.ops.kernels.aggregate_linear",
         "roc_tpu_torch.ops.kernels.build", "roc_tpu_torch.ops.kernels.gat",
         "roc_tpu_torch.ops.edge", "roc_tpu_torch.ops.softmax",
-        "roc_tpu_torch.optim.adam", "roc_tpu_torch.train.driver"}
+        "roc_tpu_torch.optim.adam", "roc_tpu_torch.train.driver",
+        "roc_tpu_torch.models.__main__", "roc_tpu_torch.obs",
+        "roc_tpu_torch.obs.channel", "roc_tpu_torch.obs.metrics",
+        "roc_tpu_torch.obs.tracer", "roc_tpu_torch.obs.watchdog",
+        "roc_tpu_torch.serve.__main__", "roc_tpu_torch.train.config",
+        "roc_tpu_torch.train.frozen"}
 assert need <= set(names), need - set(names)
 print(len(names), bad)
 assert not bad, bad
