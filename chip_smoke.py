@@ -231,6 +231,31 @@ Phases, each printing one JSON line per record:
           equal to the unbroken run (1e-6 relative), the seed's own masks
           far off
 
+  mem_plan  the memory planner: -mem-plan keep, remat and auto (its
+          -mem-budget halfway between the plan's predicted keep and remat
+          peaks) for gcn-chain 602-256-256-256-41 unfused and GCN
+          602-256-41 on Reddit, fast, dropout 0.5, 5 epochs each: per plan
+          the decisions, the predicted peak (and with the tensors the
+          port's checkpoints keep beyond the plan), the measured peak
+          (max_memory_allocated), ms a step, launches a step (keep's
+          exact; a plan's between keep's and keep's plus one forward);
+          the final loss and every parameter bitwise equal to keep's, the
+          measured peaks under remat and auto below keep's
+  stream  the streaming executor: GCN 602-256-41 on Reddit, -stream
+          -parts 4 -stream-slots 2, fast, dropout 0, 3 epochs, against the
+          in-core trainer from the same seed: each epoch's loss within
+          1e-3 relative, the streamed peak below in-core's, pinned host
+          stores with no fallback, the sum kernel launched by the streamed
+          run; seconds an epoch, bytes moved beside predicted_epoch_bytes
+          (roc_tpu's and the port's CSR wire), the ring's overlap and the
+          scatter's hidden share.  Then on reddit-small (602-64-41):
+          -bf16-storage within 1e-3 relative of the fp32 streamed losses,
+          -stream-spill (a temporary directory the phase removes) bitwise
+          equal to them, a streamed GAT (4 heads) within 1e-3 of the
+          in-core GAT with the GAT kernels launched, and 64 rows served by
+          a ServeEngine under -stream within 1e-5 of each row's max-abs of
+          the in-core eval's, both in exact (the GEMM's order differs)
+
 Then the ``kernels`` line, the card's name and power limit as nvidia-smi
 gives them, and last ``{"ok": true, "device": {...}}``.  Any failure
 raises and the exit code is non-zero; without CUDA the script exits 2
@@ -241,6 +266,7 @@ from __future__ import annotations
 
 import gc
 import json
+import os
 import re
 import select
 import statistics
@@ -2077,7 +2103,7 @@ def _train_run(tr, dev) -> dict:
            "epoch_ms": [t * 1e3 for t in stats.epoch_times],
            "median_epoch_ms_3_on": statistics.median(
                stats.epoch_times[2:]) * 1e3,
-           "peak_mem_bytes": max(stats.peak_mem_bytes, default=0),
+           "peak_mem_bytes": max(stats.peak_hbm_bytes, default=0),
            "first_train_loss": first, "last_train_loss": last,
            "final_step_loss": stats.final_loss, "metric_lines": lines,
            "launches": launches, "launches_per_step": per_step}
@@ -2159,8 +2185,8 @@ def phase_train_chain(ds, dev, depth: int, epochs: int = 10) -> dict:
            "epoch_ms": [t * 1e3 for t in stats.epoch_times],
            "median_epoch_ms_3_on": statistics.median(
                stats.epoch_times[2:]) * 1e3,
-           "peak_mem_bytes": max(stats.peak_mem_bytes, default=0),
-           "peak_mem_by_epoch": stats.peak_mem_bytes,
+           "peak_mem_bytes": max(stats.peak_hbm_bytes, default=0),
+           "peak_mem_by_epoch": stats.peak_hbm_bytes,
            "train_loss_curve": curve, "final_step_loss": stats.final_loss,
            "launches": launches, "launches_per_step": per_step}
     emit(rec)
@@ -2874,6 +2900,268 @@ def phase_serve(ds, dev, model_name: str = "gcn",
     return rec
 
 
+# -- the memory planner and the streaming executor ---------------------------
+
+# gcn-chain unfused and GCN on the Reddit graph, fast, dropout 0.5
+MEM_PLAN_MODELS = (("gcn-chain", [602, 256, 256, 256, 41]),
+                   ("gcn", [602, 256, 41]))
+
+
+def _plan_run(ds, dev, model, layers, plan, budget="", epochs=5) -> dict:
+    """One planned training run: decisions, predicted and measured peak,
+    ms a step (median of epochs 2 on), the losses, the parameters, and the
+    kernels' launches in the run and in one more step."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    tr = _trainer(ds, layers, dev, num_epochs=epochs, learning_rate=0.01,
+                  weight_decay=0.0001, dropout_rate=0.5, eval_every=10**9,
+                  aggregate_precision="fast", model=model, mem_plan=plan,
+                  mem_budget=budget)
+    reset_launches()
+    stats = tr.train(print_fn=_quiet)
+    launches = read_launches()
+    params = {k: v.detach().cpu() for k, v in tr.params.items()}
+    reset_launches()
+    tr.run_epoch()
+    torch.cuda.synchronize(dev)
+    per_step = read_launches()
+    p = tr.mem_plan
+    rec = {"plan": plan, "budget_bytes": p.budget_bytes,
+           "decisions": list(p.decisions), "planner": p.planner,
+           "predicted_peak_bytes": p.predicted_peak_bytes,
+           "predicted_peak_with_crossing_bytes":
+           p.predicted_peak_bytes + tr.mem_crossing_bytes,
+           "crossing_bytes": tr.mem_crossing_bytes,
+           "port_resident_bytes": tr.mem_port_bytes,
+           "keep_peak_bytes": p.keep_peak_bytes,
+           "remat_peak_bytes": p.remat_peak_bytes,
+           "predicted_step_s": p.predicted_step_s,
+           "measured_peak_bytes": max(stats.peak_hbm_bytes),
+           "peak_hbm_source": stats.peak_hbm_source,
+           "ms_per_step": statistics.median(stats.epoch_times[1:]) * 1e3,
+           "epoch_ms": [t * 1e3 for t in stats.epoch_times],
+           "final_loss": stats.final_loss, "launches": launches,
+           "launches_per_step": per_step}
+    del tr
+    return rec, params
+
+
+def phase_mem_plan(ds, dev) -> dict:
+    """-mem-plan keep, remat and auto (its budget halfway between the
+    plan's predicted keep and remat peaks) for gcn-chain 602-256-256-256-41
+    unfused and GCN 602-256-41 on the Reddit graph, fast, dropout 0.5, 5
+    epochs each: the final loss and every parameter bitwise equal to
+    keep's, the measured peaks under remat and auto below keep's."""
+    out = {}
+    for model, layers in MEM_PLAN_MODELS:
+        keep, kparams = _plan_run(ds, dev, model, layers, "keep")
+        budget = str((keep["keep_peak_bytes"] + keep["remat_peak_bytes"])
+                     // 2)
+        runs = {"keep": keep}
+        for plan, b in (("remat", ""), ("auto", budget)):
+            rec, params = _plan_run(ds, dev, model, layers, plan, b)
+            rec["params_differ"] = [k for k in kparams
+                                    if not torch.equal(params[k],
+                                                       kparams[k])]
+            rec["loss_bitwise"] = rec["final_loss"] == keep["final_loss"]
+            runs[plan] = rec
+        rec = {"phase": "mem_plan", "model": model, "layers": layers,
+               "dataset": ds.name, "precision": "fast", "dropout": 0.5,
+               **runs}
+        emit(rec)
+        # a recompute re-runs at most one forward: its sums, stagings and
+        # dropouts (train.graph_data.forward_launches counts no dropout)
+        from roc_tpu_torch.models import build_model
+        from roc_tpu_torch.train.graph_data import forward_launches
+        fwd = launch_dict(**forward_launches(build_model(model, layers)),
+                          dropout=len(layers) - 1)
+        for plan in ("remat", "auto"):
+            r = runs[plan]
+            if r["params_differ"] or not r["loss_bitwise"]:
+                raise AssertionError(f"-mem-plan {plan} is not keep's run: "
+                                     f"params {r['params_differ']} differ, "
+                                     f"loss {r['final_loss']} vs "
+                                     f"{keep['final_loss']}")
+            if not r["measured_peak_bytes"] < keep["measured_peak_bytes"]:
+                raise AssertionError(f"-mem-plan {plan} peak "
+                                     f"{r['measured_peak_bytes']} is not "
+                                     f"below keep's "
+                                     f"{keep['measured_peak_bytes']}")
+            if not all(keep["launches_per_step"][k] <= v
+                       <= keep["launches_per_step"][k] + fwd[k]
+                       for k, v in r["launches_per_step"].items()):
+                raise AssertionError(f"-mem-plan {plan} launched "
+                                     f"{r['launches_per_step']} a step")
+        if model == "gcn" and keep["launches_per_step"] != step_launches(
+                "gcn", False):
+            raise AssertionError(f"-mem-plan keep launched "
+                                 f"{keep['launches_per_step']} a step")
+        out[model] = runs
+    return out
+
+
+def _stream_trainer(ds, layers, dev, **kw):
+    from roc_tpu_torch.models import build_model
+    from roc_tpu_torch.train.config import Config
+    from roc_tpu_torch.train.driver import make_trainer
+    base = dict(num_epochs=3, learning_rate=0.01, weight_decay=0.0001,
+                dropout_rate=0.0, eval_every=10**9,
+                aggregate_precision="fast", stream=True, num_parts=4,
+                stream_slots=2, heads=4)
+    base.update(kw)
+    cfg = Config(dataset=ds.name, layers=layers, seed=SEED, device=str(dev),
+                 **base)
+    return make_trainer(cfg, ds, build_model(cfg.model, layers,
+                                             cfg.dropout_rate,
+                                             heads=cfg.heads))
+
+
+def _epochs(tr, dev, n=3) -> dict:
+    """``n`` epochs from a fresh peak: each epoch's loss and synced
+    seconds, the peak, and the launches in those epochs."""
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    losses, secs, stats = [], [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        losses.append(float(tr.run_epoch()))
+        torch.cuda.synchronize(dev)
+        secs.append(time.perf_counter() - t0)
+        if hasattr(tr, "stream_stats"):
+            stats.append(dict(tr._last_stream_stats))
+    return {"losses": losses, "epoch_s": secs,
+            "peak_bytes": torch.cuda.max_memory_allocated(dev),
+            "launches": read_launches(), "stream": stats}
+
+
+def _free() -> None:
+    """Return what the trainers a phase dropped held, so the next run's
+    peak counts its own tensors only."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _rel(a, b) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def phase_stream(ds, dev) -> dict:
+    """GCN 602-256-41 on the Reddit graph, -stream -parts 4 -stream-slots
+    2, fast, dropout 0, 3 epochs, against the in-core trainer from the
+    same seed: each epoch's loss within 1e-3 relative, the streamed peak
+    below in-core's, pinned host stores with no fallback, the sum kernel
+    launched by the streamed run.  Records seconds an epoch, bytes moved
+    against predicted_epoch_bytes, the ring's overlap and the scatter's
+    hidden share.  Then on reddit-small: -bf16-storage, -stream-spill (in a
+    temporary directory the phase removes), a streamed GAT, and a served
+    forward under -stream against the in-core eval."""
+    import tempfile
+
+    from roc_tpu_torch.graph import datasets
+    from roc_tpu_torch.serve import ServeEngine
+    from roc_tpu_torch.stream import host as stream_host
+    layers = LAYERS["gcn"]
+    inc = _trainer(ds, layers, dev, num_epochs=3, learning_rate=0.01,
+                   weight_decay=0.0001, dropout_rate=0.0, eval_every=10**9,
+                   aggregate_precision="fast")
+    want = _epochs(inc, dev)
+    del inc
+    _free()
+    stream_host.reset_stats()
+    t0 = time.perf_counter()
+    tr = _stream_trainer(ds, layers, dev)
+    setup_s = time.perf_counter() - t0
+    got = _epochs(tr, dev)
+    host = stream_host.stats()
+    pred = tr.predicted_epoch_xfer_bytes()
+    tr.close()
+    rec = {"phase": "stream", "model": "gcn", "layers": layers,
+           "dataset": ds.name, "parts": 4, "slots": 2, "precision": "fast",
+           "dropout": 0.0, "shard_nodes": tr._S, "shard_edges": tr._E,
+           "halo_width": tr._K, "table_rows": tr._T,
+           "slot_bytes": tr.slot_bytes(), "setup_s": setup_s,
+           "incore": want, "streamed": got,
+           "loss_rel_err": [_rel(a, b) for a, b in zip(got["losses"],
+                                                      want["losses"])],
+           "predicted_epoch_bytes": pred["roc_tpu"],
+           "predicted_epoch_bytes_port": pred["port"],
+           "host_stores": host}
+    del tr
+    _free()
+    small = datasets.get("reddit-small", seed=SEED)
+    sl = [602, 64, 41]
+    legs = {}
+
+    def leg(tr):
+        out = _epochs(tr, dev)
+        if hasattr(tr, "close"):
+            tr.close()
+        return out
+
+    legs["fp32"] = leg(_stream_trainer(small, sl, dev))
+    legs["bf16_storage"] = leg(_stream_trainer(small, sl, dev,
+                                               bf16_storage=True))
+    with tempfile.TemporaryDirectory(prefix="roc_spill_") as tmp:
+        legs["spill"] = leg(_stream_trainer(small, sl, dev,
+                                            stream_spill=tmp))
+        legs["spill_files"] = len(os.listdir(tmp))
+    legs["gat_incore"] = leg(_trainer(
+        small, sl, dev, num_epochs=3, learning_rate=0.01,
+        weight_decay=0.0001, dropout_rate=0.0, eval_every=10**9,
+        aggregate_precision="fast", model="gat", heads=4))
+    legs["gat"] = leg(_stream_trainer(small, sl, dev, model="gat"))
+    _free()
+    from roc_tpu_torch.models import build_model
+    from roc_tpu_torch.train.config import Config
+    from roc_tpu_torch.train.frozen import load_frozen
+    # exact: fast rounds each GEMM output to bf16 once, and cuBLAS sums a
+    # shard's [S, 602] product in another order than the whole graph's,
+    # so one row's rounding may differ; in exact only that order differs
+    scfg = dict(dataset="reddit-small", layers=sl, seed=SEED,
+                aggregate_precision="exact")
+    model = build_model("gcn", sl)
+    oracle = load_frozen(Config(**scfg), small, model,
+                         device=dev).predict_logits().cpu()
+    reset_launches()
+    eng = ServeEngine(Config(**scfg, stream=True, num_parts=4), small,
+                      model, device=dev)
+    try:
+        ids = np.random.default_rng(SEED).integers(
+            0, small.graph.num_nodes, 64)
+        served = torch.as_tensor(eng.query(ids, timeout=300.0))
+        legs["serve_launches"] = read_launches()
+        legs["serve_forwards"] = eng.forwards
+    finally:
+        eng.close()
+        eng.bundle.stream_trainer.close()
+    legs["serve_row_rel_err"] = row_rel_err(served, oracle[ids])
+    rec["small"] = {
+        "dataset": "reddit-small", "layers": sl, **legs,
+        "bf16_vs_fp32_rel_err": max(_rel(a, b) for a, b in zip(
+            legs["bf16_storage"]["losses"], legs["fp32"]["losses"])),
+        "spill_bitwise": legs["spill"]["losses"] == legs["fp32"]["losses"],
+        "gat_rel_err": max(_rel(a, b) for a, b in zip(
+            legs["gat"]["losses"], legs["gat_incore"]["losses"]))}
+    emit(rec)
+    sm = rec["small"]
+    if not (max(rec["loss_rel_err"]) <= 1e-3
+            and got["peak_bytes"] < want["peak_bytes"]
+            and host["pinned_bytes"] > 0 and host["fallback_bytes"] == 0
+            and got["launches"]["aggregate_sum"] > 0
+            and got["launches"]["stage_plane"] > 0):
+        raise AssertionError(f"the streamed Reddit run failed: {rec}")
+    if not (sm["bf16_vs_fp32_rel_err"] <= 1e-3 and sm["spill_bitwise"]
+            and sm["gat_rel_err"] <= 1e-3
+            and legs["gat"]["launches"]["gat_forward"] > 0
+            and legs["gat"]["launches"]["gat_bwd_src"] > 0
+            and sm["serve_row_rel_err"] <= 1e-5
+            and legs["serve_launches"]["aggregate_sum"] > 0):
+        raise AssertionError(f"a reddit-small stream leg failed: {sm}")
+    return rec
+
+
 def _kernel_entry(name, source, replaces, launches, row, rows, keys):
     """One entry of the ``kernels`` line: the main row's numbers and every
     measured shape."""
@@ -2936,6 +3224,9 @@ def main() -> int:
     phase_ab(ds, dev)
     graph_file = phase_graph_file(ds, dev)
     phase_run_controls(dev)
+    mem_plan = phase_mem_plan(ds, dev)
+    stream = phase_stream(ds, dev)
+    small = stream["small"]
 
     def pick(name, **want):
         return next(r for r in rows if r["name"] == name and all(
@@ -2948,6 +3239,17 @@ def main() -> int:
         return {f"train_chain_depth{d}": chain[d]["launches"][name]
                 for d in (1, 2, 0) if chain[d]["launches"][name]}
 
+    def planned(name):
+        return {f"mem_plan_{m}": sum(r["launches"][name]
+                                     for r in runs.values())
+                for m, runs in mem_plan.items()}
+
+    def streamed(name):
+        return {"stream": stream["streamed"]["launches"][name],
+                "stream_small": sum(small[k]["launches"][name] for k in (
+                    "fp32", "bf16_storage", "spill", "gat")),
+                "serve_stream": small["serve_launches"][name]}
+
     src = "roc_tpu_torch/csrc/"
     pallas = "roc_tpu/ops/pallas/binned.py:"
     sum_entry = _kernel_entry(
@@ -2956,7 +3258,8 @@ def main() -> int:
          "serve_bf16": serve_bf16["launches"]["aggregate_sum"],
          "train": train[False]["launches"]["aggregate_sum"],
          "train_bf16": train_bf16[False]["launches"]["aggregate_sum"],
-         "graph_file": graph_file["launches"]["aggregate_sum"]},
+         "graph_file": graph_file["launches"]["aggregate_sum"],
+         **planned("aggregate_sum"), **streamed("aggregate_sum")},
         pick("aggregate_sum", H=256, precision="fast", csr=None),
         named("aggregate_sum"), ("H", "precision", "csr"))
     sum_entry["also_replaces"] = [pallas + "1991", pallas + "2107",
@@ -2972,7 +3275,8 @@ def main() -> int:
          "train_bf16_megafuse":
          train_bf16[True]["launches"]["stage_plane"],
          "graph_file": graph_file["launches"]["stage_plane"],
-         **chain_launches("stage_plane")},
+         **chain_launches("stage_plane"), **planned("stage_plane"),
+         **streamed("stage_plane")},
         pick("stage_plane", H=256), named("stage_plane"), ("H", "ld"))
     stage_entry["also_replaces"] = [pallas + "1991", pallas + "2107",
                                     pallas + "2153", pallas + "2300"]
@@ -3012,7 +3316,8 @@ def main() -> int:
         *(_kernel_entry(
             name, src + "gat.cu", "roc_tpu/ops/pallas/gat.py:" + line,
             {"serve_gat": serve_gat["launches"][name],
-             "train_gat": train_gat["launches"][name]},
+             "train_gat": train_gat["launches"][name],
+             "stream_gat": small["gat"]["launches"][name]},
             pick(name, K=4, precision="fast"), named(name),
             ("K", "F", "precision"))
           for name, line in (("gat_score", "310"), ("gat_forward", "328"),
@@ -3022,7 +3327,8 @@ def main() -> int:
             "gat_stage", src + "aggregate_sum.cu",
             "roc_tpu/ops/pallas/gat.py:428",
             {"serve_gat": serve_gat["launches"]["gat_stage"],
-             "train_gat": train_gat["launches"]["gat_stage"]},
+             "train_gat": train_gat["launches"]["gat_stage"],
+             "stream_gat": small["gat"]["launches"]["gat_stage"]},
             pick("gat_stage", K=1), named("gat_stage"), ("H", "ld")),
         {**_kernel_entry(
             "dropout", src + "dropout.cu", "roc_tpu/ops/dropout.py:21",
@@ -3032,7 +3338,8 @@ def main() -> int:
              "train_bf16_megafuse":
              train_bf16[True]["launches"]["dropout"],
              "train_gat": train_gat["launches"]["dropout"],
-             "graph_file": graph_file["launches"]["dropout"]},
+             "graph_file": graph_file["launches"]["dropout"],
+             **planned("dropout")},
             pick("dropout", H=602, dtype="float32"), named("dropout"),
             ("H", "rate", "dtype")),
          "replaces_kind": "jax.random.bernoulli and jnp.where (XLA ops, "

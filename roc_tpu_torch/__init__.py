@@ -5,11 +5,12 @@ it (nor jax).  Each module mirrors its counterpart's path:
 
   graph/     in-edge CSR, the dataset registry (synthetic and the vendored
              real graphs), the reference's on-disk format (lux), the
-             converters (python -m roc_tpu_torch.graph), the RCM reorder
+             converters (python -m roc_tpu_torch.graph), the RCM reorder,
+             the edge-balanced partition
   fault/     the non-finite step guard and its step.nan scale, fault
              injection, retries, durable file replacement
   obs/       span tracer (Chrome trace), metrics registry (JSONL,
-             Prometheus textfile), the perf watchdog
+             Prometheus textfile), the perf watchdog, the card's roofline
   ops/       norm, activation, element, dropout, init, linear, aggregate,
              edge attention; prng (jax.random's threefry streams);
              ops/kernels/ holds the hand-written CUDA kernels' loaders
@@ -20,6 +21,9 @@ it (nor jax).  Each module mirrors its counterpart's path:
              frozen-parameter loading, the single-device trainer and its
              run controls (-bf16, -fault, signals, -profile, -obs)
   serve/     ServeEngine, microbatch queue, load generator, parity metric
+  memory/    the activation-memory planner (-mem-plan, -mem-budget;
+             python -m roc_tpu_torch.memory)
+  stream/    the out-of-core streaming executor (-stream, -parts)
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """

@@ -9,6 +9,14 @@ hook runs each :func:`mega_matches` layer chain as the whole-layer
 megakernel, and a ``GraphCtx.fuse_region`` hook each :func:`mega_regions`
 chain of such layers (a cross-layer fusion region, ``-fusion-depth``) as
 one region kernel.
+
+Every op is stamped, as roc_tpu stamps it for its memory planner
+(model.py:355-373), with its layer, a stable checkpoint name ``ckpt``
+(``L<layer>.<kind><out>``) and ``ckpt_save``: whether a kept layer saves
+its output under an active memory plan (``CKPT_SAVE_KINDS``, and the layer
+boundary).  :meth:`Model.units` is the dispatch order ``apply`` runs (an
+op, or a fused megakernel or region chain answering for its ``final``
+op); ``memory/policy.py`` cuts it at the saved tensors.
 """
 
 from __future__ import annotations
@@ -20,6 +28,11 @@ import torch
 
 from roc_tpu_torch import ops
 from roc_tpu_torch.ops import prng
+
+# Op kinds whose outputs a kept layer saves under an active memory plan
+# (model.py:40): expensive to recompute.  Elementwise outputs (dropout,
+# norm, activation, add) are recomputed (memory/estimator.py).
+CKPT_SAVE_KINDS = frozenset({"linear", "aggregate", "gat"})
 
 
 class GraphCtx(NamedTuple):
@@ -40,6 +53,19 @@ class GraphCtx(NamedTuple):
     # region-length cap: 1 = off, 2 = chains of at most two layers, ...,
     # 0 = unlimited
     fusion_depth: int = 1
+
+
+class Unit(NamedTuple):
+    """One step of ``apply``'s dispatch: a single op (``fused`` None), or
+    a ``mega_matches`` chain (``fused`` "match") or ``mega_regions`` chain
+    ("region") dispatched at the op index ``index``.  It reads ``inputs``
+    and produces ``final.out``; ``record`` is the fused chain's record."""
+    index: int
+    op: "OpNode"
+    final: "OpNode"
+    inputs: tuple
+    fused: Optional[str] = None
+    record: Optional[dict] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -280,15 +306,20 @@ class Model:
         return t
 
     def _emit(self, op: OpNode) -> None:
-        """Append ``op`` stamped with its layer index."""
+        """Append ``op`` stamped with its layer index, its checkpoint name
+        and whether a kept layer saves its output under a memory plan."""
         op.attrs["layer"] = self._cur_layer
+        op.attrs["ckpt"] = f"L{self._cur_layer}.{op.kind}{op.out}"
+        op.attrs["ckpt_save"] = op.kind in CKPT_SAVE_KINDS
         self.ops.append(op)
 
     def end_layer(self) -> None:
         """Close the current GNN layer: the last emitted op becomes the
-        layer boundary, and the next layer index starts."""
+        layer boundary (always saved under an active plan: it is the next
+        layer's input), and the next layer index starts."""
         if self.ops and self.ops[-1].attrs["layer"] == self._cur_layer:
             self.ops[-1].attrs["ckpt_boundary"] = True
+            self.ops[-1].attrs["ckpt_save"] = True
         self._cur_layer += 1
 
     @property
@@ -391,6 +422,80 @@ class Model:
         return params
 
     # -- execution --------------------------------------------------------
+    def units(self, fuse_linear: bool = False, fuse_region: bool = False,
+              fusion_depth: int = 1, train: bool = False) -> List[Unit]:
+        """``apply``'s dispatch order: with ``fuse_region`` and a fusion
+        depth other than 1 each ``mega_regions`` chain is one unit, with
+        ``fuse_linear`` each remaining ``mega_matches`` chain, and every
+        other op its own."""
+        matches = mega_matches(self) if fuse_linear else {}
+        regions = (mega_regions(self, fusion_depth, train)
+                   if fuse_region and fusion_depth != 1 else {})
+        out: List[Unit] = []
+        skipped: set = set()
+        for idx, op in enumerate(self.ops):
+            if idx in skipped:
+                continue
+            for kind, found in (("region", regions), ("match", matches)):
+                if idx in found:
+                    r = found[idx]
+                    out.append(Unit(idx, op, r["final"], op.inputs[:1],
+                                    kind, r))
+                    skipped.update(r["skip"])
+                    break
+            else:
+                out.append(Unit(idx, op, op, op.inputs))
+        return out
+
+    def gctx_units(self, gctx: GraphCtx, train: bool) -> List[Unit]:
+        return self.units(gctx.fuse_linear is not None,
+                          gctx.fuse_region is not None, gctx.fusion_depth,
+                          train)
+
+    def run_unit(self, u: Unit, vals: Dict[int, torch.Tensor],
+                 params: Dict[str, torch.Tensor], gctx: GraphCtx,
+                 key: Optional[prng.Key], train: bool) -> torch.Tensor:
+        """One unit's output from the tensors in ``vals``."""
+        op = u.op
+        a = vals[op.inputs[0]]
+        if u.fused == "region":
+            r = u.record
+            return gctx.fuse_region(
+                a, tuple(params[m["linear"].attrs["param"]]
+                         for m in r["members"]),
+                tuple(m["activation"] for m in r["members"]), r["fold"])
+        if u.fused == "match":
+            m = u.record
+            return gctx.fuse_linear(
+                a, params[m["linear"].attrs["param"]], m["activation"],
+                m["aggregate"].attrs["aggr"], m["fold"])
+        if op.kind == "dropout":
+            live = train and op.attrs["rate"] != 0.0
+            k = (prng.fold_in(key, op.attrs["slot"])
+                 if live and key is not None else None)
+            return ops.dropout(a, op.attrs["rate"], train, k)
+        if op.kind == "linear":
+            return ops.linear(a, params[op.attrs["param"]],
+                              op.attrs["activation"])
+        if op.kind == "norm":
+            return ops.indegree_norm(a, gctx.in_degree)
+        if op.kind == "aggregate":
+            return gctx.aggregate(a, op.attrs["aggr"])
+        if op.kind == "gat":
+            if gctx.attend is None:
+                raise ValueError("this GraphCtx has no attention")
+            name, k, f = (op.attrs["param"], op.attrs["heads"],
+                          op.attrs["head_dim"])
+            h = ops.linear(a, params[name + "_w"]).reshape(-1, k, f)
+            return gctx.attend(h, params[name + "_asrc"],
+                               params[name + "_adst"],
+                               op.attrs["slope"]).reshape(-1, k * f)
+        if op.kind == "activation":
+            return ops.apply_activation(a, op.attrs["mode"])
+        if op.kind == "add":
+            return ops.add(a, vals[op.inputs[1]])
+        raise ValueError(f"unknown op kind {op.kind!r}")
+
     def apply(self, params: Dict[str, torch.Tensor], x: torch.Tensor,
               gctx: GraphCtx, key: Optional[prng.Key] = None,
               train: bool = False) -> torch.Tensor:
@@ -400,61 +505,12 @@ class Model:
         ``mega_regions`` chain runs through that hook; with
         ``gctx.fuse_linear`` set, each remaining ``mega_matches`` chain
         runs through its own (model.py:486-523)."""
-        vals: Dict[int, torch.Tensor] = {0: x}
-        matches = mega_matches(self) if gctx.fuse_linear is not None else {}
-        regions = (mega_regions(self, gctx.fusion_depth, train)
-                   if gctx.fuse_region is not None
-                   and gctx.fusion_depth != 1 else {})
-        skipped: set = set()
-        for idx, op in enumerate(self.ops):
-            if idx in skipped:
-                continue
-            a = vals[op.inputs[0]]
-            if idx in regions:
-                r = regions[idx]
-                vals[r["final"].out] = gctx.fuse_region(
-                    a, tuple(params[m["linear"].attrs["param"]]
-                             for m in r["members"]),
-                    tuple(m["activation"] for m in r["members"]), r["fold"])
-                skipped.update(r["skip"])
-                continue
-            if idx in matches:
-                m = matches[idx]
-                vals[m["final"].out] = gctx.fuse_linear(
-                    a, params[m["linear"].attrs["param"]], m["activation"],
-                    m["aggregate"].attrs["aggr"], m["fold"])
-                skipped.update(m["skip"])
-                continue
-            if op.kind == "dropout":
-                live = train and op.attrs["rate"] != 0.0
-                k = (prng.fold_in(key, op.attrs["slot"])
-                     if live and key is not None else None)
-                out = ops.dropout(a, op.attrs["rate"], train, k)
-            elif op.kind == "linear":
-                out = ops.linear(a, params[op.attrs["param"]],
-                                 op.attrs["activation"])
-            elif op.kind == "norm":
-                out = ops.indegree_norm(a, gctx.in_degree)
-            elif op.kind == "aggregate":
-                out = gctx.aggregate(a, op.attrs["aggr"])
-            elif op.kind == "gat":
-                if gctx.attend is None:
-                    raise ValueError("this GraphCtx has no attention")
-                name, k, f = (op.attrs["param"], op.attrs["heads"],
-                              op.attrs["head_dim"])
-                h = ops.linear(a, params[name + "_w"]).reshape(-1, k, f)
-                out = gctx.attend(h, params[name + "_asrc"],
-                                  params[name + "_adst"],
-                                  op.attrs["slope"]).reshape(-1, k * f)
-            elif op.kind == "activation":
-                out = ops.apply_activation(a, op.attrs["mode"])
-            elif op.kind == "add":
-                out = ops.add(a, vals[op.inputs[1]])
-            else:
-                raise ValueError(f"unknown op kind {op.kind!r}")
-            vals[op.out] = out
         if self.logits is None:
             raise ValueError("call softmax_cross_entropy() last")
+        vals: Dict[int, torch.Tensor] = {0: x}
+        for u in self.gctx_units(gctx, train):
+            vals[u.final.out] = self.run_unit(u, vals, params, gctx, key,
+                                              train)
         return vals[self.logits.id]
 
     def loss(self, params, x, labels, mask, gctx,

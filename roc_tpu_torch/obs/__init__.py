@@ -4,12 +4,14 @@ watchdog.
   tracer.py    host-side span ring and its Chrome trace-event export
   channel.py   the norms the per-epoch metrics record carries
   metrics.py   the metrics registry: JSONL stream, Prometheus textfile
-  watchdog.py  EWMA slow-epoch detector and the non-finite step feed
+  watchdog.py  EWMA slow-epoch detector, the non-finite step feed and
+               the streaming executor's stall feeds
+  roofline.py  the card's peaks and an epoch's FLOPs and bytes
 
 Entry points: ``with obs.span("phase"): ...`` anywhere on the host;
 ``-obs`` / ``ROC_OBS=1`` to record and export; the trainer wires the
-rest.  roc_tpu's roofline constants, calibration ledger and report CLI
-are not ported yet (ROADMAP queue A).
+rest.  roc_tpu's calibration ledger and report CLI are not ported yet
+(ROADMAP queue A).
 """
 
 from roc_tpu_torch.obs.metrics import MetricsRegistry, load_jsonl

@@ -1,10 +1,11 @@
 """``python -m roc_tpu_torch.serve --selftest [--device cuda|cpu]
 [--model gcn|gat] [-serve-batch N] [-serve-wait-ms MS] [-serve-queue-max N]
-[-bf16]``: the serving smoke gate (the contracts of
+[-bf16] [-stream [-parts N]]``: the serving smoke gate (the contracts of
 roc_tpu/serve/__main__.py, without the dynamic-delta leg).  The serving
-flags reach the ``ServeEngine`` (window size, wait, queue cap) and
+flags reach the ``ServeEngine`` (window size, wait, queue cap),
 ``-bf16`` reaches ``load_frozen`` (x placed in bf16), as in the trainer's
-CLI.
+CLI, and ``-stream`` serves through the streaming executor's slots (the
+graph never placed whole; each forward sweeps the N shards, default 4).
 
 On the tiny audit graph (GCN 8-16-4, or GAT 8-4-4 with 2 heads): write a
 checkpoint, cold-start a ServeEngine from it, and assert in one process that
@@ -29,7 +30,8 @@ import tempfile
 
 def selftest(device: str = "cuda", model_name: str = "gcn",
              serve_batch: int = 8, serve_wait_ms: float = 1.0,
-             serve_queue_max: int = 4096, use_bf16: bool = False) -> int:
+             serve_queue_max: int = 4096, use_bf16: bool = False,
+             stream: bool = False, parts: int = 4) -> int:
     import numpy as np
 
     from roc_tpu_torch.graph import datasets
@@ -45,11 +47,14 @@ def selftest(device: str = "cuda", model_name: str = "gcn",
                  layers=[8, 16, 4] if model_name == "gcn" else [8, 4, 4],
                  aggregate_backend="binned", serve_batch=serve_batch,
                  serve_wait_ms=serve_wait_ms,
-                 serve_queue_max=serve_queue_max, use_bf16=use_bf16)
+                 serve_queue_max=serve_queue_max, use_bf16=use_bf16,
+                 stream=stream, num_parts=parts if stream else 1)
     ds = datasets.get(cfg.dataset, seed=cfg.seed)
     model = build_model(cfg.model, cfg.layers, cfg.dropout_rate, cfg.aggr,
                         heads=cfg.heads)
     per_forward = forward_launches(model, precision=cfg.aggregate_precision)
+    if stream:  # each forward runs every layer once per shard
+        per_forward = {k: v * parts for k, v in per_forward.items()}
 
     with tempfile.TemporaryDirectory(prefix="roc_torch_serve_") as tmp:
         ckpt = os.path.join(tmp, "serve.ckpt.npz")
@@ -59,8 +64,9 @@ def selftest(device: str = "cuda", model_name: str = "gcn",
                          device=device) as eng:
             cs = eng.cold_start_stats
             print(f"# serve selftest: cold start {cs['cold_start_s']:.3f}s "
-                  f"on {eng.device}, buckets={cs['buckets']}, x "
-                  f"{eng.bundle.x.dtype}")
+                  f"on {eng.device}, buckets={cs['buckets']}, "
+                  + (f"streamed through {parts} shards" if stream else
+                     f"x {eng.bundle.x.dtype}"))
 
             oracle = eng.bundle.predict_logits().cpu().numpy()
             ids = np.arange(ds.graph.num_nodes, dtype=np.int32)
@@ -107,12 +113,15 @@ def main(argv) -> int:
     p.add_argument("-serve-queue-max", dest="serve_queue_max", type=int,
                    default=4096)
     p.add_argument("-bf16", dest="use_bf16", action="store_true")
+    p.add_argument("-stream", action="store_true")
+    p.add_argument("-parts", type=int, default=4)
     args = p.parse_args(argv)
     if not args.selftest:
         p.print_usage(sys.stderr)
         return 2
     return selftest(args.device, args.model, args.serve_batch,
-                    args.serve_wait_ms, args.serve_queue_max, args.use_bf16)
+                    args.serve_wait_ms, args.serve_queue_max, args.use_bf16,
+                    args.stream, args.parts)
 
 
 if __name__ == "__main__":

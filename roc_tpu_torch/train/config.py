@@ -1,5 +1,6 @@
 """Run configuration and CLI (roc_tpu/train/config.py), holding the fields
-the ported serving, training, graph-input and run-control paths read.
+the ported serving, training, graph-input, run-control, memory-planner and
+streaming paths read.
 Defaults, flag names, dests, environment mirrors and refusals match the
 JAX package's (config.py:264-392, 398-508): a bad value exits with
 SystemExit.  ``-device`` is the port's own."""
@@ -12,6 +13,25 @@ import os
 from typing import List, Optional
 
 BACKENDS = ("auto", "xla", "matmul", "pallas", "binned")
+
+_SIZE_SUFFIX = {"k": 2 ** 10, "m": 2 ** 20, "g": 2 ** 30, "t": 2 ** 40}
+
+
+def parse_size(s: str) -> int:
+    """A byte size with binary suffixes: '6g', '512m', '8589934592'; ""
+    is 0 (no budget).  SystemExit on a malformed size (config.py:31-46)."""
+    s = (s or "").strip().lower()
+    if not s:
+        return 0
+    mult = 1
+    if s[-1] in _SIZE_SUFFIX:
+        mult = _SIZE_SUFFIX[s[-1]]
+        s = s[:-1]
+    try:
+        return int(float(s) * mult)
+    except ValueError:
+        raise SystemExit(f"bad byte-size spec {s!r} "
+                         "(want e.g. 6g, 512m, 8589934592)")
 
 
 @dataclasses.dataclass
@@ -29,6 +49,8 @@ class Config:
     heads: int = 8                # attention heads (gat only)
     aggr: str = ""                # "" = the model's default
     seed: int = 1
+    num_parts: int = 1            # shards: > 1 only with -stream here (the
+                                  # SPMD trainer is not ported)
     aggregate_backend: str = "auto"  # auto | xla | matmul | pallas | binned
     aggregate_precision: str = "fast"  # fast: one bf16 rounding of features
                                   # at aggregation input, fp32 accumulation;
@@ -67,6 +89,24 @@ class Config:
     obs: bool = False             # spans, per-epoch metrics and the
                                   # watchdog, exported under obs_dir
     obs_dir: str = ""             # "" with obs on -> "roc_obs"
+    mem_plan: str = "keep"        # activation-memory plan (memory/): keep
+                                  # (no checkpointing) | auto (the DP under
+                                  # -mem-budget) | remat (every layer)
+    mem_budget: str = ""          # per-device budget for -mem-plan auto
+                                  # (k/m/g/t suffixes; "" = the card's
+                                  # memory, unbounded on the CPU)
+    stream: bool = False          # out-of-core streaming executor
+                                  # (stream/): shards in host memory rotate
+                                  # through -stream-slots device slots;
+                                  # needs -parts >= 2
+    stream_slots: int = 2         # prefetch ring depth (2 = double
+                                  # buffering)
+    stream_budget: str = ""       # device budget the in-core path is held
+                                  # to: a graph whose placed data exceeds
+                                  # it refuses to run without -stream
+    stream_spill: str = ""        # directory for the boundary-activation
+                                  # and cotangent stores (CRC'd memmaps)
+                                  # instead of host memory; needs -stream
 
     def __post_init__(self):
         env = os.environ
@@ -119,6 +159,33 @@ class Config:
         if self.serve_queue_max < 0:
             raise SystemExit(f"serve_queue_max={self.serve_queue_max} must "
                              "be >= 0 (0 disables the depth cap)")
+        if env.get("ROC_MEM_PLAN"):
+            self.mem_plan = env["ROC_MEM_PLAN"]
+        if self.mem_plan not in ("keep", "auto", "remat"):
+            raise SystemExit(f"bad mem_plan {self.mem_plan!r} "
+                             "(keep|auto|remat)")
+        if env.get("ROC_MEM_BUDGET"):
+            self.mem_budget = env["ROC_MEM_BUDGET"]
+        parse_size(self.mem_budget)  # validate eagerly (SystemExit if bad)
+        if env.get("ROC_STREAM"):
+            self.stream = env["ROC_STREAM"] == "1"
+        try:
+            if "ROC_STREAM_SLOTS" in env:
+                self.stream_slots = int(env["ROC_STREAM_SLOTS"])
+        except ValueError:
+            raise SystemExit("ROC_STREAM_SLOTS must be an integer")
+        if env.get("ROC_STREAM_BUDGET"):
+            self.stream_budget = env["ROC_STREAM_BUDGET"]
+        parse_size(self.stream_budget)
+        if env.get("ROC_STREAM_SPILL"):
+            self.stream_spill = env["ROC_STREAM_SPILL"]
+        if self.stream_slots < 2:
+            raise SystemExit(f"stream_slots={self.stream_slots}: the "
+                             "prefetch ring needs >= 2 slots (double "
+                             "buffering is the point)")
+        if self.stream_spill and not self.stream:
+            raise SystemExit("error: -stream-spill is a tier of the "
+                             "streaming executor; it requires -stream")
         if env.get("ROC_FAULT"):
             self.fault = env["ROC_FAULT"]
         if self.fault:
@@ -127,6 +194,14 @@ class Config:
                 inject.parse_spec(self.fault)
             except ValueError as e:
                 raise SystemExit(f"bad -fault spec {self.fault!r}: {e}")
+
+    def mem_budget_bytes(self) -> int:
+        """-mem-budget in bytes (0 = unset: the card's memory)."""
+        return parse_size(self.mem_budget)
+
+    def stream_budget_bytes(self) -> int:
+        """-stream-budget in bytes (0 = unset: no in-core gate)."""
+        return parse_size(self.stream_budget)
 
     def profile_window(self) -> tuple:
         """-profile-epochs "START:COUNT" -> (start_offset, count), START
@@ -160,6 +235,8 @@ def parse_args(argv: List[str]) -> Config:
     p.add_argument("-decay-step", "-ds", dest="decay_steps", type=int,
                    default=100)
     p.add_argument("-seed", type=int, default=1)
+    p.add_argument("-parts", "-ng", "-ll:gpu", dest="num_parts", type=int,
+                   default=1)
     p.add_argument("-model", default="gcn",
                    choices=["gcn", "gcn-chain", "sage", "gin", "gat"])
     p.add_argument("-heads", type=int, default=8)
@@ -198,6 +275,24 @@ def parse_args(argv: List[str]) -> Config:
                         "metrics and the perf watchdog (roc_tpu_torch/obs)")
     p.add_argument("-obs-dir", dest="obs_dir", default="",
                    help="obs artifact dir (default roc_obs)")
+    p.add_argument("-mem-plan", dest="mem_plan", default="keep",
+                   choices=["keep", "auto", "remat"])
+    p.add_argument("-mem-budget", dest="mem_budget", default="",
+                   help="per-device budget for -mem-plan auto "
+                        "(e.g. 6g, 512m)")
+    p.add_argument("-stream", action="store_true",
+                   help="out-of-core streaming executor: shards rotate "
+                        "through device slots with double-buffered "
+                        "prefetch (roc_tpu_torch/stream)")
+    p.add_argument("-stream-slots", dest="stream_slots", type=int,
+                   default=2, help="prefetch ring depth (default 2)")
+    p.add_argument("-stream-budget", dest="stream_budget", default="",
+                   help="device budget the in-core path is held to "
+                        "(e.g. 8g); larger graphs must -stream")
+    p.add_argument("-stream-spill", dest="stream_spill", default="",
+                   help="spill directory for boundary stores: the third "
+                        "rotation tier (memmaps on disk) when even host "
+                        "memory cannot hold the boundary activations")
     p.add_argument("-serve-batch", dest="serve_batch", type=int, default=64,
                    help="serving microbatch cap: window drains at this "
                         "many queries; bucket ladder tops out here")

@@ -39,9 +39,20 @@ Run controls (driver.py:475-1027):
     watchdog's alerts and a closing ``train`` record, into
     ``obs_dir``'s trace.json, metrics.jsonl and metrics.prom.
 
-Not ported yet (ROADMAP queue A): the online balancer, the memory planner,
-the calibration ledger and roofline fields, and the SPMD and streaming
-trainers.
+The memory planner (driver.py:713-795): ``-mem-plan``/``-mem-budget``
+choose a plan at setup (``_resolve_mem_plan``; its summary under ``-v``),
+and the step's loss runs under it (``_loss_fn``: the model's own loss for
+an all-KEEP plan, ``memory/policy.py``'s checkpointed forward otherwise).
+``TrainStats.peak_hbm_bytes`` is the card's measured peak, or the plan's
+prediction on the CPU (``peak_hbm_source``).
+
+``make_trainer`` picks the trainer (driver.py:1170-1196): the streaming
+executor under ``-stream`` (``stream/executor.py``), else the
+``-stream-budget`` gate, else this single-device trainer; ``-parts > 1``
+without ``-stream`` exits, since the SPMD trainer is not ported.
+
+Not ported yet (ROADMAP queue A): the online balancer, the calibration
+ledger and roofline fields, and the SPMD trainer.
 """
 
 from __future__ import annotations
@@ -81,15 +92,18 @@ NONFINITE_ESCALATE_AFTER = 3
 
 @dataclasses.dataclass
 class TrainStats:
-    """What one ``train()`` call measured.  ``epoch_times`` are the synced
-    per-epoch times and exclude eval and checkpointing; ``total_s``
-    includes them.  ``peak_mem_bytes`` is each epoch's train-step peak of
-    ``torch.cuda.max_memory_allocated`` (empty off CUDA)."""
+    """What one ``train()`` call measured (driver.py:453-468).
+    ``epoch_times`` are the synced per-epoch times and exclude eval and
+    checkpointing; ``total_s`` includes them.  ``peak_hbm_bytes`` is each
+    epoch's peak device memory: ``torch.cuda.max_memory_allocated`` over
+    the train step on the card, the memory plan's prediction on the CPU;
+    ``peak_hbm_source`` says which ("measured" | "estimated")."""
     epoch_times: list
     total_s: float
     epochs: int
     final_loss: float
-    peak_mem_bytes: list = dataclasses.field(default_factory=list)
+    peak_hbm_bytes: list = dataclasses.field(default_factory=list)
+    peak_hbm_source: str = ""
 
 
 def device_sync(device: torch.device) -> None:
@@ -150,6 +164,59 @@ class Trainer:
         self.mask = torch.as_tensor(ds.mask, dtype=torch.int32, device=dev)
         self.params = self.model.init_params(self.key, device=dev)
         self.opt_state = self.optimizer.init(self.params)
+        self._resolve_mem_plan()
+        self._loss = self._loss_fn()
+
+    # -- the memory planner (driver.py:713-799) ---------------------------
+    def _resolve_mem_plan(self):
+        """Choose this run's activation-memory plan from -mem-plan and
+        -mem-budget (``auto`` without a budget plans for the card's
+        memory, and keeps everything on the CPU).  Keeps the estimate,
+        the plan, and the tensors the port's checkpoints keep beyond the
+        plan's saved set (``mem_crossing_bytes``)."""
+        from roc_tpu_torch import memory
+        from roc_tpu_torch.memory import policy
+        cfg = self.config
+        self.mem_estimate = memory.estimate_for_trainer(self)
+        budget = cfg.mem_budget_bytes()
+        if cfg.mem_plan == "auto" and budget == 0:
+            budget = memory.device_budget_bytes(self.device)
+        self.mem_plan = memory.plan_memory(
+            self.mem_estimate, mode=cfg.mem_plan, budget_bytes=budget,
+            offload_executed=cfg.stream,
+            offload_spills=bool(cfg.stream_spill))
+        self.mem_crossing_bytes = 0
+        gctx = getattr(self, "gctx", None)
+        if self.mem_plan.any_remat() and gctx is not None:
+            from roc_tpu_torch.memory.estimator import _op_out_dims
+            dims = _op_out_dims(self.model)
+            itemsize = torch.finfo(self.dtype).bits // 8
+            self.mem_crossing_bytes = sum(
+                self.mem_estimate.rows * dims[t] * itemsize
+                for t in policy.crossing_tids(
+                    self.model, self.mem_plan,
+                    self.model.gctx_units(gctx, True)))
+        if cfg.verbose and (cfg.mem_plan != "keep" or budget):
+            print(f"# {self.mem_plan.summary()}")
+
+    def _loss_fn(self):
+        """``model.loss`` under the memory plan (the model's own loss when
+        the plan keeps everything)."""
+        from roc_tpu_torch.memory import policy
+        return policy.loss_fn(self.model, getattr(self, "mem_plan", None),
+                              offload_to_host=self.config.stream)
+
+    def _peak_hbm(self):
+        """(bytes, source) of this epoch's peak device memory: measured on
+        the card, the plan's prediction elsewhere."""
+        from roc_tpu_torch import memory
+        measured = memory.measured_peak_bytes(self.device)
+        if measured is not None:
+            return measured, "measured"
+        plan = getattr(self, "mem_plan", None)
+        if plan is not None:
+            return plan.predicted_peak_bytes, "estimated"
+        return 0, ""
 
     # -- observability ----------------------------------------------------
     def _obs_init(self):
@@ -185,10 +252,12 @@ class Trainer:
             loss_v, gnorm, pnorm = torch.stack(
                 [loss.to(torch.float32), self._last_gnorm,
                  global_norm(self.params)]).tolist()
+        extra = self._obs_epoch_extra(epoch) or {}
         self._metrics.emit(
             "metrics", epoch=int(epoch), wall_s=round(float(wall_s), 6),
-            loss=loss_v, grad_norm=gnorm, param_norm=pnorm, wire_bytes=0,
-            edges_per_shard=self._obs_edges)
+            loss=loss_v, grad_norm=gnorm, param_norm=pnorm,
+            wire_bytes=int(extra.get("stream_bytes", 0)),
+            edges_per_shard=self._obs_edges, **extra)
         alert = self.watchdog.observe_epoch(epoch, wall_s)
         if alert is not None:
             self._metrics.emit("watchdog", **alert)
@@ -197,6 +266,28 @@ class Trainer:
                          f"{alert['ratio']:.2f}x the EWMA "
                          f"({alert['wall_s'] * 1e3:.1f} ms vs "
                          f"{alert['ewma_s'] * 1e3:.1f} ms)")
+        # the stream executor's stall feeds (driver.py:638-659)
+        for field, feed, what in (
+                ("stream_stall_frac", self.watchdog.observe_stream,
+                 "stream"),
+                ("stream_spill_stall_frac", self.watchdog.observe_spill,
+                 "spill")):
+            if field not in extra:
+                continue
+            alert = feed(epoch, extra[field])
+            if alert is not None:
+                self._metrics.emit("watchdog", **alert)
+                if self.config.verbose:
+                    print_fn(f"# watchdog: epoch {epoch} {what} stall "
+                             f"fraction {alert['stall_frac']:.3f} is "
+                             f"{alert['ratio']:.2f}x its EWMA "
+                             f"({alert['ewma']:.3f})")
+
+    def _obs_epoch_extra(self, epoch):
+        """Executor-specific fields of the epoch's record (the stream
+        executor's stall, overlap and bytes)."""
+        del epoch
+        return None
 
     def _obs_finish(self, stats: "TrainStats", print_fn):
         """The closing ``train`` record and the artifacts under obs_dir."""
@@ -223,8 +314,8 @@ class Trainer:
     def _train_step(self, key: prng.Key, alpha: float, scale: float):
         params = {k: p.detach().requires_grad_(True)
                   for k, p in self.params.items()}
-        loss = self.model.loss(params, self.x, self.labels, self.mask,
-                               self.gctx, key=key, train=True)
+        loss = self._loss(params, self.x, self.labels, self.mask,
+                          self.gctx, key=key, train=True)
         # 1.0 on every healthy step, which adds no multiply (nor its
         # launch); NaN when the fault harness fires step.nan, which the
         # guard skips
@@ -357,6 +448,7 @@ class Trainer:
         on_cuda = dev.type == "cuda"
         self.epoch_times = []
         peaks = []
+        peak_src = ""
         loss: Optional[torch.Tensor] = None
         start = self.epoch
         # the profiler window, clamped into the run (driver.py:928-931)
@@ -380,8 +472,8 @@ class Trainer:
                         with obs.span("device_sync"):
                             device_sync(dev)
                     self.epoch_times.append(sp_epoch.dur_s)
-                    if on_cuda:
-                        peaks.append(torch.cuda.max_memory_allocated(dev))
+                    hbm, peak_src = self._peak_hbm()
+                    peaks.append(hbm)
                     self._obs_epoch(epoch, sp_epoch.dur_s, loss, print_fn)
                     self._check_nonfinite(epoch, print_fn)
                     if prof is not None and epoch + 1 == prof_stop:
@@ -423,7 +515,7 @@ class Trainer:
             epoch_times=list(self.epoch_times), total_s=dt,
             epochs=cfg.num_epochs,
             final_loss=float("nan") if loss is None else float(loss),
-            peak_mem_bytes=peaks)
+            peak_hbm_bytes=peaks, peak_hbm_source=peak_src)
         self._obs_finish(stats, print_fn)
         return stats
 
@@ -455,7 +547,35 @@ class Trainer:
         self.nonfinite_skips = int(extra.get("nonfinite_skips", 0))
 
 
+def _fmt_bytes(b: int) -> str:
+    return f"{b / 2**20:.0f} MiB" if b >= 2**20 else f"{b / 2**10:.0f} KiB"
+
+
 def make_trainer(config: Config, dataset: Dataset, model: Model) -> Trainer:
-    """The one place that builds a trainer; the port has the
-    single-device one so far."""
+    """The one place that builds a trainer (driver.py:1170-1196): the
+    streaming executor under -stream; otherwise the -stream-budget gate,
+    then the single-device trainer.  -parts > 1 without -stream exits: the
+    SPMD trainer is not ported (ROADMAP queue A item 7), and one device
+    never stands in for it."""
+    if config.stream:
+        from roc_tpu_torch.stream.executor import StreamTrainer
+        return StreamTrainer(config, dataset, model)
+    budget = config.stream_budget_bytes()
+    if budget:
+        from roc_tpu_torch.stream import incore_resident_bytes
+        need = incore_resident_bytes(dataset)
+        if need > budget:
+            raise SystemExit(
+                f"error: graph needs ~{_fmt_bytes(need)} device-resident "
+                f"but -stream-budget is {_fmt_bytes(budget)}; rerun "
+                f"with -stream to rotate shards through host memory "
+                f"(add -stream-spill DIR when even host memory cannot "
+                f"hold the boundary stores, and -bf16-storage to halve "
+                f"the streamed bytes)")
+    if config.num_parts > 1:
+        raise SystemExit(
+            f"error: -parts {config.num_parts} without -stream needs the "
+            f"SPMD trainer, which roc_tpu_torch does not have yet (ROADMAP "
+            f"queue A item 7); add -stream to train the shards on one "
+            f"device, or drop -parts")
     return Trainer(config, dataset, model)

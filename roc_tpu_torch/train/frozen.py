@@ -6,8 +6,12 @@ backend resolution as training (``graph_data.effective_backend``), with
 the CSR alone: a forward-only consumer runs only forward kernels.  Under
 ``megafuse`` the forward runs each eligible layer through the megakernel,
 as the trainer's eval does; serving stays at fusion depth 1, as the JAX
-package's frozen path does.  ``-bf16`` places the features in bf16.  The
-streaming executor's branch is not ported yet (ROADMAP queue A)."""
+package's frozen path does.  ``-bf16`` places the features in bf16.
+
+Under ``config.stream`` the bundle wraps the streaming executor's slots
+instead (frozen.py:15-18, 54-107): no graph data and no features are
+placed, and ``predict_logits`` sweeps the shards through the slots as the
+streamed eval does, so a graph that never fits the card is served."""
 
 from __future__ import annotations
 
@@ -30,21 +34,26 @@ from roc_tpu_torch.train.graph_data import (DenseGraphData, dense_graph_data,
 @dataclasses.dataclass
 class FrozenBundle:
     """Everything a forward-only consumer needs, loaded once.  ``params``
-    are never updated."""
+    are never updated.  ``x`` and ``gdata`` are None under streaming,
+    where ``stream_trainer`` holds the slots instead."""
 
     config: Config
     dataset: Dataset
     model: Model
     params: Dict[str, torch.Tensor]
-    x: torch.Tensor
-    gdata: DenseGraphData
+    x: Optional[torch.Tensor]
+    gdata: Optional[DenseGraphData]
     num_nodes: int
     device: torch.device
     megafuse: bool = False
+    stream_trainer: object = None
 
     def predict_logits(self) -> torch.Tensor:
         """One full-graph eval forward: logits [N, C] in node order, on the
         device.  The parity oracle served queries are held against."""
+        if self.stream_trainer is not None:
+            with torch.no_grad():
+                return self.stream_trainer.predict_logits()
         with torch.inference_mode():
             return self.model.apply(self.params, self.x,
                                     make_gctx(self.gdata, self.megafuse),
@@ -61,6 +70,19 @@ def load_frozen(config: Config, dataset: Dataset, model: Model,
     ``checkpoint_path`` or ``config.checkpoint_path``, else roc_tpu's Glorot
     init from ``PRNGKey(config.seed)``."""
     dev = resolve_device(device)
+    path = checkpoint_path or config.checkpoint_path
+    if config.stream:
+        from roc_tpu_torch.stream.executor import StreamTrainer
+        tr = StreamTrainer(dataclasses.replace(config, device=str(dev)),
+                           dataset, model)
+        if params is not None:
+            tr.params = {k: v.to(dev) for k, v in params.items()}
+        elif path:
+            tr.params = checkpoint.load_params(path, tr.params)
+        return FrozenBundle(config=config, dataset=dataset, model=model,
+                            params=tr.params, x=None, gdata=None,
+                            num_nodes=dataset.graph.num_nodes, device=dev,
+                            megafuse=config.megafuse, stream_trainer=tr)
     backend = effective_backend(config, model, dev)
     gdata = dense_graph_data(dataset.graph, backend,
                              config.aggregate_precision, dev,
@@ -70,7 +92,6 @@ def load_frozen(config: Config, dataset: Dataset, model: Model,
                        torch.bfloat16 if config.use_bf16 else torch.float32)
     if params is None:
         params = model.init_params(prng.prng_key(config.seed), device=dev)
-        path = checkpoint_path or config.checkpoint_path
         if path:
             params = checkpoint.load_params(path, params)
     params = {k: v.to(dev) for k, v in params.items()}

@@ -24,6 +24,7 @@ for n in names:
     importlib.import_module(n)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "ml_dtypes" or m.startswith("ml_dtypes.")
              or m == "roc_tpu" or m.startswith("roc_tpu."))
 need = {"roc_tpu_torch.__main__", "roc_tpu_torch.fault.guard",
         "roc_tpu_torch.fault.durable", "roc_tpu_torch.fault.inject",
@@ -39,7 +40,13 @@ need = {"roc_tpu_torch.__main__", "roc_tpu_torch.fault.guard",
         "roc_tpu_torch.obs.channel", "roc_tpu_torch.obs.metrics",
         "roc_tpu_torch.obs.tracer", "roc_tpu_torch.obs.watchdog",
         "roc_tpu_torch.serve.__main__", "roc_tpu_torch.train.config",
-        "roc_tpu_torch.train.frozen"}
+        "roc_tpu_torch.train.frozen", "roc_tpu_torch.obs.roofline",
+        "roc_tpu_torch.memory", "roc_tpu_torch.memory.__main__",
+        "roc_tpu_torch.memory.estimator", "roc_tpu_torch.memory.planner",
+        "roc_tpu_torch.memory.policy", "roc_tpu_torch.graph.partition",
+        "roc_tpu_torch.stream", "roc_tpu_torch.stream.executor",
+        "roc_tpu_torch.stream.host", "roc_tpu_torch.stream.ring",
+        "roc_tpu_torch.stream.segments", "roc_tpu_torch.stream.spill"}
 assert need <= set(names), need - set(names)
 print(len(names), bad)
 assert not bad, bad
@@ -84,7 +91,8 @@ def test_no_jax_or_roc_tpu_import_in_source():
     for f in files:
         for mod in _imported_modules(f):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "roc_tpu"), (f, mod)
+            assert top not in ("jax", "jaxlib", "ml_dtypes", "roc_tpu"), \
+                (f, mod)
 
 
 def test_entry_points_default_to_cuda():
