@@ -255,6 +255,29 @@ Phases, each printing one JSON line per record:
           in-core GAT with the GAT kernels launched, and 64 rows served by
           a ServeEngine under -stream within 1e-5 of each row's max-abs of
           the in-core eval's, both in exact (the GEMM's order differs)
+  delta   serving deltas: ServeEngine(delta_journal=...) for GCN
+          602-256-41 on Reddit, fast: 100 batches of 32 adds and 32
+          retires (the retires take earlier adds and base edges) under 200
+          QPS of open-loop queries; the device CSR bitwise from_edges of
+          the live edges, every row bitwise a fresh engine's on the
+          mutated graph (4,096 through the queue), no CSR rebuild, no
+          kernel build and two alternating col_idx buffers on the patch
+          path, the sum and staging kernels launched, their plain versions
+          never; apply ms (classify, journal, rewrite, install), bytes to the
+          device a batch, served p50/p99 under churn beside the serve
+          phase's, the delta-apply ledger ratio, and a full host rebuild
+          and copy of col_idx timed once.  Then a batch past the headroom
+          (mode "replanning", queries answered while delta.replan.slow
+          stalls the rebuild, parity after the swap), five batches more, a
+          restart from the snapshot and journal to the same rows, and 20
+          batches under -megafuse against a fresh -megafuse engine
+  fleet   a primary and two followers on the card over InProcTransport:
+          50 batches through FleetRouter.apply_delta and pump under 200
+          QPS of routed queries; every applied_seq the primary's, the
+          three forwards bitwise equal, a late follower brought up by
+          snapshot_blob / install_snapshot the same bits, no shed;
+          replication lag, segments and records shipped, dispatches per
+          replica
 
 Then the ``kernels`` line, the card's name and power limit as nvidia-smi
 gives them, and last ``{"ok": true, "device": {...}}``.  Any failure
@@ -2410,9 +2433,12 @@ def _control_sigterm(tmp) -> dict:
 
 def _control_obs(dev, tmp) -> dict:
     """-obs: trace.json passes validate_chrome_trace; one metrics record
-    an epoch with roc_tpu's keys."""
+    an epoch with roc_tpu's keys, on the card with mfu and roofline_frac
+    (the peaks are the card's); the ledger pairs step_time and
+    peak_memory (measured on the card)."""
     import os
     from roc_tpu_torch import obs
+    from roc_tpu_torch.obs.ledger import calibration_report
     was = obs.enabled()
     d = os.path.join(tmp, "obs")
     tr = _small_control_trainer(dev, 4, obs=True, obs_dir=d, eval_every=2,
@@ -2426,12 +2452,18 @@ def _control_obs(dev, tmp) -> dict:
     metrics = [r for r in recs if r["type"] == "metrics"]
     keys = {"epoch", "wall_s", "loss", "grad_norm", "param_norm",
             "wire_bytes", "edges_per_shard"}
+    if dev.type == "cuda":
+        keys |= {"mfu", "roofline_frac"}
+    paired = calibration_report(recs)["models"]
     rec = {"trace_problems": problems,
            "span_types": sorted(obs.get_tracer().span_types()),
            "metrics_records": len(metrics),
            "keys_ok": all(set(r) == keys | {"type"} for r in metrics),
+           "mfu": [r.get("mfu") for r in metrics],
+           "ledger": {m: v["ratio_mean"] for m, v in paired.items()},
            "last": recs[-1]}
-    rec["ok"] = problems == [] and len(metrics) == 4 and rec["keys_ok"]
+    rec["ok"] = problems == [] and len(metrics) == 4 and rec["keys_ok"] \
+        and {"step_time", "peak_memory"} <= set(paired)
     return rec
 
 
@@ -3162,6 +3194,468 @@ def phase_stream(ds, dev) -> dict:
     return rec
 
 
+# -- serving deltas and the replicated fleet ---------------------------------
+
+DELTA_BATCHES = 100
+DELTA_EDGES = 32       # adds and retires a batch
+DELTA_QPS = 200.0
+
+
+def _delta_cfg(megafuse: bool = False):
+    from roc_tpu_torch.train.config import Config
+    return Config(dataset="reddit", layers=LAYERS["gcn"], seed=SEED,
+                  aggregate_precision="fast", megafuse=megafuse)
+
+
+def _delta_batches(ds, n_batches: int, rng) -> list:
+    """``n_batches`` batches of DELTA_EDGES adds and DELTA_EDGES retires:
+    up to half of each batch's retires take earlier batches' adds, the
+    rest distinct base edges."""
+    n = ds.graph.num_nodes
+    col, dst = ds.graph.col_idx, ds.graph.dst_idx
+    base = rng.choice(col.size, n_batches * DELTA_EDGES, replace=False)
+    added, out = [], []
+    for b in range(n_batches):
+        adds = rng.integers(0, n, (DELTA_EDGES, 2))
+        take = min(DELTA_EDGES // 2, len(added))
+        earlier = [added.pop(int(rng.integers(0, len(added))))
+                   for _ in range(take)]
+        idx = base[b * DELTA_EDGES:(b + 1) * DELTA_EDGES - take]
+        rets = np.concatenate([np.asarray(earlier, np.int64).reshape(-1, 2),
+                               np.stack([col[idx], dst[idx]], 1)])
+        added.extend(map(tuple, adds.tolist()))
+        out.append((adds, rets))
+    return out
+
+
+class _PlainSpy:
+    """Counts calls of the sum's, the staging's and the megakernel's plain
+    versions while it is entered: on the card none may run."""
+
+    def __enter__(self):
+        from roc_tpu_torch.ops import aggregate as agg
+        from roc_tpu_torch.ops.kernels import aggregate_linear as AL
+        from roc_tpu_torch.ops.kernels import aggregate_sum as AS
+        self.calls = 0
+        self._saved = []
+        for mod, name in ((AS, "aggregate_sum_plain"), (AS, "stage_plain"),
+                          (AL, "aggregate_sum_plain"),
+                          (AL, "aggregate_linear_plain"),
+                          (agg, "aggregate_sum_plain")):
+            fn = getattr(mod, name)
+
+            def spy(*a, _fn=fn, **k):
+                self.calls += 1
+                return _fn(*a, **k)
+            self._saved.append((mod, name, fn))
+            setattr(mod, name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+        return False
+
+
+def _csr_is_live(eng, dev) -> bool:
+    """The engine's device CSR and in-degrees are bitwise the placement of
+    ``from_edges`` of its live edges."""
+    from roc_tpu_torch.graph.csr import from_edges
+    from roc_tpu_torch.ops import DeviceCsr
+    live = eng.deltas._live_edges()
+    want = DeviceCsr.from_csr(from_edges(eng.bundle.num_nodes, *live), dev,
+                              transpose=False)
+    g = eng.bundle.gdata
+    return bool(torch.equal(g.csr.row_ptr, want.row_ptr)
+                and torch.equal(g.csr.col_idx, want.col_idx)
+                and torch.equal(g.in_degree,
+                                torch.diff(want.row_ptr).float()))
+
+
+def _rows_vs_fresh(eng, cfg, ds, model, dev) -> dict:
+    """Every served row (the engine's forward under its plan lock) against
+    a fresh engine's on the mutated graph with the same parameters, and
+    4,096 rows through the queue against that forward."""
+    import dataclasses
+
+    from roc_tpu_torch.graph.csr import from_edges
+    from roc_tpu_torch.serve import ServeEngine
+    n = ds.graph.num_nodes
+    with eng._plan_lock:
+        got = eng.bundle.predict_logits()
+    ds2 = dataclasses.replace(ds, graph=from_edges(
+        n, *eng.deltas._live_edges()))
+    fresh = ServeEngine(cfg, ds2, eng.model, device=dev, start_queue=False)
+    try:
+        same_params = all(torch.equal(fresh.bundle.params[k], v)
+                          for k, v in eng.bundle.params.items())
+        want = fresh.bundle.predict_logits()
+        bitwise = bool(torch.equal(got, want))
+    finally:
+        fresh.close()
+    ids = np.random.default_rng(SEED + 3).integers(0, n, 4096)
+    served = eng.query(ids, timeout=600.0)
+    queued = bool(np.array_equal(
+        served, got[torch.as_tensor(ids, device=dev)].cpu().numpy()))
+    del want
+    return {"rows": n, "bitwise_vs_fresh": bitwise and same_params,
+            "queued_rows_bitwise": queued}
+
+
+def _pct(vals, q) -> float:
+    from roc_tpu_torch.serve.loadgen import percentile
+    return percentile(sorted(vals), q)
+
+
+def phase_delta(ds, dev, serve: dict) -> dict:
+    """ServeEngine(delta_journal=...) on the Reddit graph, GCN 602-256-41,
+    fast: 100 batches of 32 adds and 32 retires under 200 QPS of open-loop
+    queries; the patched CSR bitwise ``from_edges`` of the live edges and
+    every served row bitwise a fresh engine's; no CSR rebuild, no kernel
+    build and no new buffer on the patch path (the two col_idx buffers
+    alternate); the sum and staging kernels ran, their plain versions
+    never.  Then a batch past the headroom (mode "replanning", queries
+    answered during the stalled replan, parity again after the swap), five
+    more batches, a restart from the snapshot and journal to the same
+    rows, and 20 batches under -megafuse against a fresh -megafuse
+    engine.  A full host rebuild and copy of col_idx is timed once beside
+    the patch."""
+    import shutil
+    import tempfile
+    import threading
+    import warnings
+
+    from roc_tpu_torch.fault import inject
+    from roc_tpu_torch.models import build_model
+    from roc_tpu_torch.obs.ledger import get_ledger
+    from roc_tpu_torch.ops.aggregate import csr_build_count
+    from roc_tpu_torch.ops.kernels.build import build_count
+    from roc_tpu_torch.serve import ServeEngine, run_load
+    from roc_tpu_torch.serve.delta import HEADROOM_EDGES
+    from roc_tpu_torch.train.graph_data import forward_launches
+    cfg = _delta_cfg()
+    model = build_model(cfg.model, cfg.layers, cfg.dropout_rate)
+    n = ds.graph.num_nodes
+    rng = np.random.default_rng(SEED + 13)
+    batches = _delta_batches(ds, DELTA_BATCHES, rng)
+    tmp = tempfile.mkdtemp(prefix="roc_delta_")
+    jpath = os.path.join(tmp, "deltas.wal")
+    led = get_ledger()
+    ledger_recs: list = []
+    rec = {"phase": "delta", "model": "gcn", "layers": cfg.layers,
+           "dataset": "reddit", "nodes": n, "edges": ds.graph.num_edges,
+           "precision": cfg.aggregate_precision, "batches": DELTA_BATCHES,
+           "adds_per_batch": DELTA_EDGES, "retires_per_batch": DELTA_EDGES,
+           "qps_offered": DELTA_QPS, "headroom_edges": HEADROOM_EDGES}
+    try:
+        t0 = time.perf_counter()
+        eng = ServeEngine(cfg, ds, model, device=dev, delta_journal=jpath)
+        rec["cold_start_s"] = round(time.perf_counter() - t0, 3)
+        rec["cold_start"] = dict(eng.cold_start_stats)
+        try:
+            eng.warmup()
+            per_forward = launch_dict(**forward_launches(
+                model, False, cfg.aggregate_precision))
+            builds0 = (csr_build_count(), build_count())
+            ptrs, apply_ms, splits, nbytes, modes = set(), [], [], [], {}
+            load: dict = {}
+
+            def _load():
+                load.update(run_load(
+                    eng, n_requests=int(DELTA_QPS * 2.5), qps=DELTA_QPS,
+                    sizes=(1, 2, 3, 5, 8, 13),
+                    rng=np.random.default_rng(SEED)))
+            led.attach(lambda kind, **f: ledger_recs.append(
+                {"type": kind, **f}))
+            reset_launches()
+            fwd0 = eng.forwards
+            with _PlainSpy() as spy, warnings.catch_warnings():
+                warnings.simplefilter("ignore", RuntimeWarning)
+                th = threading.Thread(target=_load)
+                th.start()
+                t0 = time.perf_counter()
+                for i, (a, r) in enumerate(batches):
+                    delay = t0 + i * 0.02 - time.perf_counter()
+                    if delay > 0:
+                        time.sleep(delay)
+                    s0 = time.perf_counter()
+                    res = eng.apply_delta(a, r)
+                    apply_ms.append((time.perf_counter() - s0) * 1e3)
+                    modes[res["mode"]] = modes.get(res["mode"], 0) + 1
+                    lp = eng.deltas.last_patch
+                    splits.append((lp["classify_s"], lp["rewrite_s"],
+                                   lp["install_s"], lp["journal_s"]))
+                    nbytes.append(lp["bytes_to_device"])
+                    ptrs.update(eng.deltas.buffer_ptrs())
+                th.join()
+                torch.cuda.synchronize(dev)
+            led.detach()
+            launches = read_launches()
+            forwards = eng.forwards - fwd0
+            patch_builds = (csr_build_count() - builds0[0],
+                            build_count() - builds0[1])
+            ratios = [r["ratio"] for r in ledger_recs
+                      if r["type"] == "measurement"
+                      and r["model"] == "delta-apply" and "ratio" in r]
+            rec.update(
+                modes=modes, launches=launches, forwards=forwards,
+                plain_calls=spy.calls,
+                patch_csr_builds=patch_builds[0],
+                patch_kernel_builds=patch_builds[1],
+                col_idx_buffers=len(ptrs),
+                apply_ms_p50=_pct(apply_ms, 0.5),
+                apply_ms_p99=_pct(apply_ms, 0.99),
+                classify_ms_p50=_pct([t[0] for t in splits], 0.5) * 1e3,
+                rewrite_ms_p50=_pct([t[1] for t in splits], 0.5) * 1e3,
+                rewrite_ms_p99=_pct([t[1] for t in splits], 0.99) * 1e3,
+                install_ms_p50=_pct([t[2] for t in splits], 0.5) * 1e3,
+                install_ms_p99=_pct([t[2] for t in splits], 0.99) * 1e3,
+                journal_ms_p50=_pct([t[3] for t in splits], 0.5) * 1e3,
+                journal_ms_p99=_pct([t[3] for t in splits], 0.99) * 1e3,
+                bytes_to_device_per_batch=int(np.mean(nbytes)),
+                rows_patched=eng.delta_stats()["cells_patched"],
+                served_p50_ms=load["p50_s"] * 1e3,
+                served_p99_ms=load["p99_s"] * 1e3,
+                qps_achieved=load["qps_achieved"],
+                serve_phase_p50_ms=serve["p50_ms"],
+                serve_phase_p99_ms=serve["p99_ms"],
+                delta_apply_ledger_ratio_mean=(
+                    float(np.mean(ratios)) if ratios else None),
+                csr_is_live=_csr_is_live(eng, dev))
+            rec["parity"] = _rows_vs_fresh(eng, cfg, ds, model, dev)
+            # the alternative kept out: the whole live CSR rebuilt on the
+            # host and copied into the idle buffer
+            mgr = eng.deltas
+            idle = mgr._bufs[1 - mgr._active]
+            torch.cuda.synchronize(dev)
+            s0 = time.perf_counter()
+            rp, col = mgr._store.materialize()
+            idle[1][:col.size].copy_(torch.from_numpy(col))
+            idle[0].copy_(torch.from_numpy(rp))
+            torch.cuda.synchronize(dev)
+            rec["host_rebuild_copy_ms"] = (time.perf_counter() - s0) * 1e3
+            del rp, col
+
+            # the escalation ladder: one batch past the headroom
+            # past the buffers' slack by a margin for the batch's no-ops
+            slack = eng.deltas.capacity - eng.delta_stats()["live_edges"]
+            big = rng.integers(0, n, (slack + 1024, 2))
+            inject.configure("seed=1,slow_ms=1500,delta.replan.slow=1")
+            try:
+                s0 = time.perf_counter()
+                res = eng.apply_delta(big, None)
+                rec["replan_apply_ms"] = (time.perf_counter() - s0) * 1e3
+                during = eng.query(np.arange(64), timeout=600.0)
+                rec["replan_mode"] = res["mode"]
+                rec["answered_during_replan"] = bool(
+                    eng.delta_stats()["swaps"] == 0
+                    and during.shape == (64, cfg.layers[-1]))
+            finally:
+                inject.configure("")
+            res["ticket"].wait(600.0)
+            rec["replan_total_s"] = time.perf_counter() - s0
+            st = eng.delta_stats()
+            rec.update(replan_swaps=st["swaps"], replan_rebuilt=st["rebuilt"],
+                       capacity_after=eng.deltas.capacity,
+                       replan_csr_is_live=_csr_is_live(eng, dev))
+            rec["replan_parity"] = _rows_vs_fresh(eng, cfg, ds, model, dev)
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", RuntimeWarning)
+                for a, r in _delta_batches(ds, 5, rng):
+                    eng.apply_delta(a, r)
+            with eng._plan_lock:
+                before = eng.bundle.predict_logits().clone()
+        finally:
+            eng.close()
+        t0 = time.perf_counter()
+        eng = ServeEngine(cfg, ds, model, device=dev, delta_journal=jpath,
+                          start_queue=False)
+        try:
+            rec["restart_s"] = time.perf_counter() - t0
+            rec["restart_replayed"] = eng.delta_stats()["replayed"]
+            rec["restart_bitwise"] = bool(torch.equal(
+                eng.bundle.predict_logits(), before))
+        finally:
+            eng.close()
+        del before
+
+        # -megafuse: the megakernel reads the patched CSR
+        mcfg = _delta_cfg(megafuse=True)
+        eng = ServeEngine(mcfg, ds, model, device=dev, delta_journal="")
+        try:
+            eng.warmup()
+            per_mega = launch_dict(**forward_launches(
+                model, True, mcfg.aggregate_precision))
+            reset_launches()
+            fwd0 = eng.forwards
+            with _PlainSpy() as spy, warnings.catch_warnings():
+                warnings.simplefilter("ignore", RuntimeWarning)
+                for a, r in _delta_batches(ds, 20, rng):
+                    eng.apply_delta(a, r)
+                    eng.query(rng.integers(0, n, 8), timeout=600.0)
+                torch.cuda.synchronize(dev)
+            rec["mega_launches"] = read_launches()
+            rec["mega_forwards"] = eng.forwards - fwd0
+            rec["mega_plain_calls"] = spy.calls
+            rec["mega_csr_is_live"] = _csr_is_live(eng, dev)
+            rec["mega_parity"] = _rows_vs_fresh(eng, mcfg, ds, model, dev)
+        finally:
+            eng.close()
+    finally:
+        led.detach()
+        shutil.rmtree(tmp, ignore_errors=True)
+        _free()
+    emit(rec)
+    want = {k: v * rec["forwards"] for k, v in per_forward.items()}
+    want_mega = {k: v * rec["mega_forwards"] for k, v in per_mega.items()}
+    bad = []
+    if rec["launches"] != want or rec["forwards"] < 1:
+        bad.append(f"churn launches {rec['launches']}, expected {want}")
+    if rec["mega_launches"] != want_mega:
+        bad.append(f"-megafuse launches {rec['mega_launches']}, expected "
+                   f"{want_mega}")
+    if rec["plain_calls"] or rec["mega_plain_calls"]:
+        bad.append("a plain version ran on the card")
+    if rec["modes"] != {"applied": DELTA_BATCHES}:
+        bad.append(f"modes {rec['modes']}")
+    if rec["patch_csr_builds"] or rec["patch_kernel_builds"] \
+            or rec["col_idx_buffers"] != 2:
+        bad.append("the patch path rebuilt a CSR, built a kernel or "
+                   "allocated a buffer")
+    for key in ("csr_is_live", "replan_csr_is_live", "mega_csr_is_live",
+                "answered_during_replan", "replan_rebuilt",
+                "restart_bitwise"):
+        if not rec[key]:
+            bad.append(key)
+    for key in ("parity", "replan_parity", "mega_parity"):
+        if not (rec[key]["bitwise_vs_fresh"]
+                and rec[key]["queued_rows_bitwise"]):
+            bad.append(key)
+    if rec["replan_mode"] != "replanning" or rec["replan_swaps"] != 1 \
+            or rec["restart_replayed"] != 5:
+        bad.append("the escalation ladder or the restart")
+    if bad:
+        raise AssertionError(f"delta phase: {bad}")
+    return rec
+
+
+def phase_fleet(ds, dev) -> dict:
+    """A primary and two followers on one card over InProcTransport, GCN
+    602-256-41 on Reddit: 50 batches through FleetRouter.apply_delta (each
+    pumped) under 200 QPS of routed queries; every applied_seq equals the
+    primary's, the three engines' forwards are bitwise equal, a late
+    follower brought up by snapshot_blob / install_snapshot reaches the
+    same bits, and the router sheds nothing."""
+    import shutil
+    import tempfile
+    import threading
+    import warnings
+
+    from roc_tpu_torch.fleet import (FleetRouter, InProcTransport, Replica,
+                                     ReplicationLog)
+    from roc_tpu_torch.models import build_model
+    from roc_tpu_torch.obs.watchdog import PerfWatchdog
+    from roc_tpu_torch.serve import run_load
+    from roc_tpu_torch.train.graph_data import forward_launches
+    cfg = _delta_cfg()
+    model = build_model(cfg.model, cfg.layers, cfg.dropout_rate)
+    rng = np.random.default_rng(SEED + 17)
+    batches = _delta_batches(ds, 50, rng)
+    tmp = tempfile.mkdtemp(prefix="roc_fleet_")
+    wd = PerfWatchdog()
+
+    def mk(name):
+        return Replica(name, cfg, ds, model, None,
+                       os.path.join(tmp, f"{name}.wal"), watchdog=wd,
+                       device=dev)
+
+    router = None
+    rec = {"phase": "fleet", "replicas": 3, "batches": len(batches),
+           "transport": "InProcTransport", "qps_offered": DELTA_QPS}
+    try:
+        primary = mk("primary")
+        followers = [mk("f1"), mk("f2")]
+        replog = ReplicationLog(primary.engine)
+        for f in followers:
+            f.transport = replog.attach(InProcTransport())
+        router = FleetRouter(primary, followers, replog, watchdog=wd)
+        for rep in router.replicas:
+            rep.engine.warmup()
+        per_forward = launch_dict(**forward_launches(
+            model, False, cfg.aggregate_precision))
+        served0 = {r.name: r.engine.stats()["requests"]
+                   for r in router.replicas}
+        fwd0 = sum(r.engine.forwards for r in router.replicas)
+        lags, load = [], {}
+
+        def _load():
+            load.update(run_load(router, n_requests=int(DELTA_QPS * 2),
+                                 qps=DELTA_QPS, sizes=(1, 2, 3, 5, 8, 13),
+                                 rng=np.random.default_rng(SEED)))
+        reset_launches()
+        with _PlainSpy() as spy, warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            th = threading.Thread(target=_load)
+            th.start()
+            t0 = time.perf_counter()
+            for i, (a, r) in enumerate(batches):
+                delay = t0 + i * 0.03 - time.perf_counter()
+                if delay > 0:
+                    time.sleep(delay)
+                router.apply_delta(a, r)
+                lags.append(max(f.last_lag_s for f in followers) * 1e3)
+            th.join()
+            torch.cuda.synchronize(dev)
+        launches = read_launches()
+        forwards = sum(r.engine.forwards for r in router.replicas) - fwd0
+        seqs = {r.name: r.applied_seq for r in router.replicas}
+        with primary.engine._plan_lock:
+            want = primary.engine.bundle.predict_logits()
+        bitwise = {}
+        for rep in followers:
+            with rep.engine._plan_lock:
+                bitwise[rep.name] = bool(torch.equal(
+                    rep.engine.bundle.predict_logits(), want))
+        late = mk("late")
+        late.catch_up(replog)
+        bitwise["late"] = bool(torch.equal(
+            late.engine.bundle.predict_logits(), want))
+        late_seq = late.applied_seq
+        late.close()
+        st = router.stats()
+        rec.update(
+            launches=launches, forwards=forwards, plain_calls=spy.calls,
+            applied_seq=seqs, late_seq=late_seq,
+            bitwise_vs_primary=bitwise,
+            lag_ms_p50=_pct(lags, 0.5), lag_ms_p99=_pct(lags, 0.99),
+            lag_ms_max=max(lags),
+            segments_shipped=st["replog"]["segments_shipped"],
+            records_shipped=st["replog"]["records_shipped"],
+            dispatches={r.name: r.engine.stats()["requests"] - served0[r.name]
+                        for r in router.replicas},
+            shed=st["shed"], sibling_retries=st["sibling_retries"],
+            served_p50_ms=load["p50_s"] * 1e3,
+            served_p99_ms=load["p99_s"] * 1e3,
+            qps_achieved=load["qps_achieved"],
+            fleet_lag_alerts=sum(1 for a in wd.alerts
+                                 if a["kind"] == "fleet-lag"))
+    finally:
+        if router is not None:
+            router.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+        _free()
+    emit(rec)
+    head = rec["applied_seq"]["primary"]
+    want_l = {k: v * rec["forwards"] for k, v in per_forward.items()}
+    if set(rec["applied_seq"].values()) != {head} or rec["late_seq"] != head \
+            or head != len(batches) or not all(rec["bitwise_vs_primary"]
+                                               .values()) \
+            or rec["shed"] or rec["launches"] != want_l \
+            or rec["plain_calls"]:
+        raise AssertionError(f"fleet phase: {rec}")
+    return rec
+
+
 def _kernel_entry(name, source, replaces, launches, row, rows, keys):
     """One entry of the ``kernels`` line: the main row's numbers and every
     measured shape."""
@@ -3227,6 +3721,8 @@ def main() -> int:
     mem_plan = phase_mem_plan(ds, dev)
     stream = phase_stream(ds, dev)
     small = stream["small"]
+    delta = phase_delta(ds, dev, serve)
+    fleet = phase_fleet(ds, dev)
 
     def pick(name, **want):
         return next(r for r in rows if r["name"] == name and all(
@@ -3259,6 +3755,8 @@ def main() -> int:
          "train": train[False]["launches"]["aggregate_sum"],
          "train_bf16": train_bf16[False]["launches"]["aggregate_sum"],
          "graph_file": graph_file["launches"]["aggregate_sum"],
+         "delta": delta["launches"]["aggregate_sum"],
+         "fleet": fleet["launches"]["aggregate_sum"],
          **planned("aggregate_sum"), **streamed("aggregate_sum")},
         pick("aggregate_sum", H=256, precision="fast", csr=None),
         named("aggregate_sum"), ("H", "precision", "csr"))
@@ -3275,6 +3773,9 @@ def main() -> int:
          "train_bf16_megafuse":
          train_bf16[True]["launches"]["stage_plane"],
          "graph_file": graph_file["launches"]["stage_plane"],
+         "delta": delta["launches"]["stage_plane"],
+         "delta_mega": delta["mega_launches"]["stage_plane"],
+         "fleet": fleet["launches"]["stage_plane"],
          **chain_launches("stage_plane"), **planned("stage_plane"),
          **streamed("stage_plane")},
         pick("stage_plane", H=256), named("stage_plane"), ("H", "ld"))
@@ -3289,6 +3790,7 @@ def main() -> int:
              "train_bf16_megafuse":
              train_bf16[True]["launches"]["aggregate_linear"],
              "serve_mega": serve_mega["launches"]["aggregate_linear"],
+             "delta_mega": delta["mega_launches"]["aggregate_linear"],
              **chain_launches("aggregate_linear")},
             pick("aggregate_linear", H_in=602, precision="fast"),
             named("aggregate_linear"),

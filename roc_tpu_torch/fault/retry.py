@@ -5,8 +5,9 @@ policy of the port.
 jittered exponential backoff between tries, and re-raises the last error
 when the budget is spent.  Every retry is counted per site
 (``retry_counts``) and handed to ``inject.emit_event`` (dropped unless a
-sink is attached).  The JAX package also runs the backoff sleep under an
-``obs.span``; the port has no obs yet (ROADMAP queue A item 7).
+sink is attached).  The backoff sleep runs under an ``obs`` span,
+``fault_retry`` (with the site and the attempt), so a chaos run's stalls
+show in the exported trace.
 
 The ``ROC_FAULT`` spec's ``retries=N`` token overrides the budget at every
 site at once: ``retries=0`` is how a test proves a fault leg *needs* the
@@ -24,6 +25,7 @@ import zlib
 from typing import Callable, Tuple, Type
 
 from roc_tpu_torch.fault import inject
+from roc_tpu_torch.obs.tracer import span
 
 _LOCK = threading.Lock()
 _RETRIES: dict = {}   # site -> retries performed (sleep-then-try count)
@@ -70,4 +72,5 @@ def retrying(site: str, fn: Callable, *, attempts: int = 3,
                               detail=str(e)[:200])
             if attempt >= attempts:
                 raise
-            time.sleep(_backoff_s(site, attempt - 1, base_s, max_s))
+            with span("fault_retry", site=site, attempt=attempt):
+                time.sleep(_backoff_s(site, attempt - 1, base_s, max_s))

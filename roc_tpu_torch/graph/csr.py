@@ -83,6 +83,37 @@ def from_edges(num_nodes: int, src: np.ndarray, dst: np.ndarray) -> Csr:
     return Csr(num_nodes, int(src.shape[0]), row_ptr, col_idx)
 
 
+def with_edge_delta(g: Csr, add: np.ndarray = None,
+                    retire: np.ndarray = None) -> Csr:
+    """The rebuild-from-scratch oracle of dynamic deltas (serve/delta.py):
+    apply an [n, 2] (src, dst) add list, then a retire list, to ``g`` and
+    rebuild through :func:`from_edges`.  A retire removes the *last* live
+    instance of its (src, dst), the most recently added one, as the
+    incremental patch does; retiring a pair with no live instance raises
+    KeyError (the caller classifies no-ops)."""
+    src = g.col_idx.astype(np.int64).tolist()
+    dst = g.dst_idx.astype(np.int64).tolist()
+    alive = [True] * len(src)
+    refs: dict = {}
+    for gi, sd in enumerate(zip(src, dst)):
+        refs.setdefault(sd, []).append(gi)
+    if add is not None:
+        for s, d in np.asarray(add, np.int64).reshape(-1, 2).tolist():
+            refs.setdefault((s, d), []).append(len(src))
+            src.append(s)
+            dst.append(d)
+            alive.append(True)
+    if retire is not None:
+        for s, d in np.asarray(retire, np.int64).reshape(-1, 2).tolist():
+            stack = refs.get((s, d))
+            if not stack:
+                raise KeyError(f"retire of dead edge ({s}, {d})")
+            alive[stack.pop()] = False
+    live_s = np.asarray([s for s, a in zip(src, alive) if a], V_DTYPE)
+    live_d = np.asarray([d for d, a in zip(dst, alive) if a], V_DTYPE)
+    return from_edges(g.num_nodes, live_s, live_d)
+
+
 def add_self_edges(g: Csr) -> Csr:
     """Add one self-edge per vertex if not already present (idempotent)."""
     src = g.col_idx

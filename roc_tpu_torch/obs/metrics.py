@@ -4,9 +4,9 @@
 Every record goes to a best-effort JSONL file (the schema roc_tpu's
 balance telemetry shares, so both packages' ``metrics.jsonl`` read the
 same way) and to the latest-scalar table that ``write_prometheus``
-renders as a Prometheus textfile.  roc_tpu's in-memory tail, series
-readers and labeled gauges serve its bench and calibration ledger, which
-are not ported.
+renders as a Prometheus textfile.  The calibration ledger emits its
+records through a registry's ``emit``.  roc_tpu's in-memory tail, series
+readers and labeled gauges serve its bench, which is not ported.
 """
 
 from __future__ import annotations

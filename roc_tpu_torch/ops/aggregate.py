@@ -38,6 +38,21 @@ from roc_tpu_torch.ops.linear import linear
 from roc_tpu_torch.ops.norm import indegree_norm
 
 
+_CSR_BUILDS = [0]
+
+
+def note_csr_build() -> None:
+    """Count one full placement of a CSR on a device."""
+    _CSR_BUILDS[0] += 1
+
+
+def csr_build_count() -> int:
+    """Full CSR placements in this process (``DeviceCsr.from_csr`` and the
+    delta manager's buffer fills): a serving engine's cold start places
+    one, a delta patch none."""
+    return _CSR_BUILDS[0]
+
+
 class DeviceCsr(NamedTuple):
     """An in-edge CSR on a device, ``col_idx[row_ptr[v]:row_ptr[v+1]]``
     being v's sources, and its transpose (``t_col_idx[t_row_ptr[u]:
@@ -73,6 +88,7 @@ class DeviceCsr(NamedTuple):
                 t_pos = np.empty(order.size, np.int32)
                 t_pos[order] = np.arange(order.size, dtype=np.int32)
                 arrays.append((t_pos, np.int32))
+        note_csr_build()
         return cls(*(torch.as_tensor(np.asarray(a, dt), device=device)
                      for a, dt in arrays))
 

@@ -61,6 +61,15 @@ def _source_closure(source: Path) -> list:
     return out
 
 
+_BUILDS = [0]
+
+
+def build_count() -> int:
+    """``nvcc`` runs in this process (a library already built on disk is
+    loaded, not counted)."""
+    return _BUILDS[0]
+
+
 class CudaLibrary:
     """One ``csrc/*.cu`` source, its shared library and its ctypes handle.
 
@@ -93,6 +102,7 @@ class CudaLibrary:
             raise RuntimeError(f"nvcc failed ({proc.returncode}) on "
                                f"{self.source}:\n{proc.stdout}{proc.stderr}")
         os.replace(tmp, lib)
+        _BUILDS[0] += 1
         self.info.update(path=str(lib), seconds=time.perf_counter() - t0,
                          cached=False,
                          log=(proc.stdout + proc.stderr).strip())

@@ -44,14 +44,20 @@ the edge wire narrows to 16 bits where a shard's rows fit (widened on the
 card).  ``-stream-spill DIR`` moves the boundary stores to CRC'd memmaps
 (``spill.py``).
 
-Not ported: ``reshard`` (the balancer's, ROADMAP queue A item 7), the
-GraphStub / ``.lux`` byte-range branch (``shard_load``, ``-perhost``) and
-the calibration-ledger predictions.
+Calibration (executor.py:227-244, 803-812): under ``-obs`` the setup
+predicts the epoch's wire bytes (the port's own
+``predicted_epoch_xfer_bytes``), the ring's overlap (1.0, prefetch hiding
+every transfer) and the transfer seconds (the bytes over
+``stream/host.py``'s ``STREAM_BW_BYTES_S``); each epoch measures them.
+
+Not ported: ``reshard`` (the balancer's, ROADMAP queue A item 7) and the
+GraphStub / ``.lux`` byte-range branch (``shard_load``, ``-perhost``).
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 
 import numpy as np
@@ -61,6 +67,7 @@ from roc_tpu_torch import fault, obs, ops
 from roc_tpu_torch.fault.guard import guarded_update, nan_scale
 from roc_tpu_torch.graph.partition import _round_up, partition_graph
 from roc_tpu_torch.graph.lux import MASK_NONE
+from roc_tpu_torch.obs.ledger import content_key, get_ledger
 from roc_tpu_torch.ops import prng
 from roc_tpu_torch.ops.softmax import PerfMetrics
 from roc_tpu_torch.stream import host as stream_host
@@ -215,10 +222,15 @@ class StreamTrainer(Trainer):
         self._alloc_slots()
         cuda = dev.type == "cuda"
         self._side = torch.cuda.Stream(dev) if cuda else None
-        self._ring = PrefetchRing(
-            cfg.stream_slots, self._fetch,
-            initializer=(lambda: torch.cuda.set_device(dev)) if cuda
-            else None)
+        init = None
+        if cuda:
+            # set_device needs an index; "cuda" alone names the current one
+            init = functools.partial(
+                torch.cuda.set_device,
+                torch.cuda.current_device() if dev.index is None
+                else dev.index)
+        self._ring = PrefetchRing(cfg.stream_slots, self._fetch,
+                                  initializer=init)
         self._fetches = 0
         self._grad_acc = None
         self._xfer_bytes = 0
@@ -232,6 +244,15 @@ class StreamTrainer(Trainer):
         self._logits_sink = None
         self._epoch_stream = []
         self._last_stream_stats = None
+        led = get_ledger()
+        if led.attached:
+            self._wire_key = content_key(parts=P, segments=self._nseg,
+                                         slots=int(cfg.stream_slots))
+            pred = self.predicted_epoch_xfer_bytes()["port"]
+            led.predict("wire_bytes", self._wire_key, pred, "bytes")
+            led.predict("overlap_frac", self._wire_key, 1.0, "frac")
+            led.predict("stream_xfer_s", self._wire_key,
+                        pred / stream_host.STREAM_BW_BYTES_S, "s")
         if cfg.verbose:
             budget = cfg.stream_budget_bytes()
             held = cfg.stream_slots * self.slot_bytes()
@@ -749,6 +770,14 @@ class StreamTrainer(Trainer):
             })
         self._epoch_stream.append(
             dict(self._last_stream_stats, epoch=int(self.epoch)))
+        led = get_ledger()
+        wk = getattr(self, "_wire_key", None)
+        if led.attached and wk is not None:
+            # wire bytes pair in the trainer's _obs_epoch, from the record
+            led.measure("overlap_frac", wk, st["overlap_frac"], "frac",
+                        epoch=int(self.epoch))
+            led.measure("stream_xfer_s", wk, st["transfer_s"], "s",
+                        epoch=int(self.epoch))
 
     def _obs_epoch_extra(self, epoch):
         del epoch

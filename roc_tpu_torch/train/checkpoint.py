@@ -10,18 +10,26 @@ lexicographically: ``linear_10`` comes before ``linear_2``.
 A save writes a temp file, fsyncs it, renames it over the target and
 fsyncs the directory (``fault.durable.fsync_replace``), so a crash leaves
 the old checkpoint or the new one.
+
+``save_arrays`` / ``load_arrays`` (checkpoint.py:82-145) store any named
+array dict under the same meta record and CRC, through the retried write
+and the ``<site>.write`` / ``<site>.kill_tmp`` / ``<site>.kill_rename``
+fault sites; the delta snapshot of ``serve/delta.py`` is one.  A file
+written by either package opens in the other.
 """
 
 from __future__ import annotations
 
 import json
 import zlib
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
 
+from roc_tpu_torch.fault import inject
 from roc_tpu_torch.fault.durable import fsync_replace
+from roc_tpu_torch.fault.retry import retrying
 from roc_tpu_torch.optim.adam import AdamState
 
 _FORMAT_VERSION = 1
@@ -78,6 +86,36 @@ def save(path: str, params, opt_state=None, epoch: int = 0,
     with open(tmp, "wb") as f:
         np.savez(f, **payload)
     fsync_replace(tmp, path)
+
+
+def save_arrays(path: str, arrays: Dict[str, np.ndarray],
+                extra: Dict[str, Any] | None = None,
+                site: str = "ckpt") -> None:
+    """The durable save for an arbitrary named array dict: retried temp
+    write, CRC32 stamp in the meta record, fsync + rename + directory
+    fsync, with the kill windows ``<site>.kill_tmp`` (temp on disk, target
+    untouched) and ``<site>.kill_rename`` (the new file complete)."""
+    payload = {k: np.asarray(v) for k, v in arrays.items()}
+    meta = {"version": _FORMAT_VERSION, "epoch": -1, "alpha": 0.0,
+            "extra": extra or {}, "crc32": _payload_crc(payload)}
+    payload["meta"] = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
+    tmp = path + ".tmp"
+
+    def _write():
+        inject.point(f"{site}.write")
+        with open(tmp, "wb") as f:
+            np.savez(f, **payload)
+    retrying(f"{site}.write", _write)
+    inject.point(f"{site}.kill_tmp")
+    fsync_replace(tmp, path)
+    inject.point(f"{site}.kill_rename")
+
+
+def load_arrays(path: str) -> Tuple[Dict[str, np.ndarray], Dict[str, Any]]:
+    """Verified load of a :func:`save_arrays` file: ``(arrays, extra)``;
+    :class:`CheckpointError` on anything torn, corrupt or version-skewed."""
+    meta, arrays = _read_verified(path)
+    return arrays, meta.get("extra", {})
 
 
 def _read_verified(path: str):

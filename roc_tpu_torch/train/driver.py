@@ -35,9 +35,15 @@ Run controls (driver.py:475-1027):
     ``finally``;
   * ``-obs`` records the spans ``train``, ``epoch``, ``step_dispatch``,
     ``device_sync``, ``metrics_fetch``, ``eval`` and ``checkpoint``, one
-    ``metrics`` record an epoch (fetched after the timed window), the
-    watchdog's alerts and a closing ``train`` record, into
-    ``obs_dir``'s trace.json, metrics.jsonl and metrics.prom.
+    ``metrics`` record an epoch (fetched after the timed window; on CUDA
+    with ``mfu`` and ``roofline_frac`` from ``obs/roofline.py``, whose
+    peaks are the card's), the watchdog's alerts and a closing ``train``
+    record, into ``obs_dir``'s trace.json, metrics.jsonl and
+    metrics.prom.  The calibration ledger rides the same stream
+    (driver.py:560-625, 728-745): the estimator's ``step_time`` and the
+    plan's ``peak_memory`` are predicted at setup and measured each epoch
+    (``peak_memory`` only where ``_peak_hbm`` measured it), and the
+    joined ratios feed the watchdog's calibration EWMAs.
 
 The memory planner (driver.py:713-795): ``-mem-plan``/``-mem-budget``
 choose a plan at setup (``_resolve_mem_plan``; its summary under ``-v``),
@@ -51,8 +57,8 @@ executor under ``-stream`` (``stream/executor.py``), else the
 ``-stream-budget`` gate, else this single-device trainer; ``-parts > 1``
 without ``-stream`` exits, since the SPMD trainer is not ported.
 
-Not ported yet (ROADMAP queue A): the online balancer, the calibration
-ledger and roofline fields, and the SPMD trainer.
+Not ported yet (ROADMAP queue A): the online balancer and the SPMD
+trainer.
 """
 
 from __future__ import annotations
@@ -72,7 +78,9 @@ from roc_tpu_torch.fault import inject
 from roc_tpu_torch.fault.guard import guarded_update, nan_scale
 from roc_tpu_torch.graph.datasets import Dataset
 from roc_tpu_torch.models.model import Model
+from roc_tpu_torch.obs import roofline
 from roc_tpu_torch.obs.channel import global_norm
+from roc_tpu_torch.obs.ledger import content_key, get_ledger
 from roc_tpu_torch.ops import prng
 from roc_tpu_torch.ops.softmax import PerfMetrics, format_metrics, \
     perf_metrics
@@ -88,6 +96,11 @@ from roc_tpu_torch.train.graph_data import (dense_graph_data,
 # (driver.py:475): one bad batch skips silently; K in a row means the run
 # is not recovering on its own.
 NONFINITE_ESCALATE_AFTER = 3
+
+# The cost models whose ratio the watchdog judges off the card: exact by
+# construction, so a drift is a bug wherever it runs (roc_tpu's
+# plan_steps and staging_rows have no producer in the port).
+_EXACT_MODELS = ("wire_bytes",)
 
 
 @dataclasses.dataclass
@@ -198,6 +211,16 @@ class Trainer:
                     self.model.gctx_units(gctx, True)))
         if cfg.verbose and (cfg.mem_plan != "keep" or budget):
             print(f"# {self.mem_plan.summary()}")
+        # the ledger's predictions, made once before the first epoch and
+        # paired every epoch in _obs_epoch under one content key
+        led = get_ledger()
+        if led.attached:
+            self._calib_key = content_key(rows=self.mem_estimate.rows,
+                                          edges=self.mem_estimate.edges)
+            led.predict("step_time", self._calib_key,
+                        self.mem_estimate.base_step_s, "s")
+            led.predict("peak_memory", self._calib_key,
+                        self.mem_plan.predicted_peak_bytes, "bytes")
 
     def _loss_fn(self):
         """``model.loss`` under the memory plan (the model's own loss when
@@ -235,9 +258,17 @@ class Trainer:
             except OSError:
                 jsonl = ""  # keep the in-memory registry; skip the file
         self._metrics = obs.MetricsRegistry(jsonl_path=jsonl)
-        # retry and injection events land in the same stream (detached in
-        # _obs_finish)
+        # retry and injection events and the calibration ledger's records
+        # land in the same stream (detached in _obs_finish)
         inject.attach(self._metrics.emit)
+        get_ledger().attach(self._metrics.emit)
+        # the per-epoch roofline standings, stamped only where the peaks
+        # describe the device: the card's, never the CPU's
+        g = self.dataset.graph
+        self._roofline_fb = roofline.model_flops_bytes(
+            self.model, g.num_nodes, g.num_edges,
+            precision=cfg.aggregate_precision)
+        self._roofline_on = self.device.type == "cuda"
         # what roc_tpu's single-device step reports: no wire, and the sum
         # of the in-degrees as the one shard's edges
         self._obs_edges = [int(np.sum(self.dataset.graph.in_degrees))]
@@ -253,11 +284,30 @@ class Trainer:
                 [loss.to(torch.float32), self._last_gnorm,
                  global_norm(self.params)]).tolist()
         extra = self._obs_epoch_extra(epoch) or {}
+        wire = int(extra.get("stream_bytes", 0))
+        if self._roofline_on:
+            flops, nbytes = self._roofline_fb
+            m = roofline.mfu(flops, wall_s)
+            if m is not None:
+                extra["mfu"] = round(m, 4)
+                extra["roofline_frac"] = round(roofline.roofline_frac(
+                    flops, nbytes, wall_s), 4)
         self._metrics.emit(
             "metrics", epoch=int(epoch), wall_s=round(float(wall_s), 6),
             loss=loss_v, grad_norm=gnorm, param_norm=pnorm,
-            wire_bytes=int(extra.get("stream_bytes", 0)),
-            edges_per_shard=self._obs_edges, **extra)
+            wire_bytes=wire, edges_per_shard=self._obs_edges, **extra)
+        led = get_ledger()
+        key = getattr(self, "_calib_key", None)
+        if led.attached and key is not None:
+            led.measure("step_time", key, wall_s, "s", epoch=int(epoch))
+            wk = getattr(self, "_wire_key", None)
+            if wk is not None and wire:
+                led.measure("wire_bytes", wk, wire, "bytes",
+                            epoch=int(epoch))
+            hbm, src = self._peak_hbm()
+            if src == "measured":
+                led.measure("peak_memory", key, hbm, "bytes",
+                            epoch=int(epoch))
         alert = self.watchdog.observe_epoch(epoch, wall_s)
         if alert is not None:
             self._metrics.emit("watchdog", **alert)
@@ -282,6 +332,20 @@ class Trainer:
                              f"fraction {alert['stall_frac']:.3f} is "
                              f"{alert['ratio']:.2f}x its EWMA "
                              f"({alert['ewma']:.3f})")
+        # calibration drift: this epoch's joined pairs feed the per-model
+        # EWMAs; off the card only the structurally exact models are
+        # judged (a CPU's step time says nothing of the card's constants)
+        for mname, ratio in led.drain_ratios():
+            if not self._roofline_on and mname not in _EXACT_MODELS:
+                continue
+            alert = self.watchdog.observe_calibration(mname, ratio, epoch)
+            if alert is not None:
+                self._metrics.emit("watchdog", **alert)
+                if self.config.verbose:
+                    print_fn(f"# watchdog: cost model {mname} ratio EWMA "
+                             f"{alert['ewma_ratio']:.3g} left the band "
+                             f"[{alert['band_lo']:.2g}, "
+                             f"{alert['band_hi']:.2g}]")
 
     def _obs_epoch_extra(self, epoch):
         """Executor-specific fields of the epoch's record (the stream
@@ -294,6 +358,9 @@ class Trainer:
         if self._metrics is None:
             return
         cfg = self.config
+        # the ledger outlives the run (one a process): stop routing its
+        # records into this run's stream
+        get_ledger().detach()
         inject.detach()
         verdict = self.watchdog.verdict()
         self._metrics.emit(

@@ -46,7 +46,12 @@ need = {"roc_tpu_torch.__main__", "roc_tpu_torch.fault.guard",
         "roc_tpu_torch.memory.policy", "roc_tpu_torch.graph.partition",
         "roc_tpu_torch.stream", "roc_tpu_torch.stream.executor",
         "roc_tpu_torch.stream.host", "roc_tpu_torch.stream.ring",
-        "roc_tpu_torch.stream.segments", "roc_tpu_torch.stream.spill"}
+        "roc_tpu_torch.stream.segments", "roc_tpu_torch.stream.spill",
+        "roc_tpu_torch.serve.delta", "roc_tpu_torch.fleet",
+        "roc_tpu_torch.fleet.__main__", "roc_tpu_torch.fleet.replica",
+        "roc_tpu_torch.fleet.replog", "roc_tpu_torch.fleet.router",
+        "roc_tpu_torch.obs.ledger", "roc_tpu_torch.obs.report",
+        "roc_tpu_torch.obs.__main__", "roc_tpu_torch.fault.__main__"}
 assert need <= set(names), need - set(names)
 print(len(names), bad)
 assert not bad, bad
@@ -112,6 +117,20 @@ def test_entry_points_default_to_cuda():
         ServeEngine(cfg, ds, model, start_queue=False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         load_frozen(cfg, ds, model)
+
+
+@pytest.mark.parametrize("module,argv", [
+    ("roc_tpu_torch.fault.__main__", ["--selftest"]),
+    ("roc_tpu_torch.fleet.__main__", ["--selftest"]),
+    ("roc_tpu_torch.obs.__main__", ["calibration", "--selftest"])])
+def test_selftest_clis_default_to_cuda(module, argv):
+    """The selftests run on the card unless asked for the CPU: without a
+    GPU and without -device cpu they raise before any stage's work."""
+    import importlib
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the selftests legitimately run there")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        importlib.import_module(module).main(argv)
 
 
 @pytest.mark.parametrize("alone", [False, True])

@@ -215,6 +215,12 @@ def test_metrics_record_follows_a_nan_step(tmp_path):
     finally:
         inject.configure("")
     recs = load_jsonl(str(tmp_path / "obs" / "metrics.jsonl"))
+    # the calibration ledger's setup predictions open the stream, as in
+    # roc_tpu's; the run's own records follow them
+    ledger = [r["model"] for r in recs[:2]]
+    assert ledger == ["step_time", "peak_memory"]
+    recs = [r for r in recs if r["type"] not in ("prediction",
+                                                 "measurement")]
     assert recs[0] == {"type": "fault", "site": "step.nan", "call": 0}
     assert np.isnan(recs[1]["loss"]) and recs[1]["type"] == "metrics"
     assert {"type": "watchdog", "kind": "nonfinite", "epoch": 0,
