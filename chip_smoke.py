@@ -279,6 +279,27 @@ Phases, each printing one JSON line per record:
           replication lag, segments and records shipped, dispatches per
           replica
 
+  spmd    the vertex-sharded SPMD trainer, -parts 4 on the card: (a) the
+          CLI path, GCN 602-256-41 through make_trainer (k = 4 parts on
+          the one device, the halo exchange), fast, dropout 0.5, 5 epochs:
+          epoch ms, peak, halo K, table rows, host build seconds
+          (partition, halo maps, CSRs, placement), wire bytes, launches
+          (per step 16 aggregate_sum, 16 stage_plane, 3 dropout), beside
+          train's single-device run; (b) -check-sharding (rtol 1e-3,
+          count_tol 1) and 3 epochs at dropout 0 within 1e-3 of stream's
+          in-core losses; (c) -no-halo and the bf16 wire (plain,
+          compensated, stochastic), 3 epochs each, within 1e-3 (no-halo,
+          compensated) or 5e-2 (bf16) of (b); (d) the k = 1 layout (mesh
+          [cuda:0] * 4): halo overlap on and off within 1e-5;
+          -balance-every 1 -e 6 from a 55/15/15/15 % cut: at least one
+          reshard, the loss within 1e-3 of the unbalanced run's, the
+          proposals, reshard seconds and epoch ms; -perhost from
+          reddit-small's .lux (a temporary directory the phase removes):
+          CSRs, halo maps and node tensors bitwise the full build's, the
+          first loss equal; (e) GAT 602-64-41 (4 heads), -parts 4 on
+          reddit-small, within 1e-3 of stream's in-core GAT.  No plain
+          version (sums, stagings, dropout, GAT) runs on the card.
+
 Then the ``kernels`` line, the card's name and power limit as nvidia-smi
 gives them, and last ``{"ok": true, "device": {...}}``.  Any failure
 raises and the exit code is non-zero; without CUDA the script exits 2
@@ -3656,6 +3677,329 @@ def phase_fleet(ds, dev) -> dict:
     return rec
 
 
+# -- the vertex-sharded SPMD trainer -----------------------------------------
+
+SPMD_PARTS = 4
+
+
+class _SpmdSpy(_PlainSpy):
+    """_PlainSpy, and the dropout's and the GAT kernels' plain versions."""
+
+    EXTRA = (("dropout", "dropout_plain"), ("gat", "gat_score_plain"),
+             ("gat", "gat_forward_plain"), ("gat", "gat_bwd_src_dq_plain"),
+             ("gat", "gat_dadl_plain"), ("gat", "stage_plain"))
+
+    def __enter__(self):
+        import importlib
+        super().__enter__()
+        for mod_name, name in self.EXTRA:
+            mod = importlib.import_module(
+                f"roc_tpu_torch.ops.kernels.{mod_name}")
+            fn = getattr(mod, name)
+
+            def spy(*a, _fn=fn, **k):
+                self.calls += 1
+                return _fn(*a, **k)
+            self._saved.append((mod, name, fn))
+            setattr(mod, name, spy)
+        return self
+
+
+def _spmd_trainer(ds, layers, dev, devices=None, bounds=None, **kw):
+    """-parts 4 on the card, fast, -lr 0.01 -decay 0.0001, dropout 0 and
+    3 epochs unless ``kw`` says otherwise: through make_trainer (the CLI's
+    path, the default mesh: k = 4) unless a mesh or a cut is given.
+    Returns the trainer and its build seconds."""
+    from roc_tpu_torch.models import build_model
+    from roc_tpu_torch.parallel.spmd import SpmdTrainer
+    from roc_tpu_torch.train.config import Config
+    from roc_tpu_torch.train.driver import make_trainer
+    base = dict(num_epochs=3, learning_rate=0.01, weight_decay=0.0001,
+                dropout_rate=0.0, eval_every=10**9,
+                aggregate_precision="fast", num_parts=SPMD_PARTS, heads=4)
+    base.update(kw)
+    cfg = Config(dataset=ds.name, layers=layers, seed=SEED,
+                 device=str(dev), **base)
+    model = build_model(cfg.model, layers, cfg.dropout_rate,
+                        heads=cfg.heads)
+    t0 = time.perf_counter()
+    if devices is None and bounds is None:
+        tr = make_trainer(cfg, ds, model)
+    else:
+        tr = SpmdTrainer(cfg, ds, model, devices=devices, bounds=bounds)
+    torch.cuda.synchronize(dev)
+    return tr, time.perf_counter() - t0
+
+
+def _spmd_geometry(tr) -> dict:
+    """The cut and the exchange of a built SPMD trainer."""
+    gd = tr.gdata
+    return {"k": tr.k, "exchange": gd.exchange, "wire": list(gd.xch),
+            "overlap": gd.overlap, "shard_nodes": int(tr.part.shard_nodes),
+            "halo_K": gd.K, "table_rows": gd.table_rows(),
+            "halo_rows": (tr.halo.halo_rows_total if tr.halo is not None
+                          else 0),
+            "edges_per_part": [pg.edges for pg in gd.parts],
+            "build_s": dict(tr.build_s), "wire_bytes": tr.wire_bytes()}
+
+
+def _spmd_leg(tr, build_s, dev, n) -> dict:
+    """``n`` epochs of a built trainer from a fresh peak (``_epochs``),
+    with its geometry, build seconds and epoch ms."""
+    out = _epochs(tr, dev, n)
+    out.update(_spmd_geometry(tr), trainer_build_s=build_s,
+               epoch_ms=[t * 1e3 for t in out["epoch_s"]])
+    return out
+
+
+def _skewed_bounds(n: int) -> np.ndarray:
+    """A deliberately skewed cut of n vertices: 55 %, then 15 % each."""
+    ends = [int(n * f) for f in (0.55, 0.70, 0.85)] + [n]
+    lo = [0] + ends[:-1]
+    return np.asarray([(a, b - 1) for a, b in zip(lo, ends)], np.int64)
+
+
+def _max_rel(a, b) -> float:
+    return max(_rel(x, y) for x, y in zip(a, b))
+
+
+def phase_spmd(ds, dev, single5=None, single3=None, gat_single=None
+               ) -> dict:
+    """The vertex-sharded SPMD trainer, -parts 4 on the card.
+
+    a. the CLI path: GCN 602-256-41, fast, dropout 0.5, 5 epochs, through
+       make_trainer (the default mesh: k = 4, halo), beside the
+       single-device trainer from the same seed and flags (``single5``:
+       train's record, else run here);
+    b. -check-sharding (rtol 1e-3, count_tol 1) at dropout 0, then 3
+       epochs, each loss within 1e-3 relative of the single-device
+       trainer's (``single3``: stream's in-core losses, else run here);
+    c. -no-halo, and -bf16-storage with -bf16-exchange plain, compensated
+       and -bf16-rounding stochastic, 3 epochs each: losses within 1e-3
+       (no-halo, compensated) or 5e-2 (bf16) of b's;
+    d. the k = 1 layout (mesh [cuda:0] * 4): halo overlap on and off
+       within 1e-5 of each other; -balance-every 1 -e 6 from a skewed cut,
+       at least one reshard, the loss within 1e-3 of the unbalanced run's;
+       -perhost from reddit-small's .lux in a temporary directory the
+       phase removes: CSRs, halo maps and node tensors bitwise the full
+       build's, the first epoch's loss equal;
+    e. GAT 602-64-41, 4 heads, -parts 4 on reddit-small, dropout 0, 3
+       epochs, within 1e-3 relative of the single-device trainer's
+       (``gat_single``: stream's in-core GAT losses, else run here).
+
+    No plain version runs on the card in any leg; each leg's launches are
+    counted from 0."""
+    import shutil
+    import tempfile
+
+    from roc_tpu_torch.graph import datasets, lux
+    from roc_tpu_torch.parallel.check import check_shard_consistency
+    t_phase = time.perf_counter()
+    layers = LAYERS["gcn"]
+    rec = {"phase": "spmd", "dataset": ds.name, "parts": SPMD_PARTS,
+           "layers": layers, "precision": "fast"}
+    launches = {}
+    with _SpmdSpy() as spy:
+        # a. the CLI path
+        if single5 is None:
+            tr = _recipe_trainer(ds, dev, epochs=5)
+            single5 = _train_run(tr, dev)
+            del tr
+            _free()
+        tr, build_s = _spmd_trainer(ds, layers, dev, num_epochs=5,
+                                    dropout_rate=0.5)
+        a = _spmd_leg(tr, build_s, dev, 5)
+        launches["spmd"] = a["launches"]
+        reset_launches()
+        tr.run_epoch()
+        torch.cuda.synchronize(dev)
+        a["launches_per_step"] = read_launches()
+        a["single_device"] = {
+            "epoch_ms": single5["epoch_ms"][:5],
+            "peak_bytes": single5["peak_mem_bytes"]}
+        rec["cli"] = a
+        del tr
+        _free()
+        # b. -check-sharding, then the loss against one device's
+        if single3 is None:
+            inc = _trainer(ds, layers, dev, num_epochs=3,
+                           learning_rate=0.01, weight_decay=0.0001,
+                           dropout_rate=0.0, eval_every=10**9,
+                           aggregate_precision="fast")
+            single3 = _epochs(inc, dev)["losses"]
+            del inc
+            _free()
+        tr, build_s = _spmd_trainer(ds, layers, dev, check_sharding=True)
+        t0 = time.perf_counter()
+        m1, mp = check_shard_consistency(tr.config, ds, tr.model,
+                                         sharded_trainer=tr)
+        check_s = time.perf_counter() - t0
+        _free()
+        b = _spmd_leg(tr, build_s, dev, 3)
+        b.update(check_s=check_s, check={
+            "single": [float(v) for v in m1], "sharded":
+            [float(v) for v in mp]}, single_losses=list(single3),
+            loss_rel_err=_max_rel(b["losses"], single3))
+        rec["check"] = b
+        launches["spmd_check"] = b["launches"]
+        del tr
+        _free()
+        # c. the exchanges and the wire
+        c = {}
+        for name, kw in (
+                ("allgather", {"halo": False}),
+                ("bf16_plain", {"bf16_storage": True}),
+                ("bf16_compensated", {"bf16_storage": True,
+                                      "bf16_exchange": "compensated"}),
+                ("bf16_stochastic", {"bf16_storage": True,
+                                     "bf16_rounding": "stochastic"})):
+            tr, build_s = _spmd_trainer(ds, layers, dev, **kw)
+            c[name] = _spmd_leg(tr, build_s, dev, 3)
+            c[name]["loss_rel_err"] = _max_rel(c[name]["losses"],
+                                               b["losses"])
+            del tr
+            _free()
+        from roc_tpu_torch.parallel import wire
+        wire.clear_bits()
+        rec["exchanges"] = c
+        launches["spmd_exchanges"] = {
+            k: sum(leg["launches"][k] for leg in c.values())
+            for k in c["allgather"]["launches"]}
+        # d. the k = 1 layout on the one card
+        mesh = [dev] * SPMD_PARTS
+        d = {}
+        for name, kw in (("overlap", {}),
+                         ("no_overlap", {"halo_overlap": False})):
+            tr, build_s = _spmd_trainer(ds, layers, dev, devices=mesh, **kw)
+            d[name] = _spmd_leg(tr, build_s, dev, 3)
+            del tr
+            _free()
+        d["overlap_rel_err"] = _max_rel(d["overlap"]["losses"],
+                                        d["no_overlap"]["losses"])
+        skew = _skewed_bounds(ds.graph.num_nodes)
+        for name, kw in (("unbalanced", {}), ("balanced",
+                                              {"balance_every": 1})):
+            tr, build_s = _spmd_trainer(ds, layers, dev, devices=mesh,
+                                        bounds=skew, num_epochs=6,
+                                        edge_shard="off", **kw)
+            gc.collect()
+            reset_launches()
+            stats = tr.train(print_fn=_quiet)
+            d[name] = {"epoch_ms": [t * 1e3 for t in stats.epoch_times],
+                       "final_loss": stats.final_loss,
+                       "launches": read_launches(),
+                       "trainer_build_s": build_s,
+                       "events": stats.rebalance_events,
+                       "bounds_before": skew.tolist(),
+                       "bounds_after": np.asarray(tr.part.bounds).tolist(),
+                       "edges_per_part": [pg.edges
+                                          for pg in tr.gdata.parts]}
+            del tr
+            _free()
+        d["balance_loss_rel_err"] = _rel(d["balanced"]["final_loss"],
+                                         d["unbalanced"]["final_loss"])
+        small = datasets.get("reddit-small", seed=SEED)
+        sl = [602, 64, 41]
+        tmp = tempfile.mkdtemp(prefix="roc_perhost_")
+        try:
+            prefix = os.path.join(tmp, "reddit-small")
+            lux.write_dataset(prefix, small.graph, small.features,
+                              small.label_ids, small.mask)
+            full, _ = _spmd_trainer(
+                datasets.load_roc_dataset(prefix, 602, 41), sl, dev,
+                devices=mesh, filename=prefix)
+            t0 = time.perf_counter()
+            per, _ = _spmd_trainer(
+                datasets.load_roc_dataset(prefix, 602, 41, graph_stub=True),
+                sl, dev, devices=mesh, filename=prefix, perhost_load=True)
+            perhost_s = time.perf_counter() - t0
+            same = (per.halo.K == full.halo.K
+                    and np.array_equal(per.halo.send_idx,
+                                       full.halo.send_idx)
+                    and all(torch.equal(getattr(per, f), getattr(full, f))
+                            for f in ("x", "labels", "mask")))
+            for pa, pb in zip(per.gdata.parts, full.gdata.parts):
+                for ca, cb in ((pa.csr, pb.csr), (pa.csr_local, pb.csr_local),
+                               (pa.csr_remote, pb.csr_remote)):
+                    same = same and (ca is None) == (cb is None)
+                    if ca is not None:
+                        same = same and all(
+                            (x is None and y is None) or torch.equal(x, y)
+                            for x, y in zip(ca, cb))
+            reset_launches()
+            lp, lf = float(per.run_epoch()), float(full.run_epoch())
+            d["perhost"] = {"dataset": "reddit-small", "layers": sl,
+                            "bitwise": bool(same), "loss": lp,
+                            "full_loss": lf, "build_s": perhost_s,
+                            "launches": read_launches()}
+            del per, full
+            _free()
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        rec["k1"] = d
+        launches["spmd_k1"] = {
+            k: (d["overlap"]["launches"][k] + d["no_overlap"]["launches"][k]
+                + d["unbalanced"]["launches"][k]
+                + d["balanced"]["launches"][k]
+                + d["perhost"]["launches"][k])
+            for k in d["overlap"]["launches"]}
+        # e. GAT on reddit-small
+        if gat_single is None:
+            inc = _trainer(small, sl, dev, num_epochs=3, learning_rate=0.01,
+                           weight_decay=0.0001, dropout_rate=0.0,
+                           eval_every=10**9, aggregate_precision="fast",
+                           model="gat", heads=4)
+            gat_single = _epochs(inc, dev)["losses"]
+            del inc
+            _free()
+        tr, build_s = _spmd_trainer(small, sl, dev, model="gat")
+        e = _spmd_leg(tr, build_s, dev, 3)
+        e.update(dataset="reddit-small", layers=sl, heads=4,
+                 single_losses=list(gat_single),
+                 loss_rel_err=_max_rel(e["losses"], gat_single))
+        rec["gat"] = e
+        launches["spmd_gat"] = e["launches"]
+        del tr
+        _free()
+    rec["plain_calls"] = spy.calls
+    rec["launches"] = launches
+    rec["phase_s"] = time.perf_counter() - t_phase
+    emit(rec)
+    P = SPMD_PARTS
+    want_step = launch_dict(aggregate_sum=4 * P, stage_plane=4 * P,
+                            dropout=3)
+    bal = d["balanced"]
+    fails = []
+    if spy.calls:
+        fails.append(f"{spy.calls} plain-version calls on the card")
+    if a["launches_per_step"] != want_step or a["k"] != P:
+        fails.append(f"the CLI step launched {a['launches_per_step']}")
+    if not all(np.isfinite(v) for v in a["losses"]):
+        fails.append(f"the CLI path's losses {a['losses']}")
+    if b["loss_rel_err"] > 1e-3:
+        fails.append(f"sharded vs one device {b['loss_rel_err']}")
+    if c["allgather"]["loss_rel_err"] > 1e-3 \
+            or c["bf16_compensated"]["loss_rel_err"] > 1e-3 \
+            or c["bf16_plain"]["loss_rel_err"] > 5e-2 \
+            or c["bf16_stochastic"]["loss_rel_err"] > 5e-2:
+        fails.append("an exchange leg left its bound: " + str(
+            {k: v["loss_rel_err"] for k, v in c.items()}))
+    if d["overlap_rel_err"] > 1e-5 or not d["overlap"]["overlap"]:
+        fails.append(f"overlap on vs off {d['overlap_rel_err']}")
+    if not any(ev["action"] == "reshard" for ev in bal["events"]) \
+            or d["balance_loss_rel_err"] > 1e-3:
+        fails.append(f"the balancer: {bal['events']}, "
+                     f"{d['balance_loss_rel_err']}")
+    if not (d["perhost"]["bitwise"]
+            and d["perhost"]["loss"] == d["perhost"]["full_loss"]):
+        fails.append(f"-perhost: {d['perhost']}")
+    if e["loss_rel_err"] > 1e-3 or e["launches"]["gat_forward"] == 0:
+        fails.append(f"the sharded GAT: {e['loss_rel_err']}")
+    if fails:
+        raise AssertionError("phase spmd failed: " + "; ".join(fails))
+    return rec
+
+
 def _kernel_entry(name, source, replaces, launches, row, rows, keys):
     """One entry of the ``kernels`` line: the main row's numbers and every
     measured shape."""
@@ -3723,6 +4067,9 @@ def main() -> int:
     small = stream["small"]
     delta = phase_delta(ds, dev, serve)
     fleet = phase_fleet(ds, dev)
+    spmd = phase_spmd(ds, dev, single5=train[False],
+                      single3=stream["incore"]["losses"],
+                      gat_single=small["gat_incore"]["losses"])
 
     def pick(name, **want):
         return next(r for r in rows if r["name"] == name and all(
@@ -3746,6 +4093,10 @@ def main() -> int:
                     "fp32", "bf16_storage", "spill", "gat")),
                 "serve_stream": small["serve_launches"][name]}
 
+    def sharded(name):
+        return {leg: n[name] for leg, n in spmd["launches"].items()
+                if n[name]}
+
     src = "roc_tpu_torch/csrc/"
     pallas = "roc_tpu/ops/pallas/binned.py:"
     sum_entry = _kernel_entry(
@@ -3757,7 +4108,8 @@ def main() -> int:
          "graph_file": graph_file["launches"]["aggregate_sum"],
          "delta": delta["launches"]["aggregate_sum"],
          "fleet": fleet["launches"]["aggregate_sum"],
-         **planned("aggregate_sum"), **streamed("aggregate_sum")},
+         **planned("aggregate_sum"), **streamed("aggregate_sum"),
+         **sharded("aggregate_sum")},
         pick("aggregate_sum", H=256, precision="fast", csr=None),
         named("aggregate_sum"), ("H", "precision", "csr"))
     sum_entry["also_replaces"] = [pallas + "1991", pallas + "2107",
@@ -3777,7 +4129,7 @@ def main() -> int:
          "delta_mega": delta["mega_launches"]["stage_plane"],
          "fleet": fleet["launches"]["stage_plane"],
          **chain_launches("stage_plane"), **planned("stage_plane"),
-         **streamed("stage_plane")},
+         **streamed("stage_plane"), **sharded("stage_plane")},
         pick("stage_plane", H=256), named("stage_plane"), ("H", "ld"))
     stage_entry["also_replaces"] = [pallas + "1991", pallas + "2107",
                                     pallas + "2153", pallas + "2300"]
@@ -3819,7 +4171,8 @@ def main() -> int:
             name, src + "gat.cu", "roc_tpu/ops/pallas/gat.py:" + line,
             {"serve_gat": serve_gat["launches"][name],
              "train_gat": train_gat["launches"][name],
-             "stream_gat": small["gat"]["launches"][name]},
+             "stream_gat": small["gat"]["launches"][name],
+             **sharded(name)},
             pick(name, K=4, precision="fast"), named(name),
             ("K", "F", "precision"))
           for name, line in (("gat_score", "310"), ("gat_forward", "328"),
@@ -3830,7 +4183,8 @@ def main() -> int:
             "roc_tpu/ops/pallas/gat.py:428",
             {"serve_gat": serve_gat["launches"]["gat_stage"],
              "train_gat": train_gat["launches"]["gat_stage"],
-             "stream_gat": small["gat"]["launches"]["gat_stage"]},
+             "stream_gat": small["gat"]["launches"]["gat_stage"],
+             **sharded("gat_stage")},
             pick("gat_stage", K=1), named("gat_stage"), ("H", "ld")),
         {**_kernel_entry(
             "dropout", src + "dropout.cu", "roc_tpu/ops/dropout.py:21",
@@ -3841,7 +4195,7 @@ def main() -> int:
              train_bf16[True]["launches"]["dropout"],
              "train_gat": train_gat["launches"]["dropout"],
              "graph_file": graph_file["launches"]["dropout"],
-             **planned("dropout")},
+             **planned("dropout"), **sharded("dropout")},
             pick("dropout", H=602, dtype="float32"), named("dropout"),
             ("H", "rate", "dtype")),
          "replaces_kind": "jax.random.bernoulli and jnp.where (XLA ops, "

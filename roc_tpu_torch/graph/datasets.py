@@ -19,9 +19,18 @@ from roc_tpu_torch.graph.csr import Csr, add_self_edges, from_edges
 
 
 @dataclasses.dataclass(frozen=True)
+class GraphStub:
+    """The ``.lux`` header only (num_nodes, num_edges): under -perhost the
+    topology is never read whole; the SPMD trainer reads each part's byte
+    ranges itself (graph/shard_load.py)."""
+    num_nodes: int
+    num_edges: int
+
+
+@dataclasses.dataclass(frozen=True)
 class Dataset:
     name: str
-    graph: Csr              # includes self-edges
+    graph: Csr              # includes self-edges; a GraphStub under -perhost
     features: np.ndarray    # [N, in_dim] float32 (may be a read-only memmap)
     labels: "np.ndarray | None"  # [N, C] one-hot float32, or None when lazy
     label_ids: np.ndarray   # [N] int64
@@ -45,13 +54,14 @@ def load_roc_dataset(prefix: str, in_dim: int, num_classes: int,
     ``in_dim``/``num_classes`` come from the layer spec exactly as in the
     reference CLI (`-layers 602-256-41` supplies both, gnn.cc:68-69).
     ``lazy=True`` memory-maps the features and defers the one-hot labels.
-    ``graph_stub`` (the JAX package's per-host loading, ``-perhost``) waits
-    for the multi-device port and is refused."""
+    ``graph_stub=True`` (implies lazy) reads only the 12-byte ``.lux``
+    header: the per-host trainer (-perhost) loads the topology's slices
+    itself."""
     if graph_stub:
-        raise NotImplementedError(
-            "graph_stub (-perhost loading) is not ported: it belongs to the "
-            "multi-device trainer (ROADMAP queue A item 8)")
-    g = lux.read_lux(prefix + lux.LUX_SUFFIX)
+        lazy = True
+        g = GraphStub(*lux.read_header(prefix + lux.LUX_SUFFIX))
+    else:
+        g = lux.read_lux(prefix + lux.LUX_SUFFIX)
     feats = lux.load_features(prefix, g.num_nodes, in_dim, mmap=lazy)
     ids = lux.load_label_ids(prefix, g.num_nodes, num_classes)
     mask = lux.load_mask(prefix, g.num_nodes)

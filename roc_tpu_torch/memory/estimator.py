@@ -243,7 +243,10 @@ def estimate_for_trainer(trainer) -> ModelEstimate:
     fixed = fixed_bytes_for(trainer.model, rows, ds.features.shape[1],
                             ds.num_classes, edges, itemsize)
     gdata = getattr(trainer, "gdata", None)
-    edge_map = gdata is not None and gdata.csr.t_pos is not None
+    csrs = [] if gdata is None else (
+        [gdata.csr] if hasattr(gdata, "csr") else
+        [pg.csr for pg in gdata.parts if pg.csr is not None])
+    edge_map = any(c.t_pos is not None for c in csrs)
     port = port_resident_bytes(trainer.model, rows, edges,
                                cfg.aggregate_precision, edge_map)
     trainer.mem_port_bytes = port
@@ -260,7 +263,10 @@ def step_arg_bytes(trainer) -> int:
     step's arguments)."""
     st = trainer.opt_state
     tensors = [*trainer.params.values(), *st.m.values(), *st.v.values()]
-    tensors += [trainer.x, trainer.labels, trainer.mask,
-                trainer.gdata.in_degree]
-    tensors += [t for t in trainer.gdata.csr if t is not None]
+    tensors += [trainer.x, trainer.labels, trainer.mask]
+    gdata = trainer.gdata
+    if not hasattr(gdata, "csr"):       # the SPMD trainer's parts
+        return int(sum(t.numel() * t.element_size() for t in tensors)
+                   + gdata.nbytes())
+    tensors += [gdata.in_degree] + [t for t in gdata.csr if t is not None]
     return int(sum(t.numel() * t.element_size() for t in tensors))

@@ -53,6 +53,11 @@ class GraphCtx(NamedTuple):
     # region-length cap: 1 = off, 2 = chains of at most two layers, ...,
     # 0 = unlimited
     fusion_depth: int = 1
+    # training dropout hook: (x, rate, key, slot) -> out, given the step's
+    # key unfolded.  When set, it draws the masks in place of ``ops.dropout``
+    # over ``fold_in(key, slot)`` (the SPMD trainer draws one mask per mesh
+    # position, as roc_tpu's shard_map body does).
+    dropout: Optional[Callable] = None
 
 
 class Unit(NamedTuple):
@@ -471,6 +476,11 @@ class Model:
                 m["aggregate"].attrs["aggr"], m["fold"])
         if op.kind == "dropout":
             live = train and op.attrs["rate"] != 0.0
+            if live and gctx.dropout is not None:
+                if key is None:
+                    raise ValueError("training dropout needs a PRNG key")
+                return gctx.dropout(a, op.attrs["rate"], key,
+                                    op.attrs["slot"])
             k = (prng.fold_in(key, op.attrs["slot"])
                  if live and key is not None else None)
             return ops.dropout(a, op.attrs["rate"], train, k)

@@ -3,7 +3,9 @@ time that flags an epoch slower than ``ratio`` x the mean, the non-finite
 step feed of the fault guard, the streaming executor's two stall feeds
 (the ring's stall fraction, the spill writes' stall fraction), the serving
 feeds (the engine's p99, the delta manager's apply time, the fleet's
-replication lag) and the calibration ledger's per-model ratio EWMAs.
+replication lag), the calibration ledger's per-model ratio EWMAs and the
+balancer's per-part stragglers (a probe time over ``straggler_ratio`` x
+the median).
 
 roc_tpu can seed the EWMA from its committed TPU kernel budgets
 (``seed_for_graph``); no TPU number describes this port's card, so the
@@ -26,6 +28,7 @@ DEFAULT_WARMUP = 2         # observe this many epochs before judging
 # EWMA leaves this band (wide: the alert is for "the model stopped
 # describing reality", not for 20 % noise)
 CALIBRATION_BAND = (0.5, 2.0)
+STRAGGLER_RATIO = 2.0      # part alert when t > ratio x median part time
 
 
 class PerfWatchdog:
@@ -42,8 +45,10 @@ class PerfWatchdog:
     def __init__(self, ratio: float = DEFAULT_RATIO,
                  alpha: float = DEFAULT_ALPHA,
                  warmup: int = DEFAULT_WARMUP,
-                 calibration_band=CALIBRATION_BAND):
+                 calibration_band=CALIBRATION_BAND,
+                 straggler_ratio: float = STRAGGLER_RATIO):
         self.ratio = float(ratio)
+        self.straggler_ratio = float(straggler_ratio)
         self.alpha = float(alpha)
         self.warmup = int(warmup)
         self.seeded = False
@@ -199,6 +204,24 @@ class PerfWatchdog:
         return self._observe_latency("fleet-lag", "fleet", "event", event,
                                      "lag_s", lag_s,
                                      shed_rate=float(shed_rate))
+
+    def observe_shards(self, epoch: int, times_s) -> List[dict]:
+        """Feed per-part probe times (balance/manager.py's samples);
+        returns straggler alerts (possibly empty)."""
+        times = [float(t) for t in times_s if t and t > 0]
+        if len(times) < 2:
+            return []
+        med = sorted(times)[len(times) // 2]
+        if med <= 0:
+            return []
+        alerts = []
+        for part, t in enumerate(times):
+            if t > self.straggler_ratio * med:
+                alerts.append({"kind": "straggler", "epoch": int(epoch),
+                               "part": part, "time_s": t,
+                               "median_s": med, "ratio": t / med})
+        self.alerts.extend(alerts)
+        return alerts
 
     def observe_calibration(self, model: str, ratio: float,
                             epoch: int = -1) -> Optional[dict]:

@@ -50,8 +50,9 @@ predicts the epoch's wire bytes (the port's own
 every transfer) and the transfer seconds (the bytes over
 ``stream/host.py``'s ``STREAM_BW_BYTES_S``); each epoch measures them.
 
-Not ported: ``reshard`` (the balancer's, ROADMAP queue A item 7) and the
-GraphStub / ``.lux`` byte-range branch (``shard_load``, ``-perhost``).
+Not ported: ``reshard`` (the balancer's) and streaming a GraphStub
+(``shard_load``'s ``.lux`` byte ranges): both belong to the multi-process
+slice (ROADMAP queue A item 7).
 """
 
 from __future__ import annotations
@@ -68,6 +69,7 @@ from roc_tpu_torch.fault.guard import guarded_update, nan_scale
 from roc_tpu_torch.graph.partition import _round_up, partition_graph
 from roc_tpu_torch.graph.lux import MASK_NONE
 from roc_tpu_torch.obs.ledger import content_key, get_ledger
+from roc_tpu_torch.parallel.halo import part_csrs
 from roc_tpu_torch.ops import prng
 from roc_tpu_torch.ops.softmax import PerfMetrics
 from roc_tpu_torch.stream import host as stream_host
@@ -128,29 +130,6 @@ def _stream_maps(meta, edge_src, K_force=None):
     return K, tbl_idx, esrc_local
 
 
-def _shard_csrs(esrc_local, edge_dst, S: int, T: int, edge_map: bool):
-    """Each shard's CSR (S rows over T table rows) and its transpose (T
-    rows over S), built once: ``(row_ptr [P, S+1], col [P, E], t_row_ptr
-    [P, T+1], t_col [P, E], t_pos [P, E] or None)``.  A shard's edges are
-    already in destination order (pad edges last, on row S-1), so the
-    CSR's sources are ``esrc_local`` as it is; the transpose is its stable
-    sort by source, as ``Csr.transpose`` builds it."""
-    P, E = esrc_local.shape
-    row_ptr = np.zeros((P, S + 1), np.int64)
-    t_row_ptr = np.zeros((P, T + 1), np.int64)
-    t_col = np.empty((P, E), np.int32)
-    t_pos = np.empty((P, E), np.int32) if edge_map else None
-    for i in range(P):
-        np.cumsum(np.bincount(edge_dst[i], minlength=S), out=row_ptr[i, 1:])
-        order = np.argsort(esrc_local[i], kind="stable")
-        t_col[i] = edge_dst[i][order]
-        np.cumsum(np.bincount(esrc_local[i], minlength=T),
-                  out=t_row_ptr[i, 1:])
-        if edge_map:
-            t_pos[i, order] = np.arange(E, dtype=np.int32)
-    return row_ptr, esrc_local, t_row_ptr, t_col, t_pos
-
-
 def _narrow(a: np.ndarray, bound: int, compact: bool) -> np.ndarray:
     """The 16-bit edge wire of the bf16 tier: indices below ``bound`` <=
     2^16 as int16 words (widened on the card), else int32."""
@@ -195,6 +174,12 @@ class StreamTrainer(Trainer):
         if P < 2:
             raise SystemExit("error: -stream needs -parts >= 2 (one slot "
                              "computing, at least one in flight)")
+        if cfg.bf16_storage and (cfg.bf16_rounding != "nearest"
+                                 or cfg.bf16_exchange != "plain"):
+            raise SystemExit("error: -stream bf16 slots implement the "
+                             "nearest/plain wire contract only (stochastic "
+                             "rounding and compensated exchange live in the "
+                             "SPMD trainer's exchange codec)")
         if getattr(self, "_ring", None) is not None:
             self.close()
         self._P = P
@@ -281,7 +266,7 @@ class StreamTrainer(Trainer):
         self._T = T = S + P * K
         self._tbl_idx = tbl_idx
         self._tbl_idx_t = torch.from_numpy(tbl_idx)
-        row_ptr, col, t_row_ptr, t_col, t_pos = _shard_csrs(
+        row_ptr, col, t_row_ptr, t_col, t_pos = part_csrs(
             esrc_local, np.asarray(edge_dst, np.int64), S, T, self._edge_map)
         compact = self._bf16
         to_store = stream_host.to_store

@@ -1,6 +1,6 @@
 """Run configuration and CLI (roc_tpu/train/config.py), holding the fields
-the ported serving, training, graph-input, run-control, memory-planner and
-streaming paths read.
+the ported serving, training, graph-input, run-control, memory-planner,
+streaming and sharding paths read.
 Defaults, flag names, dests, environment mirrors and refusals match the
 JAX package's (config.py:264-392, 398-508): a bad value exits with
 SystemExit.  ``-device`` is the port's own."""
@@ -49,8 +49,9 @@ class Config:
     heads: int = 8                # attention heads (gat only)
     aggr: str = ""                # "" = the model's default
     seed: int = 1
-    num_parts: int = 1            # shards: > 1 only with -stream here (the
-                                  # SPMD trainer is not ported)
+    num_parts: int = 1            # parts: > 1 trains them through the
+                                  # SPMD trainer (parallel/), or with
+                                  # -stream through the streaming executor
     aggregate_backend: str = "auto"  # auto | xla | matmul | pallas | binned
     aggregate_precision: str = "fast"  # fast: one bf16 rounding of features
                                   # at aggregation input, fp32 accumulation;
@@ -80,7 +81,36 @@ class Config:
     bf16_storage: bool = False    # bf16 feature storage, fp32 accumulation
                                   # (-bf16-storage): on one device in fast
                                   # the sums already stage bf16, so it
-                                  # changes no bit there
+                                  # changes no bit there; under -parts the
+                                  # exchanges move bf16 (parallel/wire.py)
+    bf16_rounding: str = "nearest"  # the wire's rounding: nearest |
+                                  # stochastic (straight-through gradient)
+    bf16_exchange: str = "plain"  # plain | compensated: a (hi, lo) bf16
+                                  # pair, fp32's bytes again
+    halo: bool = True             # halo exchange vs allgather (-no-halo)
+    exchange: str = ""            # halo | allgather | ring ("" derives it
+                                  # from halo); ring waits for the
+                                  # multi-process slice and is refused
+    halo_overlap: bool = True     # split each part's edges into local- and
+                                  # remote-source CSRs (k = 1, halo,
+                                  # kernel backend, sum/avg); off:
+                                  # -no-halo-overlap
+    check_sharding: bool = False  # the CLI checks sharded == one device
+                                  # before training (parallel/check.py)
+    multihost: bool = False       # torch.distributed across processes:
+                                  # refused until the multi-process slice
+    perhost_load: bool = False    # build the parts from the .lux byte
+                                  # ranges (graph/shard_load.py); -file,
+                                  # k = 1
+    edge_shard: object = "auto"   # on | off | auto: edge sharding waits
+                                  # for the multi-process slice; auto exits
+                                  # where roc_tpu would choose it
+    balance_every: int = 0        # online balancer cadence in epochs
+                                  # (balance/); 0 = off.  SPMD vertex modes
+                                  # at k = 1; elsewhere ignored with a note
+    balance_min_gain: float = 0.05  # reshard only when the predicted
+                                  # max-part time drops by this fraction
+    balance_trace: str = ""       # the balancer's JSONL trace ("" = none)
     fault: str = ""               # fault-injection spec (fault/inject.py),
                                   # e.g. "seed=3,step.nan=1"; "" = disarmed
     profile_dir: str = ""         # torch.profiler trace directory
@@ -110,6 +140,16 @@ class Config:
 
     def __post_init__(self):
         env = os.environ
+        try:
+            if "ROC_BALANCE_EVERY" in env:
+                self.balance_every = int(env["ROC_BALANCE_EVERY"])
+            if "ROC_BALANCE_MIN_GAIN" in env:
+                self.balance_min_gain = float(env["ROC_BALANCE_MIN_GAIN"])
+        except ValueError:
+            raise SystemExit("ROC_BALANCE_EVERY / ROC_BALANCE_MIN_GAIN "
+                             "must be numeric")
+        if env.get("ROC_BALANCE_TRACE"):
+            self.balance_trace = env["ROC_BALANCE_TRACE"]
         if self.aggregate_backend not in BACKENDS:
             raise SystemExit(f"aggregate_backend={self.aggregate_backend!r}:"
                              f" one of {'|'.join(BACKENDS)}")
@@ -121,6 +161,16 @@ class Config:
                              f"{self.decay_steps} must be >= 1")
         if env.get("ROC_BF16_STORAGE"):
             self.bf16_storage = env["ROC_BF16_STORAGE"] == "1"
+        if env.get("ROC_BF16_ROUNDING"):
+            self.bf16_rounding = env["ROC_BF16_ROUNDING"]
+        if env.get("ROC_BF16_EXCHANGE"):
+            self.bf16_exchange = env["ROC_BF16_EXCHANGE"]
+        if self.bf16_rounding not in ("nearest", "stochastic"):
+            raise SystemExit(f"bad bf16_rounding {self.bf16_rounding!r} "
+                             "(nearest|stochastic)")
+        if self.bf16_exchange not in ("plain", "compensated"):
+            raise SystemExit(f"bad bf16_exchange {self.bf16_exchange!r} "
+                             "(plain|compensated)")
         if self.fusion_depth < 0:
             raise SystemExit(f"bad fusion_depth {self.fusion_depth} "
                              "(0 = full, 1 = off, >=2 = cap)")
@@ -195,6 +245,10 @@ class Config:
             except ValueError as e:
                 raise SystemExit(f"bad -fault spec {self.fault!r}: {e}")
 
+    def exchange_mode(self) -> str:
+        """The effective exchange ('halo' | 'allgather' | 'ring')."""
+        return self.exchange or ("halo" if self.halo else "allgather")
+
     def mem_budget_bytes(self) -> int:
         """-mem-budget in bytes (0 = unset: the card's memory)."""
         return parse_size(self.mem_budget)
@@ -221,7 +275,8 @@ class Config:
 def parse_args(argv: List[str]) -> Config:
     p = argparse.ArgumentParser(
         prog="roc_tpu_torch",
-        description="full-graph GNN training on one NVIDIA GPU")
+        description="full-graph GNN training on one NVIDIA GPU (-parts N: "
+                    "N parts on it)")
     p.add_argument("-file", dest="filename", default="")
     p.add_argument("-dataset", default="")
     p.add_argument("-layers", default="",
@@ -266,6 +321,26 @@ def parse_args(argv: List[str]) -> Config:
     p.add_argument("-bf16", dest="use_bf16", action="store_true")
     p.add_argument("-bf16-storage", dest="bf16_storage",
                    action="store_true")
+    p.add_argument("-bf16-rounding", dest="bf16_rounding",
+                   default="nearest", choices=["nearest", "stochastic"])
+    p.add_argument("-bf16-exchange", dest="bf16_exchange",
+                   default="plain", choices=["plain", "compensated"])
+    p.add_argument("-no-halo", dest="halo", action="store_false")
+    p.add_argument("-no-halo-overlap", dest="halo_overlap",
+                   action="store_false")
+    p.add_argument("-exchange", dest="exchange", default="",
+                   choices=["", "halo", "allgather", "ring"])
+    p.add_argument("-check-sharding", dest="check_sharding",
+                   action="store_true")
+    p.add_argument("-multihost", action="store_true")
+    p.add_argument("-perhost", dest="perhost_load", action="store_true")
+    p.add_argument("-edge-shard", dest="edge_shard", nargs="?", const="on",
+                   default="auto", choices=["on", "off", "auto"])
+    p.add_argument("-balance-every", dest="balance_every", type=int,
+                   default=0)
+    p.add_argument("-balance-min-gain", dest="balance_min_gain", type=float,
+                   default=0.05)
+    p.add_argument("-balance-trace", dest="balance_trace", default="")
     p.add_argument("-profile", dest="profile_dir", default="")
     p.add_argument("-profile-epochs", dest="profile_epochs", default="",
                    help="profiler window START:COUNT relative to the first "

@@ -54,11 +54,15 @@ prediction on the CPU (``peak_hbm_source``).
 
 ``make_trainer`` picks the trainer (driver.py:1170-1196): the streaming
 executor under ``-stream`` (``stream/executor.py``), else the
-``-stream-budget`` gate, else this single-device trainer; ``-parts > 1``
-without ``-stream`` exits, since the SPMD trainer is not ported.
+``-stream-budget`` gate, else the SPMD trainer for ``-parts > 1``
+(``parallel/spmd.py``), else this single-device trainer.
 
-Not ported yet (ROADMAP queue A): the online balancer and the SPMD
-trainer.
+The online balancer (driver.py:505-530, 969-1000; ``balance/``): with
+``-balance-every N`` a trainer that can reshard (the SPMD trainer's vertex
+modes at k = 1) runs a balance round every N epochs, never after the last;
+any other trainer ignores the flag with a note under ``-v``.  Each epoch's
+time goes into the balancer's telemetry; the rounds' decisions come back
+in ``TrainStats.rebalance_events``.
 """
 
 from __future__ import annotations
@@ -69,7 +73,6 @@ import signal
 import threading
 from typing import Optional
 
-import numpy as np
 import torch
 
 from roc_tpu_torch import obs
@@ -117,6 +120,7 @@ class TrainStats:
     final_loss: float
     peak_hbm_bytes: list = dataclasses.field(default_factory=list)
     peak_hbm_source: str = ""
+    rebalance_events: list = dataclasses.field(default_factory=list)
 
 
 def device_sync(device: torch.device) -> None:
@@ -157,9 +161,38 @@ class Trainer:
         self._stop_signal = None
         self._obs_init()
         self._setup()
+        self.balancer = None
+        if config.balance_every:
+            if self._balance_supported():
+                self._balancer_init()
+            elif config.verbose:
+                print("# -balance-every: online balancing needs the SPMD "
+                      "vertex-sharded path (parts > 1, k = 1, no "
+                      "-perhost); disabled for this run")
         if config.resume and config.checkpoint_path and \
                 os.path.exists(config.checkpoint_path):
             self.restore(config.checkpoint_path)
+
+    def _balance_supported(self) -> bool:
+        """Can this trainer apply a repartition mid-run?  The SPMD trainer
+        overrides this for the modes its ``reshard`` handles."""
+        return False
+
+    def _balancer_init(self):
+        """The balancer, its warm-start prior priced at the run's halo
+        bytes (the dataset's width, 2-byte rows under bf16 storage or
+        bf16 features); under -obs its telemetry joins the metrics stream
+        unless -balance-trace names a file of its own."""
+        from roc_tpu_torch.balance import BalanceManager, TelemetryBuffer
+        cfg = self.config
+        wire2 = cfg.bf16_storage or cfg.use_bf16
+        shared = None
+        if self._metrics is not None and not cfg.balance_trace:
+            shared = TelemetryBuffer(trace_path=self._metrics.jsonl_path)
+        self.balancer = BalanceManager.from_config(
+            cfg, halo_width=self.dataset.in_dim,
+            halo_itemsize=2 if wire2 else 4, telemetry=shared)
+        self.balancer.watchdog = self.watchdog
 
     def _setup(self):
         """Place the graph data, features, labels and mask, build the graph
@@ -270,8 +303,8 @@ class Trainer:
             precision=cfg.aggregate_precision)
         self._roofline_on = self.device.type == "cuda"
         # what roc_tpu's single-device step reports: no wire, and the sum
-        # of the in-degrees as the one shard's edges
-        self._obs_edges = [int(np.sum(self.dataset.graph.in_degrees))]
+        # of the in-degrees (the edge count) as the one shard's edges
+        self._obs_edges = [int(g.num_edges)]
         self.watchdog = obs.PerfWatchdog()
 
     def _obs_epoch(self, epoch: int, wall_s: float, loss, print_fn):
@@ -284,7 +317,7 @@ class Trainer:
                 [loss.to(torch.float32), self._last_gnorm,
                  global_norm(self.params)]).tolist()
         extra = self._obs_epoch_extra(epoch) or {}
-        wire = int(extra.get("stream_bytes", 0))
+        wire = int(extra.pop("wire_bytes", extra.get("stream_bytes", 0)))
         if self._roofline_on:
             flops, nbytes = self._roofline_fb
             m = roofline.mfu(flops, wall_s)
@@ -516,6 +549,7 @@ class Trainer:
         self.epoch_times = []
         peaks = []
         peak_src = ""
+        rebalance_events = []
         loss: Optional[torch.Tensor] = None
         start = self.epoch
         # the profiler window, clamped into the run (driver.py:928-931)
@@ -541,6 +575,10 @@ class Trainer:
                     self.epoch_times.append(sp_epoch.dur_s)
                     hbm, peak_src = self._peak_hbm()
                     peaks.append(hbm)
+                    if self.balancer is not None:
+                        self.balancer.telemetry.record_epoch(
+                            epoch, self.epoch_times[-1], peak_hbm=hbm,
+                            peak_hbm_source=peak_src)
                     self._obs_epoch(epoch, sp_epoch.dur_s, loss, print_fn)
                     self._check_nonfinite(epoch, print_fn)
                     if prof is not None and epoch + 1 == prof_stop:
@@ -554,6 +592,20 @@ class Trainer:
                             (epoch + 1) % cfg.checkpoint_every == 0):
                         with obs.span("checkpoint", epoch=epoch):
                             self.save_checkpoint(cfg.checkpoint_path)
+                    # a balance round at the epoch boundary, never after
+                    # the last epoch (nothing left to speed up)
+                    done = epoch + 1 - start
+                    if (self.balancer is not None and done < cfg.num_epochs
+                            and done % cfg.balance_every == 0):
+                        ev = self.balancer.step(self, epoch + 1,
+                                                cfg.num_epochs - done)
+                        if ev is not None:
+                            rebalance_events.append(ev)
+                            if cfg.verbose:
+                                print_fn(f"# balance@{epoch + 1}: "
+                                         f"{ev['action']} (pred gain "
+                                         f"{ev['rel_gain'] * 100:.1f}%, "
+                                         f"r2 {ev['r2']:.3f})")
                     if self._stop_signal is not None:
                         name = signal.Signals(self._stop_signal).name
                         print_fn(f"# fault: {name} received — epoch "
@@ -582,7 +634,8 @@ class Trainer:
             epoch_times=list(self.epoch_times), total_s=dt,
             epochs=cfg.num_epochs,
             final_loss=float("nan") if loss is None else float(loss),
-            peak_hbm_bytes=peaks, peak_hbm_source=peak_src)
+            peak_hbm_bytes=peaks, peak_hbm_source=peak_src,
+            rebalance_events=rebalance_events)
         self._obs_finish(stats, print_fn)
         return stats
 
@@ -612,6 +665,12 @@ class Trainer:
         if self.watchdog is not None and "watchdog" in extra:
             self.watchdog.load_state(extra["watchdog"])
         self.nonfinite_skips = int(extra.get("nonfinite_skips", 0))
+        self._restore_extra(extra)
+
+    def _restore_extra(self, extra: dict) -> None:
+        """Trainer-specific state of a checkpoint's ``extra`` record (the
+        SPMD trainer's cut)."""
+        del extra
 
 
 def _fmt_bytes(b: int) -> str:
@@ -621,9 +680,17 @@ def _fmt_bytes(b: int) -> str:
 def make_trainer(config: Config, dataset: Dataset, model: Model) -> Trainer:
     """The one place that builds a trainer (driver.py:1170-1196): the
     streaming executor under -stream; otherwise the -stream-budget gate,
-    then the single-device trainer.  -parts > 1 without -stream exits: the
-    SPMD trainer is not ported (ROADMAP queue A item 7), and one device
-    never stands in for it."""
+    then the SPMD trainer for -parts > 1 (its parts on the run's device,
+    k = -parts), else the single-device trainer.  A graph stub (-perhost
+    loading) trains only through the SPMD trainer's -perhost path."""
+    from roc_tpu_torch.graph.datasets import GraphStub
+    stub = isinstance(dataset.graph, GraphStub)
+    if stub and not (config.perhost_load and config.num_parts > 1
+                     and not config.stream):
+        raise SystemExit(
+            "error: a graph stub (load_roc_dataset(graph_stub=True)) holds "
+            "no topology: only -perhost with -parts > 1 (and without "
+            "-stream) builds the parts from the .lux byte ranges")
     if config.stream:
         from roc_tpu_torch.stream.executor import StreamTrainer
         return StreamTrainer(config, dataset, model)
@@ -640,9 +707,11 @@ def make_trainer(config: Config, dataset: Dataset, model: Model) -> Trainer:
                 f"hold the boundary stores, and -bf16-storage to halve "
                 f"the streamed bytes)")
     if config.num_parts > 1:
+        from roc_tpu_torch.parallel.spmd import SpmdTrainer
+        return SpmdTrainer(config, dataset, model)
+    if config.multihost:
         raise SystemExit(
-            f"error: -parts {config.num_parts} without -stream needs the "
-            f"SPMD trainer, which roc_tpu_torch does not have yet (ROADMAP "
-            f"queue A item 7); add -stream to train the shards on one "
-            f"device, or drop -parts")
+            "error: -multihost (torch.distributed across processes) "
+            "belongs to the multi-process slice of the port (ROADMAP queue "
+            "A item 7); drop it to train on this process's device")
     return Trainer(config, dataset, model)

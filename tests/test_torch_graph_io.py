@@ -227,9 +227,24 @@ def test_load_roc_dataset_matches_roc_tpu(tmp_path, lazy):
 
 
 def test_graph_stub_is_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
-        datasets.load_roc_dataset(str(tmp_path / "d"), 5, 3,
-                                  graph_stub=True)
+    """A graph stub holds the header only: every trainer but the -perhost
+    SPMD path refuses it (tests/test_torch_shard_load.py trains that)."""
+    from roc_tpu_torch.models import build_model
+    from roc_tpu_torch.train.config import Config
+    from roc_tpu_torch.train.driver import make_trainer
+    ds = _synthetic(n=96, seed=5)
+    prefix = str(tmp_path / "d")
+    _write_port(prefix, ds)
+    stub = datasets.load_roc_dataset(prefix, ds.in_dim, ds.num_classes,
+                                     graph_stub=True)
+    assert (stub.graph.num_nodes, stub.graph.num_edges) == \
+        (ds.graph.num_nodes, ds.graph.num_edges)
+    model = build_model("gcn", [ds.in_dim, 8, ds.num_classes])
+    for kw in ({}, {"num_parts": 4}, {"num_parts": 4, "stream": True,
+                                      "perhost_load": True}):
+        with pytest.raises(SystemExit, match="graph stub"):
+            make_trainer(Config(layers=[ds.in_dim, 8, ds.num_classes],
+                                device="cpu", **kw), stub, model)
 
 
 # -- a lazy dataset on the device ----------------------------------------------

@@ -51,7 +51,14 @@ need = {"roc_tpu_torch.__main__", "roc_tpu_torch.fault.guard",
         "roc_tpu_torch.fleet.__main__", "roc_tpu_torch.fleet.replica",
         "roc_tpu_torch.fleet.replog", "roc_tpu_torch.fleet.router",
         "roc_tpu_torch.obs.ledger", "roc_tpu_torch.obs.report",
-        "roc_tpu_torch.obs.__main__", "roc_tpu_torch.fault.__main__"}
+        "roc_tpu_torch.obs.__main__", "roc_tpu_torch.fault.__main__",
+        "roc_tpu_torch.parallel", "roc_tpu_torch.parallel.mesh",
+        "roc_tpu_torch.parallel.halo", "roc_tpu_torch.parallel.wire",
+        "roc_tpu_torch.parallel.spmd", "roc_tpu_torch.parallel.check",
+        "roc_tpu_torch.parallel.budget", "roc_tpu_torch.balance",
+        "roc_tpu_torch.balance.telemetry", "roc_tpu_torch.balance.search",
+        "roc_tpu_torch.balance.cost_model", "roc_tpu_torch.balance.manager",
+        "roc_tpu_torch.graph.shard_load"}
 assert need <= set(names), need - set(names)
 print(len(names), bad)
 assert not bad, bad

@@ -403,7 +403,7 @@ def test_stream_slots_fit_where_incore_does_not():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(parts=4), "SPMD trainer"),
+    (dict(parts=4, exchange="ring"), "SPMD trainer"),
     (dict(stream=True, parts=1), "needs -parts >= 2"),
     (dict(stream=True, parts=4, use_bf16=True), "-stream computes in fp32")])
 def test_stream_refusals(kw, match):
