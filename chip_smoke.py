@@ -300,6 +300,37 @@ Phases, each printing one JSON line per record:
           reddit-small, within 1e-3 of stream's in-core GAT.  No plain
           version (sums, stagings, dropout, GAT) runs on the card.
 
+  spmd_modes  the rest of the SPMD trainer on the k = 1 layout (mesh
+          [cuda:0] * 4), fast: (a) -exchange ring, GCN 602-256-41 on
+          Reddit, dropout 0.5 for 5 epochs (epoch ms, peak, host build
+          seconds of the groups and their CSRs, wire bytes, launches; per
+          step 4 aggregate_sum and 4 stage_plane a non-empty owner group,
+          12 dropout: one a mesh position), then the same trainer from its init at dropout 0 for
+          3 epochs within 1e-3 of stream's in-core losses, and SAGE -aggr
+          max on reddit-small against one device (1e-3); (b) -edge-shard
+          on, the same prints and checks (span_fwd, span_bwd, the edge
+          tax; per step 4 sums and stagings a block), and a hub graph at
+          Reddit's node count (one hub of 12 in-edges a vertex, 3x E/P),
+          2 epochs a mode: -edge-shard auto picks edge mode, its loss
+          within 1e-3 of -edge-shard off's, both modes' epoch ms and
+          taxes; (c) GAT 602-64-41, 4 heads, reddit-small, ring then edge
+          (their attention plain fp32, as roc_tpu's is XLA), within 1e-3
+          of the single-device GAT in exact; (d) -bf16-storage ring
+          within 5e-2 of (a); (e) reddit-small's .lux and .t.lux in a
+          temporary directory the phase removes: -perhost -edge-shard on
+          and -perhost -exchange ring bitwise the full builds (blocks,
+          windows, groups, CSRs, node tensors, first loss), -stream on the
+          graph stub bitwise the full graph's streamed losses, -stream
+          -balance-every 1 -e 3 from a 55/15/15/15 % cut with at least
+          one reshard (its seconds) within 1e-3 of the unbalanced run; (f)
+          -multihost as a world of one over NCCL: the CLI in a subprocess
+          with RANK=0 WORLD_SIZE=1 LOCAL_RANK=0 on a free port, -parts 4,
+          halo then ring on reddit-small, 3 epochs: NCCL collectives
+          counted, losses within 1e-5 of the single-process trainer's
+          (each run's epoch ms beside the other's), the checkpoint
+          restored within 1e-5 of its params.  No plain
+          version runs on the card; the phase prints its seconds.
+
 Then the ``kernels`` line, the card's name and power limit as nvidia-smi
 gives them, and last ``{"ok": true, "device": {...}}``.  Any failure
 raises and the exit code is non-zero; without CUDA the script exits 2
@@ -2036,7 +2067,7 @@ def _trainer(ds, layers, dev, **kw):
     cfg = Config(dataset=ds.name, layers=layers, seed=SEED,
                  device=str(dev), **kw)
     return Trainer(cfg, ds, build_model(cfg.model, layers, cfg.dropout_rate,
-                                        heads=cfg.heads))
+                                        cfg.aggr, heads=cfg.heads))
 
 
 def _quiet(*a, **k):
@@ -3053,20 +3084,21 @@ def phase_mem_plan(ds, dev) -> dict:
     return out
 
 
-def _stream_trainer(ds, layers, dev, **kw):
-    from roc_tpu_torch.models import build_model
+def _stream_config(ds, layers, dev, **kw):
     from roc_tpu_torch.train.config import Config
-    from roc_tpu_torch.train.driver import make_trainer
     base = dict(num_epochs=3, learning_rate=0.01, weight_decay=0.0001,
                 dropout_rate=0.0, eval_every=10**9,
                 aggregate_precision="fast", stream=True, num_parts=4,
                 stream_slots=2, heads=4)
     base.update(kw)
-    cfg = Config(dataset=ds.name, layers=layers, seed=SEED, device=str(dev),
-                 **base)
-    return make_trainer(cfg, ds, build_model(cfg.model, layers,
-                                             cfg.dropout_rate,
-                                             heads=cfg.heads))
+    return Config(dataset=ds.name, layers=layers, seed=SEED,
+                  device=str(dev), **base)
+
+
+def _stream_trainer(ds, layers, dev, **kw):
+    from roc_tpu_torch.train.driver import make_trainer
+    cfg = _stream_config(ds, layers, dev, **kw)
+    return make_trainer(cfg, ds, _spmd_model(cfg))
 
 
 def _epochs(tr, dev, n=3) -> dict:
@@ -3720,7 +3752,7 @@ def _spmd_trainer(ds, layers, dev, devices=None, bounds=None, **kw):
     base.update(kw)
     cfg = Config(dataset=ds.name, layers=layers, seed=SEED,
                  device=str(dev), **base)
-    model = build_model(cfg.model, layers, cfg.dropout_rate,
+    model = build_model(cfg.model, layers, cfg.dropout_rate, cfg.aggr,
                         heads=cfg.heads)
     t0 = time.perf_counter()
     if devices is None and bounds is None:
@@ -4000,6 +4032,448 @@ def phase_spmd(ds, dev, single5=None, single3=None, gat_single=None
     return rec
 
 
+def _retrain(tr, dropout: float) -> None:
+    """A built SPMD trainer back to its init at another dropout rate: the
+    model rebuilt, params, Adam state, rate and epoch reset; its graph
+    data and node tensors kept (the build is the expensive part)."""
+    import dataclasses
+
+    from roc_tpu_torch.models import build_model
+    cfg = tr.config = dataclasses.replace(tr.config, dropout_rate=dropout)
+    tr.model = build_model(cfg.model, cfg.layers, dropout, cfg.aggr,
+                           heads=cfg.heads)
+    tr.params = tr.model.init_params(tr.key, device=tr.device)
+    tr.opt_state = tr.optimizer.init(tr.params)
+    tr.optimizer.alpha = cfg.learning_rate
+    tr.epoch = 0
+    tr._resolve_mem_plan()
+    tr._loss = tr._loss_fn()
+
+
+def _mode_geometry(tr) -> dict:
+    """The ring's groups or the edge cut's blocks of a built trainer."""
+    from roc_tpu_torch.parallel.spmd import padded_max_tax
+    gd = tr.gdata
+    out = {"mode": gd.mode, "build_s": dict(tr.build_s),
+           "wire_bytes": tr.wire_bytes(),
+           "shard_nodes": int(tr.part.shard_nodes),
+           "padded_max_tax": float(padded_max_tax(tr.part))}
+    if gd.mode == "ring":
+        sizes = [int(c.col_idx.numel()) if c is not None else 0
+                 for row in gd.ring for c in row]
+        out.update(group_edges=sizes, groups=sum(1 for v in sizes if v),
+                   ring_width=int(tr.ring_maps.ring_src.shape[-1]))
+    elif gd.mode == "edge":
+        eb = gd.edge
+        out.update(block_edges=eb.block_edges, span_fwd=eb.span_fwd,
+                   span_bwd=eb.span_bwd, edge_tax=tr.edge_tax(),
+                   fwd_base=[int(b) for b in eb.fwd_base],
+                   bwd_base=[int(b) for b in eb.bwd_base])
+    return out
+
+
+def _mode_leg(ds, layers, dev, mesh, n, **kw) -> tuple:
+    """Build one SPMD trainer on the mesh and run ``n`` epochs: (trainer,
+    the leg's record with its geometry and per-step launches)."""
+    tr, build_s = _spmd_trainer(ds, layers, dev, devices=mesh, **kw)
+    leg = _epochs(tr, dev, n)
+    leg.update(_mode_geometry(tr), trainer_build_s=build_s,
+               epoch_ms=[t * 1e3 for t in leg["epoch_s"]])
+    return tr, leg
+
+
+def _step_launches(tr, dev) -> dict:
+    reset_launches()
+    tr.run_epoch()
+    torch.cuda.synchronize(dev)
+    return read_launches()
+
+
+def _hub_dataset(n: int, layers):
+    """roc_tpu's hub recipe (tests/test_edge_shard.py:24) at n vertices:
+    3n random edges and one hub with 12n in-edges (3x E/P at P = 4), self
+    edges added; Gaussian features and random labels, half train."""
+    from roc_tpu_torch.graph.csr import add_self_edges, from_edges
+    from roc_tpu_torch.graph.datasets import Dataset
+    from roc_tpu_torch.graph.lux import one_hot
+    rng = np.random.default_rng(SEED)
+    s = rng.integers(0, n, size=3 * n)
+    d = rng.integers(0, n, size=3 * n)
+    s = np.concatenate([s, rng.integers(0, n, size=12 * n)])
+    d = np.concatenate([d, np.zeros(12 * n, np.int64)])
+    keep = s != d
+    g = add_self_edges(from_edges(n, s[keep], d[keep]))
+    lab = rng.integers(0, layers[-1], size=n)
+    mask = np.where(rng.random(n) < 0.5, 1, 2).astype(np.int32)
+    feats = rng.standard_normal((n, layers[0]), dtype=np.float32)
+    return Dataset("hub", g, feats, one_hot(lab, layers[-1]), lab, mask,
+                   layers[0], layers[-1])
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _multihost_child(argv_json: str, out: str) -> None:
+    """One -multihost process: the CLI's main under the plain spy; its
+    exit code, kernel launches and collectives go to ``out``."""
+    from roc_tpu_torch.__main__ import main as cli
+    from roc_tpu_torch.parallel import collectives
+    reset_launches()
+    with _SpmdSpy() as spy:
+        rc = cli(json.loads(argv_json))
+    with open(out, "w") as f:
+        json.dump({"rc": rc, "launches": read_launches(),
+                   "collectives": collectives.launches(),
+                   "plain_calls": spy.calls}, f)
+
+
+def _multihost_run(argv, tmp) -> dict:
+    """The CLI as a world of one (torchrun's variables, a free port) in a
+    subprocess; a non-zero exit fails the phase."""
+    out = os.path.join(tmp, "child.json")
+    env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()))
+    t0 = time.perf_counter()
+    p = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke as c; "
+         "c._multihost_child(sys.argv[1], sys.argv[2])", json.dumps(argv),
+         out], cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+        capture_output=True, text=True, timeout=600)
+    if p.returncode != 0:
+        raise AssertionError(f"the -multihost child exited "
+                             f"{p.returncode}: {p.stderr[-3000:]}")
+    with open(out) as f:
+        rec = json.load(f)
+    rec["wall_s"] = time.perf_counter() - t0
+    rec["stderr_tail"] = p.stderr.splitlines()[-4:]
+    return rec
+
+
+def _add_launches(*legs) -> dict:
+    return {k: sum(leg[k] for leg in legs) for k in legs[0]}
+
+
+def phase_spmd_modes(ds, dev, single3=None) -> dict:
+    """The ring exchange, edge sharding, per-host edge blocks and ring
+    groups, the streamed graph stub with its reshard, and -multihost as a
+    world of one over NCCL (legs a-f of the module docstring).  Each leg's
+    launches are counted from 0; no plain version runs on the card."""
+    import shutil
+    import tempfile
+
+    from roc_tpu_torch.graph import datasets, lux
+    from roc_tpu_torch.stream.executor import StreamTrainer
+    from roc_tpu_torch.train import checkpoint
+    t_phase = time.perf_counter()
+    layers, sl = LAYERS["gcn"], [602, 64, 41]
+    mesh = [dev] * SPMD_PARTS
+    rec = {"phase": "spmd_modes", "dataset": ds.name, "parts": SPMD_PARTS,
+           "layers": layers, "precision": "fast", "mesh": "k=1"}
+    small = datasets.get("reddit-small", seed=SEED)
+    if single3 is None:
+        inc = _trainer(ds, layers, dev, num_epochs=3, learning_rate=0.01,
+                       weight_decay=0.0001, dropout_rate=0.0,
+                       eval_every=10**9, aggregate_precision="fast")
+        single3 = _epochs(inc, dev)["losses"]
+        del inc
+        _free()
+    # ring and edge attention are plain fp32 (roc_tpu's are XLA): the
+    # single-device reference runs the GAT kernels in exact
+    gat_single = _epochs(_trainer(
+        small, sl, dev, num_epochs=3, learning_rate=0.01,
+        weight_decay=0.0001, dropout_rate=0.0, eval_every=10**9,
+        aggregate_precision="exact", model="gat", heads=4), dev)["losses"]
+    _free()
+    sage_single = _epochs(_trainer(
+        small, sl, dev, num_epochs=3, learning_rate=0.01,
+        weight_decay=0.0001, dropout_rate=0.0, eval_every=10**9,
+        aggregate_precision="fast", model="sage", aggr="max"), dev)["losses"]
+    _free()
+    launches = {}
+    with _SpmdSpy() as spy:
+        # a, b: ring and edge, GCN at full width
+        for name, kw in (("ring", {"exchange": "ring"}),
+                         ("edge", {"edge_shard": "on"})):
+            tr, leg = _mode_leg(ds, layers, dev, mesh, 5, num_epochs=5,
+                                dropout_rate=0.5, **kw)
+            leg["launches_per_step"] = _step_launches(tr, dev)
+            _retrain(tr, 0.0)
+            d0 = _epochs(tr, dev, 3)
+            leg["dropout0"] = {"losses": d0["losses"],
+                               "epoch_ms": [t * 1e3 for t in d0["epoch_s"]],
+                               "single_losses": list(single3),
+                               "loss_rel_err": _max_rel(d0["losses"],
+                                                        single3)}
+            leg["launches"] = _add_launches(leg["launches"], d0["launches"])
+            rec[name] = leg
+            del tr
+            _free()
+        # a: SAGE max on reddit-small under the ring
+        tr, sage = _mode_leg(small, sl, dev, mesh, 3, exchange="ring",
+                             model="sage", aggr="max")
+        sage.update(dataset="reddit-small", layers=sl, single_losses=list(
+            sage_single), loss_rel_err=_max_rel(sage["losses"], sage_single))
+        rec["ring_sage_max"] = sage
+        del tr
+        # b: the hub graph, auto against off
+        hub = _hub_dataset(ds.graph.num_nodes, layers)
+        t0 = time.perf_counter()
+        hub_rec = {"nodes": hub.graph.num_nodes,
+                   "edges": hub.graph.num_edges}
+        for name, mode in (("auto", "auto"), ("off", "off")):
+            tr, leg = _mode_leg(hub, layers, dev, mesh, 2, edge_shard=mode,
+                                num_epochs=2)
+            hub_rec[name] = leg
+            del tr
+            _free()
+        hub_rec.update(build_and_run_s=time.perf_counter() - t0,
+                       loss_rel_err=_max_rel(hub_rec["auto"]["losses"],
+                                             hub_rec["off"]["losses"]))
+        rec["hub"] = hub_rec
+        del hub
+        _free()
+        # c: GAT on reddit-small, ring then edge
+        gat = {}
+        for name, kw in (("ring", {"exchange": "ring"}),
+                         ("edge", {"edge_shard": "on"})):
+            tr, leg = _mode_leg(small, sl, dev, mesh, 3, model="gat",
+                                aggregate_precision="exact", **kw)
+            leg["loss_rel_err"] = _max_rel(leg["losses"], gat_single)
+            gat[name] = leg
+            del tr
+            _free()
+        rec["gat"] = dict(gat, dataset="reddit-small", layers=sl, heads=4,
+                          precision="exact",
+                          single_losses=list(gat_single))
+        # d: the bf16 wire under the ring
+        tr, bf = _mode_leg(ds, layers, dev, mesh, 3, exchange="ring",
+                           bf16_storage=True)
+        bf["loss_rel_err"] = _max_rel(bf["losses"],
+                                      rec["ring"]["dropout0"]["losses"])
+        bf["wire"] = list(tr.gdata.xch)
+        rec["ring_bf16"] = bf
+        del tr
+        _free()
+        from roc_tpu_torch.parallel import wire
+        wire.clear_bits()
+        # e: per-host loading and the streamed stub
+        tmp = tempfile.mkdtemp(prefix="roc_modes_")
+        try:
+            prefix = os.path.join(tmp, "reddit-small")
+            lux.write_dataset(prefix, small.graph, small.features,
+                              small.label_ids, small.mask)
+            lux.write_transpose(prefix, small.graph)
+            full_ds = datasets.load_roc_dataset(prefix, 602, 41)
+            stub_ds = datasets.load_roc_dataset(prefix, 602, 41,
+                                                graph_stub=True)
+            e = {}
+            for name, kw in (("edge", {"edge_shard": "on"}),
+                             ("ring", {"exchange": "ring"})):
+                full, _ = _spmd_trainer(full_ds, sl, dev, devices=mesh,
+                                        filename=prefix, **kw)
+                t0 = time.perf_counter()
+                per, _ = _spmd_trainer(stub_ds, sl, dev, devices=mesh,
+                                       filename=prefix, perhost_load=True,
+                                       **kw)
+                e[name] = {"perhost_build_s": time.perf_counter() - t0,
+                           "bitwise": _same_mode_build(per, full)}
+                reset_launches()
+                e[name].update(loss=float(per.run_epoch()),
+                               full_loss=float(full.run_epoch()),
+                               launches=read_launches())
+                del per, full
+                _free()
+            streams = {}
+            for name, data in (("stub", stub_ds), ("full", full_ds)):
+                st = _stream_trainer(data, sl, dev, filename=prefix,
+                                     perhost_load=name == "stub")
+                streams[name] = _epochs(st, dev, 3)
+                st.close()
+                del st
+                _free()
+            e["stub"] = {"losses": streams["stub"]["losses"],
+                         "full_losses": streams["full"]["losses"],
+                         "epoch_ms": [t * 1e3 for t in
+                                      streams["stub"]["epoch_s"]],
+                         "launches": _add_launches(
+                             streams["stub"]["launches"],
+                             streams["full"]["launches"])}
+            skew = _skewed_bounds(small.graph.num_nodes)
+            bal = {}
+            for name, every in (("unbalanced", 0), ("balanced", 1)):
+                cfg = _stream_config(small, sl, dev, num_epochs=3,
+                                     balance_every=every)
+                st = StreamTrainer(cfg, small, _spmd_model(cfg),
+                                   bounds=skew)
+                reset_launches()
+                stats = st.train(print_fn=_quiet)
+                bal[name] = {"final_loss": stats.final_loss,
+                             "epoch_ms": [t * 1e3 for t in
+                                          stats.epoch_times],
+                             "events": stats.rebalance_events,
+                             "bounds_after": np.asarray(
+                                 st.part.bounds).tolist(),
+                             "launches": read_launches()}
+                st.close()
+                del st
+                _free()
+            bal["reshard_s"] = [ev.get("reshard_cost_s") for ev in
+                                bal["balanced"]["events"]
+                                if ev["action"] == "reshard"]
+            bal["loss_rel_err"] = _rel(bal["balanced"]["final_loss"],
+                                       bal["unbalanced"]["final_loss"])
+            e["stream_balance"] = bal
+            rec["perhost"] = e
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        # f: -multihost, a world of one over NCCL
+        tmp = tempfile.mkdtemp(prefix="roc_multihost_")
+        try:
+            f = {}
+            for name, extra in (("halo", []), ("ring", ["-exchange",
+                                                        "ring"])):
+                d = os.path.join(tmp, name)
+                argv = ["-dataset", "reddit-small", "-layers", "602-64-41",
+                        "-e", "3", "-parts", str(SPMD_PARTS), "-lr", "0.01",
+                        "-decay", "0.0001", "-dropout", "0",
+                        "-aggr-precision", "fast", "-seed", str(SEED),
+                        "-eval-every", "1000", "-multihost", "-v", "-obs",
+                        "-obs-dir", d, "-ckpt", os.path.join(d, "ck.npz"),
+                        *extra]
+                child = _multihost_run(argv, tmp)
+                ref, _ = _spmd_trainer(small, sl, dev, devices=mesh,
+                                       **({"exchange": "ring"} if extra
+                                          else {}))
+                single = _epochs(ref, dev, 3)
+                want = single["losses"]
+                with open(os.path.join(d, "metrics.jsonl")) as fh:
+                    recs = [r for r in map(json.loads, fh)
+                            if r.get("type") == "metrics"]
+                got = [r["loss"] for r in recs]
+                params, _, epoch, _, _ = checkpoint.load(
+                    os.path.join(d, "ck.npz"), ref.params, ref.opt_state)
+                # the child's synced epoch seconds (its -obs records)
+                # beside the single-process trainer's
+                child.update(epoch_ms=[r["wall_s"] * 1e3 for r in recs],
+                             single_epoch_ms=[t * 1e3 for t in
+                                              single["epoch_s"]])
+                child.update(losses=got, single_losses=want,
+                             loss_rel_err=_max_rel(got, want),
+                             ckpt_epoch=epoch, ckpt_rel_err=max(
+                                 float(((params[k] - ref.params[k]).abs()
+                                        .max() / ref.params[k].abs().max()))
+                                 for k in ref.params))
+                f[name] = child
+                del ref
+                _free()
+            rec["multihost"] = f
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    launches["spmd_ring"] = _add_launches(
+        rec["ring"]["launches"], sage["launches"], gat["ring"]["launches"],
+        bf["launches"], e["ring"]["launches"])
+    launches["spmd_edge"] = _add_launches(
+        rec["edge"]["launches"], hub_rec["auto"]["launches"],
+        hub_rec["off"]["launches"], gat["edge"]["launches"],
+        e["edge"]["launches"])
+    launches["spmd_stub"] = _add_launches(
+        e["stub"]["launches"], bal["unbalanced"]["launches"],
+        bal["balanced"]["launches"])
+    launches["spmd_multihost"] = _add_launches(
+        f["halo"]["launches"], f["ring"]["launches"])
+    rec["plain_calls"] = spy.calls + sum(c["plain_calls"]
+                                         for c in f.values())
+    rec["launches"] = launches
+    rec["phase_s"] = time.perf_counter() - t_phase
+    emit(rec)
+    fails = []
+    if rec["plain_calls"]:
+        fails.append(f"{rec['plain_calls']} plain-version calls on the card")
+    for name in ("ring", "edge"):
+        leg = rec[name]
+        n = leg["groups"] if name == "ring" else SPMD_PARTS
+        # one dropout mask a mesh position: 4 positions at k = 1
+        want_step = launch_dict(aggregate_sum=4 * n, stage_plane=4 * n,
+                                dropout=3 * SPMD_PARTS)
+        if leg["launches_per_step"] != want_step:
+            fails.append(f"{name} step launched {leg['launches_per_step']}")
+        if leg["dropout0"]["loss_rel_err"] > 1e-3:
+            fails.append(f"{name} vs one device "
+                         f"{leg['dropout0']['loss_rel_err']}")
+    if sage["loss_rel_err"] > 1e-3:
+        fails.append(f"ring SAGE max {sage['loss_rel_err']}")
+    if hub_rec["auto"]["mode"] != "edge" or hub_rec["off"]["mode"] != \
+            "vertex" or hub_rec["loss_rel_err"] > 1e-3:
+        fails.append(f"hub auto: {hub_rec['auto']['mode']}, "
+                     f"{hub_rec['loss_rel_err']}")
+    for name, leg in gat.items():
+        if leg["loss_rel_err"] > 1e-3:
+            fails.append(f"{name} GAT {leg['loss_rel_err']}")
+    if bf["loss_rel_err"] > 5e-2:
+        fails.append(f"ring bf16 wire {bf['loss_rel_err']}")
+    for name in ("edge", "ring"):
+        if not (e[name]["bitwise"] and e[name]["loss"] ==
+                e[name]["full_loss"]):
+            fails.append(f"-perhost {name}: {e[name]}")
+    if e["stub"]["losses"] != e["stub"]["full_losses"]:
+        fails.append(f"the streamed stub: {e['stub']}")
+    if not bal["reshard_s"] or bal["loss_rel_err"] > 1e-3:
+        fails.append(f"the streamed balancer: {bal['balanced']['events']}, "
+                     f"{bal['loss_rel_err']}")
+    for name, child in f.items():
+        nccl = {k: v for k, v in child["collectives"].items()
+                if k.startswith("nccl:")}
+        hop = "nccl:ring_hop" if name == "ring" else "nccl:all_to_all"
+        if not nccl.get(hop) or not nccl.get("nccl:all_reduce_sum"):
+            fails.append(f"-multihost {name} collectives {nccl}")
+        if child["loss_rel_err"] > 1e-5 or child["ckpt_rel_err"] > 1e-5 \
+                or child["ckpt_epoch"] != 3:
+            fails.append(f"-multihost {name}: {child['loss_rel_err']}, "
+                         f"{child['ckpt_rel_err']}, {child['ckpt_epoch']}")
+    if fails:
+        raise AssertionError("phase spmd_modes failed: " + "; ".join(fails))
+    return rec
+
+
+def _spmd_model(cfg):
+    from roc_tpu_torch.models import build_model
+    return build_model(cfg.model, cfg.layers, cfg.dropout_rate, cfg.aggr,
+                       heads=cfg.heads)
+
+
+def _same_csrs(a, b) -> bool:
+    if (a is None) != (b is None):
+        return False
+    return a is None or all((x is None and y is None) or torch.equal(x, y)
+                            for x, y in zip(a, b))
+
+
+def _same_mode_build(per, full) -> bool:
+    """A -perhost trainer's blocks and windows (edge) or groups (ring),
+    and its node tensors, bitwise the full build's."""
+    same = all(torch.equal(getattr(per, t), getattr(full, t))
+               for t in ("x", "labels", "mask"))
+    same = same and torch.equal(per.gdata.in_degree, full.gdata.in_degree)
+    if per.gdata.mode == "edge":
+        a, b = per.gdata.edge, full.gdata.edge
+        same = same and (a.span_fwd, a.span_bwd) == (b.span_fwd,
+                                                     b.span_bwd)
+        same = same and np.array_equal(a.fwd_base, b.fwd_base) and \
+            np.array_equal(a.bwd_base, b.bwd_base)
+        return same and all(_same_csrs(x, y) for x, y in
+                            zip(a.fwd + a.bwd, b.fwd + b.bwd))
+    same = same and all(np.array_equal(getattr(per.ring_maps, t),
+                                       getattr(full.ring_maps, t))
+                        for t in ("ring_src", "ring_dst"))
+    return same and all(_same_csrs(x, y)
+                        for ra, rb in zip(per.gdata.ring, full.gdata.ring)
+                        for x, y in zip(ra, rb))
+
+
 def _kernel_entry(name, source, replaces, launches, row, rows, keys):
     """One entry of the ``kernels`` line: the main row's numbers and every
     measured shape."""
@@ -4070,6 +4544,7 @@ def main() -> int:
     spmd = phase_spmd(ds, dev, single5=train[False],
                       single3=stream["incore"]["losses"],
                       gat_single=small["gat_incore"]["losses"])
+    modes = phase_spmd_modes(ds, dev, single3=stream["incore"]["losses"])
 
     def pick(name, **want):
         return next(r for r in rows if r["name"] == name and all(
@@ -4094,8 +4569,8 @@ def main() -> int:
                 "serve_stream": small["serve_launches"][name]}
 
     def sharded(name):
-        return {leg: n[name] for leg, n in spmd["launches"].items()
-                if n[name]}
+        return {leg: n[name] for rec in (spmd, modes)
+                for leg, n in rec["launches"].items() if n[name]}
 
     src = "roc_tpu_torch/csrc/"
     pallas = "roc_tpu/ops/pallas/binned.py:"

@@ -3,7 +3,8 @@ NAME) -layers 602-256-41 -e 10 [-reorder [on|auto]] [-model
 gcn|gcn-chain|sage|gin|gat] [-heads K] [-aggr A] [-megafuse [-fusion-depth
 N]] [-bf16] [-bf16-storage [-bf16-rounding stochastic] [-bf16-exchange
 compensated]] [-parts N [-no-halo | -exchange halo|allgather]
-[-no-halo-overlap] [-check-sharding] [-balance-every N] [-perhost]] [-fault
+[-no-halo-overlap] [-exchange ring] [-edge-shard [on|off|auto]]
+[-check-sharding] [-balance-every N] [-perhost] [-multihost]] [-fault
 SPEC] [-ckpt PATH [-ckpt-every N] [-resume]] [-profile DIR [-profile-epochs
 START:COUNT]] [-obs [-obs-dir DIR]] [-device cpu]`` (roc_tpu/__main__.py).
 
@@ -11,6 +12,14 @@ START:COUNT]] [-obs [-obs-dir DIR]] [-device cpu]`` (roc_tpu/__main__.py).
 (``parallel/spmd.py``; k = N parts per mesh position), or with
 ``-stream`` through the streaming executor.  ``-check-sharding`` first
 checks the sharded evaluation against the single-device one.
+
+``-multihost`` runs one process per device: start it under ``torchrun
+--nproc-per-node N`` (or set ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+``MASTER_ADDR``, ``MASTER_PORT`` yourself); each process joins the
+process group before it builds anything (``parallel/collectives.py``:
+nccl on ``cuda:{LOCAL_RANK}``, gloo with ``-device cpu``) and holds
+``-parts / W`` mesh positions.  Under ``-obs`` with more than one process
+each rank writes its artifacts to ``obs_dir/rank{r}``.
 
 ``-file`` reads the reference's on-disk format (``PREFIX.add_self_edge.lux``
 and its sidecars; ``python -m roc_tpu_torch.graph`` writes it), as
@@ -23,6 +32,7 @@ flight, with its final checkpoint, and exit code 0.
 
 from __future__ import annotations
 
+import os
 import sys
 import time
 
@@ -34,26 +44,71 @@ from roc_tpu_torch.train.config import parse_args
 from roc_tpu_torch.train.driver import make_trainer
 
 
+def _refusal(cfg) -> str:
+    """roc_tpu's CLI refusals (roc_tpu/__main__.py:29-70), with its
+    reasons; "" when the flags compose."""
+    if cfg.perhost_load and (cfg.num_parts < 2 or not cfg.filename):
+        return "error: -perhost requires -file and -parts > 1"
+    edge_on = cfg.edge_shard in (True, "on")
+    if cfg.exchange == "ring" and edge_on:
+        return ("error: -exchange ring and -edge-shard are mutually "
+                "exclusive distribution strategies")
+    if edge_on and (cfg.num_parts < 2 or cfg.aggr in ("max", "min")):
+        return ("error: -edge-shard supports sum/avg aggregation and needs "
+                "-parts > 1 (it composes with -perhost given the .t.lux "
+                "transposed sidecar)")
+    if cfg.perhost_load and cfg.check_sharding:
+        # the checker's single-device reference needs the whole graph
+        return ("error: -check-sharding needs the full graph on one host; "
+                "run it without -perhost")
+    if not cfg.stream:
+        return ""
+    if cfg.num_parts < 2:
+        return ("error: -stream needs -parts >= 2 (shards rotate through "
+                "the device slots; one shard streams nothing)")
+    if edge_on or cfg.exchange == "ring":
+        return ("error: -stream schedules its own shard rotation; "
+                "-edge-shard / -exchange ring do not compose with it")
+    if cfg.multihost:
+        return ("error: -stream is single-process — it trades host memory "
+                "for device memory instead of scaling out; drop -multihost")
+    if cfg.check_sharding:
+        return ("error: -check-sharding/-analyze audit the in-core SPMD "
+                "step; run them without -stream")
+    if cfg.use_bf16:
+        return ("error: -stream computes in fp32; the streamed storage cut "
+                "is -bf16-storage (bf16 slots, fp32 accumulation)")
+    return ""
+
+
 def main(argv=None) -> int:
     cfg = parse_args(sys.argv[1:] if argv is None else argv)
+    refusal = _refusal(cfg)
+    if refusal:
+        print(refusal, file=sys.stderr)
+        return 2
+    if cfg.multihost:
+        from roc_tpu_torch.parallel import collectives
+        try:
+            dev = resolve_device(collectives.process_device(cfg.device))
+        except RuntimeError as e:
+            print(f"error: {e} (-device cpu)", file=sys.stderr)
+            return 1
+        cfg.device = str(dev)
+        comm = collectives.init_process_group(dev)
+        if cfg.obs and cfg.obs_dir and comm.world > 1:
+            cfg.obs_dir = os.path.join(cfg.obs_dir, f"rank{comm.rank}")
+        try:
+            return _main(cfg)
+        finally:
+            collectives.destroy_process_group()
+    return _main(cfg)
+
+
+def _main(cfg) -> int:
     if not cfg.layers:
         print("error: -layers is required (e.g. -layers 602-256-41)",
               file=sys.stderr)
-        return 2
-    if cfg.perhost_load and (cfg.num_parts < 2 or not cfg.filename):
-        print("error: -perhost requires -file and -parts > 1",
-              file=sys.stderr)
-        return 2
-    if cfg.perhost_load and cfg.check_sharding:
-        # the checker's single-device reference needs the whole graph
-        print("error: -check-sharding needs the full graph on one host; "
-              "run it without -perhost", file=sys.stderr)
-        return 2
-    if cfg.stream and (cfg.check_sharding or cfg.exchange == "ring"
-                       or cfg.edge_shard in (True, "on")):
-        print("error: -stream schedules its own shard rotation; "
-              "-check-sharding / -exchange ring / -edge-shard do not "
-              "compose with it", file=sys.stderr)
         return 2
     try:
         resolve_device(cfg.device)
@@ -105,6 +160,12 @@ def main(argv=None) -> int:
         print("# shard-consistency check passed "
               f"({cfg.num_parts} parts, halo={cfg.halo})", file=sys.stderr)
     trainer.train()
+    if cfg.multihost and cfg.verbose:
+        from roc_tpu_torch.parallel import collectives
+        g = collectives.group()
+        print(f"# -multihost: rank {g.rank} of {g.world} ({g.backend} on "
+              f"{g.device}), collectives {collectives.launches()}",
+              file=sys.stderr)
     return 0
 
 

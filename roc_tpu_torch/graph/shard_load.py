@@ -14,13 +14,19 @@ whole topology.
     so the row-index lists are exchanged host-side: one allgather of the
     O(P^2) size matrix, one of the padded [L, P, K] need lists.
 
+Edge sharding reads its blocks the same way (:func:`load_edge_blocks`):
+the dst-sorted edge list is the ``.lux`` column section, so block b is a
+byte range of it plus the covering row offsets, found by binary search;
+the transposed sidecar (``lux.TLUX_SUFFIX``) gives the backward's
+src-sorted blocks.
+
 The exchange is injected: ``allgather(x) -> [num_processes, *x.shape]``,
 process-major.  :func:`single_process_allgather` serves one process;
-:class:`ThreadAllGather` serves N threads of one process (the tests'
-stand-in for N processes).  The outputs equal the single-host
-``partition_graph`` + ``build_halo_maps`` arrays, bit for bit.  roc_tpu's
-jax allgather, its edge-block loader (``load_edge_blocks``, edge sharding)
-and the ring builders belong to the multi-process slice.
+:func:`torch_allgather` the ranks of ``-multihost`` (over
+``torch.distributed``, int64 intact); :class:`ThreadAllGather` N threads
+of one process (the tests' stand-in for N processes).  The outputs equal
+the single-host ``partition_graph``, ``build_halo_maps`` and
+``edge_block_arrays`` arrays, bit for bit.
 """
 
 from __future__ import annotations
@@ -34,7 +40,8 @@ import numpy as np
 from roc_tpu_torch.graph.csr import E_DTYPE, V_DTYPE
 from roc_tpu_torch.graph.lux import read_cols_slice, read_header, \
     read_rows_slice
-from roc_tpu_torch.graph.partition import PartitionMeta, compute_meta
+from roc_tpu_torch.graph.partition import (_EDGE_ALIGN, PartitionMeta,
+                                          _round_up, compute_meta)
 
 AllGather = Callable[[np.ndarray], np.ndarray]
 
@@ -52,6 +59,17 @@ def allgather_floors(counts, allgather) -> "list[int]":
 
 def single_process_allgather(x: np.ndarray) -> np.ndarray:
     return np.asarray(x)[None]
+
+
+def torch_allgather() -> AllGather:
+    """The allgather of the running ``-multihost`` process group
+    (roc_tpu's ``jax_allgather``): host arrays cross as themselves, so an
+    int64 count past 2^31 arrives whole."""
+    from roc_tpu_torch.parallel import collectives
+    if collectives.group() is None:
+        raise RuntimeError("torch_allgather needs the -multihost process "
+                           "group (collectives.init_process_group)")
+    return collectives.allgather_np
 
 
 class ThreadAllGather:
@@ -195,6 +213,70 @@ def load_local_degrees(path: str, meta: PartitionMeta,
             in_degree[i, :n] = np.diff(
                 np.concatenate([[e0], ends])).astype(np.float32)
     return in_degree
+
+
+def _bisect_rows(path: str, target: int, num_nodes: int) -> int:
+    """The smallest vertex v whose inclusive end offset exceeds
+    ``target``: the vertex whose CSR range holds edge ``target``, in
+    O(log N) 8-byte reads (no O(N) array is ever resident)."""
+    lo, hi = 0, num_nodes
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if int(read_rows_slice(path, mid, mid + 1)[0]) > target:
+            hi = mid
+        else:
+            lo = mid + 1
+    return lo
+
+
+def load_edge_blocks(path: str, meta: PartitionMeta,
+                     block_ids: Sequence[int]):
+    """These blocks of the exactly-edge-balanced cut, equal to
+    ``edge_block_arrays(g, meta)[block_ids]`` but reading only their byte
+    ranges: block b is columns [b*Eb, (b+1)*Eb) plus the row offsets that
+    cover them.  The ``TLUX_SUFFIX`` file gives the transposed
+    (src-sorted) blocks of the backward, with the same ``meta`` (the
+    vertex partition lives on the original orientation).
+
+    Returns (gather [L, Eb], scatter [L, Eb]) padded-global int64."""
+    P, S = meta.num_parts, meta.shard_nodes
+    E = meta.num_edges
+    num_nodes, num_edges_f = read_header(path)
+    if num_nodes != meta.num_nodes or num_edges_f != E:
+        raise ValueError(
+            f"{path}: header ({num_nodes}, {num_edges_f}) != meta "
+            f"({meta.num_nodes}, {E}): wrong or mismatched transpose "
+            f"sidecar?")
+    Eb = _round_up(-(-E // P), _EDGE_ALIGN)
+    L = len(block_ids)
+    gather = np.zeros((L, Eb), dtype=np.int64)
+    scatter = np.zeros((L, Eb), dtype=np.int64)
+    for i, b in enumerate(block_ids):
+        # a late block can start past E (few edges, many parts): its row
+        # is all pad edges, as edge_block_arrays' tail
+        e0 = b * Eb
+        ne = max(min((b + 1) * Eb, E) - e0, 0)
+        e1 = e0 + ne
+        if ne > 0:
+            src_global = read_cols_slice(path, num_nodes, e0,
+                                         e1).astype(np.int64)
+            # the vertices whose ranges meet [e0, e1): v0 owns edge e0
+            v0 = _bisect_rows(path, e0, num_nodes)
+            v1 = _bisect_rows(path, e1 - 1, num_nodes)
+            ends = read_rows_slice(path, v0, v1 + 1).astype(np.int64)
+            starts = np.concatenate(
+                [read_rows_slice(path, v0 - 1, v0).astype(np.int64)
+                 if v0 else np.zeros(1, np.int64), ends[:-1]])
+            deg_in_blk = (np.minimum(ends, e1)
+                          - np.maximum(starts, e0)).clip(min=0)
+            dst_global = np.repeat(np.arange(v0, v1 + 1), deg_in_blk)
+            gather[i, :ne] = meta.to_padded(src_global)
+            scatter[i, :ne] = meta.to_padded(dst_global)
+        # pad edges, edge_block_arrays' recipe: src = part 0's first pad
+        # row (zero features), dst = the global last pad row
+        gather[i, ne:] = int(meta.num_valid[0])
+        scatter[i, ne:] = P * S - 1
+    return gather, scatter
 
 
 @dataclasses.dataclass(frozen=True)

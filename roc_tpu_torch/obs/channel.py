@@ -3,7 +3,8 @@ once per epoch, and the wire bytes of the SPMD trainer's exchanges.
 roc_tpu computes the norms inside its jitted step; here they are tensors
 on the device, read after the epoch's timed window.  The wire bytes are a
 constant of the exchange geometry (send rows, feature widths, wire dtype),
-computed once on the host."""
+computed once on the host.  Edge sharding counts as the allgather: each
+position contributes its S rows to the [P*S, H] table (spmd.py:1796)."""
 
 from __future__ import annotations
 

@@ -162,10 +162,12 @@ def divide_by_degree(out: torch.Tensor,
     return (out.to(torch.float32) / deg[:, None]).to(out.dtype)
 
 
-def _segment_extreme(x: torch.Tensor, csr: DeviceCsr,
-                     aggr: str) -> torch.Tensor:
+def _segment_extreme(x: torch.Tensor, csr: DeviceCsr, aggr: str,
+                     zero_empty: bool = True) -> torch.Tensor:
     """Segment max/min; rows with no in-edges are 0, not the ±inf identity,
     which would poison a later linear layer (aggregate.py:110-116).
+    ``zero_empty`` False keeps the identity (the ring folds several owner
+    groups before it zeroes the rows no group reached).
 
     The destination starts at the identity, not at 0: torch's backward of
     ``scatter_reduce_`` counts the destination's starting value among the
@@ -182,6 +184,8 @@ def _segment_extreme(x: torch.Tensor, csr: DeviceCsr,
     out = out.scatter_reduce(0, dst[:, None].expand_as(src), src,
                              "amax" if aggr == "max" else "amin",
                              include_self=False)
+    if not zero_empty:
+        return out
     empty = torch.isneginf(out) if aggr == "max" else torch.isposinf(out)
     return torch.where(empty, torch.zeros_like(out), out)
 

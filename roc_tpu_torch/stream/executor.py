@@ -50,9 +50,20 @@ predicts the epoch's wire bytes (the port's own
 every transfer) and the transfer seconds (the bytes over
 ``stream/host.py``'s ``STREAM_BW_BYTES_S``); each epoch measures them.
 
-Not ported: ``reshard`` (the balancer's) and streaming a GraphStub
-(``shard_load``'s ``.lux`` byte ranges): both belong to the multi-process
-slice (ROADMAP queue A item 7).
+A graph stub (``-perhost`` loading, executor.py:189-200) streams straight
+off the ``.lux`` byte ranges: process 0's cut (``shard_load.
+meta_from_lux``) and every shard's padded edge arrays
+(``load_local_shards``); the topology is never held whole.  ``-stream`` is
+single-process: it trades host memory for device memory instead of
+scaling out.
+
+``reshard`` (the balancer's hook, executor.py:899-925) applies a new cut
+under the frozen slot shapes: re-cut the graph (or re-read the moved byte
+ranges on the ``.lux`` path), then rebuild the table maps with the halo
+width frozen (``_stream_maps``' ``K_force``: a cut that needs more
+raises, asking for a restart).  No slot is reallocated.  The balancer runs here
+where it can probe the whole graph: a ``Csr`` graph, one process
+(executor.py:371-376).
 """
 
 from __future__ import annotations
@@ -66,8 +77,10 @@ import torch
 
 from roc_tpu_torch import fault, obs, ops
 from roc_tpu_torch.fault.guard import guarded_update, nan_scale
+from roc_tpu_torch.graph import shard_load
+from roc_tpu_torch.graph.csr import Csr
 from roc_tpu_torch.graph.partition import _round_up, partition_graph
-from roc_tpu_torch.graph.lux import MASK_NONE
+from roc_tpu_torch.graph.lux import LUX_SUFFIX, MASK_NONE
 from roc_tpu_torch.obs.ledger import content_key, get_ledger
 from roc_tpu_torch.parallel.halo import part_csrs
 from roc_tpu_torch.ops import prng
@@ -160,7 +173,18 @@ class _Slot:
 
 
 class StreamTrainer(Trainer):
-    """Host-streaming trainer: fixed device slots, rotating shards."""
+    """Host-streaming trainer: fixed device slots, rotating shards.
+    ``bounds`` overrides the greedy cut (inclusive (lo, hi) per part) of a
+    ``Csr`` graph."""
+
+    def __init__(self, config, dataset, model, bounds=None):
+        if config.multihost:
+            raise SystemExit("error: -stream is single-process (it is the "
+                             "out-of-core alternative to scaling out across "
+                             "hosts; -multihost scales out through the SPMD "
+                             "trainer)")
+        self._init_bounds = bounds
+        super().__init__(config, dataset, model)
 
     # -- setup -------------------------------------------------------------
 
@@ -193,12 +217,25 @@ class StreamTrainer(Trainer):
         self.backend = effective_backend(cfg, self.model, dev)
         self._edge_map = self.backend == "kernel" and model_has_gat(
             self.model)
-        self.part = partition_graph(ds.graph, P)
-        meta = self.part.meta
+        self._lux_path = ""
+        if isinstance(ds.graph, Csr):
+            self.part = partition_graph(
+                ds.graph, P, bounds=None if self._init_bounds is None
+                else np.asarray(self._init_bounds, np.int64))
+            meta = self.part.meta
+            arrays = (self.part.edge_src, self.part.edge_dst,
+                      self.part.in_degree)
+        else:
+            # a GraphStub: stream straight off the .lux byte ranges
+            if not cfg.filename:
+                raise SystemExit("error: -stream on a graph stub needs "
+                                 "-file (an on-disk .lux dataset)")
+            self._lux_path = cfg.filename + LUX_SUFFIX
+            meta = self.part = shard_load.meta_from_lux(self._lux_path, P)
+            arrays = self._load_lux_shards(meta)
         self.segments = split_segments(self.model)
         self._nseg = len(self.segments)
-        self._install_graph(meta, self.part.edge_src, self.part.edge_dst,
-                            self.part.in_degree)
+        self._install_graph(meta, *arrays)
         self._alloc_stores()
         self.params = self.model.init_params(self.key, device=dev)
         self.opt_state = self.optimizer.init(self.params)
@@ -254,14 +291,23 @@ class StreamTrainer(Trainer):
                   f"device-resident{note}, halo K={self._K}, {tier} slots, "
                   f"{'pinned' if pinned else 'pageable'} host stores")
 
-    def _install_graph(self, meta, edge_src, edge_dst, in_degree):
+    def _load_lux_shards(self, meta):
+        """Every shard's padded edge arrays from the ``.lux`` byte
+        ranges."""
+        shards = shard_load.load_local_shards(self._lux_path, meta,
+                                              range(int(meta.num_parts)))
+        return shards.edge_src, shards.edge_dst, shards.in_degree
+
+    def _install_graph(self, meta, edge_src, edge_dst, in_degree,
+                       K_force=None):
         """The cut's table map, each shard's CSR and the padded node
-        stores, all on the host."""
+        stores, all on the host (the boundary stores do not depend on the
+        cut: a reshard keeps them)."""
         self._meta = meta
         P = self._P
         S, E = int(meta.shard_nodes), int(meta.shard_edges)
         self._S, self._E = S, E
-        K, tbl_idx, esrc_local = _stream_maps(meta, edge_src)
+        K, tbl_idx, esrc_local = _stream_maps(meta, edge_src, K_force)
         self._K = K
         self._T = T = S + P * K
         self._tbl_idx = tbl_idx
@@ -284,6 +330,8 @@ class StreamTrainer(Trainer):
             ds.onehot_labels().astype(np.float32)))
         self._mask = to_store(meta.pad_nodes(np.asarray(ds.mask, np.int32),
                                              fill=MASK_NONE))
+        if hasattr(self, "_stores"):
+            self._stores[0] = self._store_x
 
     def _store_rows(self, a: np.ndarray) -> np.ndarray:
         """A host store of ``a`` in the storage dtype (bf16 rounded to
@@ -832,6 +880,36 @@ class StreamTrainer(Trainer):
             np.arange(p * self._S, p * self._S + int(nv))
             for p, nv in enumerate(self._meta.num_valid)])
         return sink[torch.from_numpy(rows)].to(self.device)
+
+    # -- resharding (the balancer's hook) -------------------------------------
+
+    def _balance_supported(self) -> bool:
+        """The balancer probes the whole graph: a ``Csr`` graph, one
+        process (executor.py:371-376); the ``.lux`` path still reshards
+        when called."""
+        return isinstance(self.dataset.graph, Csr)
+
+    def reshard(self, new_bounds) -> float:
+        """Apply a cut at an epoch boundary under the frozen slot shapes
+        (S, E and the halo width K): pure host work, no slot reallocated.
+        Returns the wall seconds."""
+        bounds = np.asarray(new_bounds, np.int64)
+        self._drain_scatters()
+        with obs.span("reshard", parts=self._P, mode="stream") as sp:
+            if self._lux_path:
+                meta = self.part = shard_load.meta_from_lux(
+                    self._lux_path, self._P, bounds=bounds,
+                    shard_nodes=self._S, shard_edges=self._E)
+                arrays = self._load_lux_shards(meta)
+            else:
+                self.part = partition_graph(
+                    self.dataset.graph, self._P, bounds=bounds,
+                    shard_nodes=self._S, shard_edges=self._E)
+                meta = self.part.meta
+                arrays = (self.part.edge_src, self.part.edge_dst,
+                          self.part.in_degree)
+            self._install_graph(meta, *arrays, K_force=self._K)
+        return sp.dur_s
 
     def close(self) -> None:
         """Stop the ring's worker."""

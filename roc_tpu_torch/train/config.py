@@ -89,22 +89,21 @@ class Config:
                                   # pair, fp32's bytes again
     halo: bool = True             # halo exchange vs allgather (-no-halo)
     exchange: str = ""            # halo | allgather | ring ("" derives it
-                                  # from halo); ring waits for the
-                                  # multi-process slice and is refused
+                                  # from halo)
     halo_overlap: bool = True     # split each part's edges into local- and
                                   # remote-source CSRs (k = 1, halo,
                                   # kernel backend, sum/avg); off:
                                   # -no-halo-overlap
     check_sharding: bool = False  # the CLI checks sharded == one device
                                   # before training (parallel/check.py)
-    multihost: bool = False       # torch.distributed across processes:
-                                  # refused until the multi-process slice
+    multihost: bool = False       # one process per device on
+                                  # torch.distributed (torchrun's env)
     perhost_load: bool = False    # build the parts from the .lux byte
                                   # ranges (graph/shard_load.py); -file,
                                   # k = 1
-    edge_shard: object = "auto"   # on | off | auto: edge sharding waits
-                                  # for the multi-process slice; auto exits
-                                  # where roc_tpu would choose it
+    edge_shard: object = "auto"   # on | off | auto: exactly-equal edge
+                                  # blocks; auto turns them on where
+                                  # roc_tpu would (padded-max tax > 30%)
     balance_every: int = 0        # online balancer cadence in epochs
                                   # (balance/); 0 = off.  SPMD vertex modes
                                   # at k = 1; elsewhere ignored with a note

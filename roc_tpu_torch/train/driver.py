@@ -57,6 +57,13 @@ executor under ``-stream`` (``stream/executor.py``), else the
 ``-stream-budget`` gate, else the SPMD trainer for ``-parts > 1``
 (``parallel/spmd.py``), else this single-device trainer.
 
+``-multihost`` (driver.py:1066-1073): the trainer joins the process group
+of ``parallel/collectives.py`` before it builds anything, on
+``cuda:{LOCAL_RANK}`` unless ``-device`` names another; process 0 alone
+writes a checkpoint, and every process then waits at a barrier.  The
+single-device trainer under ``-multihost`` trains the whole graph on each
+process, as roc_tpu's does on a one-part mesh.
+
 The online balancer (driver.py:505-530, 969-1000; ``balance/``): with
 ``-balance-every N`` a trainer that can reshard (the SPMD trainer's vertex
 modes at k = 1) runs a balance round every N epochs, never after the last;
@@ -142,7 +149,14 @@ class Trainer:
         self.config = config
         self.dataset = dataset
         self.model = model
-        self.device = resolve_device(config.device)
+        self.comm = None
+        if config.multihost:
+            from roc_tpu_torch.parallel import collectives
+            self.device = resolve_device(
+                collectives.process_device(config.device))
+            self.comm = collectives.init_process_group(self.device)
+        else:
+            self.device = resolve_device(config.device)
         self.optimizer = Adam(alpha=config.learning_rate,
                               weight_decay=config.weight_decay)
         self.key = prng.prng_key(config.seed)
@@ -168,7 +182,7 @@ class Trainer:
             elif config.verbose:
                 print("# -balance-every: online balancing needs the SPMD "
                       "vertex-sharded path (parts > 1, k = 1, no "
-                      "-perhost); disabled for this run")
+                      "-perhost/-edge-shard/ring); disabled for this run")
         if config.resume and config.checkpoint_path and \
                 os.path.exists(config.checkpoint_path):
             self.restore(config.checkpoint_path)
@@ -651,8 +665,15 @@ class Trainer:
         return extra
 
     def save_checkpoint(self, path: str) -> None:
-        checkpoint.save(path, self.params, self.opt_state, self.epoch,
-                        self.optimizer.alpha, extra=self._resume_extra())
+        """Process 0 writes (every process holds the same params); under
+        -multihost every process then waits for the file at a barrier."""
+        if self.comm is None or self.comm.rank == 0:
+            checkpoint.save(path, self.params, self.opt_state, self.epoch,
+                            self.optimizer.alpha,
+                            extra=self._resume_extra())
+        if self.comm is not None:
+            from roc_tpu_torch.parallel import collectives
+            collectives.barrier()
 
     def restore(self, path: str) -> None:
         """Params, Adam state, epoch, learning rate, PRNG key, skip count
@@ -682,15 +703,16 @@ def make_trainer(config: Config, dataset: Dataset, model: Model) -> Trainer:
     streaming executor under -stream; otherwise the -stream-budget gate,
     then the SPMD trainer for -parts > 1 (its parts on the run's device,
     k = -parts), else the single-device trainer.  A graph stub (-perhost
-    loading) trains only through the SPMD trainer's -perhost path."""
+    loading) trains only through the SPMD trainer's -perhost path or the
+    streaming executor, both of which read the .lux byte ranges."""
     from roc_tpu_torch.graph.datasets import GraphStub
     stub = isinstance(dataset.graph, GraphStub)
-    if stub and not (config.perhost_load and config.num_parts > 1
-                     and not config.stream):
+    if stub and not (config.num_parts > 1
+                     and (config.perhost_load or config.stream)):
         raise SystemExit(
             "error: a graph stub (load_roc_dataset(graph_stub=True)) holds "
-            "no topology: only -perhost with -parts > 1 (and without "
-            "-stream) builds the parts from the .lux byte ranges")
+            "no topology: only -perhost or -stream with -parts > 1 reads "
+            "the parts from the .lux byte ranges")
     if config.stream:
         from roc_tpu_torch.stream.executor import StreamTrainer
         return StreamTrainer(config, dataset, model)
@@ -709,9 +731,4 @@ def make_trainer(config: Config, dataset: Dataset, model: Model) -> Trainer:
     if config.num_parts > 1:
         from roc_tpu_torch.parallel.spmd import SpmdTrainer
         return SpmdTrainer(config, dataset, model)
-    if config.multihost:
-        raise SystemExit(
-            "error: -multihost (torch.distributed across processes) "
-            "belongs to the multi-process slice of the port (ROADMAP queue "
-            "A item 7); drop it to train on this process's device")
     return Trainer(config, dataset, model)

@@ -227,8 +227,10 @@ def test_load_roc_dataset_matches_roc_tpu(tmp_path, lazy):
 
 
 def test_graph_stub_is_refused(tmp_path):
-    """A graph stub holds the header only: every trainer but the -perhost
-    SPMD path refuses it (tests/test_torch_shard_load.py trains that)."""
+    """A graph stub holds the header only: every trainer refuses it but
+    the -perhost SPMD path (tests/test_torch_shard_load.py trains that)
+    and the streaming executor given the stub's -file, which reads the
+    .lux byte ranges (tests/test_torch_stream.py trains that)."""
     from roc_tpu_torch.models import build_model
     from roc_tpu_torch.train.config import Config
     from roc_tpu_torch.train.driver import make_trainer
@@ -245,6 +247,11 @@ def test_graph_stub_is_refused(tmp_path):
         with pytest.raises(SystemExit, match="graph stub"):
             make_trainer(Config(layers=[ds.in_dim, 8, ds.num_classes],
                                 device="cpu", **kw), stub, model)
+    tr = make_trainer(Config(layers=[ds.in_dim, 8, ds.num_classes],
+                             device="cpu", num_parts=4, stream=True,
+                             perhost_load=True, filename=prefix), stub, model)
+    assert tr._lux_path == prefix + lux.LUX_SUFFIX
+    tr.close()
 
 
 # -- a lazy dataset on the device ----------------------------------------------

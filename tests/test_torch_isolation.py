@@ -55,6 +55,7 @@ need = {"roc_tpu_torch.__main__", "roc_tpu_torch.fault.guard",
         "roc_tpu_torch.parallel", "roc_tpu_torch.parallel.mesh",
         "roc_tpu_torch.parallel.halo", "roc_tpu_torch.parallel.wire",
         "roc_tpu_torch.parallel.spmd", "roc_tpu_torch.parallel.check",
+        "roc_tpu_torch.parallel.ring", "roc_tpu_torch.parallel.collectives",
         "roc_tpu_torch.parallel.budget", "roc_tpu_torch.balance",
         "roc_tpu_torch.balance.telemetry", "roc_tpu_torch.balance.search",
         "roc_tpu_torch.balance.cost_model", "roc_tpu_torch.balance.manager",

@@ -10,6 +10,7 @@ Tolerances: every array and count equal, element for element; the
 build's, and its losses equal.
 """
 
+import os
 import threading
 
 import numpy as np
@@ -195,3 +196,180 @@ def test_perhost_cli_checks(roc_dir, capsys):
     err = capsys.readouterr().err
     assert "-perhost requires -file and -parts > 1" in err
     assert "-check-sharding needs the full graph" in err
+
+
+# -- edge blocks and ring groups from the byte ranges -------------------------------
+
+@pytest.mark.parametrize("num_parts,nproc", [(4, 1), (4, 2), (8, 2)])
+def test_edge_blocks_equal_singlehost(roc_dir, num_parts, nproc):
+    """Each simulated process reads its blocks from the .lux byte ranges
+    (forward) and the .t.lux sidecar (backward): element-equal to
+    edge_block_arrays and its transpose, and to roc_tpu's loader."""
+    from roc_tpu_torch.graph.partition import (edge_block_arrays,
+                                               edge_block_arrays_t)
+    prefix, ds = roc_dir
+    path, tpath = prefix + lux.LUX_SUFFIX, prefix + lux.TLUX_SUFFIX
+    if not os.path.exists(tpath):
+        lux.write_transpose(prefix, ds.graph)
+    part = partition_graph(ds.graph, num_parts)
+    f_full = edge_block_arrays(ds.graph, part)
+    b_full = edge_block_arrays_t(ds.graph, part)
+    L = num_parts // nproc
+    ag = shard_load.ThreadAllGather(nproc)
+
+    def per_process(i):
+        meta = shard_load.meta_from_lux(path, num_parts, process_index=i,
+                                        allgather=ag.for_process(i))
+        ids = list(range(i * L, (i + 1) * L))
+        return (ids, shard_load.load_edge_blocks(path, meta, ids),
+                shard_load.load_edge_blocks(tpath, meta, ids))
+
+    for ids, f, b in _run_threads(nproc, per_process):
+        for got, want in ((f, f_full), (b, b_full)):
+            for a, w in zip(got, want):
+                assert a.dtype == np.int64
+                np.testing.assert_array_equal(a, w[ids])
+    jmeta = jshard_load.meta_from_lux(path, num_parts)
+    for pth in (path, tpath):
+        want = jshard_load.load_edge_blocks(pth, jmeta, [1, 0])
+        got = shard_load.load_edge_blocks(
+            pth, shard_load.meta_from_lux(path, num_parts), [1, 0])
+        for a, w in zip(got, want):
+            np.testing.assert_array_equal(a, w)
+
+
+def test_edge_blocks_all_pad_tail(tmp_path):
+    """A late block that starts past the edge count is all pad edges,
+    equal to edge_block_arrays' tail (roc_tpu's test_shard_load.py:252)."""
+    from roc_tpu_torch.graph.partition import (_EDGE_ALIGN, _round_up,
+                                               edge_block_arrays)
+    ds = datasets.synthetic("tinyblk", 120, 2.0, 4, 3, n_train=10,
+                            n_val=10, n_test=10, seed=11)
+    g, P = ds.graph, 16
+    prefix = str(tmp_path / "t")
+    lux.write_lux(prefix + lux.LUX_SUFFIX, g)
+    part = partition_graph(g, P)
+    Eb = _round_up(-(-g.num_edges // P), _EDGE_ALIGN)
+    assert (P - 1) * Eb > g.num_edges, "the shape must end in pad blocks"
+    meta = shard_load.meta_from_lux(prefix + lux.LUX_SUFFIX, P)
+    got = shard_load.load_edge_blocks(prefix + lux.LUX_SUFFIX, meta,
+                                      list(range(P)))
+    full = edge_block_arrays(g, part)
+    np.testing.assert_array_equal(got[0], full[0])
+    np.testing.assert_array_equal(got[1], full[1])
+
+
+def test_edge_blocks_fuzz_equal_singlehost(tmp_path):
+    """Random shapes and part counts (self-loop-only rows, hubs, P not
+    dividing E), both orientations (roc_tpu's test_shard_load.py:276)."""
+    from roc_tpu_torch.graph.csr import add_self_edges, from_edges
+    from roc_tpu_torch.graph.partition import edge_block_arrays
+    rng = np.random.default_rng(31)
+    for trial in range(5):
+        n = int(rng.integers(40, 900))
+        e = int(rng.integers(0, 4000))
+        P = int(rng.choice([2, 3, 4, 7, 8, 16]))
+        src = rng.integers(0, n, e)
+        dst = rng.integers(0, n, e)
+        if e > 50 and trial % 2:
+            dst[: e // 3] = int(rng.integers(0, n))   # hub
+        g = add_self_edges(from_edges(n, src, dst))
+        prefix = str(tmp_path / f"f{trial}")
+        lux.write_lux(prefix + lux.LUX_SUFFIX, g)
+        lux.write_transpose(prefix, g)
+        part = partition_graph(g, P)
+        meta = shard_load.meta_from_lux(prefix + lux.LUX_SUFFIX, P)
+        for path, full in [
+                (prefix + lux.LUX_SUFFIX, edge_block_arrays(g, part)),
+                (prefix + lux.TLUX_SUFFIX,
+                 edge_block_arrays(g.transpose(), part))]:
+            got = shard_load.load_edge_blocks(path, meta, list(range(P)))
+            msg = f"trial {trial}: n={n} e={e} P={P} {path[-6:]}"
+            np.testing.assert_array_equal(got[0], full[0], err_msg=msg)
+            np.testing.assert_array_equal(got[1], full[1], err_msg=msg)
+
+
+def test_edge_blocks_header_mismatch(roc_dir, tmp_path):
+    prefix, _ = roc_dir
+    other = datasets.synthetic("o", 50, 2.0, 4, 3, n_train=5, n_val=5,
+                               n_test=5, seed=1)
+    lux.write_lux(str(tmp_path / "o.lux"), other.graph)
+    meta = shard_load.meta_from_lux(prefix + lux.LUX_SUFFIX, 4)
+    with pytest.raises(ValueError, match="mismatched transpose sidecar"):
+        shard_load.load_edge_blocks(str(tmp_path / "o.lux"), meta, [0])
+
+
+def _same_csr(a, b):
+    for x, y in zip(a, b):
+        assert (x is None) == (y is None)
+        assert x is None or torch.equal(x, y)
+
+
+@pytest.mark.parametrize("mode", ["edge", "ring"])
+def test_perhost_edge_and_ring_equal_full_build(roc_dir, mode):
+    """-perhost -edge-shard on (blocks from the .lux and the sidecar) and
+    -perhost -exchange ring (groups from the part slices): blocks,
+    windows, groups, node tensors and the epochs' losses bitwise the full
+    build's."""
+    prefix, ds = roc_dir
+    if not os.path.exists(prefix + lux.TLUX_SUFFIX):
+        lux.write_transpose(prefix, ds.graph)
+    mesh = ["cpu"] * 4
+    kw = dict(aggregate_backend="binned", aggregate_precision="exact")
+    kw.update(edge_shard="on" if mode == "edge" else "off",
+              exchange="ring" if mode == "ring" else "")
+    full = SpmdTrainer(_cfg(prefix, False, **kw),
+                       datasets.load_roc_dataset(prefix, 12, 5),
+                       build_model("gcn", [12, 8, 5], 0.5), devices=mesh)
+    per = SpmdTrainer(_cfg(prefix, True, **kw),
+                      datasets.load_roc_dataset(prefix, 12, 5,
+                                                graph_stub=True),
+                      build_model("gcn", [12, 8, 5], 0.5), devices=mesh)
+    assert per.gdata.mode == full.gdata.mode == mode
+    if mode == "edge":
+        a, b = per.gdata.edge, full.gdata.edge
+        assert (a.span_fwd, a.span_bwd) == (b.span_fwd, b.span_bwd)
+        assert np.array_equal(a.fwd_base, b.fwd_base)
+        assert np.array_equal(a.bwd_base, b.bwd_base)
+        for x, y in zip(a.fwd + a.bwd, b.fwd + b.bwd):
+            _same_csr(x, y)
+    else:
+        for f in ("ring_src", "ring_dst"):
+            assert np.array_equal(getattr(per.ring_maps, f),
+                                  getattr(full.ring_maps, f))
+        for ra, rb in zip(per.gdata.ring, full.gdata.ring):
+            for x, y in zip(ra, rb):
+                assert (x is None) == (y is None)
+                if x is not None:
+                    _same_csr(x, y)
+    for f in ("x", "labels", "mask"):
+        assert torch.equal(getattr(per, f), getattr(full, f)), f
+    assert torch.equal(per.gdata.in_degree, full.gdata.in_degree)
+    lp = [float(per.run_epoch()) for _ in range(2)]
+    lf = [float(full.run_epoch()) for _ in range(2)]
+    assert lp == lf
+
+
+def test_perhost_edge_needs_the_sidecar(tmp_path):
+    ds = datasets.synthetic("nos", 120, 3.0, 12, 5, n_train=20, n_val=20,
+                            n_test=20, seed=2)
+    prefix = str(tmp_path / "g")
+    lux.write_dataset(prefix, ds.graph, ds.features, ds.label_ids, ds.mask)
+    stub = datasets.load_roc_dataset(prefix, 12, 5, graph_stub=True)
+    cfg = _cfg(prefix, True, edge_shard="on")
+    with pytest.raises(SystemExit, match="needs the transposed sidecar"):
+        SpmdTrainer(cfg, stub, build_model("gcn", [12, 8, 5]),
+                    devices=["cpu"] * 4)
+    lux.write_transpose(prefix, ds.graph)
+    t = prefix + lux.TLUX_SUFFIX
+    os.utime(t, (1, 1))
+    with pytest.raises(SystemExit, match="older than"):
+        SpmdTrainer(cfg, stub, build_model("gcn", [12, 8, 5]),
+                    devices=["cpu"] * 4)
+    # GAT edge -perhost off the kernel backend: roc_tpu's refusal
+    os.utime(t, None)
+    with pytest.raises(SystemExit, match="plan attention backend"):
+        SpmdTrainer(_cfg(prefix, True, edge_shard="on", model="gat",
+                         heads=2, aggregate_backend="xla"), stub,
+                    build_model("gat", [12, 8, 5], heads=2),
+                    devices=["cpu"] * 4)

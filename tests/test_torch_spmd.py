@@ -414,16 +414,21 @@ def test_make_trainer_picks_spmd(ds):
 
 
 REFUSALS = {
-    "ring": (dict(exchange="ring"), "-exchange ring"),
-    "edge_shard_on": (dict(edge_shard="on"), "-edge-shard on"),
-    "multihost": (dict(multihost=True), "-multihost"),
+    # ring and edge sharding run at k = 1 and are refused under
+    # overcommit, as in roc_tpu; -multihost needs torchrun's environment
+    "ring": (dict(exchange="ring"), "for ring/edge-shard"),
+    "edge_shard_on": (dict(edge_shard="on"), "for ring/edge-shard"),
+    "multihost": (dict(multihost=True), "-multihost reads torchrun"),
     "perhost_k4": (dict(perhost_load=True, filename="x"), "-perhost"),
     "non_divisible": (dict(num_parts=12), "multiple of the mesh"),
 }
 
 
 @pytest.mark.parametrize("case", list(REFUSALS))
-def test_refusals_exit(ds, case):
+def test_refusals_exit(ds, case, monkeypatch):
+    from roc_tpu_torch.parallel import collectives
+    for var in collectives.ENV:
+        monkeypatch.delenv(var, raising=False)
     kw, match = REFUSALS[case]
     kw = dict(kw)
     parts = kw.pop("num_parts", 4)
@@ -436,12 +441,19 @@ def test_refusals_exit(ds, case):
         with pytest.raises(SystemExit, match=match):
             make_trainer(dataclasses.replace(cfg, num_parts=1), ds,
                          build_model("gcn", LAYERS))
+    if case in ("ring", "edge_shard_on"):
+        # one part a mesh position: the mode runs
+        tr = SpmdTrainer(cfg, ds, build_model("gcn", LAYERS),
+                         devices=MESH8)
+        assert tr.gdata.mode == {"ring": "ring"}.get(case, "edge")
+        assert np.isfinite(float(tr.run_epoch()))
 
 
 def test_edge_shard_auto_over_the_tax_exits():
     """A hub-skewed graph whose padded-max tax passes 30 % at k = 1:
-    roc_tpu turns on edge sharding there, so the port exits; -edge-shard
-    off runs the vertex path."""
+    roc_tpu turns on edge sharding there, and so does the port (it used
+    to exit there): the run trains in edge mode; -edge-shard off runs the
+    vertex path."""
     from roc_tpu_torch.graph.csr import from_edges
     from roc_tpu_torch.graph.datasets import Dataset
     from roc_tpu_torch.graph.lux import MASK_TRAIN, one_hot
@@ -458,13 +470,16 @@ def test_edge_shard_auto_over_the_tax_exits():
     cfg = Config(layers=LAYERS, num_parts=4, device="cpu", eval_every=10**9,
                  aggregate_backend="binned", aggregate_precision="exact")
     assert spmd.padded_max_tax(partition_graph(g, 4)) > 0.30
-    with pytest.raises(SystemExit, match="-edge-shard off runs the vertex"):
-        SpmdTrainer(cfg, dds, build_model("gcn", LAYERS), devices=MESH8)
+    auto = SpmdTrainer(cfg, dds, build_model("gcn", LAYERS), devices=MESH8)
+    assert auto.gdata.mode == "edge"
+    assert np.isfinite(float(auto.run_epoch()))
     tr = SpmdTrainer(dataclasses.replace(cfg, edge_shard="off"), dds,
                      build_model("gcn", LAYERS), devices=MESH8)
+    assert tr.gdata.mode == "vertex"
     assert np.isfinite(float(tr.run_epoch()))
     # k > 1: overcommit is vertex-only, auto stays off (roc_tpu's rule)
-    SpmdTrainer(cfg, dds, build_model("gcn", LAYERS))
+    assert SpmdTrainer(cfg, dds, build_model("gcn", LAYERS)).gdata.mode == \
+        "vertex"
 
 
 def test_new_flags_parse_as_roc_tpu(monkeypatch):

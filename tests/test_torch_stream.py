@@ -13,6 +13,7 @@ Tolerances:
                                                                 row's max-abs
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -403,7 +404,7 @@ def test_stream_slots_fit_where_incore_does_not():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(parts=4, exchange="ring"), "SPMD trainer"),
+    (dict(stream=True, parts=4, multihost=True), "SPMD trainer"),
     (dict(stream=True, parts=1), "needs -parts >= 2"),
     (dict(stream=True, parts=4, use_bf16=True), "-stream computes in fp32")])
 def test_stream_refusals(kw, match):
@@ -581,3 +582,124 @@ def test_obs_records_carry_stream_fields(tmp_path):
         assert r["wire_bytes"] == r["stream_bytes"] > 0
         assert 0.0 <= r["stream_stall_frac"] <= 1.0
     assert tr.watchdog.stall_observed == 3
+
+
+# -- the graph stub and reshard ---------------------------------------------------
+
+@pytest.fixture(scope="module")
+def stub_prefix(tmp_path_factory):
+    ds = datasets.synthetic("stub", 600, 6.0, 12, 5, n_train=120, n_val=100,
+                            n_test=100, seed=7)
+    prefix = str(tmp_path_factory.mktemp("stub") / "g")
+    lux.write_dataset(prefix, ds.graph, ds.features, ds.label_ids, ds.mask)
+    return prefix
+
+
+def _stream_cfg(prefix, **kw):
+    return Config(filename=prefix, layers=[12, 16, 5], num_parts=4,
+                  num_epochs=3, dropout_rate=0.5, eval_every=10**9,
+                  stream=True, device="cpu", aggregate_backend="binned",
+                  aggregate_precision="exact", **kw)
+
+
+def test_stream_streams_a_graph_stub_bitwise(stub_prefix):
+    """-stream -perhost: the shards come off the .lux byte ranges and
+    train bit for bit as the full graph's streamed run (executor.py:
+    189-200)."""
+    from roc_tpu_torch.graph.datasets import GraphStub
+    full = make_trainer(_stream_cfg(stub_prefix),
+                        datasets.load_roc_dataset(stub_prefix, 12, 5),
+                        build_model("gcn", [12, 16, 5], 0.5))
+    stub_ds = datasets.load_roc_dataset(stub_prefix, 12, 5,
+                                        graph_stub=True)
+    assert isinstance(stub_ds.graph, GraphStub)
+    stub = make_trainer(_stream_cfg(stub_prefix, perhost_load=True),
+                        stub_ds, build_model("gcn", [12, 16, 5], 0.5))
+    assert stub._lux_path and not stub._balance_supported()
+    assert full._balance_supported()
+    assert (stub._S, stub._E, stub._K) == (full._S, full._E, full._K)
+    assert np.array_equal(stub._tbl_idx, full._tbl_idx)
+    for _ in range(3):
+        assert float(stub.run_epoch()) == float(full.run_epoch())
+    assert torch.equal(stub.predict_logits(), full.predict_logits())
+    stub.close()
+    full.close()
+
+
+@pytest.mark.parametrize("on_stub", [False, True])
+def test_stream_reshard_same_bounds_is_bit_for_bit(stub_prefix, on_stub):
+    """A reshard onto the current cut rebuilds the maps and keeps every
+    bit of the run (the frozen shapes, the same K); on the .lux path it
+    re-reads the byte ranges."""
+    ds = datasets.load_roc_dataset(stub_prefix, 12, 5, graph_stub=on_stub)
+    a = make_trainer(_stream_cfg(stub_prefix, perhost_load=on_stub), ds,
+                     build_model("gcn", [12, 16, 5], 0.5))
+    b = make_trainer(_stream_cfg(stub_prefix, perhost_load=on_stub), ds,
+                     build_model("gcn", [12, 16, 5], 0.5))
+    la = [float(a.run_epoch())]
+    K = b._K
+    lb = [float(b.run_epoch())]
+    assert b.reshard(np.asarray(b.part.bounds)) >= 0.0
+    assert b._K == K
+    la += [float(a.run_epoch()) for _ in range(2)]
+    lb += [float(b.run_epoch()) for _ in range(2)]
+    assert la == lb
+    a.close()
+    b.close()
+
+
+def _skewed_bounds(n, P=4):
+    cuts = np.linspace(0, n // 2, P).astype(np.int64)
+    lo = np.concatenate([[0], cuts[1:]])
+    hi = np.concatenate([cuts[1:] - 1, [n - 1]])
+    return np.stack([lo, hi], axis=1)
+
+
+def test_stream_reshard_new_cut_and_frozen_width(stub_prefix):
+    """A reshard onto a balanced cut under the skewed cut's frozen shapes
+    trains as a fresh run on the balanced cut (1e-5: the padding
+    differs); a cut that needs a wider halo than the frozen K raises."""
+    ds = datasets.load_roc_dataset(stub_prefix, 12, 5)
+    model = build_model("gcn", [12, 16, 5], 0.5)
+    from roc_tpu_torch.stream.executor import StreamTrainer
+    skew = StreamTrainer(_stream_cfg(stub_prefix), ds, model,
+                         bounds=_skewed_bounds(ds.graph.num_nodes))
+    fresh = StreamTrainer(_stream_cfg(stub_prefix), ds, model)
+    shapes = (skew._S, skew._E, skew._K)
+    skew.reshard(np.asarray(fresh.part.bounds))
+    assert (skew._S, skew._E, skew._K) == shapes
+    assert np.array_equal(skew.part.bounds, fresh.part.bounds)
+    for _ in range(3):
+        np.testing.assert_allclose(float(skew.run_epoch()),
+                                   float(fresh.run_epoch()), rtol=1e-5)
+    from roc_tpu_torch.stream.executor import _stream_maps
+    with pytest.raises(ValueError, match="frozen K"):
+        _stream_maps(fresh.part.meta, fresh.part.edge_src, K_force=1)
+    skew.close()
+    fresh.close()
+
+
+def test_stream_balancer_reshards_a_skewed_cut(stub_prefix):
+    """-stream -balance-every 1 from a skewed cut (probe times injected):
+    at least one reshard, the loss within 1e-3 of the unbalanced run."""
+    from roc_tpu_torch.stream.executor import StreamTrainer
+    ds = datasets.load_roc_dataset(stub_prefix, 12, 5)
+    quiet = lambda *_: None  # noqa: E731
+    bounds = _skewed_bounds(ds.graph.num_nodes)
+    cfg = dataclasses.replace(_stream_cfg(stub_prefix), dropout_rate=0.0)
+    ref = StreamTrainer(cfg, ds, build_model("gcn", [12, 16, 5], 0.0),
+                        bounds=bounds)
+    want = ref.train(print_fn=quiet).final_loss
+    tr = StreamTrainer(dataclasses.replace(cfg, balance_every=1), ds,
+                       build_model("gcn", [12, 16, 5], 0.0),
+                       bounds=bounds)
+    assert tr.balancer is not None
+    tr.balancer.probe = lambda part, **_: [
+        2e-9 * float(e) + 1e-6 for e in part.num_edges_valid]
+    got = tr.train(print_fn=quiet)
+    acts = [ev["action"] for ev in got.rebalance_events]
+    assert "reshard" in acts, acts
+    assert not np.array_equal(np.asarray(tr.part.bounds), bounds)
+    assert abs(got.final_loss - want) < 1e-3 * max(abs(want), 1.0)
+    ref.close()
+    tr.close()
