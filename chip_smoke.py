@@ -102,6 +102,22 @@ Phases, each printing one JSON line per record:
           32 ULPs and vs the plain fp32 aggregation at -bf16 <= 5e-3
   ab      the same model in exact, dropout 0, 3 epochs from the same
           params, -megafuse vs unfused: final loss within 1e-3 relative
+  tune    the autotuner (roc_tpu_torch/tune): (a) every candidate of the
+          sum's launch lattice (lanes a row x edges in flight), over the
+          Reddit CSR and its transpose at H = 256 fast and exact and H = 41
+          fast, and every GAT forward lane group at (K, F) = (4, 64) and
+          (1, 41), fast: bitwise the default launch on Gaussian data and
+          the plain version on integer data, timed beside the default
+          (CUDA events); (b) autotune_graph on the card over both
+          directions into a temporary store: each winner with its
+          confirmed and the default's seconds; (c) GCN 602-256-41, fast,
+          dropout 0.5, 3 epochs with -autotune and without: losses bitwise
+          equal, epoch times, and aggregate_sum's launches by launch pair
+          (the tuned pairs only, against (0, 0) untuned); (d) the refit
+          rates with the card's name and power limit; (e) one step on
+          reddit-small under each kill switch (ROC_NO_MEGAFUSE=1,
+          ROC_MEGA_BWD=0, ROC_XLAYER=0, ROC_NO_GATFUSE=1, ROC_GAT_BWD=0):
+          none of the kernels it turns off launches, the loss is finite
   kernel  (gat) the GAT entry points (gat_score, gat_forward, gat_bwd_dst,
           gat_bwd_src, and gat_stage, the fp32 plane the forward first
           stages a single head of 41 columns into, aggregate_sum.cu's
@@ -4474,6 +4490,259 @@ def _same_mode_build(per, full) -> bool:
                         for x, y in zip(ra, rb))
 
 
+TUNE_SUM = ((256, "fast"), (256, "exact"), (41, "fast"))
+TUNE_GAT = ((4, 64), (1, 41))
+# kill switch -> (model, layers, trainer settings, kernels it turns off,
+# kernels that must still run); GAT at 4 heads of 32: the plain attention
+# gathers [E, K, F] and refuses 4 x 64 on reddit-small (ops/edge.py)
+SWITCHES = {
+    "ROC_NO_MEGAFUSE=1": ("gcn", [602, 256, 41], {"megafuse": True},
+                          ("aggregate_linear", "aggregate_linear_bwd",
+                           "stage_cotangent"), ("aggregate_sum",)),
+    "ROC_MEGA_BWD=0": ("gcn", [602, 256, 41], {"megafuse": True},
+                       ("aggregate_linear_bwd", "stage_cotangent"),
+                       ("aggregate_linear", "aggregate_sum")),
+    "ROC_XLAYER=0": ("gcn-chain", [602, 256, 256, 256, 41],
+                     {"megafuse": True, "fusion_depth": 0},
+                     ("xlayer_fwd", "xlayer_bwd"),
+                     ("aggregate_linear", "aggregate_linear_bwd")),
+    "ROC_NO_GATFUSE=1": ("gat", [602, 32, 41], {},
+                         ("gat_score", "gat_stage", "gat_forward",
+                          "gat_bwd_dst", "gat_bwd_src"), ()),
+    "ROC_GAT_BWD=0": ("gat", [602, 32, 41], {},
+                      ("gat_bwd_dst", "gat_bwd_src"),
+                      ("gat_score", "gat_forward")),
+}
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous().view(torch.int32)
+
+
+def _tune_sum_candidates(csr, n, dev) -> list:
+    """Every candidate of the sum's lattice, over the CSR and its
+    transpose, at TUNE_SUM: bitwise the default launch on Gaussian data,
+    bitwise the plain version on {0,1} data, timed beside the default."""
+    from roc_tpu_torch.ops.kernels import aggregate_sum as KS
+    from roc_tpu_torch.tune.lattice import candidate_lattice, default_config
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    out = []
+    for h, prec in TUNE_SUM:
+        x = torch.randn((n, h), generator=gen, device=dev)
+        xi = torch.randint(0, 2, (n, h), generator=gen,
+                           device=dev).to(torch.float32)
+        base = default_config("sum", (h,), prec)
+        for d, rp, ci in (("fwd", csr.row_ptr, csr.col_idx),
+                          ("transposed", csr.t_row_ptr, csr.t_col_idx)):
+            want = KS.aggregate_sum(x, rp, ci, prec)
+            want_i = KS.aggregate_sum_plain(xi, rp, ci, prec)
+            base_ms = time_ms(lambda: KS.aggregate_sum(x, rp, ci, prec),
+                              reps=10, warmup=2)
+            for cfg in candidate_lattice("sum", (h,), prec):
+                got = KS.aggregate_sum(x, rp, ci, prec, cfg.launch)
+                row = {"H": h, "precision": prec, "csr": d,
+                       "launch": list(cfg.launch),
+                       "default": cfg.launch == base.launch,
+                       "gauss_bitwise_default": bool(torch.equal(
+                           _bits(got), _bits(want))),
+                       "int_bitwise_plain": bool(torch.equal(
+                           KS.aggregate_sum(xi, rp, ci, prec, cfg.launch),
+                           want_i)),
+                       "ms": time_ms(lambda c=cfg: KS.aggregate_sum(
+                           x, rp, ci, prec, c.launch), reps=10, warmup=2),
+                       "default_ms": base_ms}
+                out.append(row)
+            del want, want_i
+        del x, xi
+    return out
+
+
+def _tune_gat_candidates(csr, n, dev) -> list:
+    """Every lane-group pair of the GAT forward's lattice at TUNE_GAT,
+    fast: out, m and z bitwise the default launch on Gaussian data and the
+    plain version on the integer fixture, timed beside the default."""
+    from roc_tpu_torch.ops.kernels import gat as G
+    from roc_tpu_torch.tune.lattice import candidate_lattice, default_config
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    out = []
+    for k, f in TUNE_GAT:
+        g = _gat_inputs(n, k, f, gen, dev)
+        gi = _gat_inputs(n, k, f, gen, dev, integer=True)
+
+        def call(i, pair):
+            return G.gat_forward(i["x"], i["as_"], i["ad"], csr.row_ptr,
+                                 csr.col_idx, 0.2, "fast",
+                                 None if pair is None else (pair,))
+        want = call(g, None)
+        want_i = G.gat_forward_plain(gi["x"], gi["as_"], gi["ad"],
+                                     csr.row_ptr, csr.col_idx, 0.2, "fast")
+        base = default_config("gat", (k, f), "fast")
+        base_ms = time_ms(lambda: call(g, None), reps=10, warmup=2)
+        for cfg in candidate_lattice("gat", (k, f), "fast"):
+            pair = tuple(cfg.launch)
+            got, got_i = call(g, pair), call(gi, pair)
+            out.append({
+                "K": k, "F": f, "precision": "fast", "launch": list(pair),
+                "default": pair == base.launch,
+                "gauss_bitwise_default": all(
+                    bool(torch.equal(_bits(a), _bits(b)))
+                    for a, b in zip(got, want)),
+                "int_bitwise_plain": all(
+                    bool(torch.equal(a, b)) for a, b in zip(got_i, want_i)),
+                "ms": time_ms(lambda p=pair: call(g, p), reps=10, warmup=2),
+                "default_ms": base_ms})
+        del g, gi, want, want_i
+    return out
+
+
+def _switch_step(ds, dev, switch: str) -> dict:
+    """One training step under a kill switch (its variable set for the
+    trainer's life): the kernels it turns off launch none, the ones that
+    stay launch, the loss is finite."""
+    var, value = switch.split("=")
+    model, layers, extra, off, on = SWITCHES[switch]
+    os.environ[var] = value
+    try:
+        tr = _trainer(ds, layers, dev, num_epochs=1, learning_rate=0.01,
+                      weight_decay=0.0001, dropout_rate=0.0,
+                      eval_every=1000, aggregate_precision="fast",
+                      model=model, heads=4, **extra)
+        reset_launches()
+        loss = float(tr.run_epoch())
+        torch.cuda.synchronize(dev)
+        launches = read_launches()
+    finally:
+        os.environ.pop(var, None)
+    ok = (np.isfinite(loss) and all(launches[k] == 0 for k in off)
+          and all(launches[k] > 0 for k in on))
+    return {"switch": switch, "model": model, "layers": layers,
+            "loss": loss, "launches": launches, "off": list(off),
+            "on": list(on), "ok": bool(ok)}
+
+
+def phase_tune(ds, dev) -> dict:
+    """The autotuner on the card (roc_tpu_torch/tune): (a) every sum and
+    GAT forward candidate against the default launch and the plain
+    version, timed; (b) ``autotune_graph`` over Reddit's CSR and its
+    transpose into a temporary store; (c) GCN 602-256-41, fast, dropout
+    0.5, 3 epochs, with -autotune and without, losses bitwise equal; (d)
+    the refit rates with the card's name and power limit; (e) one step
+    under each kill switch on reddit-small."""
+    import tempfile
+    from roc_tpu_torch.graph import datasets
+    from roc_tpu_torch.ops import DeviceCsr
+    from roc_tpu_torch.ops.kernels import aggregate_sum as KS
+    from roc_tpu_torch.tune import refit, search, store
+    t0 = time.perf_counter()
+    g = ds.graph
+    n = g.num_nodes
+    csr = DeviceCsr.from_csr(g, dev)
+    rec = {"phase": "tune", "dataset": ds.name, "nodes": n,
+           "edges": g.num_edges, "leg_s": {}}
+    rec["sum_candidates"] = _tune_sum_candidates(csr, n, dev)
+    rec["gat_candidates"] = _tune_gat_candidates(csr, n, dev)
+    rec["leg_s"]["candidates"] = time.perf_counter() - t0
+    del csr
+    _free()
+    tmp = tempfile.mkdtemp(prefix="roc_tune_")
+    env0 = {k: os.environ.get(k) for k in ("ROC_TUNED_PATH", "ROC_NO_TUNED")}
+    os.environ["ROC_TUNED_PATH"] = os.path.join(tmp, "tuned_cuda.json")
+    os.environ.pop("ROC_NO_TUNED", None)
+    store.clear_cache()
+    try:
+        lines, trials = [], []
+        t1 = time.perf_counter()
+        table = search.autotune_graph(
+            g.col_idx, g.dst_idx, n, n, storage_dtype="bf16", device=True,
+            log=lines.append, cuda_device=dev, records=trials)
+        entries = store.lookup(g.col_idx, g.dst_idx, n, n, "bf16") or {}
+        back = store.lookup(g.dst_idx, g.col_idx, n, n, "bf16") or {}
+        rec["autotune"] = {
+            "seconds": time.perf_counter() - t1, "log": lines,
+            "fwd": {k: {f: e[f] for f in ("launch", "trial_s",
+                                          "default_s", "modeled_s")}
+                    for k, e in entries.items()},
+            "bwd": {k: {f: e[f] for f in ("launch", "trial_s",
+                                          "default_s", "modeled_s")}
+                    for k, e in back.items()},
+            "table": None if table is None else table._asdict()}
+        # (c) -autotune against an untuned run, both from a fresh store
+        runs = {}
+        for tuned in (False, True):
+            if os.path.exists(os.environ["ROC_TUNED_PATH"]):
+                os.remove(os.environ["ROC_TUNED_PATH"])
+            store.clear_cache()
+            tr = _recipe_trainer(ds, dev, epochs=3, autotune=tuned)
+            KS.aggregate_sum.by_launch.clear()
+            r = _train_run(tr, dev)
+            r["by_launch"] = {f"{a}.{b}": c for (a, b), c in
+                              KS.aggregate_sum.by_launch.items()}
+            r["csr_launch"] = (None if tr.gdata.csr.launch is None
+                               else tr.gdata.csr.launch._asdict())
+            r.pop("metric_lines", None)
+            runs["autotune" if tuned else "untuned"] = r
+            del tr
+            _free()
+        rec["train"] = runs
+        rec["leg_s"]["train"] = time.perf_counter() - t1 - \
+            rec["autotune"]["seconds"]
+        # (d) the refit rates from (b)'s trials
+        name, limit = refit.card_identity()
+        mtable = refit.to_measured_table(trials, interpret=False,
+                                         name=name, power_limit=limit)
+        refit.update(mtable, os.path.join(tmp, "measured_cuda.json"))
+        rec["refit"] = {"rates": mtable["rates"], "n": mtable["n"],
+                        "device": mtable["device"]}
+    finally:
+        for k, v in env0.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        store.clear_cache()
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+    t1 = time.perf_counter()
+    small = datasets.get("reddit-small", seed=SEED)
+    rec["switches"] = [_switch_step(small, dev, s) for s in SWITCHES]
+    rec["leg_s"]["switches"] = time.perf_counter() - t1
+    rec["phase_s"] = time.perf_counter() - t0
+    emit(rec)
+    bad_sum = [r for r in rec["sum_candidates"]
+               if not (r["gauss_bitwise_default"] and r["int_bitwise_plain"])]
+    bad_gat = [r for r in rec["gat_candidates"]
+               if not (r["gauss_bitwise_default"] and r["int_bitwise_plain"])]
+    if bad_sum or bad_gat:
+        raise AssertionError(f"a launch candidate changed bits: "
+                             f"{bad_sum + bad_gat}")
+    fwd, bwd = rec["autotune"]["fwd"], rec["autotune"]["bwd"]
+    if not ({"sum/256", "sum/41", "gat/4x64", "gat/1x41"} <= set(fwd)
+            and {"sum/256", "sum/41"} <= set(bwd)):
+        raise AssertionError(f"the tuned store lacks a kernel: {fwd} {bwd}")
+    un, tu = runs["untuned"], runs["autotune"]
+    placed = tu["csr_launch"] or {"fwd": {}, "bwd": {}}
+    tuned_pairs = {f"{a}.{b}" for d in ("fwd", "bwd")
+                   for k, (a, b) in placed[d].items()
+                   if k in ("sum/256", "sum/41")}
+    if not (un["first_train_loss"] == tu["first_train_loss"]
+            and un["last_train_loss"] == tu["last_train_loss"]
+            and un["final_step_loss"] == tu["final_step_loss"]):
+        raise AssertionError(f"-autotune changed the losses: {un} {tu}")
+    if set(un["by_launch"]) != {"0.0"} or "0.0" in tu["by_launch"] or \
+            set(tu["by_launch"]) != tuned_pairs:
+        raise AssertionError(f"the tuned launches did not reach the kernel: "
+                             f"{un['by_launch']} {tu['by_launch']} "
+                             f"{tuned_pairs}")
+    rates = rec["refit"]["rates"]
+    if not (rates["byte_s"] is not None and rates["byte_s"] > 0
+            and rates["row_s"] is not None and np.isfinite(rates["row_s"])):
+        raise AssertionError(f"refit gave no rates: {rec['refit']}")
+    if not all(s["ok"] for s in rec["switches"]):
+        raise AssertionError(f"a kill switch step failed: "
+                             f"{rec['switches']}")
+    return rec
+
+
 def _kernel_entry(name, source, replaces, launches, row, rows, keys):
     """One entry of the ``kernels`` line: the main row's numbers and every
     measured shape."""
@@ -4534,6 +4803,7 @@ def main() -> int:
     serve_bf16 = phase_serve(ds, dev, n_requests=40, bf16=True)
     train_gat = phase_train(ds, dev, False, model="gat")
     phase_ab(ds, dev)
+    tune = phase_tune(ds, dev)
     graph_file = phase_graph_file(ds, dev)
     phase_run_controls(dev)
     mem_plan = phase_mem_plan(ds, dev)
@@ -4580,6 +4850,8 @@ def main() -> int:
          "serve_bf16": serve_bf16["launches"]["aggregate_sum"],
          "train": train[False]["launches"]["aggregate_sum"],
          "train_bf16": train_bf16[False]["launches"]["aggregate_sum"],
+         "tune_autotune":
+         tune["train"]["autotune"]["launches"]["aggregate_sum"],
          "graph_file": graph_file["launches"]["aggregate_sum"],
          "delta": delta["launches"]["aggregate_sum"],
          "fleet": fleet["launches"]["aggregate_sum"],
@@ -4599,6 +4871,8 @@ def main() -> int:
          "train_bf16": train_bf16[False]["launches"]["stage_plane"],
          "train_bf16_megafuse":
          train_bf16[True]["launches"]["stage_plane"],
+         "tune_autotune":
+         tune["train"]["autotune"]["launches"]["stage_plane"],
          "graph_file": graph_file["launches"]["stage_plane"],
          "delta": delta["launches"]["stage_plane"],
          "delta_mega": delta["mega_launches"]["stage_plane"],

@@ -175,15 +175,15 @@ VARIANTS = {
         "guarded loads where a lane owns one pack a pass and unconditional "
         "ones where it owns more, instead of guarded ones at every count",
         "sum", [("aggregate_sum.cu",
-                 "gather_row<T, VEC, PACKS, LPR, (PACKS > 1), kRowEdges>(",
-                 "gather_row<T, VEC, PACKS, LPR, false, kRowEdges>(")]),
+                 "gather_row<T, VEC, PACKS, LPR, (PACKS > 1), EDGES>(",
+                 "gather_row<T, VEC, PACKS, LPR, false, EDGES>(")]),
     "sum_clamped_loads": (
         "guarded loads where a lane owns one pack a pass and unconditional "
         "ones where it owns more, instead of unconditional ones at every "
         "count",
         "sum", [("aggregate_sum.cu",
-                 "gather_row<T, VEC, PACKS, LPR, (PACKS > 1), kRowEdges>(",
-                 "gather_row<T, VEC, PACKS, LPR, true, kRowEdges>(")]),
+                 "gather_row<T, VEC, PACKS, LPR, (PACKS > 1), EDGES>(",
+                 "gather_row<T, VEC, PACKS, LPR, true, EDGES>(")]),
     "sum_two_packs": (
         "up to 3 bf16 packs a lane a pass instead of 2 (602: 1 pass, not 2)",
         "sum", [("gather_tile.cuh", "constexpr int kMaxPacks = 3;",
@@ -391,7 +391,8 @@ def _sum_per_edge_cases(ctx):
         out = torch.empty((n, x.shape[1]), device=x.device)
         err = KS.LIBRARY.load().roc_aggregate_sum(
             rp.data_ptr(), ci.data_ptr(), x.data_ptr(), x.stride(0), 0,
-            KS._vec_width(x), out.data_ptr(), n, x.shape[1], KS._stream(x))
+            KS._vec_width(x), out.data_ptr(), n, x.shape[1], 0, 0,
+            KS._stream(x))
         if err != 0:
             raise RuntimeError(f"roc_aggregate_sum failed: CUDA error {err}")
         return out

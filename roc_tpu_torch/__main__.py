@@ -81,8 +81,20 @@ def _refusal(cfg) -> str:
     return ""
 
 
+# roc_tpu's -analyze (roc_tpu/analysis/) audits the steps XLA lowered: their
+# collectives, f64 ops and budgets, and retraces.  The port runs eager
+# PyTorch: there is no lowered step to audit.
+ANALYZE_REFUSAL = ("error: -analyze audits the lowered XLA steps of "
+                   "roc_tpu (collectives, f64 ops, budgets, retraces); the "
+                   "PyTorch port runs eager and has no lowered step to "
+                   "audit")
+
+
 def main(argv=None) -> int:
     cfg = parse_args(sys.argv[1:] if argv is None else argv)
+    if cfg.analyze:
+        print(ANALYZE_REFUSAL, file=sys.stderr)
+        return 1
     refusal = _refusal(cfg)
     if refusal:
         print(refusal, file=sys.stderr)

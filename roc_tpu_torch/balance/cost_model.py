@@ -8,15 +8,17 @@ two deviations from a textbook lstsq:
 
   * **Warm start.**  Before any telemetry exists the model must still rank
     cuts.  ``prior_times`` prices a part on the card: its edges at the sum
-    kernel's measured rate (``memory/estimator.py``'s
-    ``AGG_S_PER_EDGE_COLUMN``, one column-edge at a time), its rows and
-    its halo rows at HBM bandwidth (``obs/roofline.py``'s ``PEAK_BW``; an
-    exchange between parts on one card is a device copy), over the run's
-    feature width.  ``fit`` mixes these in as low-weight pseudo-samples, so
-    early fits interpolate between the prior and the first probes.
-    roc_tpu's TPU chunk cost and its ICI term are not the card's and are
-    not carried; its device-measured prior (``MEASURED_PRIOR_WEIGHT``)
-    waits for the autotuner's refit (ROADMAP queue A item 8).
+    kernel's rate (``memory/estimator.py:agg_s_per_edge_column``, one
+    column-edge at a time: the autotuner's refit rate when the port's
+    measured table exists, else the one measured ``AGG_S_PER_EDGE_COLUMN``),
+    its rows and its halo rows at HBM bandwidth (``obs/roofline.py``'s
+    ``PEAK_BW``; an exchange between parts on one card is a device copy),
+    over the run's feature width.  ``fit`` mixes these in as pseudo-samples
+    at ``PRIOR_WEIGHT``, or at roc_tpu's ``MEASURED_PRIOR_WEIGHT`` when the
+    rate comes from the card's refit table (``tune/refit.py``,
+    ``python -m roc_tpu_torch.tune --device --refit --update``), so early
+    fits interpolate between the prior and the first probes.  roc_tpu's TPU
+    chunk cost and its ICI term are not the card's and are not carried.
   * **Column scaling.**  edges ~ 1e4..1e8 while the constant column is 1;
     unscaled normal equations lose the small coefficients.  The solve runs
     in column-max-scaled space and unscales the weights.
@@ -29,7 +31,7 @@ from typing import Optional
 import numpy as np
 
 from roc_tpu_torch.balance.telemetry import NUM_FEATURES
-from roc_tpu_torch.memory.estimator import AGG_S_PER_EDGE_COLUMN
+from roc_tpu_torch.memory.estimator import agg_s_per_edge_column
 from roc_tpu_torch.obs.roofline import PEAK_BW
 
 # The prior's feature width and wire itemsize when the caller does not
@@ -39,6 +41,15 @@ _PRIOR_HALO_WIDTH = 32
 _PRIOR_HALO_ITEMSIZE = 4
 # Relative weight of a synthesized prior sample vs a measured probe.
 PRIOR_WEIGHT = 0.1
+# The weight when the prior's edge rate is the card's refit rate
+# (roc_tpu/balance/cost_model.py:56): a measured prior has earned more pull.
+MEASURED_PRIOR_WEIGHT = 0.5
+
+
+def measured_prior() -> bool:
+    """True when the card's refit table backs the prior's edge rate."""
+    from roc_tpu_torch.tune.refit import load_measured
+    return load_measured() is not None
 
 
 def prior_weights(halo_width: int = _PRIOR_HALO_WIDTH,
@@ -50,7 +61,7 @@ def prior_weights(halo_width: int = _PRIOR_HALO_WIDTH,
     w = float(halo_width)
     row = w * 4.0 / PEAK_BW
     halo = w * float(halo_itemsize) / PEAK_BW
-    return np.array([row, w * AGG_S_PER_EDGE_COLUMN, halo, halo, 0.0])
+    return np.array([row, w * agg_s_per_edge_column(), halo, halo, 0.0])
 
 
 def prior_times(X: np.ndarray, halo_width: int = _PRIOR_HALO_WIDTH,
@@ -66,15 +77,24 @@ class OnlineCostModel:
 
     def __init__(self, ridge: float = 1e-8,
                  halo_width: int = _PRIOR_HALO_WIDTH,
-                 halo_itemsize: int = _PRIOR_HALO_ITEMSIZE):
+                 halo_itemsize: int = _PRIOR_HALO_ITEMSIZE,
+                 measured: Optional[bool] = None):
         self.ridge = float(ridge)
         # the run's exchanged-feature width and wire itemsize; only the
         # warm-start prior reads them
         self.halo_width = int(halo_width)
         self.halo_itemsize = int(halo_itemsize)
+        # None: MEASURED_PRIOR_WEIGHT when the card's refit table backs the
+        # prior (measured_prior), PRIOR_WEIGHT otherwise
+        self.measured = measured
         self.w: Optional[np.ndarray] = None  # [5], unscaled feature space
         self.r2: Optional[float] = None      # of the last fit's probe rows
         self.num_fits = 0
+
+    def prior_weight(self) -> float:
+        measured = measured_prior() if self.measured is None \
+            else self.measured
+        return MEASURED_PRIOR_WEIGHT if measured else PRIOR_WEIGHT
 
     def fit(self, X: np.ndarray, t: np.ndarray,
             weights: Optional[np.ndarray] = None,
@@ -82,7 +102,7 @@ class OnlineCostModel:
         """Fit on measured rows (X [n, 5], t [n]); returns R^2 on those rows.
 
         With ``prior=True`` the synthesized warm-start rows are appended at
-        ``PRIOR_WEIGHT``: they regularize the fit but are excluded from the
+        ``prior_weight()``: they regularize the fit but are excluded from the
         reported R^2, which reflects only how well the model explains its
         own telemetry.
         """
@@ -95,7 +115,7 @@ class OnlineCostModel:
             Xf = np.concatenate([X, X], axis=0)
             tf = np.concatenate([t, prior_times(X, self.halo_width,
                                                 self.halo_itemsize)])
-            wf = np.concatenate([w, np.full(n, PRIOR_WEIGHT)])
+            wf = np.concatenate([w, np.full(n, self.prior_weight())])
         self.w = _weighted_ridge(Xf, tf, wf, self.ridge)
         self.num_fits += 1
         pred = X @ self.w

@@ -21,7 +21,10 @@
 //   a group of 8, 16 or 32 lanes a row, as many packs a lane as the row needs (3 at 602 bf16,
 //   one pass; up to 4 fp32, one pass at 256), so a narrow row (H = 41: 6 packs, 8 lanes) does
 //   not leave most of a warp idle: a warp then sums 4 rows.  Each output row is written once,
-//   by the one group that summed it: no atomics, the same bits on every run.
+//   by the one group that summed it: no atomics, the same bits on every run.  Lanes a row and
+//   edges in flight are launch arguments (launch_sum): 0 takes the rule above, and the
+//   autotuner (roc_tpu_torch/tune/) picks others per graph, direction and width; no choice
+//   changes a bit.
 // A bf16 x is already rounded and is gathered directly (sum_rows_bf16), the output in bf16.
 //
 // Precision (the contract of binned.py:37-46): "fast" on fp32 input sums, in fp32 from 0 in
@@ -46,12 +49,12 @@ namespace {
 using namespace roc;
 
 // One row per lane group of LPR lanes, 32 / LPR rows a warp; src is [*, ld] (a bf16 plane,
-// or fp32 x in place with ld its row stride).  A lane that owns one pack a pass guards its
-// load; with more it clamps its surplus packs (gather_row's CLAMP): clamped at one pack too,
-// the transposed sum at H = 256 read 2.15 against 1.83 / 1.82 ms (chip_variants.py's
-// sum_clamped_loads), guarded at three, the 602-wide sum 11.41 against 9.96 / 9.94
-// (sum_guarded_loads; NVIDIA H100 80GB HBM3, 700 W).
-template <typename T, int VEC, int PACKS, int LPR>
+// or fp32 x in place with ld its row stride); EDGES edges in flight (gather_row's UNROLL).  A
+// lane that owns one pack a pass guards its load; with more it clamps its surplus packs
+// (gather_row's CLAMP): clamped at one pack too, the transposed sum at H = 256 read 2.15
+// against 1.83 / 1.82 ms (chip_variants.py's sum_clamped_loads), guarded at three, the
+// 602-wide sum 11.41 against 9.96 / 9.94 (sum_guarded_loads; NVIDIA H100 80GB HBM3, 700 W).
+template <typename T, int VEC, int PACKS, int LPR, int EDGES>
 __global__ void __launch_bounds__(kThreads)
 sum_rows(const int64_t* __restrict__ rp, const int32_t* __restrict__ ci, const T* __restrict__ src,
          int64_t ld, float* __restrict__ out, int64_t n, int64_t H) {
@@ -60,45 +63,85 @@ sum_rows(const int64_t* __restrict__ rp, const int32_t* __restrict__ ci, const T
                           (32 / LPR) + lane / LPR;
   if (row >= n) return;
   float* orow = out + row * H;
-  gather_row<T, VEC, PACKS, LPR, (PACKS > 1), kRowEdges>(
+  gather_row<T, VEC, PACKS, LPR, (PACKS > 1), EDGES>(
       rp, ci, src, ld, row, H, lane % LPR,
       [&](int64_t c, const float (&a)[VEC]) { store_row<VEC>(orow, c, H, a); });
 }
 
-template <typename T, int VEC, int PACKS, int LPR>
-int launch_rows(const int64_t* rp, const int32_t* ci, const T* src, int64_t ld, float* out,
-                int64_t n, int64_t H, cudaStream_t s) {
+struct SumArgs {
+  const int64_t* rp;
+  const int32_t* ci;
+  const void* src;
+  int64_t ld;
+  float* out;
+  int64_t n, H;
+  cudaStream_t s;
+};
+
+template <typename T, int VEC, int PACKS, int LPR, int EDGES>
+int launch_rows(const SumArgs& a) {
   const int64_t rows_per_block = static_cast<int64_t>(kWarps) * (32 / LPR);
-  const dim3 grid(static_cast<unsigned>((n + rows_per_block - 1) / rows_per_block));
-  sum_rows<T, VEC, PACKS, LPR><<<grid, kThreads, 0, s>>>(rp, ci, src, ld, out, n, H);
+  const dim3 grid(static_cast<unsigned>((a.n + rows_per_block - 1) / rows_per_block));
+  sum_rows<T, VEC, PACKS, LPR, EDGES><<<grid, kThreads, 0, a.s>>>(
+      a.rp, a.ci, static_cast<const T*>(a.src), a.ld, a.out, a.n, a.H);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The launch configurations built.  Where a bf16 plane ("fast") or 4-float packs ("exact" on
+// an aligned x) are gathered, every LPR of 8, 16, 32 with every packs-a-lane count
+// packs_per_lane gives it, at 1, 2 or 4 edges in flight: the autotuner's lattice
+// (roc_tpu_torch/tune/lattice.py, which mirrors this rule).  At 2- and 1-float packs only
+// the default rule is built (LPR 8 and 16 with one pack a lane, 32 with any, kRowEdges in flight).
+// nvcc time grows with each instantiation (PERF.md §6 has the build's seconds).
 template <typename T, int VEC>
-int launch_sum(const int64_t* rp, const int32_t* ci, const T* src, int64_t ld, float* out,
-               int64_t n, int64_t H, cudaStream_t s) {
-  const int64_t packs = (H + VEC - 1) / VEC;
-  switch (lanes_per_row(packs)) {
-    case 8: return launch_rows<T, VEC, 1, 8>(rp, ci, src, ld, out, n, H, s);
-    case 16: return launch_rows<T, VEC, 1, 16>(rp, ci, src, ld, out, n, H, s);
-    default: break;
+constexpr bool kTunable = sizeof(T) == 2 || VEC == 4;
+
+template <typename T, int VEC, int LPR, int EDGES>
+int launch_packs(int ppl, const SumArgs& a) {
+  if (ppl == 1) return launch_rows<T, VEC, 1, LPR, EDGES>(a);
+  if constexpr (kTunable<T, VEC> || LPR == 32) {
+    if (ppl == 2) return launch_rows<T, VEC, 2, LPR, EDGES>(a);
+    if (ppl == 3) return launch_rows<T, VEC, 3, LPR, EDGES>(a);
+    if constexpr (sizeof(T) == 4)
+      if (ppl == 4) return launch_rows<T, VEC, 4, LPR, EDGES>(a);
   }
-  switch (packs_per_lane<T>(packs, 32)) {
-    case 1: return launch_rows<T, VEC, 1, 32>(rp, ci, src, ld, out, n, H, s);
-    case 2: return launch_rows<T, VEC, 2, 32>(rp, ci, src, ld, out, n, H, s);
-    case 3: return launch_rows<T, VEC, 3, 32>(rp, ci, src, ld, out, n, H, s);
-    default:
-      return launch_rows<T, VEC, sizeof(T) == 2 ? kMaxPacks : 4, 32>(rp, ci, src, ld, out, n,
-                                                                     H, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename T, int VEC, int EDGES>
+int launch_lanes(int lpr, int ppl, const SumArgs& a) {
+  switch (lpr) {
+    case 8: return launch_packs<T, VEC, 8, EDGES>(ppl, a);
+    case 16: return launch_packs<T, VEC, 16, EDGES>(ppl, a);
+    case 32: return launch_packs<T, VEC, 32, EDGES>(ppl, a);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-int launch_f32(const int64_t* rp, const int32_t* ci, const float* x, int64_t ldx, float* out,
-               int64_t n, int64_t H, int vec, cudaStream_t s) {
+// lpr lanes a row (0: lanes_per_row, the fewest that cover the row in one pass), the packs a
+// lane as packs_per_lane gives them for lpr, edges in flight (0: kRowEdges).  A combination
+// that is not built returns cudaErrorInvalidValue.  No choice reassociates a sum: each lane
+// adds its packs over the row's edges in CSR order from 0 (gather_row).
+template <typename T, int VEC>
+int launch_sum(const SumArgs& a, int lpr, int edges) {
+  const int64_t packs = (a.H + VEC - 1) / VEC;
+  if (lpr == 0) lpr = lanes_per_row(packs);
+  if (edges == 0) edges = kRowEdges;
+  if (lpr != 8 && lpr != 16 && lpr != 32) return static_cast<int>(cudaErrorInvalidValue);
+  const int ppl = packs_per_lane<T>(packs, lpr);
+  if (edges == kRowEdges) return launch_lanes<T, VEC, kRowEdges>(lpr, ppl, a);
+  if constexpr (kTunable<T, VEC>) {
+    if (edges == 1) return launch_lanes<T, VEC, 1>(lpr, ppl, a);
+    if (edges == 4) return launch_lanes<T, VEC, 4>(lpr, ppl, a);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int launch_f32(const SumArgs& a, int vec, int lpr, int edges) {
   switch (vec) {
-    case 4: return launch_sum<float, 4>(rp, ci, x, ldx, out, n, H, s);
-    case 2: return launch_sum<float, 2>(rp, ci, x, ldx, out, n, H, s);
-    case 1: return launch_sum<float, 1>(rp, ci, x, ldx, out, n, H, s);
+    case 4: return launch_sum<float, 4>(a, lpr, edges);
+    case 2: return launch_sum<float, 2>(a, lpr, edges);
+    case 1: return launch_sum<float, 1>(a, lpr, edges);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -187,26 +230,27 @@ extern "C" int roc_stage_plane(const void* x, long long ldx, long long n, long l
 //   kind 1: src is a staged bf16 plane [*, ld] (ld = ld8(H)), out fp32 ("fast" on fp32 x);
 //   kind 2: src is bf16 [*, H] (a bf16 x), out bf16.
 // vec: the fp32 vector width (kind 0: divides H and ld, src aligned to it) or the bf16 one
-// (kind 2: 4, 2 or 1, dividing H); ignored for kind 1.
+// (kind 2: 4, 2 or 1, dividing H); ignored for kind 1.  lpr (8, 16, 32) and edges (1, 2, 4) are
+// kinds 0 and 1's launch configuration (launch_sum), 0 each for the default rule; kind 2 takes
+// 0 and 0 only.
 extern "C" int roc_aggregate_sum(const void* row_ptr, const void* col_idx, const void* src,
                                  long long ld, int kind, int vec, void* out, long long n,
-                                 long long H, void* stream) {
+                                 long long H, int lpr, int edges, void* stream) {
   if (n <= 0 || H <= 0 || ld < H) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t* rp = static_cast<const int64_t*>(row_ptr);
   const int32_t* ci = static_cast<const int32_t*>(col_idx);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const SumArgs a{rp, ci, src, ld, static_cast<float*>(out), n, H, s};
   switch (kind) {
     case 0:
-      return launch_f32(rp, ci, static_cast<const float*>(src), ld, static_cast<float*>(out), n,
-                        H, vec, s);
+      return launch_f32(a, vec, lpr, edges);
     case 1:
       if (ld % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
-      return launch_sum<bf16, 8>(rp, ci, static_cast<const bf16*>(src), ld,
-                                 static_cast<float*>(out), n, H, s);
+      return launch_sum<bf16, 8>(a, lpr, edges);
     case 2: {
       const bf16* x = static_cast<const bf16*>(src);
       bf16* o = static_cast<bf16*>(out);
-      if (ld != H) return static_cast<int>(cudaErrorInvalidValue);
+      if (ld != H || lpr != 0 || edges != 0) return static_cast<int>(cudaErrorInvalidValue);
       switch (vec) {
         case 4: return launch_bf16<4>(rp, ci, x, o, n, H, s);
         case 2: return launch_bf16<2>(rp, ci, x, o, n, H, s);

@@ -440,13 +440,22 @@ int launch_fwd(const FwdArgs& p, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// (lanes, packs) pairs of forward_geometry's FWD_GROUPS
+// (lanes, packs) pairs: forward_geometry's FWD_GROUPS at every vec, and at 4-float packs (the
+// main path's: F = 64, and 41 columns staged to 44) three more the autotuner may choose
+// (ops/kernels/gat.py:FWD_PAIRS, roc_tpu_torch/tune/lattice.py).  The lane count changes no
+// bit: pass 1's maxima take no order, and each lane sums its packs over the row's edges in
+// CSR order from 0.  Any other pair returns cudaErrorInvalidValue.
 template <int VEC, bool ROUND>
 int launch_fwd_group(const FwdArgs& p, int lanes, int packs, cudaStream_t s) {
   if (lanes == 8 && packs == 1) return launch_fwd<VEC, 1, 8, ROUND>(p, s);
   if (lanes == 16 && packs == 1) return launch_fwd<VEC, 1, 16, ROUND>(p, s);
   if (lanes == 16 && packs == 3) return launch_fwd<VEC, 3, 16, ROUND>(p, s);
   if (lanes == 32 && packs == 2) return launch_fwd<VEC, 2, 32, ROUND>(p, s);
+  if constexpr (VEC == 4) {
+    if (lanes == 8 && packs == 2) return launch_fwd<VEC, 2, 8, ROUND>(p, s);
+    if (lanes == 16 && packs == 4) return launch_fwd<VEC, 4, 16, ROUND>(p, s);
+    if (lanes == 32 && packs == 1) return launch_fwd<VEC, 1, 32, ROUND>(p, s);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

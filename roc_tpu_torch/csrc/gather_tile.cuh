@@ -57,7 +57,9 @@ constexpr int kMaxPacks = 3;            // bf16 16-byte packs per lane per pass 
 // ms for the sum at H = 256 and 2.13 against 1.98 for the backward's u at 602 <- 256
 // (chip_variants.py's sum_four_edges and linear_four_edges; NVIDIA H100 80GB HBM3, 700 W).  A
 // tile's warps wait for each other at the tile GEMM, so the tile kernels keep more in flight
-// (gather_row's default).
+// (gather_row's default).  kRowEdges is the sum's default: its launch takes edges in flight (1,
+// 2 or 4) and lanes a row as arguments (aggregate_sum.cu's launch_sum), which the autotuner
+// chooses per graph, direction and width (roc_tpu_torch/tune/).
 constexpr int kRowEdges = 2;
 
 template <typename Kernel>

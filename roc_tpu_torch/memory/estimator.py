@@ -13,8 +13,10 @@
     roofline (``obs/roofline.py``).  An aggregation, which roc_tpu prices
     with the TPU's calibrated chunk cost (``balance.cost_model.
     prior_times``), from the port's own sum kernel:
-    ``AGG_S_PER_EDGE_COLUMN`` seconds per edge and column.  Only the
-    ratio of recompute to step time enters the planner's choice.
+    ``AGG_S_PER_EDGE_COLUMN`` seconds per edge and column, or the card's
+    refit rate where the autotuner measured one
+    (:func:`agg_s_per_edge_column`).  Only the ratio of recompute to step
+    time enters the planner's choice.
 
 The port's own device residents, which roc_tpu's accounting does not
 know, are reported apart by :func:`port_resident_bytes` and added to the
@@ -37,6 +39,18 @@ from roc_tpu_torch.obs.roofline import PEAK_BW, PEAK_FLOPS
 # synthetic Reddit graph's 23,526,073 in-edges (chip_smoke.py kernel
 # phase, PERF.md §6 row 1; NVIDIA H100 80GB HBM3, 700.00 W).
 AGG_S_PER_EDGE_COLUMN = 3.30e-3 / (23_526_073 * 256)
+
+
+def agg_s_per_edge_column() -> float:
+    """Seconds per edge and column of one fast sum: the card's refit rate
+    when the port's measured table exists and came from the card
+    (``tune/refit.py:load_measured``; the staged plane's 2 bytes a column
+    at its ``byte_s``), else ``AGG_S_PER_EDGE_COLUMN``."""
+    from roc_tpu_torch.tune.refit import load_measured
+    table = load_measured()
+    if table is None:
+        return AGG_S_PER_EDGE_COLUMN
+    return 2.0 * table["rates"]["byte_s"]
 
 # Op kinds whose outputs a kept layer saves under an active plan
 # (estimator.py:45); the elementwise rest is recomputed.
@@ -92,7 +106,7 @@ def _op_forward_s(op, in_dim: int, out_dim: int, rows: int,
         bytes_moved = 4.0 * rows * (in_dim + out_dim)
         return max(flops / PEAK_FLOPS, bytes_moved / PEAK_BW)
     if op.kind in ("aggregate", "gat"):
-        t = edges * max(out_dim, 1) * AGG_S_PER_EDGE_COLUMN
+        t = edges * max(out_dim, 1) * agg_s_per_edge_column()
         if op.kind == "gat":
             # the projection GEMM and the per-edge score and softmax
             # passes on top of the weighted sum
@@ -268,5 +282,5 @@ def step_arg_bytes(trainer) -> int:
     if not hasattr(gdata, "csr"):       # the SPMD trainer's parts
         return int(sum(t.numel() * t.element_size() for t in tensors)
                    + gdata.nbytes())
-    tensors += [gdata.in_degree] + [t for t in gdata.csr if t is not None]
+    tensors += [gdata.in_degree] + gdata.csr.tensors()
     return int(sum(t.numel() * t.element_size() for t in tensors))

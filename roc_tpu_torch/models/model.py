@@ -28,6 +28,8 @@ import torch
 
 from roc_tpu_torch import ops
 from roc_tpu_torch.ops import prng
+from roc_tpu_torch.ops.switches import (mega_bwd_killed, megafuse_killed,
+                                        xlayer_killed)
 
 # Op kinds whose outputs a kept layer saves under an active memory plan
 # (model.py:40): expensive to recompute.  Elementwise outputs (dropout,
@@ -110,7 +112,12 @@ def mega_matches(model: "Model") -> Dict[int, dict]:
     activation is none or relu (none for the folded shape), a trailing
     single-consumer relu folds into the epilogue, and no interior
     intermediate is the logits tensor.
+
+    ``ROC_NO_MEGAFUSE=1`` (``ops.switches.megafuse_killed``) finds none,
+    as roc_tpu's hook declines every layer (binned.py:2477).
     """
+    if megafuse_killed():
+        return {}
     consumers: Dict[int, List[int]] = {}
     for i, op in enumerate(model.ops):
         for t in op.inputs:
@@ -211,8 +218,12 @@ def mega_regions(model: "Model", max_depth: int = 0,
     region replaces except the dispatch head), ``fold``, and ``gone`` (the
     members' ``gone`` tensors plus the interior boundaries and dropout
     outputs that never materialize).
+
+    ``ROC_XLAYER=0`` finds none, and so does ``ROC_MEGA_BWD=0``: roc_tpu's
+    region declines without the fused backward (binned.py:3618), leaving
+    the per-layer megakernels (``ops/switches.py``).
     """
-    if max_depth == 1:
+    if max_depth == 1 or xlayer_killed() or mega_bwd_killed():
         return {}
     matches = mega_matches(model)
     if not matches:

@@ -28,14 +28,16 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from roc_tpu_torch.ops.kernels.aggregate_linear import (aggregate_linear,
-                                                        aggregate_linear_bwd)
-from roc_tpu_torch.ops.kernels.aggregate_sum import (aggregate_sum,
+from roc_tpu_torch.ops.kernels.aggregate_linear import (
+    aggregate_linear, aggregate_linear_bwd, stage_cotangent_plain)
+from roc_tpu_torch.ops.kernels.aggregate_sum import (DEFAULT_LAUNCH,
+                                                     aggregate_sum,
                                                      aggregate_sum_plain,
                                                      check_precision)
 from roc_tpu_torch.ops.kernels.xlayer import xlayer_bwd, xlayer_fwd
 from roc_tpu_torch.ops.linear import linear
 from roc_tpu_torch.ops.norm import indegree_norm
+from roc_tpu_torch.ops.switches import mega_bwd_killed
 
 
 _CSR_BUILDS = [0]
@@ -53,6 +55,29 @@ def csr_build_count() -> int:
     return _CSR_BUILDS[0]
 
 
+def sum_key(h: int) -> str:
+    """A launch table's key for the sum kernel at width ``h``."""
+    return f"sum/{int(h)}"
+
+
+def gat_key(k: int, f: int) -> str:
+    """A launch table's key for the GAT forward at K heads of F."""
+    return f"gat/{int(k)}x{int(f)}"
+
+
+class LaunchTable(NamedTuple):
+    """The autotuner's launch choices for one placed CSR
+    (``roc_tpu_torch/tune/``), made once when the CSR is placed.
+    ``precision`` is the one they were tuned at; ``fwd`` holds the choices
+    over the CSR, ``bwd`` over its transpose, each a dict from
+    :func:`sum_key` to the sum kernel's (lanes a row, edges in flight) and
+    from :func:`gat_key` to the GAT forward's (lanes, packs).  A kernel,
+    width or precision it does not name takes the kernel's own rule."""
+    precision: str
+    fwd: dict
+    bwd: dict
+
+
 class DeviceCsr(NamedTuple):
     """An in-edge CSR on a device, ``col_idx[row_ptr[v]:row_ptr[v+1]]``
     being v's sources, and its transpose (``t_col_idx[t_row_ptr[u]:
@@ -61,21 +86,27 @@ class DeviceCsr(NamedTuple):
     forward-only user (serving) places no transpose.  ``t_pos`` maps each
     edge of the CSR to its position in the transpose (edge e, u -> v, is
     transposed edge ``t_pos[e]`` of row u); only the GAT backward reads
-    it, so only a user that trains attention places it."""
+    it, so only a user that trains attention places it.  ``launch`` is
+    the kernels' launch configuration over this CSR (a
+    :class:`LaunchTable`, the tuned store's entry for this graph), None
+    for the kernels' own rule: per-part CSRs (``-parts``, ``-stream``)
+    have their own content and keep the rule."""
     row_ptr: torch.Tensor                       # [N+1] int64
     col_idx: torch.Tensor                       # [E] int32
     t_row_ptr: Optional[torch.Tensor] = None    # [T+1] int64
     t_col_idx: Optional[torch.Tensor] = None    # [E] int32
     t_pos: Optional[torch.Tensor] = None        # [E] int32
+    launch: Optional[LaunchTable] = None
 
     @classmethod
     def from_csr(cls, csr, device, transpose: bool = True,
-                 edge_map: bool = False) -> "DeviceCsr":
+                 edge_map: bool = False,
+                 launch: Optional[LaunchTable] = None) -> "DeviceCsr":
         """A host ``Csr`` on ``device``, with its transpose (built once,
         by ``Csr.transpose()``) unless ``transpose`` is False, and with the
         edge map ``t_pos`` (the inverse of the stable argsort of
         ``col_idx`` that the host transpose computes) when ``edge_map`` is
-        True."""
+        True, carrying ``launch``."""
         if edge_map and not transpose:
             raise ValueError("the edge map belongs to the transpose: "
                              "edge_map=True needs transpose=True")
@@ -90,11 +121,37 @@ class DeviceCsr(NamedTuple):
                 arrays.append((t_pos, np.int32))
         note_csr_build()
         return cls(*(torch.as_tensor(np.asarray(a, dt), device=device)
-                     for a, dt in arrays))
+                     for a, dt in arrays), launch=launch)
 
     @property
     def num_rows(self) -> int:
         return self.row_ptr.numel() - 1
+
+    def tensors(self) -> list:
+        """The placed tensors (the fields that are not None or the launch
+        table)."""
+        return [t for t in self[:5] if t is not None]
+
+    def sum_launch(self, transposed: bool, h: int, precision: str,
+                   dtype: torch.dtype = torch.float32) -> tuple:
+        """The sum kernel's (lanes a row, edges in flight) at width ``h``
+        over this CSR (or, ``transposed``, its transpose): the launch
+        table's, or ``DEFAULT_LAUNCH`` (a bf16 x is summed by its own
+        kernel, which takes none)."""
+        t = self.launch
+        if t is None or dtype != torch.float32 or precision != t.precision:
+            return DEFAULT_LAUNCH
+        return tuple((t.bwd if transposed else t.fwd).get(
+            sum_key(h), DEFAULT_LAUNCH))
+
+    def gat_groups(self, k: int, f: int, precision: str):
+        """The GAT forward's lane-group table at K heads of F (one tuned
+        pair), or None for ``ops.kernels.gat.FWD_GROUPS``."""
+        t = self.launch
+        if t is None or precision != t.precision:
+            return None
+        pair = t.fwd.get(gat_key(k, f))
+        return None if pair is None else (tuple(pair),)
 
     def transposed(self):
         """``(t_row_ptr, t_col_idx)``; raises for a forward-only CSR."""
@@ -121,19 +178,26 @@ class _AggregateSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, csr, precision, sum_fn):
         ctx.csr, ctx.precision, ctx.sum_fn = csr, precision, sum_fn
-        return sum_fn(x, csr.row_ptr, csr.col_idx, precision)
+        return sum_fn(x, csr.row_ptr, csr.col_idx, precision,
+                      csr.sum_launch(False, x.shape[1], precision, x.dtype))
 
     @staticmethod
     def backward(ctx, g):
-        gx = ctx.sum_fn(g.contiguous(), *ctx.csr.transposed(),
-                        ctx.precision)
+        csr = ctx.csr
+        gx = ctx.sum_fn(g.contiguous(), *csr.transposed(), ctx.precision,
+                        csr.sum_launch(True, g.shape[1], ctx.precision,
+                                       g.dtype))
         return gx, None, None, None
 
 
 class _AggregateLinear(torch.autograd.Function):
     """``act((A x) W)`` through the forward megakernel; the backward runs
     the backward megakernel (``u = A^T (g * [out > 0])``, ``dx = u W^T``)
-    and ``dW = x^T u`` as one fp32 GEMM, as aggregate.py:560-574 does."""
+    and ``dW = x^T u`` as one fp32 GEMM, as aggregate.py:560-574 does.
+    Under ``ROC_MEGA_BWD=0`` (``ops.switches.mega_bwd_killed``) the
+    backward replays the composition instead: the staged cotangent
+    (``stage_cotangent_plain``), its sum over the transpose in fp32
+    (``aggregate_sum``) and ``dx = u W^T``, the same bits."""
 
     @staticmethod
     def forward(ctx, x, w, csr, precision, activation):
@@ -147,9 +211,16 @@ class _AggregateLinear(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, w, out = ctx.saved_tensors
-        u, dx = aggregate_linear_bwd(
-            g.contiguous(), out, w, *ctx.csr.transposed(), ctx.precision,
-            ctx.relu, need_dx=ctx.needs_input_grad[0])
+        if mega_bwd_killed():
+            s = stage_cotangent_plain(g.contiguous(), out, ctx.precision,
+                                      ctx.relu)
+            u = aggregate_sum(s, *ctx.csr.transposed(), "exact",
+                              ctx.csr.sum_launch(True, s.shape[1], "exact"))
+            dx = linear(u, w.t()) if ctx.needs_input_grad[0] else None
+        else:
+            u, dx = aggregate_linear_bwd(
+                g.contiguous(), out, w, *ctx.csr.transposed(),
+                ctx.precision, ctx.relu, need_dx=ctx.needs_input_grad[0])
         dw = linear(x.t(), u) if ctx.needs_input_grad[1] else None
         return dx, dw, None, None, None
 

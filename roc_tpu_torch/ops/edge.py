@@ -20,7 +20,11 @@ Two implementations, selected by the graph data's backend:
                      then ``gat_bwd_dst`` (dq's sum per destination), and
                      the oracle's epilogue (edge.py:636-639).  On the CPU
                      the same Function runs the kernels' plain twins in the
-                     same order.
+                     same order.  The forward takes the CSR's tuned lane
+                     group (``DeviceCsr.gat_groups``).  ``ROC_NO_GATFUSE=1``
+                     sends it to ``gat_attend``; under ``ROC_GAT_BWD=0``
+                     its backward runs the plain twins on every device
+                     (``ops/switches.py``).
 
 The JAX package's ``GatPlans``, ``build_gat_plans``, ``_plan_sum``,
 ``_plan_max`` and ``_edge_contract`` are TPU schedules (host-built chunk
@@ -36,7 +40,10 @@ from roc_tpu_torch.ops.aggregate import DeviceCsr
 from roc_tpu_torch.ops.kernels.aggregate_sum import check_precision
 from roc_tpu_torch.ops.kernels.gat import Z_GUARD as _Z_GUARD
 from roc_tpu_torch.ops.kernels.gat import (_lrelu, gat_bwd_dst, gat_bwd_src,
-                                           gat_forward, gat_score)
+                                           gat_bwd_src_dq_plain,
+                                           gat_dadl_plain, gat_forward,
+                                           gat_score)
+from roc_tpu_torch.ops.switches import gat_bwd_killed, gat_fuse_killed
 
 # The gathered [E, K, F] bound above which the JAX package chunks its
 # composition (aggregate.py:43); the port's plain composition refuses it.
@@ -88,7 +95,8 @@ class _GatAttend(torch.autograd.Function):
         as_t = gat_score(x, a_src.contiguous())
         ad_l = torch.einsum("nkf,kf->nk", h, a_dst).contiguous()
         out, m, z = gat_forward(x, as_t, ad_l, csr.row_ptr, csr.col_idx,
-                                slope, precision)
+                                slope, precision,
+                                csr.gat_groups(k, f, precision))
         out = out.view(n, k, f)
         ctx.save_for_backward(h, x, a_src, a_dst, as_t, ad_l, m, z, out)
         ctx.csr, ctx.slope, ctx.precision = csr, slope, precision
@@ -105,9 +113,11 @@ class _GatAttend(torch.autograd.Function):
         dz = (-(g * out).sum(-1) / zc).contiguous()
         # dq once per edge (src kernel, transposed order), then its sum
         # over each destination's in-edges (dst kernel), as edge.py:478-482
-        dtable, dast, dq = gat_bwd_src(x, as_t, ad_l, m, du, dz,
-                                       *csr.transposed(), slope, precision)
-        dadl = gat_bwd_dst(dq, csr.edge_map(), csr.row_ptr, csr.col_idx)
+        src_fn, dst_fn = ((gat_bwd_src_dq_plain, gat_dadl_plain)
+                          if gat_bwd_killed() else (gat_bwd_src, gat_bwd_dst))
+        dtable, dast, dq = src_fn(x, as_t, ad_l, m, du, dz,
+                                  *csr.transposed(), slope, precision)
+        dadl = dst_fn(dq, csr.edge_map(), csr.row_ptr, csr.col_idx)
         del dq
         table = x.view(-1, k, f)
         dtable = dtable.view(-1, k, f) + dast[:, :, None] * a_src
@@ -125,5 +135,11 @@ def gat_attend_kernel(h, table, a_src, a_dst, csr: DeviceCsr, slope: float,
     (``DeviceCsr.from_csr(..., edge_map=True)``).  ``precision`` applies to the two
     weighted feature sums only (out forward, dtable backward)."""
     check_precision(precision, h.dtype)
+    if gat_fuse_killed():
+        n = csr.num_rows
+        dst = torch.repeat_interleave(
+            torch.arange(n, device=h.device), torch.diff(csr.row_ptr))
+        return gat_attend(h, table, csr.col_idx, dst, n, a_src, a_dst,
+                          slope)
     return _GatAttend.apply(h, table, a_src, a_dst, csr, float(slope),
                             precision)

@@ -19,7 +19,9 @@ loaded with ctypes) or raises; on a CPU tensor it runs
 kernels: :func:`stage_plane` writes x once as a bf16 plane (the rounding
 done once per source row, not once per edge), then the gather sums that
 plane.  ``aggregate_sum.launches`` and ``stage_plane.launches`` count the
-two kernels' launches, so a caller can show that a run went through them.
+two kernels' launches, so a caller can show that a run went through them;
+``aggregate_sum.by_launch`` splits the gather's by launch configuration
+(the autotuner's, ``tune/``: lanes a row and edges in flight).
 :func:`stage_plain` is the plain twin of the staged plane, for the tests.
 Gradients flow through ``ops.aggregate``'s autograd Function, whose
 backward is this same function over the transposed CSR.
@@ -46,8 +48,13 @@ from roc_tpu_torch.ops.kernels.build import CudaLibrary
 # Edges per plain-version chunk: the gathered [chunk, H] block stays near
 # 2^25 elements (128 MiB fp32).  Unchunked, x[col_idx] at Reddit shape is
 # 23.5 M x 256 x 4 B = 24 GB (roc_tpu/ops/aggregate.py:47-78 chunks the
-# same way).
+# same way).  It sizes the plain version's chunks only and never reaches
+# the card, so it is no launch parameter of the kernel.
 _CHUNK_TARGET_ELEMS = 1 << 25
+
+# The kernel's launch configuration, (lanes a row, edges in flight):
+# (0, 0) is csrc/aggregate_sum.cu's own rule (lanes_per_row, kRowEdges).
+DEFAULT_LAUNCH = (0, 0)
 
 
 def check_precision(precision: str, dtype: torch.dtype) -> None:
@@ -65,7 +72,7 @@ def check_precision(precision: str, dtype: torch.dtype) -> None:
 def _bind(lib: ctypes.CDLL) -> None:
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     fn = lib.roc_aggregate_sum
-    fn.argtypes = [p, p, p, ll, i, i, p, ll, ll, p]
+    fn.argtypes = [p, p, p, ll, i, i, p, ll, ll, i, i, p]
     fn.restype = i
     stage = lib.roc_stage_plane
     stage.argtypes = [p, ll, ll, ll, i, p, ll, i, p]
@@ -93,12 +100,12 @@ def _check_csr(x, row_ptr, col_idx) -> None:
 
 
 def aggregate_sum_plain(x: torch.Tensor, row_ptr: torch.Tensor,
-                        col_idx: torch.Tensor,
-                        precision: str = "fast") -> torch.Tensor:
+                        col_idx: torch.Tensor, precision: str = "fast",
+                        launch=DEFAULT_LAUNCH) -> torch.Tensor:
     """The plain PyTorch version: the same function on any device, gathered
     in edge chunks and ``index_add_``-ed into an fp32 accumulator.  It is the
     reference the kernel is held against, and what the wrapper runs for CPU
-    tensors."""
+    tensors.  ``launch`` is the kernel's and is ignored here."""
     _check_csr(x, row_ptr, col_idx)
     check_precision(precision, x.dtype)
     n, h = row_ptr.numel() - 1, x.shape[1]
@@ -211,11 +218,15 @@ def plane_launch(x: torch.Tensor, stream: int,
 
 
 def aggregate_sum(x: torch.Tensor, row_ptr: torch.Tensor,
-                  col_idx: torch.Tensor,
-                  precision: str = "fast") -> torch.Tensor:
+                  col_idx: torch.Tensor, precision: str = "fast",
+                  launch=DEFAULT_LAUNCH) -> torch.Tensor:
     """``out[v] = sum over in-edges of x[src]``: [table_rows, H] ->
     [num_rows, H] in ``x.dtype``.  Launches the CUDA kernels for CUDA
-    tensors, runs the plain version for CPU tensors."""
+    tensors, runs the plain version for CPU tensors.  ``launch`` is the
+    gather's (lanes a row, edges in flight), ``DEFAULT_LAUNCH`` for the
+    kernel's own rule (the autotuner's choice comes from
+    ``ops.DeviceCsr.sum_launch``); a bf16 x takes the default only.  A
+    configuration the library does not build raises."""
     if x.device.type == "cpu":
         return aggregate_sum_plain(x, row_ptr, col_idx, precision)
     if x.device.type != "cuda":
@@ -229,16 +240,20 @@ def aggregate_sum(x: torch.Tensor, row_ptr: torch.Tensor,
     if x.dtype == torch.bfloat16 and not x.is_contiguous():
         raise ValueError("a bf16 x must be contiguous")
     _require_rows(x)
+    lpr, edges = (int(v) for v in launch)
+    if x.dtype == torch.bfloat16 and (lpr, edges) != DEFAULT_LAUNCH:
+        raise ValueError(f"a bf16 x is summed at the default launch only, "
+                         f"got {tuple(launch)}")
     with torch.cuda.device(x.device):
         return _sum_launch(x, row_ptr.to(torch.int64), col_idx, precision,
-                           _stream(x))
+                           _stream(x), (lpr, edges))
 
 
 def _sum_launch(x: torch.Tensor, row_ptr: torch.Tensor,
                 col_idx: torch.Tensor, precision: str,
-                stream: int) -> torch.Tensor:
+                stream: int, launch=DEFAULT_LAUNCH) -> torch.Tensor:
     """The card's launches for checked inputs: the staging (fast on
-    fp32), then the gather."""
+    fp32), then the gather at ``launch``."""
     n, h = row_ptr.numel() - 1, x.shape[1]
     out = torch.empty((n, h), dtype=x.dtype, device=x.device)
     if n == 0 or h == 0:
@@ -252,13 +267,18 @@ def _sum_launch(x: torch.Tensor, row_ptr: torch.Tensor,
         ld, kind, vec = src.shape[1], 1, 8
     err = LIBRARY.load().roc_aggregate_sum(
         row_ptr.data_ptr(), col_idx.data_ptr(), src.data_ptr(), ld, kind,
-        vec, out.data_ptr(), n, h, stream)
+        vec, out.data_ptr(), n, h, launch[0], launch[1], stream)
     if err != 0:
-        raise RuntimeError(f"aggregate_sum kernel launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"aggregate_sum kernel launch failed at launch "
+                           f"{tuple(launch)}: CUDA error {err}")
     aggregate_sum.launches += 1
+    by = aggregate_sum.by_launch
+    by[tuple(launch)] = by.get(tuple(launch), 0) + 1
     return out
 
 
 aggregate_sum.launches = 0
+# launches by the (lanes a row, edges in flight) pair passed, (0, 0) for the
+# kernel's own rule: where a tuned DeviceCsr.launch reached the kernel
+aggregate_sum.by_launch = {}
 stage_plane.launches = 0

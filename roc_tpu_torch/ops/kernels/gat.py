@@ -401,6 +401,12 @@ def gat_score(x: torch.Tensor, a_src: torch.Tensor) -> torch.Tensor:
 # the last in several passes (csrc/gat.cu:launch_fwd_group)
 FWD_GROUPS = ((8, 1), (16, 1), (16, 3), (32, 2))
 
+# The pairs csrc/gat.cu builds, by pack width: FWD_GROUPS at every width,
+# and three more at 4-float packs (the main path's) that the autotuner may
+# choose (roc_tpu_torch/tune/lattice.py).  Any other pair raises.
+FWD_PAIRS = {4: FWD_GROUPS + ((8, 2), (16, 4), (32, 1)),
+             2: FWD_GROUPS, 1: FWD_GROUPS}
+
 
 class FwdGeometry(NamedTuple):
     """How ``gat_fwd_rows`` covers a row: ``vec`` floats a pack, ``lanes``
@@ -413,7 +419,8 @@ class FwdGeometry(NamedTuple):
     ld: int
 
 
-def forward_geometry(k: int, f: int, ld: int, ptr: int) -> FwdGeometry:
+def forward_geometry(k: int, f: int, ld: int, ptr: int,
+                     groups=None) -> FwdGeometry:
     """The forward kernel's geometry for K heads of F over x whose rows are
     ``ld`` floats apart from address ``ptr``.  ``vec`` is the widest of 4,
     2, 1 floats that divides F (so a pack lies in one head and takes one
@@ -421,7 +428,9 @@ def forward_geometry(k: int, f: int, ld: int, ptr: int) -> FwdGeometry:
     16-byte aligned (layer 2's 41 columns) is gathered from an fp32 plane
     of ld4(H) columns, staged once a forward (``gat_stage``), as 4-float
     packs (chip_variants.py's gat_fwd_in_place_at_41 reads the in-place
-    gather slower)."""
+    gather slower).  ``groups`` is a (lanes, packs) table read as
+    ``FWD_GROUPS`` is, in its place (the autotuner's pair); a pair the
+    library does not build at ``vec`` raises."""
     h = k * f
     vec = next(v for v in (4, 2, 1)
                if f % v == 0 and ld % v == 0 and ptr % (4 * v) == 0)
@@ -429,8 +438,14 @@ def forward_geometry(k: int, f: int, ld: int, ptr: int) -> FwdGeometry:
     if staged:
         vec, ld = 4, (h + 3) // 4 * 4
     packs = -(-h // vec)
-    lanes, per = next(((n, q) for n, q in FWD_GROUPS if packs <= n * q),
-                      FWD_GROUPS[-1])
+    table = FWD_GROUPS if groups is None else tuple(
+        (int(n), int(q)) for n, q in groups)
+    lanes, per = next(((n, q) for n, q in table if packs <= n * q),
+                      table[-1])
+    if (lanes, per) not in FWD_PAIRS[vec]:
+        raise ValueError(f"gat_forward: lane group {(lanes, per)} is not "
+                         f"built at {vec}-float packs "
+                         f"({FWD_PAIRS[vec]})")
     return FwdGeometry(vec, lanes, per, staged, ld)
 
 
@@ -474,11 +489,13 @@ def _forward_launch(x, as_, ad, row_ptr, col_idx, slope, precision,
 
 
 def gat_forward(x, as_, ad, row_ptr, col_idx, slope: float = 0.2,
-                precision: str = "exact"):
+                precision: str = "exact", groups=None):
     """(out [N, H], m [N, K], z [N, K]) over the in-edge CSR; x may be a
     column slice (rows ``x.stride(0)`` apart).  Launches the CUDA kernel
     (after ``gat_stage`` where ``forward_geometry`` stages x) for CUDA
-    tensors, runs the plain version for CPU tensors."""
+    tensors, runs the plain version for CPU tensors.  ``groups`` is
+    ``forward_geometry``'s (None: ``FWD_GROUPS``; the autotuner's pair
+    comes from ``ops.DeviceCsr.gat_groups``)."""
     if x.device.type == "cpu":
         return gat_forward_plain(x, as_, ad, row_ptr, col_idx, slope,
                                  precision)
@@ -491,7 +508,8 @@ def gat_forward(x, as_, ad, row_ptr, col_idx, slope: float = 0.2,
                          f"{row_ptr.numel() - 1}")
     k, f = _heads(x, as_)
     return _forward_launch(x, as_, ad, row_ptr, col_idx, slope, precision,
-                           forward_geometry(k, f, x.stride(0), x.data_ptr()))
+                           forward_geometry(k, f, x.stride(0), x.data_ptr(),
+                                            groups))
 
 
 def _state_rows(dz: torch.Tensor, ad: torch.Tensor,

@@ -1,9 +1,23 @@
 """Run configuration and CLI (roc_tpu/train/config.py), holding the fields
 the ported serving, training, graph-input, run-control, memory-planner,
-streaming and sharding paths read.
+streaming, sharding and autotuning paths read.
 Defaults, flag names, dests, environment mirrors and refusals match the
 JAX package's (config.py:264-392, 398-508): a bad value exits with
-SystemExit.  ``-device`` is the port's own."""
+SystemExit.  ``-device`` is the port's own.  ``-analyze`` parses, and the
+CLI refuses it with its reason (``roc_tpu_torch/__main__.py``).
+
+The environment mirrors of driverless entry points are roc_tpu's:
+``ROC_MEGAFUSE``, ``ROC_FUSION_DEPTH`` and ``ROC_AUTOTUNE`` set their
+fields here (config.py:295-309), ``ROC_NO_TUNED``, ``ROC_TUNED_PATH``,
+``ROC_PLAN_CACHE`` and ``ROC_PLAN_CACHE_DIR`` place or turn off the tuned
+store (``tune/store.py``), and the kill switches ``ROC_NO_MEGAFUSE``,
+``ROC_MEGA_BWD=0``, ``ROC_XLAYER=0``, ``ROC_NO_GATFUSE`` and
+``ROC_GAT_BWD=0`` are read at dispatch (``ops/switches.py``).  Some of
+roc_tpu's have no meaning here: ``ROC_BINNED_*`` steer the binned plans'
+geometry, Pallas lowering and VMEM gates, and the port's CSR kernels have
+no plan; ``ROC_PLAN_CACHE_MIN_EDGES`` sizes the plan cache the port does
+not keep (a CSR is built in seconds); ``ROC_TPU_NO_NATIVE`` turns off
+roc_tpu's g++ helpers, whose NumPy paths the port runs always."""
 
 from __future__ import annotations
 
@@ -67,6 +81,13 @@ class Config:
     fusion_depth: int = 1         # cross-layer fusion-region cap (needs
                                   # megafuse): 1 off, N chains of at most
                                   # N layers, 0 unlimited
+    autotune: bool = False        # sweep this graph's kernel launch
+                                  # configurations (tune/) before the CSR
+                                  # is placed and keep the winners in the
+                                  # tuned store, which the placement reads
+                                  # (ROC_NO_TUNED=1: not read)
+    analyze: bool = False         # roc_tpu's audit of its lowered XLA
+                                  # steps; the CLI refuses it
     lazy_load: bool = False       # memmap features / defer one-hot labels
     reorder: str = "off"          # RCM vertex order before training:
                                   # off | on | auto (kept on a >=10% cut
@@ -170,9 +191,18 @@ class Config:
         if self.bf16_exchange not in ("plain", "compensated"):
             raise SystemExit(f"bad bf16_exchange {self.bf16_exchange!r} "
                              "(plain|compensated)")
+        # ROC_MEGAFUSE, ROC_FUSION_DEPTH and ROC_AUTOTUNE mirror their
+        # flags for driverless entry points (config.py:295-309); the kill
+        # switches stay runtime checks at dispatch (ops/switches.py)
+        if env.get("ROC_MEGAFUSE"):
+            self.megafuse = env["ROC_MEGAFUSE"] == "1"
+        if env.get("ROC_FUSION_DEPTH"):
+            self.fusion_depth = int(env["ROC_FUSION_DEPTH"])
         if self.fusion_depth < 0:
             raise SystemExit(f"bad fusion_depth {self.fusion_depth} "
                              "(0 = full, 1 = off, >=2 = cap)")
+        if env.get("ROC_AUTOTUNE"):
+            self.autotune = env["ROC_AUTOTUNE"] == "1"
         if self.bf16_storage and self.aggregate_precision == "exact":
             raise SystemExit("-bf16-storage is incompatible with "
                              "-aggr-precision exact (bf16 storage rounds "
@@ -314,6 +344,13 @@ def parse_args(argv: List[str]) -> Config:
                    help="cross-layer fusion-region cap (needs -megafuse): "
                         "1 per-layer only (default), 2 chain two layers, "
                         "0 full chain")
+    p.add_argument("-autotune", dest="autotune", action="store_true",
+                   help="sweep this graph's kernel launch configurations "
+                        "and keep the winners in the tuned store "
+                        "(roc_tpu_torch/tune)")
+    p.add_argument("-analyze", dest="analyze", action="store_true",
+                   help="roc_tpu's audit of its lowered XLA steps; the "
+                        "port has none and refuses it")
     p.add_argument("-lazy", dest="lazy_load", action="store_true")
     p.add_argument("-reorder", nargs="?", const="on", default="off",
                    choices=["on", "off", "auto"])

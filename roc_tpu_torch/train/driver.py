@@ -52,6 +52,15 @@ an all-KEEP plan, ``memory/policy.py``'s checkpointed forward otherwise).
 ``TrainStats.peak_hbm_bytes`` is the card's measured peak, or the plan's
 prediction on the CPU (``peak_hbm_source``).
 
+``-autotune`` / ``ROC_AUTOTUNE=1`` (driver.py:217-253): before
+``dense_graph_data`` places the CSR, ``maybe_autotune`` sweeps the launch
+configurations of the kernels the step runs over it (``tune/``: timed on
+the card, the seeded surrogate on the CPU) and merges the winners into the
+tuned store, which that placement then reads, so the run that tunes is the
+run that consumes.  A tuner failure warns and the run goes on at the
+kernels' own launch rule; no launch changes a bit.  The streaming and
+SPMD trainers' per-part CSRs have their own content and keep the rule.
+
 ``make_trainer`` picks the trainer (driver.py:1170-1196): the streaming
 executor under ``-stream`` (``stream/executor.py``), else the
 ``-stream-budget`` gate, else the SPMD trainer for ``-parts > 1``
@@ -100,7 +109,7 @@ from roc_tpu_torch.train.config import Config
 from roc_tpu_torch.train.graph_data import (dense_graph_data,
                                             effective_backend,
                                             host_to_device, make_gctx,
-                                            model_has_gat)
+                                            model_has_gat, tune_targets)
 
 # Consecutive skipped steps before the escalation ladder engages
 # (driver.py:475): one bad batch skips silently; K in a row means the run
@@ -128,6 +137,34 @@ class TrainStats:
     peak_hbm_bytes: list = dataclasses.field(default_factory=list)
     peak_hbm_source: str = ""
     rebalance_events: list = dataclasses.field(default_factory=list)
+
+
+def maybe_autotune(cfg: Config, graph, model: Model, device: torch.device,
+                   watchdog=None, log=None):
+    """-autotune / ROC_AUTOTUNE: sweep the launch configurations of the
+    kernels ``model``'s step runs over ``graph``'s CSR and its transpose
+    (``tune.autotune_graph``: CUDA-event trials on the card, the seeded
+    surrogate on the CPU) and persist the winners in the tuned store
+    before the CSR is placed.  Failure-isolated as roc_tpu's
+    (driver.py:217-238): a tuner error warns and returns None, and the
+    kernels keep their own launch rule."""
+    import warnings
+    try:
+        from roc_tpu_torch.tune import autotune_graph
+        from roc_tpu_torch.tune.store import storage_of
+        widths, gats = tune_targets(model, cfg.megafuse)
+        with obs.span("autotune", edges=int(graph.num_edges)):
+            return autotune_graph(
+                graph.col_idx, graph.dst_idx, graph.num_nodes,
+                graph.num_nodes,
+                storage_dtype=storage_of(cfg.aggregate_precision),
+                fuse_linear=cfg.megafuse, seed=0,
+                device=device.type == "cuda", sum_widths=widths,
+                gat_shapes=gats, watchdog=watchdog, log=log,
+                cuda_device=device)
+    except Exception as e:      # a tuning artifact never stops a run
+        warnings.warn(f"autotune failed ({e}); continuing untuned")
+        return None
 
 
 def device_sync(device: torch.device) -> None:
@@ -214,9 +251,16 @@ class Trainer:
         calls it again and puts back what it keeps)."""
         cfg, ds, dev = self.config, self.dataset, self.device
         backend = effective_backend(cfg, self.model, dev)
+        # the ladder's rung 1 calls _setup again: the graph is tuned once
+        if cfg.autotune and not getattr(self, "_autotuned", False):
+            self._autotuned = True
+            maybe_autotune(cfg, ds.graph, self.model, dev,
+                           watchdog=self.watchdog,
+                           log=print if cfg.verbose else None)
         self.gdata = dense_graph_data(
             ds.graph, backend, cfg.aggregate_precision, dev,
-            edge_map=backend == "kernel" and model_has_gat(self.model))
+            edge_map=backend == "kernel" and model_has_gat(self.model),
+            megafuse=cfg.megafuse)
         self.gctx = make_gctx(self.gdata, cfg.megafuse, cfg.fusion_depth)
         self.x = host_to_device(ds.features, dev, self.dtype)
         self.labels = torch.as_tensor(ds.onehot_labels(),

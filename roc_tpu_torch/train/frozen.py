@@ -86,7 +86,7 @@ def load_frozen(config: Config, dataset: Dataset, model: Model,
     backend = effective_backend(config, model, dev)
     gdata = dense_graph_data(dataset.graph, backend,
                              config.aggregate_precision, dev,
-                             transpose=False)
+                             transpose=False, megafuse=config.megafuse)
     # -bf16 places x in bf16, as roc_tpu/train/frozen.py:120 does
     x = host_to_device(dataset.features, dev,
                        torch.bfloat16 if config.use_bf16 else torch.float32)

@@ -123,14 +123,50 @@ def effective_backend(config: Config, model: Model,
     return "kernel"
 
 
+def tune_targets(model: Model, megafuse: bool = False) -> tuple:
+    """(sum widths, GAT (K, F)s) of the kernels ``model``'s step launches
+    over the whole graph's CSR: the width of each sum/avg aggregation that
+    no megakernel takes over (a region's layers are megakernel chains
+    too), and each attention's heads and head width.  The autotuner tunes
+    these (``-autotune``)."""
+    from roc_tpu_torch.memory.estimator import _op_out_dims
+    dims = _op_out_dims(model)
+    matches = mega_matches(model) if megafuse else {}
+    fused = {j for i, m in matches.items() for j in (i, *m["skip"])}
+    widths = sorted({int(dims[op.inputs[0]])
+                     for i, op in enumerate(model.ops)
+                     if op.kind == "aggregate" and i not in fused
+                     and op.attrs.get("aggr") in ("sum", "avg")},
+                    reverse=True)
+    gats = sorted({(int(op.attrs["heads"]), int(op.attrs["head_dim"]))
+                   for op in model.ops if op.kind == "gat"}, reverse=True)
+    return tuple(widths), tuple(gats)
+
+
+def tuned_launch(graph, precision: str, megafuse: bool = False):
+    """The tuned store's ``ops.aggregate.LaunchTable`` for ``graph`` (a
+    host Csr) at ``precision``, or None (no store, no entry for this
+    graph and variant, or ``ROC_NO_TUNED``): the kernels' own rule."""
+    from roc_tpu_torch.tune import store
+    if store.load_store() is None:
+        return None
+    return store.launch_table(graph.col_idx, graph.dst_idx, graph.num_nodes,
+                              graph.num_nodes, store.storage_of(precision),
+                              megafuse)
+
+
 def dense_graph_data(graph, backend: str, precision: str,
                      device: torch.device, transpose: bool = True,
-                     edge_map: bool = False) -> DenseGraphData:
+                     edge_map: bool = False,
+                     megafuse: bool = False) -> DenseGraphData:
     """Validate ``graph`` (a host Csr) once and put it on ``device``, with
     its transpose unless ``transpose`` is False (forward-only users: the
     host transpose of a Reddit-size graph takes seconds), and with the
     transpose's edge map when ``edge_map`` is True (a GAT model trained on
-    the kernel backend: [E] int32, 94 MB at Reddit).
+    the kernel backend: [E] int32, 94 MB at Reddit).  On the kernel
+    backend the CSR carries the tuned store's launches for this graph and
+    variant (``tuned_launch``; ``megafuse`` picks the ``+fuse`` variant),
+    read once here.
 
     roc_tpu threads ``-bf16-storage`` here, into its binned plans' staging
     unit; a CSR has none, and the kernels already stage bf16 once in fast,
@@ -140,8 +176,11 @@ def dense_graph_data(graph, backend: str, precision: str,
     if precision not in ("fast", "exact"):
         raise ValueError(f"precision={precision!r}: fast|exact")
     graph.validate()
+    launch = tuned_launch(graph, precision, megafuse) \
+        if backend == "kernel" else None
     return DenseGraphData(
-        csr=ops.DeviceCsr.from_csr(graph, device, transpose, edge_map),
+        csr=ops.DeviceCsr.from_csr(graph, device, transpose, edge_map,
+                                   launch),
         in_degree=torch.as_tensor(graph.in_degrees, dtype=torch.float32,
                                   device=device),
         backend=backend, precision=precision)

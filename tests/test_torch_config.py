@@ -46,6 +46,8 @@ SHARED = [
     (["-serve-wait-ms", "0.5"], "serve_wait_ms"),
     (["-serve-queue-max", "9"], "serve_queue_max"),
     (["-fault", "seed=3,step.nan=1"], "fault"),
+    (["-autotune"], "autotune"),
+    (["-analyze"], "analyze"),
 ]
 
 
@@ -53,7 +55,8 @@ SHARED = [
 def _clean_env(monkeypatch):
     for var in ("ROC_BF16_STORAGE", "ROC_SERVE_BATCH", "ROC_SERVE_WAIT_MS",
                 "ROC_SERVE_QUEUE_MAX", "ROC_FAULT", "ROC_OBS", "ROC_OBS_DIR",
-                "ROC_PROFILE_EPOCHS"):
+                "ROC_PROFILE_EPOCHS", "ROC_MEGAFUSE", "ROC_FUSION_DEPTH",
+                "ROC_AUTOTUNE"):
         monkeypatch.delenv(var, raising=False)
 
 
@@ -91,7 +94,10 @@ ENV = [("ROC_BF16_STORAGE", "1", "bf16_storage", True),
        ("ROC_FAULT", "seed=3,step.nan=1", "fault", "seed=3,step.nan=1"),
        ("ROC_OBS", "1", "obs", True),
        ("ROC_OBS_DIR", "/tmp/elsewhere", "obs_dir", "/tmp/elsewhere"),
-       ("ROC_PROFILE_EPOCHS", "5:2", "profile_epochs", "5:2")]
+       ("ROC_PROFILE_EPOCHS", "5:2", "profile_epochs", "5:2"),
+       ("ROC_MEGAFUSE", "1", "megafuse", True),
+       ("ROC_FUSION_DEPTH", "0", "fusion_depth", 0),
+       ("ROC_AUTOTUNE", "1", "autotune", True)]
 
 
 @pytest.mark.parametrize("var,value,field,want", ENV,
@@ -124,6 +130,7 @@ REFUSED = {
     "profile_epochs": ({"profile_epochs": "nope"}, {}),
     "profile_epochs_env": ({}, {"ROC_PROFILE_EPOCHS": "-1:2"}),
     "fusion_depth": ({"fusion_depth": -1}, {}),
+    "fusion_depth_env": ({}, {"ROC_FUSION_DEPTH": "-1"}),
 }
 
 

@@ -1,5 +1,6 @@
-"""The port stands alone: roc_tpu_torch and chip_smoke.py import neither jax
-nor anything of roc_tpu, and the entry points run on CUDA unless asked for
+"""The port stands alone: roc_tpu_torch (the autotuner's seven tune/
+modules among its modules) and chip_smoke.py import neither jax nor
+anything of roc_tpu, and the entry points run on CUDA unless asked for
 the CPU.  The import check runs in a subprocess because this test process
 has jax loaded already (tests/conftest.py)."""
 
@@ -59,7 +60,11 @@ need = {"roc_tpu_torch.__main__", "roc_tpu_torch.fault.guard",
         "roc_tpu_torch.parallel.budget", "roc_tpu_torch.balance",
         "roc_tpu_torch.balance.telemetry", "roc_tpu_torch.balance.search",
         "roc_tpu_torch.balance.cost_model", "roc_tpu_torch.balance.manager",
-        "roc_tpu_torch.graph.shard_load"}
+        "roc_tpu_torch.graph.shard_load", "roc_tpu_torch.ops.switches",
+        "roc_tpu_torch.tune", "roc_tpu_torch.tune.__main__",
+        "roc_tpu_torch.tune.lattice", "roc_tpu_torch.tune.surrogate",
+        "roc_tpu_torch.tune.search", "roc_tpu_torch.tune.store",
+        "roc_tpu_torch.tune.refit"}
 assert need <= set(names), need - set(names)
 print(len(names), bad)
 assert not bad, bad

@@ -134,9 +134,10 @@ def test_aggregation_backward_matches_roc_tpu(backend, precision, data):
         assert _row_rel_err(got, exact) > 1e-4
 
 
-def _kernel_like(x, row_ptr, col_idx, precision):
+def _kernel_like(x, row_ptr, col_idx, precision, launch=None):
     """What the CUDA wrapper hands back: a new tensor filled outside
-    autograd, with no grad_fn of its own."""
+    autograd, with no grad_fn of its own (``launch``, the CSR's launch
+    configuration, is the kernel's)."""
     with torch.no_grad():
         out = K.aggregate_sum_plain(x, row_ptr, col_idx, precision)
     return torch.empty_like(out).copy_(out)
