@@ -11,6 +11,20 @@ Phases, each printing one JSON line per record:
           started together (timed; the compiler's register report goes to
           stderr)
   graph   host generation of the Reddit-shape synthetic graph (timed)
+  native  the host graph builders (roc_tpu_torch/native): the g++ build's
+          seconds; on Reddit each builder natively and under
+          ROC_TPU_NO_NATIVE=1, twice each way (native, NumPy, NumPy,
+          native), element-equal, with each way's faster seconds: the
+          transpose with its edge map, RCM, the cut and the halo maps at
+          P=4, the header, a row and a column slice and the whole read of
+          a temporary .lux, a 20,000x602 feature CSV (written %.9g, parsed
+          back to the same bits); GCN 602-256-41 (fast, dropout 0.5, 3
+          epochs) built from the dataset both ways: the seconds to the
+          trainer and to the end of its first epoch, the losses bitwise
+          equal; -reorder on both ways (its RCM and reorder seconds, the
+          same graph); then the serve selftest with deltas on
+          reddit-small with the lock-order witness armed before the engine
+          is made: the pairs it recorded, validate() == []
   kernel_sum_shapes  aggregate_sum (over a CSR and its transpose) and
           aggregate_linear (relu) against their plain versions on a small
           graph with a hub row of 20,000 in-edges and two rows with no
@@ -355,6 +369,7 @@ before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -4743,6 +4758,160 @@ def phase_tune(ds, dev) -> dict:
     return rec
 
 
+def _no_native():
+    """``ROC_TPU_NO_NATIVE=1`` for a ``with`` body: the graph builders'
+    NumPy paths."""
+    from unittest import mock
+    return mock.patch.dict(os.environ, {"ROC_TPU_NO_NATIVE": "1"})
+
+
+def _same(a, b) -> bool:
+    """Element-equal, dtype included, through tuples, lists, CSRs and halo
+    maps."""
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    if hasattr(a, "__dataclass_fields__"):
+        return all(_same(getattr(a, f), getattr(b, f))
+                   for f in a.__dataclass_fields__)
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        a, b = np.asarray(a), np.asarray(b)
+        return a.dtype == b.dtype and np.array_equal(a, b)
+    return a == b
+
+
+def _both_ways(name, fn, *args) -> tuple:
+    """``fn(*args)`` twice each way, natively and under
+    ROC_TPU_NO_NATIVE=1, in the order native, NumPy, NumPy, native, so
+    that each way has a call that follows the other way's: its record
+    (each way's faster call, and the four seconds in order; AssertionError
+    unless every result is element-equal to the first) and the native
+    result."""
+    secs, results = [], []
+    for way in ("native", "numpy", "numpy", "native"):
+        with _no_native() if way == "numpy" else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            results.append(fn(*args))
+            secs.append(time.perf_counter() - t0)
+    if not all(_same(results[0], r) for r in results[1:]):
+        raise AssertionError(f"native {name} differs from its NumPy twin")
+    return {"native_s": min(secs[0], secs[3]),
+            "numpy_s": min(secs[1], secs[2]),
+            "seconds_native_numpy_numpy_native": secs, "equal": True}, \
+        results[0]
+
+
+def _native_gcn(ds, dev) -> dict:
+    """GCN 602-256-41 as test.sh trains it, 3 epochs, from the dataset:
+    the seconds to the trainer and to the end of the first epoch, and the
+    three losses."""
+    _free()
+    t0 = time.perf_counter()
+    tr = _recipe_trainer(ds, dev, epochs=3)
+    build_s = time.perf_counter() - t0
+    losses = [float(tr.run_epoch())]
+    torch.cuda.synchronize(dev)
+    first_s = time.perf_counter() - t0
+    losses += [float(tr.run_epoch()) for _ in range(2)]
+    del tr
+    _free()
+    return {"build_s": build_s, "to_first_epoch_s": first_s,
+            "losses": losses}
+
+
+def phase_native(ds, dev) -> dict:
+    """The host graph builders (roc_tpu_torch/native) on the card's host:
+    the library's build, each builder against its NumPy twin on Reddit,
+    a GCN placed both ways, -reorder on both ways, and the serve selftest
+    with deltas on reddit-small under the armed lock-order witness."""
+    import tempfile
+
+    from roc_tpu_torch import native
+    from roc_tpu_torch.analysis import witness
+    from roc_tpu_torch.graph import lux
+    from roc_tpu_torch.graph.partition import (bounds_from_row_ptr,
+                                               partition_graph)
+    from roc_tpu_torch.graph.reorder import rcm_order
+    from roc_tpu_torch.parallel.halo import build_halo_maps
+    from roc_tpu_torch.serve.__main__ import selftest
+    t_phase = time.perf_counter()
+    g = ds.graph
+    native.lib()
+    rec = {"phase": "native", "card": nvidia_smi(), "dataset": ds.name,
+           "nodes": g.num_nodes, "edges": g.num_edges,
+           "build_s": native.info["seconds"],
+           "build_cached": native.info["cached"], "steps": {}}
+    steps = rec["steps"]
+    steps["transpose_edge_map"], _ = _both_ways(
+        "transpose", g.transpose_with_order)
+    steps["rcm"], _ = _both_ways("RCM", rcm_order, g)
+    steps["bounds_p4"], _ = _both_ways("cut", bounds_from_row_ptr,
+                                       g.row_ptr, 4)
+    part = partition_graph(g, 4)
+    steps["halo_maps_p4"], hm = _both_ways("halo maps", build_halo_maps,
+                                           part)
+    steps["halo_maps_p4"]["K"] = hm.K
+    with tempfile.TemporaryDirectory(prefix="roc_native_") as tmp:
+        path = os.path.join(tmp, "reddit" + lux.LUX_SUFFIX)
+        lux.write_lux(path, g)
+        steps["lux_header"], _ = _both_ways("header", lux.read_header, path)
+        lo, hi = bounds_from_row_ptr(g.row_ptr, 4)[1]
+        e0, e1 = int(g.row_ptr[lo]), int(g.row_ptr[hi + 1])
+        steps["lux_rows_slice"], _ = _both_ways(
+            "row slice", lux.read_rows_slice, path, lo, hi + 1)
+        steps["lux_cols_slice"], _ = _both_ways(
+            "col slice", lux.read_cols_slice, path, g.num_nodes, e0, e1)
+        steps["lux_read"], back = _both_ways("read", lux.read_lux, path)
+        if not _same((back.row_ptr, back.col_idx), (g.row_ptr, g.col_idx)):
+            raise AssertionError("the .lux read back differs from Reddit")
+        prefix = os.path.join(tmp, "feats")
+        rows = ds.features[:20000]
+        np.savetxt(prefix + ".feats.csv", rows, delimiter=",", fmt="%.9g")
+
+        def parse():
+            if os.path.exists(prefix + ".feats.bin"):
+                os.remove(prefix + ".feats.bin")
+            return lux.load_features(prefix, *rows.shape)
+        steps["feats_csv_20000x602"], feats = _both_ways("CSV parse", parse)
+        if not _same(feats, np.ascontiguousarray(rows, np.float32)):
+            raise AssertionError("the parsed CSV differs from its rows")
+    nat = _native_gcn(ds, dev)
+    with _no_native():
+        ref = _native_gcn(ds, dev)
+    if nat["losses"] != ref["losses"] or not np.isfinite(
+            nat["losses"]).all():
+        raise AssertionError(f"GCN losses placed natively {nat['losses']} "
+                             f"!= NumPy-placed {ref['losses']}")
+    rec["gcn"] = {"native": nat, "numpy": ref, "losses_bitwise": True}
+    dsr, _, on = _timed_reorder(ds, "on")
+    with _no_native():
+        dsr_np, _, off = _timed_reorder(ds, "on")
+    if not _same((dsr.graph.row_ptr, dsr.graph.col_idx, dsr.features),
+                 (dsr_np.graph.row_ptr, dsr_np.graph.col_idx,
+                  dsr_np.features)):
+        raise AssertionError("-reorder on differs natively")
+    del dsr, dsr_np
+    rec["reorder_on"] = {"native": on, "numpy": off}
+    witness.reset()
+    witness.arm(True)
+    try:
+        rc = selftest("cuda", serve_batch=64, dataset="reddit-small")
+        pairs = witness.observed_pairs()
+        violations = witness.validate()
+    finally:
+        witness.arm(False)
+        witness.reset()
+    rec["witness"] = {"selftest_rc": rc,
+                      "pairs": [[a, b, n] for (a, b), n in
+                                sorted(pairs.items())],
+                      "violations": violations}
+    rec["phase_s"] = time.perf_counter() - t_phase
+    emit(rec)
+    if rc != 0 or violations or not pairs:
+        raise AssertionError(f"the armed serve selftest: rc {rc}, pairs "
+                             f"{pairs}, violations {violations}")
+    return rec
+
+
 def _kernel_entry(name, source, replaces, launches, row, rows, keys):
     """One entry of the ``kernels`` line: the main row's numbers and every
     measured shape."""
@@ -4779,6 +4948,7 @@ def main() -> int:
     emit({"phase": "graph", "dataset": "reddit",
           "nodes": ds.graph.num_nodes, "edges": ds.graph.num_edges,
           "host_gen_s": round(time.perf_counter() - t0, 3)})
+    phase_native(ds, dev)
     phase_kernel_sum_shapes(dev)
     phase_kernel_xlayer_shapes(dev)
     rows = phase_kernel_xlayer(ds, dev)

@@ -24,6 +24,11 @@ it (nor jax).  Each module mirrors its counterpart's path:
   memory/    the activation-memory planner (-mem-plan, -mem-budget;
              python -m roc_tpu_torch.memory)
   stream/    the out-of-core streaming executor (-stream, -parts)
+  native/    the host graph builders in C++ (.lux reads, the feature CSV,
+             the cut, halo maps, the CSR transpose and RCM), built with g++
+             at first use; ROC_TPU_NO_NATIVE=1 selects their NumPy twins
+  analysis/  roclint, the lock-discipline analyzer (threads.json) and the
+             runtime lock-order witness
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """

@@ -34,8 +34,8 @@ from __future__ import annotations
 
 import os
 import sys
-import time
 
+from roc_tpu_torch import obs
 from roc_tpu_torch.device import resolve_device
 from roc_tpu_torch.graph import datasets
 from roc_tpu_torch.graph.reorder import maybe_reorder_dataset
@@ -158,10 +158,10 @@ def _main(cfg) -> int:
                   "incompatible with -perhost (preprocess the dataset "
                   "offline instead)", file=sys.stderr)
             return 2
-        t0 = time.perf_counter()
-        ds, _, note = maybe_reorder_dataset(ds, cfg.reorder)
+        with obs.span("reorder") as sp:
+            ds, _, note = maybe_reorder_dataset(ds, cfg.reorder)
         print(f"# {note} ({ds.graph.num_nodes} nodes, "
-              f"{time.perf_counter() - t0:.1f}s)", file=sys.stderr)
+              f"{sp.dur_s:.1f}s)", file=sys.stderr)
     model = build_model(cfg.model, cfg.layers, cfg.dropout_rate, cfg.aggr,
                         heads=cfg.heads)
     # one trainer build: -check-sharding and the run share its parts

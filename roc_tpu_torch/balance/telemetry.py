@@ -90,6 +90,7 @@ class TelemetryBuffer:
             with open(self.trace_path, "a") as f:
                 f.write(json.dumps(obj, default=_jsonable) + "\n")
         except OSError:
+            # roclint: allow(silent-swallow) tracing must never take down training
             pass    # tracing must never take down training
 
     # -- reading ----------------------------------------------------------

@@ -42,6 +42,7 @@ def _stage_spec(device):
         try:
             inject.parse_spec(bad)
         except ValueError:
+            # roclint: allow(silent-swallow) expected-failure fixture: the raise is the check, the else branch fails it
             pass
         else:
             raise AssertionError(f"parse_spec accepted {bad!r}")
@@ -70,6 +71,7 @@ def _stage_retry(device):
         retry.retrying("r.perm", lambda: inject.point("r.perm"),
                        base_s=0.001)
     except inject.InjectedFault:
+        # roclint: allow(silent-swallow) expected-failure fixture: the raise is the check, the else branch fails it
         pass
     else:
         raise AssertionError("permanent fault did not exhaust the retry")
@@ -83,6 +85,7 @@ def _stage_retry(device):
     try:
         retry.retrying("r.once", once, base_s=0.001)
     except inject.InjectedFault:
+        # roclint: allow(silent-swallow) expected-failure fixture: the raise is the check, the else branch fails it
         pass
     else:
         raise AssertionError("retries=0 still retried")
@@ -169,6 +172,7 @@ def _stage_chaos(device):
     try:
         q.submit([3])
     except Overloaded:
+        # roclint: allow(silent-swallow) expected-failure fixture: the raise is the check, the else branch fails it
         pass
     else:
         raise AssertionError("submit past queue_max did not shed")
@@ -224,6 +228,7 @@ def _stage_delta(device):
             mgr.apply(np.asarray([[5, 6]]), None)
             raise AssertionError("kill_record did not crash")
         except inject.SimulatedCrash:
+            # roclint: allow(silent-swallow) expected-failure fixture: the crash is the check
             pass
         finally:
             inject.configure("")
@@ -237,6 +242,7 @@ def _stage_delta(device):
             mgr2.apply(np.asarray([[5, 6]]), None)
             raise AssertionError("kill_ack did not crash")
         except inject.SimulatedCrash:
+            # roclint: allow(silent-swallow) expected-failure fixture: the crash is the check
             pass
         finally:
             inject.configure("")

@@ -60,6 +60,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from roc_tpu_torch import fault
+from roc_tpu_torch.analysis import witness as _witness
 from roc_tpu_torch.serve.delta import _LEN, _REC
 
 __all__ = ["ReplicationError", "TornSegmentError", "SegmentGapError",
@@ -240,7 +241,8 @@ class InProcTransport(Transport):
 
     def __init__(self, maxlen: int = 4096):
         self._q: deque = deque()
-        self._cv = threading.Condition()
+        self._cv = _witness.trace("InProcTransport._cv",
+                                  threading.Condition())
         self._maxlen = int(maxlen)
 
     def send(self, seg: bytes) -> None:
@@ -289,6 +291,7 @@ class FileTransport(Transport):
                 try:
                     mx = max(mx, int(name[4:-4]))
                 except ValueError:
+                    # roclint: allow(silent-swallow) a foreign file in the segment directory is not a segment
                     pass
         return mx
 
@@ -385,6 +388,7 @@ class SocketTransport(Transport):
                 try:
                     s.close()
                 except OSError:
+                    # roclint: allow(silent-swallow) teardown of a socket the peer may already have closed
                     pass
 
 

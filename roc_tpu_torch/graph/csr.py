@@ -10,8 +10,12 @@ import dataclasses
 
 import numpy as np
 
+from roc_tpu_torch import native
+
 V_DTYPE = np.int32
 E_DTYPE = np.int64
+# roc_tpu's threshold for its native transpose and RCM
+NATIVE_MIN_EDGES = 1 << 20
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,17 +54,45 @@ class Csr:
         return np.repeat(np.arange(self.num_nodes, dtype=V_DTYPE),
                          np.diff(self.row_ptr))
 
+    def _native_transpose(self) -> bool:
+        """Whether the transpose takes the native counting sort: at >= 2^20
+        edges, as roc_tpu's does (roc_tpu/graph/csr.py:75), unless
+        ``ROC_TPU_NO_NATIVE=1``.  The sources are range-checked first: the
+        NumPy path fails loudly on a corrupt id (bincount raises), where a
+        counting sort would index out of bounds."""
+        if self.num_edges < NATIVE_MIN_EDGES or not native.enabled():
+            return False
+        if int(self.col_idx.min()) < 0 or \
+                int(self.col_idx.max()) >= self.num_nodes:
+            raise ValueError("col_idx out of range [0, num_nodes)")
+        return True
+
     def transpose_order(self) -> np.ndarray:
         """The edge map of the transpose: its edge e' is this CSR's edge
         ``order[e']`` (the stable argsort of ``col_idx``)."""
         return np.argsort(self.col_idx, kind="stable")
 
+    def transpose_with_order(self) -> "tuple[Csr, np.ndarray]":
+        """The transpose and :meth:`transpose_order`'s map: on big graphs
+        one native call writes both."""
+        if self._native_transpose():
+            t_row, t_col, order = native.csr_transpose(
+                self.row_ptr, self.col_idx, edge_map=True)
+            return Csr(self.num_nodes, self.num_edges, t_row, t_col), order
+        order = self.transpose_order()
+        return self.transpose(order), order
+
     def transpose(self, order: np.ndarray = None) -> "Csr":
         """Out-edge view as a CSR over sources: aggregating over it is the
         backward of aggregating over this one (stable, so equal element by
         element to roc_tpu's transpose).  ``order`` is
-        :meth:`transpose_order`'s map, when the caller has it."""
+        :meth:`transpose_order`'s map, when the caller has it; without it a
+        big graph takes the native counting sort."""
         if order is None:
+            if self._native_transpose():
+                t_row, t_col = native.csr_transpose(self.row_ptr,
+                                                    self.col_idx)
+                return Csr(self.num_nodes, self.num_edges, t_row, t_col)
             order = self.transpose_order()
         new_col = self.dst_idx[order].astype(V_DTYPE)
         counts = np.bincount(self.col_idx, minlength=self.num_nodes)

@@ -17,7 +17,9 @@ Sidecar files (load_task.cu:25-184):
 
 Mask encoding matches gnn.h:98-103: TRAIN=0, VAL=1, TEST=2, NONE=3.
 Every read goes through the ``lux.read`` fault site and the shared retry
-policy (roc_tpu_torch/fault).
+policy (roc_tpu_torch/fault).  The header, the slices and the feature CSV
+are read in C++ (``roc_tpu_torch.native``, where roc_tpu reads them with
+its own) unless ``ROC_TPU_NO_NATIVE=1``; the NumPy reads are their oracle.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import os
 
 import numpy as np
 
-from roc_tpu_torch import fault
+from roc_tpu_torch import fault, native
 from roc_tpu_torch.graph.csr import Csr, E_DTYPE, V_DTYPE
 
 MASK_TRAIN, MASK_VAL, MASK_TEST, MASK_NONE = 0, 1, 2, 3
@@ -44,6 +46,8 @@ _HEADER_SIZE = 12  # uint32 numNodes + uint64 numEdges (gnn.h:33)
 
 def read_header(path: str) -> "tuple[int, int]":
     """The 12-byte `.lux` header: (num_nodes, num_edges)."""
+    if native.enabled():
+        return native.lux_header(path)
     with open(path, "rb") as f:
         num_nodes = int(np.fromfile(f, dtype=np.uint32, count=1)[0])
         num_edges = int(np.fromfile(f, dtype=np.uint64, count=1)[0])
@@ -69,6 +73,8 @@ def read_rows_slice(path: str, lo: int, hi: int) -> np.ndarray:
         # short read (a torn write seen mid-replace) surfaces as the
         # ValueError below, transient by construction.
         fault.point("lux.read")
+        if native.enabled():
+            return native.lux_read_slice(path, lo, hi, 0, 0)[0]
         with open(path, "rb") as f:
             f.seek(_HEADER_SIZE + 8 * lo)
             rows = np.fromfile(f, dtype=np.uint64, count=hi - lo)
@@ -92,6 +98,8 @@ def read_cols_slice(path: str, num_nodes: int, e0: int, e1: int
 
     def _read():
         fault.point("lux.read")
+        if native.enabled():
+            return native.lux_read_slice(path, 0, 0, e0, e1)[1]
         with open(path, "rb") as f:
             f.seek(_HEADER_SIZE + 8 * num_nodes + 4 * e0)
             cols = np.fromfile(f, dtype=np.uint32, count=e1 - e0)
@@ -167,11 +175,14 @@ def load_features(prefix: str, num_nodes: int, in_dim: int,
     bin_path = prefix + ".feats.bin"
     csv_path = prefix + ".feats.csv"
     if not _cache_fresh(bin_path, csv_path):
-        feats = np.loadtxt(csv_path, delimiter=",", dtype=np.float32,
-                           ndmin=2)
-        if feats.shape != (num_nodes, in_dim):
-            raise ValueError(f"feats.csv shape {feats.shape} != "
-                             f"({num_nodes},{in_dim})")
+        if native.enabled():
+            feats = native.parse_feats_csv(csv_path, num_nodes, in_dim)
+        else:
+            feats = np.loadtxt(csv_path, delimiter=",", dtype=np.float32,
+                               ndmin=2)
+            if feats.shape != (num_nodes, in_dim):
+                raise ValueError(f"feats.csv shape {feats.shape} != "
+                                 f"({num_nodes},{in_dim})")
         _atomic_tofile(feats, bin_path)
         if not mmap:
             return feats

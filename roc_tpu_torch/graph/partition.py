@@ -7,8 +7,9 @@ shard size S (nodes) and E (edges) with inert padding: pad nodes carry
 zero features, in-degree 1 and mask NONE; pad edges source at a pad node
 (+0 to any sum) and end at the shard's last pad row (which keeps each
 shard's destinations ascending).  The streaming executor rotates these
-shards through its device slots.  roc_tpu's native (g++) cut is not
-ported; its Python scan, which the native one is held to, is.
+shards through its device slots.  The cut runs in C++
+(``roc_tpu_torch.native``, as roc_tpu's does) unless
+``ROC_TPU_NO_NATIVE=1``; its Python scan is the oracle it is held to.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from typing import List, Tuple
 
 import numpy as np
 
+from roc_tpu_torch import native
 from roc_tpu_torch.graph.csr import Csr, E_DTYPE, V_DTYPE
 
 # roc_tpu's alignment of the padded shapes (its TPU tiles), kept so the
@@ -50,7 +52,11 @@ def bounds_from_row_ptr(row_ptr: np.ndarray,
     num_edges = int(row_ptr[-1])
     if num_nodes == 0:
         return [(0, -1)] * num_parts
-    bounds = _python_bounds(row_ptr, num_parts)
+    if native.enabled():
+        _, nb = native.partition(row_ptr[1:], num_edges, num_parts)
+        bounds = [tuple(int(v) for v in b) for b in nb]
+    else:
+        bounds = _python_bounds(row_ptr, num_parts)
     # Repair (reference would assert instead):
     while len(bounds) > num_parts:  # merge the two lightest neighbors
         w = [int(row_ptr[hi + 1] - row_ptr[lo]) for lo, hi in bounds]
@@ -72,8 +78,8 @@ def bounds_from_row_ptr(row_ptr: np.ndarray,
 
 def _python_bounds(row_ptr: np.ndarray,
                    num_parts: int) -> List[Tuple[int, int]]:
-    """The greedy cut as a NumPy scan (roc_tpu's oracle for its native
-    C++ cut)."""
+    """The greedy cut as a NumPy scan (the oracle of the native C++
+    cut)."""
     deg = np.diff(row_ptr)
     num_nodes = len(row_ptr) - 1
     num_edges = int(row_ptr[-1])

@@ -4,7 +4,8 @@ The order is a degree-sorted level-synchronous BFS from minimum-degree
 seeds, reversed at the end: reverse Cuthill-McKee, vectorized per level so
 the whole pass is O(E) NumPy (Reddit scale: seconds).  Ties break on
 vertex id everywhere, so the permutation is reproducible and element for
-element roc_tpu's (its NumPy path).
+element roc_tpu's (its NumPy path); big graphs take the C++ BFS of
+``roc_tpu_torch.native``, held to that path.
 
 ``-reorder auto`` keeps the order only where it concentrates the edge set
 by roc_tpu's own statistic: the slot-padded rows of the touched (512-row
@@ -19,7 +20,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from roc_tpu_torch.graph.csr import Csr, E_DTYPE, V_DTYPE
+from roc_tpu_torch import native
+from roc_tpu_torch.graph.csr import Csr, E_DTYPE, NATIVE_MIN_EDGES, V_DTYPE
 
 # binned.py GEOM_MID: source rows per block, destination rows per bin, and
 # the slot every touched cell rounds up to
@@ -79,11 +81,18 @@ def rcm_order(g: Csr) -> np.ndarray:
     BFS treats the graph as undirected (in- plus out-neighbors); levels are
     visited in increasing total-degree order (ids break ties).  Isolated
     vertices (self-loop only) go to the end in id order: they touch no
-    off-diagonal cells, so their position is irrelevant to locality."""
+    off-diagonal cells, so their position is irrelevant to locality.
+
+    At >= 2^20 edges (roc_tpu's threshold), unless ``ROC_TPU_NO_NATIVE=1``,
+    the C++ BFS runs (``native.rcm_order``): the (degree, id) level order is
+    total, so it matches the NumPy path below, its oracle, element for
+    element."""
     n = g.num_nodes
     if n == 0:
         return np.zeros(0, np.int64)
     gt = g.transpose()
+    if g.num_edges >= NATIVE_MIN_EDGES and native.enabled():
+        return native.rcm_order(g.row_ptr, g.col_idx, gt.row_ptr, gt.col_idx)
     deg_in = np.diff(g.row_ptr)
     deg_out = np.diff(gt.row_ptr)
     # self-loops count toward both; subtract them from the "connects me to

@@ -79,7 +79,9 @@ class MemPlan:
             "budget_bytes": self.budget_bytes,
             "decisions": list(self.decisions),
             "layer_names": list(self.layer_names),
+            # roclint: allow(unledgered-prediction) serialized plan field (roc_tpu's key in the plan's JSON), not a new prediction site
             "predicted_peak_bytes": self.predicted_peak_bytes,
+            # roclint: allow(unledgered-prediction) serialized plan field (roc_tpu's key in the plan's JSON), not a new prediction site
             "predicted_step_s": round(self.predicted_step_s, 9),
             "keep_peak_bytes": self.keep_peak_bytes,
             "keep_step_s": round(self.keep_step_s, 9),

@@ -33,6 +33,7 @@ class MetricsRegistry:
                 with open(self.jsonl_path, "a", encoding="utf-8") as f:
                     f.write(json.dumps({"type": kind, **fields}) + "\n")
             except OSError:
+                # roclint: allow(silent-swallow) the metrics stream must never take down the run
                 pass    # the metrics stream must never take down the run
         for k, v in fields.items():
             if isinstance(v, bool) or not isinstance(v, (int, float)):
@@ -75,7 +76,9 @@ def load_jsonl(path: str) -> List[dict]:
                 try:
                     out.append(json.loads(line))
                 except ValueError:
+                    # roclint: allow(silent-swallow) a torn JSONL tail after a crash holds no record
                     continue
     except OSError:
+        # roclint: allow(silent-swallow) an absent stream holds no records
         pass
     return out

@@ -105,15 +105,18 @@ class DeviceCsr(NamedTuple):
         """A host ``Csr`` on ``device``, with its transpose (built once,
         by ``Csr.transpose()``) unless ``transpose`` is False, and with the
         edge map ``t_pos`` (the inverse of the stable argsort of
-        ``col_idx`` that the host transpose computes) when ``edge_map`` is
-        True, carrying ``launch``."""
+        ``col_idx``, which ``Csr.transpose_with_order()`` computes with the
+        transpose: one native counting sort on a big graph) when
+        ``edge_map`` is True, carrying ``launch``."""
         if edge_map and not transpose:
             raise ValueError("the edge map belongs to the transpose: "
                              "edge_map=True needs transpose=True")
         arrays = [(csr.row_ptr, np.int64), (csr.col_idx, np.int32)]
         if transpose:
-            order = csr.transpose_order()
-            t = csr.transpose(order)
+            if edge_map:
+                t, order = csr.transpose_with_order()
+            else:
+                t = csr.transpose()
             arrays += [(t.row_ptr, np.int64), (t.col_idx, np.int32)]
             if edge_map:
                 t_pos = np.empty(order.size, np.int32)

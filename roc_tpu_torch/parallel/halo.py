@@ -17,9 +17,9 @@ Layout (P parts, K = max rows any ordered pair exchanges, padded):
                       own sources stay in [0, S); a remote source owned by q
                       at send position j maps to S + q*K + j.
 
-roc_tpu's native (g++) builder is not ported; its NumPy builder, which the
-native one is held to, is, with the per-pair reference builder that both
-are checked against.
+The builder runs in C++ (``roc_tpu_torch.native``, as roc_tpu's does)
+unless ``ROC_TPU_NO_NATIVE=1``; its NumPy twin and the per-pair reference
+builder are the oracles it is checked against.
 
 The streaming executor's frozen-shape tables (stream/executor.py
 ``_stream_maps``) differ in layout: K carries slack for a reshard and the
@@ -35,6 +35,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from roc_tpu_torch import native
 from roc_tpu_torch.graph.partition import Partition
 
 
@@ -47,8 +48,15 @@ class HaloMaps:
 
 
 def build_halo_maps(part: Partition) -> HaloMaps:
-    """The halo maps of ``part`` (roc_tpu's NumPy builder; its native one
-    is held bit-identical to it)."""
+    """The halo maps of ``part``: the C++ builder (``native.halo_maps``),
+    or under ``ROC_TPU_NO_NATIVE=1`` the NumPy one, which is its oracle
+    (the same sort-free algorithm, bit for bit)."""
+    if native.enabled():
+        K, sizes, send_idx, edge_src_local = native.halo_maps(
+            part.edge_src, part.shard_nodes)
+        return HaloMaps(K=K, send_idx=send_idx,
+                        edge_src_local=edge_src_local,
+                        halo_rows_total=int(sizes.sum()))
     return _build_halo_maps_numpy(part)
 
 

@@ -575,6 +575,7 @@ def _ring_attend(gd: ShardedGraphData, h, a_src, a_dst, slope: float):
                 continue
             hb = wire.wire_up(cur[i], gd.xch, h.dtype, F)
             ad_l, m, z, u = state[i]
+            # roclint: allow(remat) ring-step recomputation keeps the rotating buffer out of the saved activations, as roc_tpu's scan-body remat does; no activation plan covers a ring step
             m, z, u = checkpoint(
                 _ring_attend_step, hb, ad_l, m, z, u, a_src,
                 csr.col_idx.long(), _csr_dst(csr), float(slope),

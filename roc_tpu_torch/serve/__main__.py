@@ -7,7 +7,9 @@ flags reach the ``ServeEngine`` (window size, wait, queue cap),
 CLI, and ``-stream`` serves through the streaming executor's slots (the
 graph never placed whole; each forward sweeps the N shards, default 4).
 
-On the tiny audit graph (GCN 8-16-4, or GAT 8-4-4 with 2 heads): write a
+On the tiny audit graph (GCN 8-16-4, or GAT 8-4-4 with 2 heads), or, from
+Python, on ``selftest(dataset=...)``'s graph at its widths (hidden 16 for
+GCN, 4 for GAT): write a
 checkpoint, cold-start a ServeEngine from it, and assert in one process that
 
   1. cold start loads the checkpoint and serves its first forward,
@@ -36,7 +38,8 @@ import tempfile
 def selftest(device: str = "cuda", model_name: str = "gcn",
              serve_batch: int = 8, serve_wait_ms: float = 1.0,
              serve_queue_max: int = 4096, use_bf16: bool = False,
-             stream: bool = False, parts: int = 4) -> int:
+             stream: bool = False, parts: int = 4,
+             dataset: str = "roc-audit") -> int:
     import numpy as np
 
     from roc_tpu_torch.graph import datasets
@@ -48,13 +51,14 @@ def selftest(device: str = "cuda", model_name: str = "gcn",
     from roc_tpu_torch.train.config import Config
     from roc_tpu_torch.train.graph_data import forward_launches
 
-    cfg = Config(dataset="roc-audit", model=model_name, heads=2,
-                 layers=[8, 16, 4] if model_name == "gcn" else [8, 4, 4],
+    ds = datasets.get(dataset, seed=Config().seed)
+    cfg = Config(dataset=dataset, model=model_name, heads=2,
+                 layers=[ds.in_dim, 16 if model_name == "gcn" else 4,
+                         ds.num_classes],
                  aggregate_backend="binned", serve_batch=serve_batch,
                  serve_wait_ms=serve_wait_ms,
                  serve_queue_max=serve_queue_max, use_bf16=use_bf16,
                  stream=stream, num_parts=parts if stream else 1)
-    ds = datasets.get(cfg.dataset, seed=cfg.seed)
     model = build_model(cfg.model, cfg.layers, cfg.dropout_rate, cfg.aggr,
                         heads=cfg.heads)
     per_forward = forward_launches(model, precision=cfg.aggregate_precision)
@@ -73,6 +77,7 @@ def selftest(device: str = "cuda", model_name: str = "gcn",
                   + (f"streamed through {parts} shards" if stream else
                      f"x {eng.bundle.x.dtype}"))
 
+            # roclint: allow(host-sync) parity oracle fetched once, before serving starts
             oracle = eng.bundle.predict_logits().cpu().numpy()
             ids = np.arange(ds.graph.num_nodes, dtype=np.int32)
             ulps = max_ulp_diff(eng.query(ids, timeout=120.0), oracle[ids])

@@ -104,6 +104,7 @@ import numpy as np
 import torch
 
 from roc_tpu_torch import fault, obs
+from roc_tpu_torch.analysis import witness as _witness
 from roc_tpu_torch.graph.csr import from_edges
 from roc_tpu_torch.obs import roofline
 from roc_tpu_torch.obs.ledger import content_key, get_ledger
@@ -348,6 +349,7 @@ class _RowStore:
         pieces, prev = [], 0
         for d in sorted(self.rows):
             pieces.append(self.col[self.rp[prev]:self.rp[d]])
+            # roclint: allow(host-sync) host row store over python lists, no device array
             pieces.append(np.asarray(self.rows[d], np.int32))
             prev = d + 1
         pieces.append(self.col[self.rp[prev]:])
@@ -355,11 +357,14 @@ class _RowStore:
 
     def overrides(self):
         """The touched rows as (ids, row_ptr, sources) arrays."""
+        # roclint: allow(host-sync) host row store over python lists, no device array
         ids = np.asarray(sorted(self.rows), np.int64)
+        # roclint: allow(host-sync) host row store over python lists, no device array
         lens = np.asarray([len(self.rows[d]) for d in ids.tolist()],
                           np.int64)
         ptr = np.zeros(ids.size + 1, np.int64)
         np.cumsum(lens, out=ptr[1:])
+        # roclint: allow(host-sync) host row store over python lists, no device array
         src = np.asarray([s for d in ids.tolist() for s in self.rows[d]],
                          np.int32)
         return ids, ptr, src
@@ -433,7 +438,7 @@ class DeltaManager:
             int(headroom)
         self._ledger_key = ledger_key or content_key(
             model="delta", nodes=num_nodes)
-        self._mu = threading.Lock()
+        self._mu = _witness.trace("DeltaManager._mu", threading.Lock())
         self._ticket: Optional[_ReplanTicket] = None
         self._replan_thread: Optional[threading.Thread] = None
         self._broken: Optional[BaseException] = None
@@ -463,10 +468,13 @@ class DeltaManager:
             self._restore_from_snapshot(snap)
         else:
             # the frozen graph the engine placed: one host copy at enable
+            # roclint: allow(host-sync) enable-time host copy of the resident CSR, once, off the request path
             rp = gd.csr.row_ptr.cpu().numpy()
+            # roclint: allow(host-sync) enable-time host copy of the resident CSR, once, off the request path
             col = gd.csr.col_idx.cpu().numpy()
             self._store = _RowStore(rp, col)
             if not np.array_equal(self._store.deg.astype(np.float32),
+                                  # roclint: allow(host-sync) enable-time host copy of the resident in-degrees, once, off the request path
                                   gd.in_degree.cpu().numpy()):
                 raise DeltaError("the resident in-degrees disagree with "
                                  "the resident CSR; refusing the patch "
@@ -528,6 +536,7 @@ class DeltaManager:
         bcol[:col.size].copy_(torch.from_numpy(col))
         bdeg.copy_(torch.from_numpy(deg.astype(np.float32)))
         if self.device.type == "cuda":
+            # roclint: allow(host-sync) the fill's copies must land before the buffers are installed for the serve worker; enable or replan, off the request path
             torch.cuda.current_stream(self.device).synchronize()
         note_csr_build()
         return bufs
@@ -593,6 +602,7 @@ class DeltaManager:
             if self._ticket is not None and not self._ticket.done:
                 # a replan is in flight: the old buffers serve queries,
                 # but mutations serialize behind the swap
+                # roclint: allow(lock-blocking) mutations MUST serialize behind the in-flight replan under _mu; queries never take _mu, so serving stays live
                 self._ticket.wait()
             if self._ticket is not None:
                 if self._ticket.error is not None:
@@ -603,6 +613,7 @@ class DeltaManager:
             with obs.span("delta_classify") as sp_host:
                 add = self._validate(add_edges, "add_edges")
                 ret = self._validate(retire_edges, "retire_edges")
+                # roclint: allow(lock-blocking) pre-WAL chaos site: a kill here unwinds through `with _mu` releasing it, and the journal has not advanced, so restart replays cleanly
                 fault.point("delta.apply")   # transient chaos: pre-WAL
                 eff_add, eff_ret, noop_add, noop_ret = self._classify(add,
                                                                       ret)
@@ -625,10 +636,12 @@ class DeltaManager:
             seq = self._seq + 1
             with obs.span("delta_journal") as sp_journal:
                 if self.journal is not None and not self._replaying:
+                    # roclint: allow(lock-blocking) WAL-before-memory IS the commit point: the fsync'd append must complete under _mu or a racing apply could journal seq+1 before seq is durable
                     self.journal.append(seq, add, ret)
             try:
                 with obs.span("delta_apply", adds=len(eff_add),
                               retires=len(eff_ret)) as sp:
+                    # roclint: allow(lock-blocking) the in-memory commit matching the WAL record above; it reaches kill windows and checkpoint fsync by design, and a crash inside poisons the manager for replay
                     result = self._apply_effective(seq, eff_add, eff_ret)
             except BaseException as e:
                 # past the WAL: memory is behind the journal; poison the
@@ -656,6 +669,7 @@ class DeltaManager:
         if edges is None:
             return np.zeros((0, 2), np.int64)
         try:
+            # roclint: allow(host-sync) caller batch ingress, host data
             arr = np.asarray(edges)
             if arr.size == 0:
                 return np.zeros((0, 2), np.int64)
@@ -795,8 +809,10 @@ class DeltaManager:
             rp, col = self._store.materialize()
             bufs = self._fill(rp, col, self._store.deg)
             with self._plan_lock:
+                # roclint: allow(lock-blocking) the swap kill windows sit INSIDE the plan lock on purpose: the crash-consistency drill proves a kill at either edge of the atomic swap unwinds (releasing the lock) with the old or the new buffers whole
                 fault.point("delta.swap.kill_pre")
                 self._set_gdata(self._gdata_of(bufs[0], col.size))
+                # roclint: allow(lock-blocking) see kill_pre above: same sanctioned kill window, post-swap edge
                 fault.point("delta.swap.kill_post")
             self._adopt(bufs, rp)
             self._store = _RowStore(rp, col)
@@ -886,8 +902,10 @@ class DeltaManager:
                 return
             self._closed = True
             if self._ticket is not None and not self._ticket.done:
+                # roclint: allow(lock-blocking) close() is finish-or-journal: holding _mu while the last replan drains keeps a racing apply() from slipping a mutation into a closing manager
                 self._ticket.wait()
             if self._replan_thread is not None:
+                # roclint: allow(lock-blocking) same close() barrier: the replan worker never takes _mu, so joining it under _mu cannot deadlock, and it must be dead before the journal closes
                 self._replan_thread.join(timeout=60.0)
                 self._replan_thread = None
             if self.journal is not None:

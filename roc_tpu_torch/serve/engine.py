@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from roc_tpu_torch import obs
+from roc_tpu_torch.analysis import witness as _witness
 from roc_tpu_torch.graph.datasets import Dataset
 from roc_tpu_torch.models.model import Model
 from roc_tpu_torch.obs import roofline
@@ -82,7 +83,8 @@ class ServeEngine:
         self._p99_windows = 0
         # the serve worker holds this for a whole window; delta installs
         # and the replan swap take it: the swap lands at a window boundary
-        self._plan_lock = threading.RLock()
+        self._plan_lock = _witness.trace("ServeEngine._plan_lock",
+                                         threading.RLock())
         self.deltas = None
         self.forwards = 0
         self.dispatches = {b: 0 for b in self.buckets}
@@ -148,6 +150,7 @@ class ServeEngine:
         """Serve one drained window: [k] node ids -> [k, C] logits.  Chunks
         larger than the top bucket split across dispatches; each dispatch
         is one full-graph forward and one host sync."""
+        # roclint: allow(host-sync) request ingress: host ids to a host array, nothing device-resident
         ids = np.asarray(ids).reshape(-1)
         if ids.size == 0:
             return np.zeros((0, self.dataset.num_classes), np.float32)
@@ -167,6 +170,7 @@ class ServeEngine:
                     0, torch.as_tensor(qidx, device=self.device))
                 self.forwards += 1
                 self.dispatches[b] += 1
+                # roclint: allow(host-sync) one result fetch per dispatched chunk: the window's sanctioned sync
                 parts.append(res.cpu().numpy()[:chunk.size])
         return parts[0] if len(parts) == 1 else np.concatenate(parts)
 

@@ -34,6 +34,7 @@ def run_load(engine, n_requests: int, qps: float,
     rng = rng or np.random.default_rng(0)
     nn = engine.bundle.num_nodes
     futures = []
+    # roclint: allow(raw-timing) open-loop offer schedule anchor; the submit side must never sync
     t0 = time.perf_counter()
     for i in range(n_requests):
         delay = t0 + i / qps - time.perf_counter()

@@ -19,6 +19,8 @@ from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 
+from roc_tpu_torch.analysis import witness as _witness
+
 
 class Overloaded(RuntimeError):
     """The queue refused or dropped a request to bound its memory and
@@ -91,7 +93,8 @@ class MicrobatchQueue:
         self._on_window = on_window
         self._queue_max = int(queue_max)
         self._pending: deque = deque()
-        self._cv = threading.Condition()
+        self._cv = _witness.trace("MicrobatchQueue._cv",
+                                  threading.Condition())
         self._closed = False
         self.windows = 0
         self.served = 0
@@ -105,6 +108,7 @@ class MicrobatchQueue:
     def submit(self, node_ids: Sequence[int],
                deadline_s: Optional[float] = None) -> ServeFuture:
         """Enqueue one request; returns a future resolving to [k, C]."""
+        # roclint: allow(host-sync) request ingress, host list to host array, nothing device-resident
         ids = np.asarray(node_ids, np.int32).reshape(-1)
         if ids.size < 1:
             raise ValueError("empty query")
@@ -153,6 +157,7 @@ class MicrobatchQueue:
                 self._cv.wait(timeout=0.1)
             if not self._pending:
                 return []
+            # roclint: allow(raw-timing) the batching window's deadline on the condition variable, not a measurement
             t0 = time.perf_counter()
             while not self._closed:
                 n = sum(f.ids.size for f in self._pending)

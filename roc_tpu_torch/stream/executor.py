@@ -123,7 +123,9 @@ def _stream_maps(meta, edge_src, K_force=None):
                 f"stream reshard: new cut needs halo width {kmax} > frozen "
                 f"K={K_force}; restart -stream to rebuild the slot shapes")
         K = int(K_force)
+    # roclint: allow(unpinned-host-buffer) host gather index over the host stores, never staged
     tbl_idx = np.empty((P, S + P * K), np.int64)
+    # roclint: allow(unpinned-host-buffer) host index map, built once a cut into the parts' CSRs, not a rotated store
     esrc_local = np.empty((P, E), np.int32)
     owners_base = np.repeat(np.arange(P, dtype=np.int64) * S + (S - 1), K)
     for i in range(P):
@@ -869,6 +871,7 @@ class StreamTrainer(Trainer):
         """Inference logits [N, C] in node order, on the device (the sweeps
         write the padded [P*S, C] shard-major rows; the padding is
         dropped)."""
+        # roclint: allow(unpinned-host-buffer) device->host sink of the logits, never ships
         sink = torch.zeros((self._P * self._S, self.dataset.num_classes),
                            dtype=torch.float32)
         self._logits_sink = sink

@@ -24,6 +24,7 @@ from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any, Callable, Dict, Hashable
 
 from roc_tpu_torch import fault, obs
+from roc_tpu_torch.analysis import witness as _witness
 
 __all__ = ["PrefetchRing"]
 
@@ -43,7 +44,7 @@ class PrefetchRing:
         self._futures: Dict[Hashable, Future] = {}
         # stall_s and busy_s are written from two threads (consumer and
         # worker): every access holds the lock
-        self._lock = threading.Lock()
+        self._lock = _witness.trace("PrefetchRing._lock", threading.Lock())
         self.stall_s = 0.0
         self.busy_s = 0.0
 

@@ -27,9 +27,7 @@ from typing import Any, Dict, List, Tuple
 import numpy as np
 import torch
 
-from roc_tpu_torch.fault import inject
-from roc_tpu_torch.fault.durable import fsync_replace
-from roc_tpu_torch.fault.retry import retrying
+from roc_tpu_torch import fault
 from roc_tpu_torch.optim.adam import AdamState
 
 _FORMAT_VERSION = 1
@@ -85,7 +83,7 @@ def save(path: str, params, opt_state=None, epoch: int = 0,
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
         np.savez(f, **payload)
-    fsync_replace(tmp, path)
+    fault.fsync_replace(tmp, path)
 
 
 def save_arrays(path: str, arrays: Dict[str, np.ndarray],
@@ -102,13 +100,13 @@ def save_arrays(path: str, arrays: Dict[str, np.ndarray],
     tmp = path + ".tmp"
 
     def _write():
-        inject.point(f"{site}.write")
+        fault.point(f"{site}.write")
         with open(tmp, "wb") as f:
             np.savez(f, **payload)
-    retrying(f"{site}.write", _write)
-    inject.point(f"{site}.kill_tmp")
-    fsync_replace(tmp, path)
-    inject.point(f"{site}.kill_rename")
+    fault.retrying(f"{site}.write", _write)
+    fault.point(f"{site}.kill_tmp")
+    fault.fsync_replace(tmp, path)
+    fault.point(f"{site}.kill_rename")
 
 
 def load_arrays(path: str) -> Tuple[Dict[str, np.ndarray], Dict[str, Any]]:

@@ -16,8 +16,9 @@ store (``tune/store.py``), and the kill switches ``ROC_NO_MEGAFUSE``,
 roc_tpu's have no meaning here: ``ROC_BINNED_*`` steer the binned plans'
 geometry, Pallas lowering and VMEM gates, and the port's CSR kernels have
 no plan; ``ROC_PLAN_CACHE_MIN_EDGES`` sizes the plan cache the port does
-not keep (a CSR is built in seconds); ``ROC_TPU_NO_NATIVE`` turns off
-roc_tpu's g++ helpers, whose NumPy paths the port runs always."""
+not keep (a CSR is built in seconds).  ``ROC_TPU_NO_NATIVE=1`` is read
+where the graph is built: it selects the NumPy paths of the host graph
+builders (``roc_tpu_torch/native``), which otherwise run in C++."""
 
 from __future__ import annotations
 

@@ -34,6 +34,7 @@ import torch
 
 from roc_tpu.graph.csr import from_edges as jfrom_edges
 from roc_tpu.graph.csr import with_edge_delta as jwith_edge_delta
+from roc_tpu_torch.analysis import witness
 from roc_tpu_torch.fault import inject
 from roc_tpu_torch.graph.csr import from_edges, with_edge_delta
 from roc_tpu_torch.obs.ledger import get_ledger
@@ -45,6 +46,16 @@ from roc_tpu_torch.serve.delta import (HEADROOM_EDGES, DeltaError,
                                        DeltaManager)
 from roc_tpu_torch.train import checkpoint
 from roc_tpu_torch.train.graph_data import dense_graph_data
+
+
+@pytest.fixture(autouse=True)
+def _lock_order_witness():
+    # every test here runs under the armed lock-order witness: the locks it
+    # creates record their acquisition orders, and an order outside the
+    # port's threads.json fails the test at teardown
+    with witness.armed_scope():
+        yield
+
 
 CPU = torch.device("cpu")
 N_NODES = 96

@@ -29,6 +29,7 @@ import torch
 from roc_tpu.fleet import replog as jreplog
 from roc_tpu.fleet.router import FleetRouter as JFleetRouter
 from roc_tpu.serve.queue import Overloaded as JOverloaded
+from roc_tpu_torch.analysis import witness
 from roc_tpu_torch.fault import inject, retry
 from roc_tpu_torch.fleet import (FileTransport, FleetOverloaded, FleetRouter,
                                  InProcTransport, ReplicationError,
@@ -42,6 +43,16 @@ from roc_tpu_torch.obs.watchdog import PerfWatchdog
 from roc_tpu_torch.serve.delta import _LEN, _REC, DeltaManager
 from roc_tpu_torch.serve.queue import Closed, Overloaded
 from roc_tpu_torch.train.graph_data import dense_graph_data
+
+
+@pytest.fixture(autouse=True)
+def _lock_order_witness():
+    # every test here runs under the armed lock-order witness: the locks it
+    # creates record their acquisition orders, and an order outside the
+    # port's threads.json fails the test at teardown
+    with witness.armed_scope():
+        yield
+
 
 CPU = torch.device("cpu")
 N_NODES = 96

@@ -1,8 +1,8 @@
 """The port stands alone: roc_tpu_torch (the autotuner's seven tune/
-modules among its modules) and chip_smoke.py import neither jax nor
-anything of roc_tpu, and the entry points run on CUDA unless asked for
-the CPU.  The import check runs in a subprocess because this test process
-has jax loaded already (tests/conftest.py)."""
+modules, native/ and analysis/ among its modules) and chip_smoke.py import
+neither jax nor anything of roc_tpu, and the entry points run on CUDA
+unless asked for the CPU.  The import check runs in a subprocess because
+this test process has jax loaded already (tests/conftest.py)."""
 
 import ast
 import os
@@ -64,7 +64,9 @@ need = {"roc_tpu_torch.__main__", "roc_tpu_torch.fault.guard",
         "roc_tpu_torch.tune", "roc_tpu_torch.tune.__main__",
         "roc_tpu_torch.tune.lattice", "roc_tpu_torch.tune.surrogate",
         "roc_tpu_torch.tune.search", "roc_tpu_torch.tune.store",
-        "roc_tpu_torch.tune.refit"}
+        "roc_tpu_torch.tune.refit", "roc_tpu_torch.native",
+        "roc_tpu_torch.analysis", "roc_tpu_torch.analysis.lint",
+        "roc_tpu_torch.analysis.threads", "roc_tpu_torch.analysis.witness"}
 assert need <= set(names), need - set(names)
 print(len(names), bad)
 assert not bad, bad
@@ -106,6 +108,9 @@ def test_no_jax_or_roc_tpu_import_in_source():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                           ROOT / "chip_ab.py"]
     assert len(files) >= 20
+    # the host graph builders and the lock and lint checks are scanned too
+    for pkg in ("native", "analysis"):
+        assert any(f.parent == PORT / pkg for f in files), pkg
     for f in files:
         for mod in _imported_modules(f):
             top = mod.split(".")[0]

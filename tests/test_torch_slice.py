@@ -29,6 +29,7 @@ from roc_tpu.serve import max_ulp_diff as jmax_ulp_diff
 from roc_tpu.train import checkpoint as jcheckpoint
 from roc_tpu.train.config import Config as JConfig
 from roc_tpu.train.frozen import load_frozen as jload_frozen
+from roc_tpu_torch.analysis import witness
 from roc_tpu_torch.graph import datasets
 from roc_tpu_torch.models import build_model
 from roc_tpu_torch.ops import prng
@@ -38,6 +39,15 @@ from roc_tpu_torch.serve.__main__ import selftest
 from roc_tpu_torch.train import checkpoint
 from roc_tpu_torch.train.config import Config
 from roc_tpu_torch.train.frozen import load_frozen
+
+
+@pytest.fixture(autouse=True)
+def _lock_order_witness():
+    # every test here runs under the armed lock-order witness: the locks it
+    # creates record their acquisition orders, and an order outside the
+    # port's threads.json fails the test at teardown
+    with witness.armed_scope():
+        yield
 
 
 @pytest.fixture(autouse=True)
@@ -103,6 +113,17 @@ def test_serve_selftest_on_cpu(capsys):
     out = capsys.readouterr().out
     assert "parity vs eval forward = 0 ULPs" in out
     assert "# serve selftest: OK" in out
+
+
+def test_serve_selftest_takes_a_dataset(capsys):
+    """``selftest(dataset=...)`` serves another graph at its own widths
+    (GCN 64-16-8 on mega-shard), delta leg included; under this file's
+    armed witness its lock orders stay on the port's graph."""
+    from roc_tpu_torch.serve.__main__ import selftest
+    assert selftest("cpu", dataset="mega-shard") == 0
+    out = capsys.readouterr().out
+    assert "delta leg" in out and "# serve selftest: OK" in out
+    assert witness.observed_pairs(), "the witness saw no lock order"
 
 
 def test_served_rows_match_eval_forward_and_ladder():

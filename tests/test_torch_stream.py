@@ -30,6 +30,7 @@ from roc_tpu.stream import segments as jseg
 from roc_tpu.stream import spill as jspill
 from roc_tpu.train.config import Config as JConfig
 from roc_tpu.train.driver import make_trainer as jmake_trainer
+from roc_tpu_torch.analysis import witness
 from roc_tpu_torch.graph import datasets, lux
 from roc_tpu_torch.graph import partition
 from roc_tpu_torch.graph.csr import add_self_edges, from_edges
@@ -41,6 +42,16 @@ from roc_tpu_torch.train import checkpoint
 from roc_tpu_torch.train.config import Config
 from roc_tpu_torch.train.driver import make_trainer
 from roc_tpu_torch.train.frozen import load_frozen
+
+
+@pytest.fixture(autouse=True)
+def _lock_order_witness():
+    # every test here runs under the armed lock-order witness: the locks it
+    # creates record their acquisition orders, and an order outside the
+    # port's threads.json fails the test at teardown
+    with witness.armed_scope():
+        yield
+
 
 ROOT = Path(__file__).resolve().parents[1]
 MODELS = ["gcn", "gcn-chain", "sage", "gin", "gat"]
