@@ -4,9 +4,7 @@ epoch's FLOPs and bytes walked from the op IR, priced for the card.
 The JAX package's peaks are a TPU's (197 TFLOP/s bf16, 819 GB/s); the
 port's are an NVIDIA H100 SXM's data sheet, as PERF.md §3's device row
 gives them: 67 TFLOP/s fp32 outside the tensor cores and 3.35 TB/s HBM3.
-``ROC_BENCH_PEAK_FLOPS`` / ``ROC_BENCH_PEAK_BW_BYTES`` override them, as
-in the JAX package.  The memory estimator prices a linear's recompute
-here.
+The memory estimator prices a linear's recompute here.
 
 Accounting convention (standard MFU; roofline.py:17-36): matmul and
 aggregation terms only.  Per op, for one training epoch:
@@ -20,24 +18,15 @@ b = 2 under "fast" (one bf16 rounding of features), 4 under "exact".
 
 from __future__ import annotations
 
-import os
-
 __all__ = ["PEAK_FLOPS", "PEAK_BW", "itemsize_for",
            "model_flops_bytes", "forward_flops_bytes", "roofline_time",
            "mfu", "roofline_frac"]
 
 
-def _env_float(name: str, default: float) -> float:
-    try:
-        return float(os.environ.get(name, default))
-    except (TypeError, ValueError):
-        return float(default)
-
-
 # The card the peaks describe, NVIDIA H100 80GB HBM3 (SXM, 700 W): the
 # fp32 rate outside the tensor cores and the HBM3 rate, from its data sheet.
-PEAK_FLOPS = _env_float("ROC_BENCH_PEAK_FLOPS", 67e12)
-PEAK_BW = _env_float("ROC_BENCH_PEAK_BW_BYTES", 3.35e12)
+PEAK_FLOPS = 67e12
+PEAK_BW = 3.35e12
 
 
 def itemsize_for(precision: str = "fast") -> int:

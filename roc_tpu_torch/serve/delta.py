@@ -23,7 +23,7 @@ device, the device swap under the plan lock):
                  journaled), warn-once idempotence (re-adding a live edge,
                  retiring a dead one: counted no-ops), the row patch, the
                  escalation ladder, snapshot and restore, restart replay,
-                 the obs span, counters, the delta-apply ledger pair and
+                 the obs spans, counters, the delta-apply ledger pair and
                  the watchdog's delta EWMA.
 
 The patch.  roc_tpu re-cuts the binned cells a delta touches; the port's
@@ -446,6 +446,9 @@ class DeltaManager:
         self._replaying = False
         self._noop_warned = False
         self.counters = {k: 0 for k in _COUNTER_KEYS}
+        # the last patch's seconds: classify_s, journal_s, commit_s,
+        # rewrite_s, install_s (lock_wait_s, the wait for the window in
+        # flight, is a part of it), beside rows and bytes_to_device
         self.last_patch: dict = {}
 
         gd = get_gdata()
@@ -590,7 +593,16 @@ class DeltaManager:
         allocation, no kernel build), escalate to a background replan when
         the live edges outgrow the capacity.  Returns a result dict (seq,
         mode, per-op counts, rows patched, the replan ticket when
-        escalated)."""
+        escalated).  The whole call is the ``delta_batch`` span."""
+        with obs.span("delta_batch") as sp:
+            result = self._apply_batch(add_edges, retire_edges, wait_replan)
+            sp.args.update(adds=result["applied_adds"],
+                           retires=result["applied_retires"],
+                           mode=result["mode"])
+        return result
+
+    def _apply_batch(self, add_edges, retire_edges,
+                     wait_replan: bool) -> dict:
         with self._mu:
             if self._closed:
                 raise DeltaError("delta manager is closed")
@@ -626,7 +638,7 @@ class DeltaManager:
                     "delta batch contained idempotent no-ops (re-adding "
                     "a live edge / retiring a dead one); counted in "
                     "delta counters, not an error (warning once)",
-                    RuntimeWarning, stacklevel=3)
+                    RuntimeWarning, stacklevel=4)
             if not eff_add and not eff_ret:
                 self.counters["batches"] += 1
                 return {"seq": self._seq, "mode": "noop",
@@ -719,7 +731,8 @@ class DeltaManager:
         return eff_add, eff_ret, noop_add, noop_ret
 
     def _apply_effective(self, seq: int, eff_add, eff_ret) -> dict:
-        touched = self._store.commit(eff_add, eff_ret)
+        with obs.span("delta_commit") as sp_commit:
+            touched = self._store.commit(eff_add, eff_ret)
         self._seq = seq
         if self._store.n_live > self.capacity:
             # the batch is journaled and committed to the host store; it
@@ -728,6 +741,7 @@ class DeltaManager:
             return {"seq": seq, "mode": "replanning", "cells_patched": 0,
                     "ticket": ticket}
         self._patch(touched)
+        self.last_patch["commit_s"] = sp_commit.dur_s
         self.counters["cells_patched"] += int(touched.size)
         return {"seq": seq, "mode": "applied",
                 "cells_patched": int(touched.size)}
@@ -766,12 +780,15 @@ class DeltaManager:
             dst_deg[idx] = deg
             dst_rp.copy_(torch.from_numpy(new_rp))
         with obs.span("delta_install") as sp_install:
+            # the wait for the window in flight, a part of the install
+            lock_wait = obs.span("delta_lock_wait").__enter__()
             with self._plan_lock:
+                lock_wait.__exit__(None, None, None)
                 self._set_gdata(self._gdata_of(self._bufs[idle], n_edges))
             self._active, self._dev_rp = idle, new_rp
         self.last_patch = {
             "rows": int(touched.size), "rewrite_s": sp.dur_s,
-            "install_s": sp_install.dur_s,
+            "install_s": sp_install.dur_s, "lock_wait_s": lock_wait.dur_s,
             "bytes_to_device": int(new_rp.nbytes + host.nbytes
                                    + 8 * touched.size + 4 * touched.size)}
 

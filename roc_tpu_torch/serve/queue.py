@@ -5,9 +5,17 @@ A window opens when the first request lands and drains when either the
 accumulated query count reaches ``batch`` or ``wait_ms`` has passed since it
 opened.  The worker thread hands the window's concatenated ids to the serve
 function in one call, so a window costs one device round trip however many
-requests rode it.  Futures are stamped at submit and completion on the
-host's monotonic clock, which prices the queueing delay into each request's
-latency.
+requests rode it.  Futures are stamped at submit, at drain (taken into a
+window) and at completion on the host's monotonic clock, which prices the
+queueing delay into each request's latency.
+
+The worker's timeline is spans (obs/tracer.py): ``queue_idle`` while it is
+blocked with nothing pending, ``queue_fill`` from a window's open to its
+drain (with ``late_us``, how far past the batching deadline the worker
+woke, when the wait ran out), the engine's ``serve_window``, and
+``queue_resolve`` over the futures and the ``on_window`` hook.  With the
+ring on, each drained request adds a ``request_queued`` span from its
+submit to its drain.
 """
 
 from __future__ import annotations
@@ -19,6 +27,7 @@ from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 
+from roc_tpu_torch import obs
 from roc_tpu_torch.analysis import witness as _witness
 
 
@@ -36,8 +45,8 @@ class Closed(RuntimeError):
 class ServeFuture:
     """One request's pending result (numpy [k, C] logits)."""
 
-    __slots__ = ("ids", "_event", "_value", "_error", "t_submit", "t_done",
-                 "deadline")
+    __slots__ = ("ids", "_event", "_value", "_error", "t_submit", "t_drain",
+                 "t_done", "deadline")
 
     def __init__(self, ids, deadline_s: Optional[float] = None):
         self.ids = ids
@@ -45,6 +54,7 @@ class ServeFuture:
         self._value = None
         self._error = None
         self.t_submit = time.perf_counter()
+        self.t_drain = 0.0
         self.t_done = 0.0
         self.deadline = None if deadline_s is None \
             else self.t_submit + float(deadline_s)
@@ -154,28 +164,40 @@ class MicrobatchQueue:
         ``batch`` queries or ``wait_ms`` from window open."""
         with self._cv:
             while not self._pending and not self._closed:
-                self._cv.wait(timeout=0.1)
+                with obs.span("queue_idle"):
+                    self._cv.wait(timeout=0.1)
             if not self._pending:
                 return []
-            # roclint: allow(raw-timing) the batching window's deadline on the condition variable, not a measurement
-            t0 = time.perf_counter()
-            while not self._closed:
-                n = sum(f.ids.size for f in self._pending)
-                if n >= self._batch:
-                    break
-                remaining = self._wait_s - (time.perf_counter() - t0)
-                if remaining <= 0:
-                    break
-                self._cv.wait(timeout=remaining)
-            window, expired, total = [], [], 0
-            now = time.perf_counter()
-            while self._pending and total < self._batch:
-                f = self._pending.popleft()
-                if f.deadline is not None and now > f.deadline:
-                    expired.append(f)
-                    continue
-                window.append(f)
-                total += f.ids.size
+            with obs.span("queue_fill") as fill:
+                # roclint: allow(raw-timing) the batching window's deadline on the condition variable, not a measurement
+                t0 = time.perf_counter()
+                timed_out = False
+                while not self._closed:
+                    n = sum(f.ids.size for f in self._pending)
+                    if n >= self._batch:
+                        break
+                    remaining = self._wait_s - (time.perf_counter() - t0)
+                    if remaining <= 0:
+                        timed_out = True
+                        break
+                    self._cv.wait(timeout=remaining)
+                window, expired, total = [], [], 0
+                now = time.perf_counter()
+                if timed_out:
+                    fill.args["late_us"] = (now - t0 - self._wait_s) * 1e6
+                while self._pending and total < self._batch:
+                    f = self._pending.popleft()
+                    f.t_drain = now
+                    if f.deadline is not None and now > f.deadline:
+                        expired.append(f)
+                        continue
+                    window.append(f)
+                    total += f.ids.size
+        if obs.enabled():
+            tracer = obs.get_tracer()
+            for f in window:
+                tracer.record("request_queued", int(f.t_submit * 1e9),
+                              int((now - f.t_submit) * 1e9))
         for f in expired:
             self.expired += 1
             f._resolve(error=Overloaded(
@@ -193,16 +215,16 @@ class MicrobatchQueue:
             try:
                 ids = np.concatenate([f.ids for f in window])
                 out = self._serve_fn(ids)
-                off = 0
-                for f in window:
-                    f._resolve(value=out[off:off + f.ids.size])
-                    off += f.ids.size
+                with obs.span("queue_resolve", requests=len(window)):
+                    off = 0
+                    for f in window:
+                        f._resolve(value=out[off:off + f.ids.size])
+                        off += f.ids.size
+                    self.windows += 1
+                    self.served += len(window)
+                    if self._on_window is not None:
+                        self._on_window([f.latency_s for f in window])
             except Exception as e:  # resolve the window, keep the worker
                 for f in window:
                     if not f.done():
                         f._resolve(error=e)
-                continue
-            self.windows += 1
-            self.served += len(window)
-            if self._on_window is not None:
-                self._on_window([f.latency_s for f in window])

@@ -472,31 +472,36 @@ class Trainer:
     def _train_step(self, key: prng.Key, alpha: float, scale: float):
         params = {k: p.detach().requires_grad_(True)
                   for k, p in self.params.items()}
-        loss = self._loss(params, self.x, self.labels, self.mask,
-                          self.gctx, key=key, train=True)
+        with obs.span("forward"):
+            loss = self._loss(params, self.x, self.labels, self.mask,
+                              self.gctx, key=key, train=True)
         # 1.0 on every healthy step, which adds no multiply (nor its
         # launch); NaN when the fault harness fires step.nan, which the
         # guard skips
         if scale != 1.0:
             loss = loss * scale
         keys = sorted(params)
-        grads = dict(zip(keys, torch.autograd.grad(
-            loss, [params[k] for k in keys])))
+        with obs.span("backward"):
+            grads = dict(zip(keys, torch.autograd.grad(
+                loss, [params[k] for k in keys])))
         loss = loss.detach()
-        (self.params, self.opt_state, self._last_nonfinite,
-         self._last_gnorm) = guarded_update(
-            self.optimizer, self.params, grads, self.opt_state, alpha,
-            loss=loss)
+        with obs.span("update"):
+            (self.params, self.opt_state, self._last_nonfinite,
+             self._last_gnorm) = guarded_update(
+                self.optimizer, self.params, grads, self.opt_state, alpha,
+                loss=loss)
         return loss
 
     def run_epoch(self) -> torch.Tensor:
         """One train step; returns its loss (a device scalar, not
-        synced)."""
+        synced).  The step is the ``train_step`` span (its launches, not
+        the device's work)."""
         cfg = self.config
         if self.epoch != 0 and self.epoch % cfg.decay_steps == 0:
             self.optimizer.alpha *= cfg.decay_rate  # gnn.cc:100-101
-        loss = self._train_step(prng.fold_in(self.key, self.epoch),
-                                self.optimizer.alpha, nan_scale())
+        with obs.span("train_step"):
+            loss = self._train_step(prng.fold_in(self.key, self.epoch),
+                                    self.optimizer.alpha, nan_scale())
         self.epoch += 1
         return loss
 

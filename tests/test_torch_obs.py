@@ -169,16 +169,18 @@ def _jax_obs_records(tmp_path, epochs):
 
 def test_obs_train_artifacts_match_roc_tpus(tmp_path):
     """A -obs run writes a trace.json that passes validate_chrome_trace with
-    the seven span types, one metrics record an epoch with roc_tpu's keys
-    and values of the same kinds, and a closing train record."""
+    roc_tpu's seven span types and the step's four (a collector's pass
+    adds ``gc``), one metrics record an epoch with roc_tpu's keys and
+    values of the same kinds, and a closing train record."""
     obs.get_tracer().clear()
     tr = _trainer(True, tmp_path, num_epochs=4, eval_every=2,
                   dropout_rate=0.0, checkpoint_every=2,
                   checkpoint_path=str(tmp_path / "ck.npz"))
     tr.train(print_fn=_quiet)
-    types = obs.get_tracer().span_types()
+    types = obs.get_tracer().span_types() - {"gc"}
     assert types == {"train", "epoch", "step_dispatch", "device_sync",
-                     "metrics_fetch", "eval", "checkpoint"}
+                     "metrics_fetch", "eval", "checkpoint", "train_step",
+                     "forward", "backward", "update"}
     trace = json.load(open(tmp_path / "obs" / "trace.json"))
     assert validate_chrome_trace(trace) == []
     assert jobs.validate_chrome_trace(trace) == []
