@@ -2,7 +2,8 @@
 frozen params.
 
   queue.py    MicrobatchQueue + ServeFuture: requests into windows
-  engine.py   ServeEngine: full-graph forward + row gather per dispatch
+  engine.py   ServeEngine: one full-graph forward per graph install, a row
+              gather per dispatch
   parity.py   max_ulp_diff: the <= 32 ULP served-vs-eval gate
   loadgen.py  open-loop QPS generator
 

@@ -14,15 +14,16 @@ checkpoint, cold-start a ServeEngine from it, and assert in one process that
 
   1. cold start loads the checkpoint and serves its first forward,
   2. served logits match the eval forward to <= 32 ULPs,
-  3. a 100-request mixed-size stream dispatches only ladder buckets and,
-     on CUDA, runs every aggregation and attention layer through its
-     kernels (each kernel's launches == its launches per forward x
-     forwards),
+  3. a 100-request mixed-size stream dispatches only ladder buckets,
+     runs no forward (no graph install since warm-up: every dispatch is
+     served from the logits slot) and, on CUDA, launches each kernel its
+     launches per forward x the forwards actually run,
   4. (GCN in-core) the delta leg: journaled add/retire churn patches the
      CSR with no CSR rebuild, no kernel build and no new device buffer
-     (the two col_idx buffers alternate), serves rows bitwise equal to a
-     fresh engine on the mutated graph, and a restart from the journal
-     serves the same rows bitwise.
+     (the two col_idx buffers alternate), runs exactly one forward for
+     each install a query follows (none for a no-op batch), serves rows
+     bitwise equal to a fresh engine on the mutated graph, and a restart
+     from the journal serves the same rows bitwise.
 
 Exit 0 with a one-line summary per contract; any violation raises.
 """
@@ -88,7 +89,8 @@ def selftest(device: str = "cuda", model_name: str = "gcn",
                   f"(gate: <=32)")
 
             eng.warmup()
-            fwd0 = eng.forwards
+            fwd0, reuse0 = eng.forwards, eng.logit_reuses
+            disp0 = sum(eng.dispatches.values())
             before = {k: KERNELS[k].launches for k in per_forward}
             stats = run_load(eng, n_requests=100, qps=2000.0,
                              sizes=(1, 2, 3, 5, 8, 13))
@@ -96,6 +98,13 @@ def selftest(device: str = "cuda", model_name: str = "gcn",
             if bad:
                 raise AssertionError(f"dispatched off-ladder buckets {bad}")
             fwd = eng.forwards - fwd0
+            reuses = eng.logit_reuses - reuse0
+            disp = sum(eng.dispatches.values()) - disp0
+            if fwd or reuses != disp:
+                raise AssertionError(
+                    f"{fwd} forwards and {reuses} logit reuses over {disp} "
+                    f"dispatches with no graph install; expected 0 and "
+                    f"{disp}")
             launches = {k: KERNELS[k].launches - v for k, v in before.items()}
             on_card = eng.device.type == "cuda"
             want = {k: v * fwd if on_card else 0
@@ -104,19 +113,22 @@ def selftest(device: str = "cuda", model_name: str = "gcn",
                 raise AssertionError(f"{launches} kernel launches over {fwd} "
                                      f"forwards, expected {want}")
             print(f"# serve selftest: 100-request stream over {fwd} "
-                  f"forwards, {launches} kernel launches; "
+                  f"forwards and {reuses} logit reuses, {launches} kernel "
+                  f"launches; "
                   f"p50={stats['p50_s'] * 1e3:.2f}ms "
                   f"p99={stats['p99_s'] * 1e3:.2f}ms "
                   f"({stats['qps_achieved']:.0f} qps achieved)")
         if model_name == "gcn" and not stream:
-            _delta_leg(cfg, ds, model, ckpt, tmp, device)
+            _delta_leg(cfg, ds, model, ckpt, tmp, device, per_forward)
     print("# serve selftest: OK")
     return 0
 
 
-def _delta_leg(cfg, ds, model, ckpt, tmp, device) -> None:
-    """Journaled churn on the patch path, parity against a fresh engine on
-    the mutated graph, and a restart replaying the journal."""
+def _delta_leg(cfg, ds, model, ckpt, tmp, device, per_forward) -> None:
+    """Journaled churn on the patch path with queries between the batches
+    (one forward an install, the kernels launched for those forwards),
+    parity against a fresh engine on the mutated graph, and a restart
+    replaying the journal."""
     import dataclasses
     import warnings
 
@@ -124,6 +136,7 @@ def _delta_leg(cfg, ds, model, ckpt, tmp, device) -> None:
 
     from roc_tpu_torch.graph.csr import from_edges
     from roc_tpu_torch.ops.aggregate import csr_build_count
+    from roc_tpu_torch.ops.kernels import KERNELS
     from roc_tpu_torch.ops.kernels.build import build_count
     from roc_tpu_torch.serve import ServeEngine, max_ulp_diff
 
@@ -136,6 +149,8 @@ def _delta_leg(cfg, ds, model, ckpt, tmp, device) -> None:
         eng.warmup()
         builds0 = (csr_build_count(), build_count())
         ptrs = set()
+        installs = 0
+        before = {k: KERNELS[k].launches for k in per_forward}
         with warnings.catch_warnings():
             warnings.simplefilter("ignore", RuntimeWarning)
             for _ in range(10):
@@ -144,8 +159,23 @@ def _delta_leg(cfg, ds, model, ckpt, tmp, device) -> None:
                 if rng.random() < 0.3:
                     rets = np.stack([ds.graph.col_idx[:1],
                                      ds.graph.dst_idx[:1]], 1)
-                eng.apply_delta(adds, rets)
+                fwd0 = eng.forwards
+                mode = eng.apply_delta(adds, rets)["mode"]
                 ptrs.update(eng.deltas.buffer_ptrs())
+                eng.query(adds[:, 1], timeout=120.0)
+                eng.query(adds[:, 1], timeout=120.0)
+                want = 1 if mode == "applied" else 0
+                if eng.forwards - fwd0 != want:
+                    raise AssertionError(
+                        f"a {mode!r} batch then two queries ran "
+                        f"{eng.forwards - fwd0} forwards, expected {want}")
+                installs += want
+        launches = {k: KERNELS[k].launches - v for k, v in before.items()}
+        want = {k: v * installs if eng.device.type == "cuda" else 0
+                for k, v in per_forward.items()}
+        if launches != want:
+            raise AssertionError(f"{launches} kernel launches over "
+                                 f"{installs} forwards, expected {want}")
         served_mut = eng.query(ids, timeout=120.0)
         if (csr_build_count(), build_count()) != builds0 or len(ptrs) != 2:
             raise AssertionError("the delta patch path rebuilt a CSR, "
@@ -171,8 +201,9 @@ def _delta_leg(cfg, ds, model, ckpt, tmp, device) -> None:
           f"({st['applied_adds']} adds, {st['applied_retires']} retires, "
           f"{st['noop_adds'] + st['noop_retires']} no-ops, "
           f"{st['cells_patched']} rows patched), zero CSR rebuilds, zero "
-          f"kernel builds, two buffers; fresh-engine and restart-replay "
-          f"parity = 0 ULPs")
+          f"kernel builds, two buffers, one forward for each of "
+          f"{installs} installs a query followed; fresh-engine and "
+          f"restart-replay parity = 0 ULPs")
 
 
 def main(argv) -> int:
