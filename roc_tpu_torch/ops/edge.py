@@ -24,7 +24,9 @@ Two implementations, selected by the graph data's backend:
                      group (``DeviceCsr.gat_groups``).  ``ROC_NO_GATFUSE=1``
                      sends it to ``gat_attend``; under ``ROC_GAT_BWD=0``
                      its backward runs the plain twins on every device
-                     (``ops/switches.py``).
+                     (``ops/switches.py``).  Its forward runs in a
+                     ``gat_attend`` span, its backward in ``gat_attend_bwd``
+                     (arguments heads, head_dim, rows, edges, precision).
 
 The JAX package's ``GatPlans``, ``build_gat_plans``, ``_plan_sum``,
 ``_plan_max`` and ``_edge_contract`` are TPU schedules (host-built chunk
@@ -36,6 +38,7 @@ from __future__ import annotations
 
 import torch
 
+from roc_tpu_torch.obs.tracer import span
 from roc_tpu_torch.ops.aggregate import DeviceCsr
 from roc_tpu_torch.ops.kernels.aggregate_sum import check_precision
 from roc_tpu_torch.ops.kernels.gat import Z_GUARD as _Z_GUARD
@@ -84,6 +87,13 @@ def gat_attend(h, table, edge_src, edge_dst, num_nodes: int, a_src, a_dst,
     return out.index_add(0, dst, table[src] * alpha[:, :, None])
 
 
+def _span_args(h: torch.Tensor, csr: DeviceCsr, precision: str) -> dict:
+    """The attention spans' arguments: the layer's shape and precision."""
+    n, k, f = h.shape
+    return {"heads": k, "head_dim": f, "rows": n,
+            "edges": csr.col_idx.numel(), "precision": precision}
+
+
 class _GatAttend(torch.autograd.Function):
     """The attention layer through the GAT kernels, with the oracle's
     hand-derived backward (edge.py:471-494)."""
@@ -91,13 +101,14 @@ class _GatAttend(torch.autograd.Function):
     @staticmethod
     def forward(ctx, h, table, a_src, a_dst, csr, slope, precision):
         n, k, f = h.shape
-        x = table.reshape(table.shape[0], k * f).contiguous()
-        as_t = gat_score(x, a_src.contiguous())
-        ad_l = torch.einsum("nkf,kf->nk", h, a_dst).contiguous()
-        out, m, z = gat_forward(x, as_t, ad_l, csr.row_ptr, csr.col_idx,
-                                slope, precision,
-                                csr.gat_groups(k, f, precision))
-        out = out.view(n, k, f)
+        with span("gat_attend", **_span_args(h, csr, precision)):
+            x = table.reshape(table.shape[0], k * f).contiguous()
+            as_t = gat_score(x, a_src.contiguous())
+            ad_l = torch.einsum("nkf,kf->nk", h, a_dst).contiguous()
+            out, m, z = gat_forward(x, as_t, ad_l, csr.row_ptr, csr.col_idx,
+                                    slope, precision,
+                                    csr.gat_groups(k, f, precision))
+            out = out.view(n, k, f)
         ctx.save_for_backward(h, x, a_src, a_dst, as_t, ad_l, m, z, out)
         ctx.csr, ctx.slope, ctx.precision = csr, slope, precision
         return out
@@ -107,23 +118,26 @@ class _GatAttend(torch.autograd.Function):
         h, x, a_src, a_dst, as_t, ad_l, m, z, out = ctx.saved_tensors
         csr, slope, precision = ctx.csr, ctx.slope, ctx.precision
         n, k, f = h.shape
-        torch.backends.cuda.matmul.allow_tf32 = False
-        zc = torch.clamp_min(z, _Z_GUARD)
-        du = (g / zc[:, :, None]).reshape(n, k * f).contiguous()
-        dz = (-(g * out).sum(-1) / zc).contiguous()
-        # dq once per edge (src kernel, transposed order), then its sum
-        # over each destination's in-edges (dst kernel), as edge.py:478-482
-        src_fn, dst_fn = ((gat_bwd_src_dq_plain, gat_dadl_plain)
-                          if gat_bwd_killed() else (gat_bwd_src, gat_bwd_dst))
-        dtable, dast, dq = src_fn(x, as_t, ad_l, m, du, dz,
-                                  *csr.transposed(), slope, precision)
-        dadl = dst_fn(dq, csr.edge_map(), csr.row_ptr, csr.col_idx)
-        del dq
-        table = x.view(-1, k, f)
-        dtable = dtable.view(-1, k, f) + dast[:, :, None] * a_src
-        dh = dadl[:, :, None] * a_dst
-        da_src = torch.einsum("tk,tkf->kf", dast, table)
-        da_dst = torch.einsum("nk,nkf->kf", dadl, h)
+        with span("gat_attend_bwd", **_span_args(h, csr, precision)):
+            torch.backends.cuda.matmul.allow_tf32 = False
+            zc = torch.clamp_min(z, _Z_GUARD)
+            du = (g / zc[:, :, None]).reshape(n, k * f).contiguous()
+            dz = (-(g * out).sum(-1) / zc).contiguous()
+            # dq once per edge (src kernel, transposed order), then its
+            # sum over each destination's in-edges (dst kernel), as
+            # edge.py:478-482
+            src_fn, dst_fn = ((gat_bwd_src_dq_plain, gat_dadl_plain)
+                              if gat_bwd_killed()
+                              else (gat_bwd_src, gat_bwd_dst))
+            dtable, dast, dq = src_fn(x, as_t, ad_l, m, du, dz,
+                                      *csr.transposed(), slope, precision)
+            dadl = dst_fn(dq, csr.edge_map(), csr.row_ptr, csr.col_idx)
+            del dq
+            table = x.view(-1, k, f)
+            dtable = dtable.view(-1, k, f) + dast[:, :, None] * a_src
+            dh = dadl[:, :, None] * a_dst
+            da_src = torch.einsum("tk,tkf->kf", dast, table)
+            da_dst = torch.einsum("nk,nkf->kf", dadl, h)
         return dh, dtable, da_src, da_dst, None, None, None
 
 

@@ -51,8 +51,12 @@ score gradients are fp32 in both.
 On a CUDA tensor each wrapper launches its kernel from ``csrc/gat.cu`` or
 raises; on a CPU tensor it runs the plain version, which gathers in edge
 chunks (unchunked, [E, K, F] at the Reddit shape is 24 GB).  Each wrapper's
-``launches`` counts kernel launches.  Index bounds are the caller's, as for
-``aggregate_sum`` (the graph data validates the CSR once).
+``launches`` counts kernel launches; beside it ``gat_forward.sweeps`` counts
+pass 1's sweeps of a row's edges (one for each 4 heads' maxima, so two a
+launch at K = 8) and ``gat_bwd_dst.head_loops`` the launches that sum dq a
+head at a time (``gat_bwd_dst_rows<0>``: K other than 1, 2 and 4).  Index
+bounds are the caller's, as for ``aggregate_sum`` (the graph data validates
+the CSR once).
 """
 
 from __future__ import annotations
@@ -485,6 +489,7 @@ def _forward_launch(x, as_, ad, row_ptr, col_idx, slope, precision,
             z.data_ptr(), n, k, f, float(slope), int(precision == "fast"),
             geo.vec, geo.lanes, geo.packs, claimed.data_ptr(), x.device)
     gat_forward.launches += 1
+    gat_forward.sweeps += -(-k // 4)   # pass 1: one sweep each 4 heads
     return out, m, z
 
 
@@ -575,11 +580,14 @@ def gat_bwd_dst(dq: torch.Tensor, t_pos: torch.Tensor, row_ptr: torch.Tensor,
             row_ptr.data_ptr(), t_pos.data_ptr(), dq.data_ptr(),
             dadl.data_ptr(), n, k, dq.device)
     gat_bwd_dst.launches += 1
+    gat_bwd_dst.head_loops += k not in (1, 2, 4)   # gat_bwd_dst_rows<0>
     return dadl
 
 
 gat_score.launches = 0
 gat_stage.launches = 0
 gat_forward.launches = 0
+gat_forward.sweeps = 0
 gat_bwd_dst.launches = 0
+gat_bwd_dst.head_loops = 0
 gat_bwd_src.launches = 0

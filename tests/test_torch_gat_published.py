@@ -1,0 +1,251 @@
+"""GAT as published (Velickovic et al., ICLR 2018, arXiv 1710.10903,
+Section 3.3: 8 heads of 8 features, concatenated, then ELU, then one head
+of the classes; dropout 0.6), trained in "fast" through the port's normal
+path (``Trainer.run_epoch`` on the binned backend, where the CPU runs the
+GAT kernels' plain twins in the kernels' order) and held against the
+benchmark's plain reference (``perfbench/reference/gat.py``) on the seed's
+random weights, at a few hundred nodes: the eval logits, three steps'
+losses, each leaf's first gradient and each leaf's change after the three
+steps, element by element.  A reference with a planted fault fails the
+same tolerances.  And the attention's spans and the kernel wrappers' sweep
+and head-loop counters at K = 8.
+
+Tolerances (each a gap of the largest element, over the reference's
+largest; read on five seeds, program against the scores-in-bf16 fault).
+The two sides compute the same float32 function with the bfloat16
+roundings at the same places (each product e * h[u] forward and e * du[v]
+backward), so they part by float32 order alone: the source score (the
+port's serial sum in feature order against an einsum), the sums' order,
+the GEMMs' blocking.  A product that differs in its last float32 bit can
+round to the other bfloat16 neighbour, 2^-8 of that term, so the logits
+and gradients part by up to 2.2e-4 (LOGIT_TOL, GRAD_TOL 1e-3; the fault
+2.1e-3 and 8.3e-3 at least).  The first loss parts by 6.6e-7 at most
+(5e-6; the fault 3.2e-5); later steps' losses by 3.6e-5 (1e-4): the loss
+falls steeply and amplifies the first step's rounding.  Adam moves each
+element by about the learning rate whatever its gradient's size, so an
+element whose gradient sits near 0 may step either way: the change parts
+by 6.8e-3 (CHANGE_TOL 0.05; the fault 0.67).  A missing normaliser reads
+near 1 everywhere."""
+
+import copy
+import json
+
+import pytest
+import torch
+
+from perfbench import inputs, reference, train_run
+from perfbench.reference import gat as ref_gat
+from perfbench.reference import prng as ref_prng
+from perfbench.spec import HERE as BENCH_DIR
+from roc_tpu_torch import obs
+from roc_tpu_torch.ops.kernels import gat as gat_k
+
+SEEDS = (2 ** 31 + 5, 7, 3000000019)
+STEPS = 3
+LOGIT_TOL = 1e-3
+GRAD_TOL = 1e-3
+CHANGE_TOL = 0.05
+LOSS_TOLS = (5e-6, 1e-4, 1e-4)   # steps 1, 2, 3
+
+
+def _cfg() -> dict:
+    """The benchmark's configuration at its published widths but for the
+    input (24 features) and the classes (5), on 400 nodes."""
+    cfg = json.loads((BENCH_DIR / "configs" / "gat8x8-reddit.json")
+                     .read_text())
+    cfg["graph"].update(num_nodes=400, avg_degree=6.0, in_dim=24,
+                        num_classes=5, n_train=200, n_val=80, n_test=80)
+    cfg["layers"] = [24, 8, 5]
+    assert (cfg["heads"], cfg["dropout"], cfg["precision"]) == (8, 0.6,
+                                                                "fast")
+    return cfg
+
+
+def _port(cfg, seed):
+    """The port's eval logits, then its three steps: losses, each leaf's
+    first gradient as Adam got it and each leaf's change."""
+    tr, _ = train_run.build_trainer(cfg, seed, torch.device("cpu"))
+    logits = tr.predict_logits()
+    w0 = {k: v.clone() for k, v in tr.params.items()}
+    losses, grad1 = [], None
+    for _ in range(STEPS):
+        losses.append(float(tr.run_epoch()))
+        if grad1 is None:
+            b1 = tr.optimizer.beta1
+            grad1 = {k: m / (1.0 - b1) for k, m in tr.opt_state.m.items()}
+    change = {k: tr.params[k] - w0[k] for k in w0}
+    return logits, losses, grad1, change
+
+
+def _reference(cfg, seed):
+    """The same from the plain reference (``reference.train_steps``'s loop,
+    keeping the tensors)."""
+    inp = inputs.make(cfg, seed, torch.device("cpu"))
+    logits = reference.logits(cfg, inp.weights, inp)
+    mod = reference.model_module(cfg)
+    graph = reference.graph_for(cfg, inp.row_ptr, inp.col_idx, train=True)
+    params = {k: v.clone() for k, v in inp.weights.items()}
+    m = {k: torch.zeros_like(v) for k, v in params.items()}
+    v = {k: torch.zeros_like(p) for k, p in params.items()}
+    base = ref_prng.key(seed)
+    losses, grad1 = [], None
+    for step in range(STEPS):
+        leaves = {k: p.detach().requires_grad_(True)
+                  for k, p in params.items()}
+        out = mod.forward(leaves, inp.features, graph, cfg,
+                          key=ref_prng.fold_in(base, step))
+        loss = reference.ce_loss(out, inp.label_ids, inp.mask)
+        names = sorted(leaves)
+        grads = dict(zip(names, torch.autograd.grad(
+            loss, [leaves[k] for k in names])))
+        losses.append(float(loss.detach()))
+        with torch.no_grad():
+            params, m, v, gt = reference.adam(
+                params, grads, m, v, step + 1, float(cfg["learning_rate"]),
+                float(cfg["weight_decay"]))
+        grad1 = gt if grad1 is None else grad1
+    change = {k: params[k] - inp.weights[k] for k in params}
+    return logits, losses, grad1, change
+
+
+def _gap(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Largest elementwise difference over the reference's largest
+    element."""
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def _gaps(port, ref) -> dict:
+    (pl, ploss, pg, pc), (rl, rloss, rg, rc) = port, ref
+    out = {"logits": _gap(pl, rl)}
+    for i, (a, b) in enumerate(zip(ploss, rloss), 1):
+        out[f"loss{i}"] = abs(a - b) / abs(b)
+    for k in rg:
+        out[f"grad:{k}"] = _gap(pg[k], rg[k])
+        out[f"change:{k}"] = _gap(pc[k], rc[k])
+    return out
+
+
+def _within(gaps: dict) -> dict:
+    """The gaps over their tolerance (empty when all hold)."""
+    tol = {"logits": LOGIT_TOL, "grad": GRAD_TOL, "change": CHANGE_TOL}
+    tol.update((f"loss{i}", t) for i, t in enumerate(LOSS_TOLS, 1))
+    return {k: v for k, v in gaps.items()
+            if not v <= tol[k.split(":")[0]]}
+
+
+@pytest.fixture(scope="module")
+def cfg():
+    return _cfg()
+
+
+@pytest.fixture(scope="module")
+def port_runs(cfg):
+    return {seed: _port(cfg, seed) for seed in SEEDS}
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_the_port_follows_the_reference(cfg, port_runs, seed):
+    gaps = _gaps(port_runs[seed], _reference(cfg, seed))
+    assert len(gaps) == 1 + STEPS + 2 * 6
+    assert not _within(gaps), gaps
+
+
+def _faulty_attend(fault: str):
+    """The reference's layer (``ref_gat.attend``) with one fault planted:
+    its scores q rounded to bfloat16, or its softmax's division by the
+    normaliser left out."""
+    def attend(h, a_src, a_dst, graph, stage):
+        n, k = h.shape[:2]
+        src, dst = graph.src, graph.dst
+        q = (torch.einsum("nkf,kf->nk", h, a_dst)[dst]
+             + torch.einsum("nkf,kf->nk", h, a_src)[src])
+        if fault == "scores_in_bf16":
+            q = q.to(torch.bfloat16).to(torch.float32)
+        s = torch.where(q >= 0, q, q * ref_gat.SLOPE)
+        m = torch.full((n, k), float("-inf")).scatter_reduce(
+            0, dst[:, None].expand(-1, k), s.detach(), "amax")
+        e = torch.exp(s - m[dst])
+        z = torch.zeros((n, k)).index_add(0, dst, e)
+        u = ref_gat._WeightedSum.apply(e, h, src, dst, stage)
+        if fault == "normaliser_left_out":
+            return u
+        return u / torch.clamp_min(z, ref_gat.Z_GUARD)[:, :, None]
+    return attend
+
+
+@pytest.mark.parametrize("fault", ["scores_in_bf16",
+                                   "normaliser_left_out"])
+def test_a_planted_fault_fails_the_tolerances(cfg, port_runs, fault,
+                                              monkeypatch):
+    monkeypatch.setattr(ref_gat, "attend", _faulty_attend(fault))
+    seed = SEEDS[0]
+    bad = _within(_gaps(port_runs[seed], _reference(cfg, seed)))
+    assert "logits" in bad and "loss1" in bad, bad
+    assert any(k.startswith("grad:") for k in bad), bad
+
+
+def test_the_steps_run_the_attention_in_its_spans(cfg):
+    """A traced step holds one ``gat_attend`` span a layer in its forward
+    and one ``gat_attend_bwd`` a layer in its backward, with the layer's
+    shape; a GCN step crosses neither."""
+    was = obs.enabled()
+    obs.get_tracer().clear()
+    obs.enable(True)
+    try:
+        tr, (n, e) = train_run.build_trainer(cfg, SEEDS[1],
+                                             torch.device("cpu"))
+        tr.run_epoch()
+        spans = obs.get_tracer().spans()
+        gcn = copy.deepcopy(cfg)
+        gcn.update(model="gcn", reference="gcn", layers=[24, 16, 5])
+        obs.get_tracer().clear()
+        train_run.build_trainer(gcn, SEEDS[1],
+                                torch.device("cpu"))[0].run_epoch()
+        gcn_names = {s.name for s in obs.get_tracer().spans()}
+    finally:
+        obs.enable(was)
+        obs.get_tracer().clear()
+    for name in ("gat_attend", "gat_attend_bwd"):
+        got = sorted((s.args["heads"], s.args["head_dim"]) for s in spans
+                     if s.name == name)
+        assert got == [(1, 5), (8, 8)], (name, got)
+        for s in spans:
+            if s.name == name:
+                assert (s.args["rows"], s.args["edges"],
+                        s.args["precision"]) == (n, e, "fast")
+    assert not gcn_names & {"gat_attend", "gat_attend_bwd"}
+
+
+@pytest.mark.parametrize("k,f", [(8, 8), (4, 64), (1, 41), (2, 3), (3, 5)])
+def test_the_wrappers_count_sweeps_and_head_loops(k, f, monkeypatch):
+    """``gat_forward`` counts pass 1's sweeps (one each 4 heads: 2 at K =
+    8) and ``gat_bwd_dst`` the launches that sum a head at a time (K
+    other than 1, 2, 4), beside their launches: the launch path run on
+    meta tensors with the library and the launch stubbed out."""
+    class Lib:
+        def __getattr__(self, name):
+            return name
+    monkeypatch.setattr(gat_k.LIBRARY, "load", lambda: Lib())
+    monkeypatch.setattr(gat_k, "_launch", lambda name, fn, *args: None)
+    monkeypatch.setattr(gat_k, "_require_cuda", lambda *a, **kw: None)
+    monkeypatch.setattr(gat_k, "gat_stage", lambda x: x)
+    for counter in ("launches", "sweeps"):
+        monkeypatch.setattr(gat_k.gat_forward, counter, 0)
+    for counter in ("launches", "head_loops"):
+        monkeypatch.setattr(gat_k.gat_bwd_dst, counter, 0)
+    meta = torch.device("meta")
+    n, e = 6, 9
+    row_ptr = torch.empty(n + 1, dtype=torch.int64, device=meta)
+    col_idx = torch.empty(e, dtype=torch.int32, device=meta)
+    x = torch.empty(n, k * f, device=meta)
+    per_head = torch.empty(n, k, device=meta)
+    gat_k.gat_forward(x, per_head, per_head, row_ptr, col_idx, 0.2, "fast")
+    dq = torch.empty(e, k, device=meta)
+    gat_k.gat_bwd_dst(dq, col_idx, row_ptr, col_idx)
+    assert gat_k.gat_forward.launches == 1
+    assert gat_k.gat_forward.sweeps == (k + 3) // 4
+    assert gat_k.gat_bwd_dst.launches == 1
+    assert gat_k.gat_bwd_dst.head_loops == (0 if k in (1, 2, 4) else 1)
+    if k == 8:
+        assert gat_k.gat_forward.sweeps == 2
+        assert gat_k.gat_bwd_dst.head_loops == 1
