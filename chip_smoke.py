@@ -138,11 +138,13 @@ Phases, each printing one JSON line per record:
           staging kernel in fp32) against their plain versions on the
           card: first on a small graph with a hub row and an isolated node
           at ragged head shapes (K, F) = (3, 5), (8, 8), (40, 2), (2, 200),
-          (4, 6), (2, 2), (1, 41), (4, 64), and gat_forward also on a graph
-          with a hub row of 20,000 in-edges, on x and on a column slice of
-          a wider tensor (rows not 16-byte aligned), against the plain
-          version on the CPU; then on the Reddit graph at the layer-1 (K=4,
-          F=64) and layer-2 (K=1, F=41) shapes, both precisions.  The
+          (4, 6), (2, 2), (1, 41), (4, 64), (16, 4), (12, 5), and
+          gat_forward also on a graph with a hub row of 20,000 in-edges, on
+          x and on a column slice of a wider tensor (rows not 16-byte
+          aligned), against the plain version on the CPU; then on the
+          Reddit graph at the published GAT's layer 1 (K=8, F=8), the
+          full-width model's layer 1 (K=4, F=64) and both models' layer 2
+          (K=1, F=41), both precisions.  The
           backward is two kernels: gat_bwd_src gives dtable, dast and the
           per-edge score gradient dq (held against gat_dq_plain), and
           gat_bwd_dst sums dq; the composed backward is held against the
@@ -1242,9 +1244,10 @@ def _gat_bwd_library(csr, n, dev):
 
 # (K, F): K*F not a multiple of 4 or 32, K above 32, H above one 256-column
 # tile, H a multiple of 4 whose F is not (a 4-float pack would straddle two
-# heads), and the full-width model's two layers
+# heads), the full-width model's two layers, and K = 16 and 12, which the dst
+# kernel sums in two passes of head groups (8 + 8, 8 + 4)
 GAT_SHAPES = ((3, 5), (8, 8), (40, 2), (2, 200), (4, 6), (2, 2), (1, 41),
-              (4, 64))
+              (4, 64), (16, 4), (12, 5))
 
 
 def _same_bits(a, b) -> bool:
@@ -1422,12 +1425,13 @@ def _gat_forward_shapes(dev) -> dict:
 
 
 def phase_kernel_gat(ds, dev) -> list:
-    """The GAT kernels on the Reddit graph at the full-width model's two
-    layer shapes (layer 1: K=4, F=64; layer 2: K=1, F=41), both
-    precisions, each against its plain version, with times and bounds.
-    gat_bwd_src's row holds dq against its plain twin; gat_bwd_dst's row
-    checks the composed backward and times the dst kernel alone on the src
-    kernel's dq, against its own bound and index_add_; both carry the
+    """The GAT kernels on the Reddit graph at the published GAT's layer 1
+    (K=8, F=8: the dst kernel's 8-head pass), the full-width model's layer
+    1 (K=4, F=64) and both models' layer 2 (K=1, F=41), both precisions,
+    each against its plain version, with times and bounds.  gat_bwd_src's
+    row holds dq against its plain twin; gat_bwd_dst's row checks the
+    composed backward and times the dst kernel alone on the src kernel's
+    dq, against its own bound and index_add_; both carry the
     build's ``ptxas`` and the pair's time (``pair_ms``, src + dst), its
     bound (the whole backward's, ``pair_bound_ms``) and its library
     composition's time (``pair_library_ms``, timed once per layer
@@ -1446,7 +1450,7 @@ def phase_kernel_gat(ds, dev) -> list:
         KS.LIBRARY.info.get("log", "")).items() if "stage_kernel_f32" in kn}
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     rows = []
-    for k, f in ((4, 64), (1, 41)):
+    for k, f in ((8, 8), (4, 64), (1, 41)):
         bwd_lib = {}
         for prec in ("fast", "exact"):
             calls = _gat_calls(csr, prec)

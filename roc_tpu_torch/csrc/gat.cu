@@ -47,10 +47,11 @@
 //   gat_bwd_dst_rows (row 11) sums dq over each destination's in-edges,
 //     reading each in-edge's dq row through t_pos (the forward edge's
 //     position in the transpose): no gather of x or du.  Bound: dq's bytes
-//     and t_pos, once.  Writing dq at forward positions instead (a 16-byte
-//     scatter per edge at K = 4) and summing it contiguously made the src
-//     kernel the slower by far: 14.2 + 0.14 ms at Reddit's layer 1 in this
-//     design's first form (PERF.md).
+//     and t_pos, once.  A lane loads up to 8 heads of an edge's dq row a
+//     pass (its design and passes below).  Writing dq at forward
+//     positions instead (a 16-byte scatter per edge at K = 4) and summing
+//     it contiguously made the src kernel the slower by far: 14.2 + 0.14
+//     ms at Reddit's layer 1 in this design's first form (PERF.md).
 // The edge's destination state (dz, ad, m) comes as one packed row of P
 // floats (16-byte cp.async, a batch ahead).  The du gather's loads are
 // unconditional (a surplus pack re-reads the row's last pack and is
@@ -639,11 +640,77 @@ __global__ void __launch_bounds__(kMaxWarps * 32, src_min_blocks(VEC))
 
 // ---------------------------------------------------------------------------
 // Backward over the forward CSR (row 11): dadl[v, k] = sum of dq[t_pos[e], k] over v's in-edges
-// e, one destination row per warp: lane l takes the edges l, l + 32, ... of the row, reads the
-// edge's position in the transpose (a coalesced load) and that dq row (K floats: one 16-, 8- or
-// 4-byte load for KV = K in {4, 2, 1}; KV = 0 takes any K, a head at a time), sums them in
-// edge order, then one warp reduction a head.  The order is fixed, so two runs give the same
-// bits.
+// e, one destination row per warp.  dq is [E, K] in transposed edge order, so a row's in-edges
+// read scattered dq rows: the kernel is bound by loading each in-edge's row once.
+//
+// sum_heads sums the heads [c, c + G) in one pass over the row's edges: lane l takes the edges
+// l, l + 32, ... of the row, reads the edge's position in the transpose (a coalesced load) and
+// the G floats of that dq row, W floats a load (W divides K and c, so the loads are aligned:
+// the wrapper checks that dq starts 16-byte aligned), adds them into G accumulators in edge
+// order, then reduces each head across the warp by the same xor tree; lane j writes head c + j.
+// Each head's sum takes the same additions in the same order whatever G is, so every pass plan
+// gives the same bits as summing one head at a time.
+//
+// The passes: K in {1, 2, 4} one, in the instantiation KV = K; KV = 0 takes every other K, an
+// even K in groups of 8 heads, then 4, then 2 (W = 4 where 4 divides K, else 2), an odd K a
+// head a pass.  ops/kernels/gat.py:dst_head_groups lists the groups for the counters; the card
+// test that holds every plan bitwise against one-head launches covers each branch.  A pass a
+// head reads each row's sector once a head, and dq (753 MB at K = 8 on Reddit's shape) does
+// not stay in the 50 MB L2: 5.17 ms there at K = 8 against one pass's 0.76 (PERF.md §6 row 11).
+template <int G, int W>
+__device__ __forceinline__ void sum_heads(const int32_t* __restrict__ t_pos,
+                                          const float* __restrict__ dq, float* __restrict__ dadl,
+                                          int64_t row, int64_t beg, int64_t end, int lane, int K,
+                                          int c) {
+  static_assert(G % W == 0 && (W == 4 || W == 2 || W == 1), "a pass loads whole packs");
+  float acc[G];
+#pragma unroll
+  for (int j = 0; j < G; ++j) acc[j] = 0.f;
+#pragma unroll 4
+  for (int64_t e = beg + lane; e < end; e += 32) {
+    const float* r = dq + static_cast<int64_t>(t_pos[e]) * K + c;
+#pragma unroll
+    for (int j = 0; j < G; j += W) {
+      if constexpr (W == 4) {
+        const float4 v = __ldcs(reinterpret_cast<const float4*>(r + j));
+        acc[j] += v.x; acc[j + 1] += v.y; acc[j + 2] += v.z; acc[j + 3] += v.w;
+      } else if constexpr (W == 2) {
+        const float2 v = __ldcs(reinterpret_cast<const float2*>(r + j));
+        acc[j] += v.x; acc[j + 1] += v.y;
+      } else {
+        acc[j] += __ldcs(r + j);
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < G; ++j) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) acc[j] += __shfl_xor_sync(kFull, acc[j], off);
+  }
+  if (lane < G) {
+    float s = acc[0];
+#pragma unroll
+    for (int j = 1; j < G; ++j)
+      if (lane == j) s = acc[j];
+    dadl[row * K + c + lane] = s;
+  }
+}
+
+// An even K's passes: groups of 8 heads, then 4, then 2, W floats a load.
+template <int W>
+__device__ __forceinline__ void sum_head_groups(const int32_t* __restrict__ t_pos,
+                                                const float* __restrict__ dq,
+                                                float* __restrict__ dadl, int64_t row,
+                                                int64_t beg, int64_t end, int lane, int K) {
+  int c = 0;
+  for (; K - c >= 8; c += 8) sum_heads<8, W>(t_pos, dq, dadl, row, beg, end, lane, K, c);
+  if (K - c >= 4) {
+    sum_heads<4, W>(t_pos, dq, dadl, row, beg, end, lane, K, c);
+    c += 4;
+  }
+  if (K - c >= 2) sum_heads<2, 2>(t_pos, dq, dadl, row, beg, end, lane, K, c);
+}
+
 template <int KV>
 __global__ void gat_bwd_dst_rows(const int64_t* __restrict__ row_ptr,
                                  const int32_t* __restrict__ t_pos, const float* __restrict__ dq,
@@ -653,44 +720,13 @@ __global__ void gat_bwd_dst_rows(const int64_t* __restrict__ row_ptr,
   if (row >= rows) return;
   const int64_t beg = row_ptr[row], end = row_ptr[row + 1];
   if constexpr (KV > 0) {
-    float acc[KV];
-#pragma unroll
-    for (int k = 0; k < KV; ++k) acc[k] = 0.f;
-#pragma unroll 4
-    for (int64_t e = beg + lane; e < end; e += 32) {
-      const float* r = dq + static_cast<int64_t>(t_pos[e]) * KV;
-      if constexpr (KV == 4) {
-        const float4 v = __ldcs(reinterpret_cast<const float4*>(r));
-        acc[0] += v.x; acc[1] += v.y; acc[2] += v.z; acc[3] += v.w;
-      } else if constexpr (KV == 2) {
-        const float2 v = __ldcs(reinterpret_cast<const float2*>(r));
-        acc[0] += v.x; acc[1] += v.y;
-      } else {
-        acc[0] += __ldcs(r);
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < KV; ++k) {
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) acc[k] += __shfl_xor_sync(kFull, acc[k], off);
-    }
-    if (lane < KV) {
-      float s = acc[0];
-#pragma unroll
-      for (int k = 1; k < KV; ++k)
-        if (lane == k) s = acc[k];
-      dadl[row * KV + lane] = s;
-    }
+    sum_heads<KV, (KV < 4 ? KV : 4)>(t_pos, dq, dadl, row, beg, end, lane, KV, 0);
+  } else if (K % 4 == 0) {
+    sum_head_groups<4>(t_pos, dq, dadl, row, beg, end, lane, K);
+  } else if (K % 2 == 0) {
+    sum_head_groups<2>(t_pos, dq, dadl, row, beg, end, lane, K);
   } else {
-    for (int k = 0; k < K; ++k) {
-      float acc = 0.f;
-#pragma unroll 4
-      for (int64_t e = beg + lane; e < end; e += 32)
-        acc += __ldcs(dq + static_cast<int64_t>(t_pos[e]) * K + k);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(kFull, acc, off);
-      if (lane == 0) dadl[row * K + k] = acc;
-    }
+    for (int k = 0; k < K; ++k) sum_heads<1, 1>(t_pos, dq, dadl, row, beg, end, lane, K, k);
   }
 }
 

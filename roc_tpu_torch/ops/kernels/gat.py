@@ -53,10 +53,12 @@ raises; on a CPU tensor it runs the plain version, which gathers in edge
 chunks (unchunked, [E, K, F] at the Reddit shape is 24 GB).  Each wrapper's
 ``launches`` counts kernel launches; beside it ``gat_forward.sweeps`` counts
 pass 1's sweeps of a row's edges (one for each 4 heads' maxima, so two a
-launch at K = 8) and ``gat_bwd_dst.head_loops`` the launches that sum dq a
-head at a time (``gat_bwd_dst_rows<0>``: K other than 1, 2 and 4).  Index
-bounds are the caller's, as for ``aggregate_sum`` (the graph data validates
-the CSR once).
+launch at K = 8), ``gat_bwd_dst.dq_passes`` the dst kernel's passes over
+the rows of dq, one for each group of heads ``dst_head_groups`` gives (one
+a launch at K in {1, 2, 4, 8}, two at K = 12 or 16, K at an odd K), and
+``gat_bwd_dst.head_loops`` the launches that still take a head a pass (an
+odd K above 1).  Index bounds are the caller's, as for ``aggregate_sum``
+(the graph data validates the CSR once).
 """
 
 from __future__ import annotations
@@ -559,6 +561,21 @@ def gat_bwd_src(x, as_, ad, m, du, dz, t_row_ptr, t_col_idx,
     return dtable, dast, dq
 
 
+def dst_head_groups(k: int) -> Tuple[int, ...]:
+    """The heads ``gat_bwd_dst_rows`` sums in each of its passes over the
+    in-edges' dq rows, in column order, for the ``dq_passes`` and
+    ``head_loops`` counters: the whole row at K in {1, 2, 4, 8}; at any
+    other even K groups of 8, then 4, then 2, each loaded in 16- or 8-byte
+    packs; at an odd K a head a pass.  The kernel's dispatch
+    (``csrc/gat.cu:sum_head_groups``) takes these groups.  Every plan sums
+    each head in the same order, so it decides the bytes read and not the
+    bits: the card test holds each branch bitwise against one-head
+    launches."""
+    if k % 2:
+        return (1,) * k
+    return (8,) * (k // 8) + (4,) * (k % 8 // 4) + (2,) * (k % 4 // 2)
+
+
 def gat_bwd_dst(dq: torch.Tensor, t_pos: torch.Tensor, row_ptr: torch.Tensor,
                 col_idx: torch.Tensor) -> torch.Tensor:
     """dadl [N, K], the sum over each destination's in-edges e of
@@ -579,8 +596,10 @@ def gat_bwd_dst(dq: torch.Tensor, t_pos: torch.Tensor, row_ptr: torch.Tensor,
     _launch("gat_bwd_dst", LIBRARY.load().roc_gat_bwd_dst,
             row_ptr.data_ptr(), t_pos.data_ptr(), dq.data_ptr(),
             dadl.data_ptr(), n, k, dq.device)
+    groups = dst_head_groups(k)
     gat_bwd_dst.launches += 1
-    gat_bwd_dst.head_loops += k not in (1, 2, 4)   # gat_bwd_dst_rows<0>
+    gat_bwd_dst.dq_passes += len(groups)
+    gat_bwd_dst.head_loops += k > 1 and len(groups) == k
     return dadl
 
 
@@ -589,5 +608,6 @@ gat_stage.launches = 0
 gat_forward.launches = 0
 gat_forward.sweeps = 0
 gat_bwd_dst.launches = 0
+gat_bwd_dst.dq_passes = 0
 gat_bwd_dst.head_loops = 0
 gat_bwd_src.launches = 0

@@ -7,8 +7,9 @@ benchmark's plain reference (``perfbench/reference/gat.py``) on the seed's
 random weights, at a few hundred nodes: the eval logits, three steps'
 losses, each leaf's first gradient and each leaf's change after the three
 steps, element by element.  A reference with a planted fault fails the
-same tolerances.  And the attention's spans and the kernel wrappers' sweep
-and head-loop counters at K = 8.
+same tolerances.  And the attention's spans, the kernel wrappers' sweep,
+pass and head-loop counters, the dst kernel's pass plan over dq and, on
+the card, its sums bitwise against one-head launches.
 
 Tolerances (each a gap of the largest element, over the reference's
 largest; read on five seeds, program against the scores-in-bf16 fault).
@@ -216,12 +217,17 @@ def test_the_steps_run_the_attention_in_its_spans(cfg):
     assert not gcn_names & {"gat_attend", "gat_attend_bwd"}
 
 
-@pytest.mark.parametrize("k,f", [(8, 8), (4, 64), (1, 41), (2, 3), (3, 5)])
-def test_the_wrappers_count_sweeps_and_head_loops(k, f, monkeypatch):
+@pytest.mark.parametrize("k,f,passes,head_loops", [
+    (8, 8, 1, 0), (4, 64, 1, 0), (1, 41, 1, 0), (2, 3, 1, 0), (3, 5, 3, 1),
+    (12, 5, 2, 0), (16, 4, 2, 0)])
+def test_the_wrappers_count_sweeps_and_head_loops(k, f, passes, head_loops,
+                                                  monkeypatch):
     """``gat_forward`` counts pass 1's sweeps (one each 4 heads: 2 at K =
-    8) and ``gat_bwd_dst`` the launches that sum a head at a time (K
-    other than 1, 2, 4), beside their launches: the launch path run on
-    meta tensors with the library and the launch stubbed out."""
+    8) and ``gat_bwd_dst`` its passes over dq (one a group of up to 8
+    heads: 1 at K = 8, 2 at 12 and 16, K at an odd K) and the launches
+    that still sum a head at a time (an odd K above 1), beside their
+    launches: the launch path run on meta tensors with the library and the
+    launch stubbed out."""
     class Lib:
         def __getattr__(self, name):
             return name
@@ -231,7 +237,7 @@ def test_the_wrappers_count_sweeps_and_head_loops(k, f, monkeypatch):
     monkeypatch.setattr(gat_k, "gat_stage", lambda x: x)
     for counter in ("launches", "sweeps"):
         monkeypatch.setattr(gat_k.gat_forward, counter, 0)
-    for counter in ("launches", "head_loops"):
+    for counter in ("launches", "dq_passes", "head_loops"):
         monkeypatch.setattr(gat_k.gat_bwd_dst, counter, 0)
     meta = torch.device("meta")
     n, e = 6, 9
@@ -245,7 +251,59 @@ def test_the_wrappers_count_sweeps_and_head_loops(k, f, monkeypatch):
     assert gat_k.gat_forward.launches == 1
     assert gat_k.gat_forward.sweeps == (k + 3) // 4
     assert gat_k.gat_bwd_dst.launches == 1
-    assert gat_k.gat_bwd_dst.head_loops == (0 if k in (1, 2, 4) else 1)
+    assert gat_k.gat_bwd_dst.dq_passes == passes
+    assert gat_k.gat_bwd_dst.head_loops == head_loops
     if k == 8:
         assert gat_k.gat_forward.sweeps == 2
-        assert gat_k.gat_bwd_dst.head_loops == 1
+        assert (gat_k.gat_bwd_dst.dq_passes,
+                gat_k.gat_bwd_dst.head_loops) == (1, 0)
+
+
+@pytest.mark.parametrize("k,groups", [
+    (1, (1,)), (2, (2,)), (4, (4,)), (8, (8,)), (3, (1, 1, 1)),
+    (5, (1,) * 5), (6, (4, 2)), (10, (8, 2)), (12, (8, 4)),
+    (14, (8, 4, 2)), (16, (8, 8)), (40, (8,) * 5)])
+def test_the_dst_kernel_reads_each_dq_row_in_few_passes(k, groups):
+    """``dst_head_groups``, the dst kernel's pass plan: the whole row at K
+    in {1, 2, 4, 8}, groups of 8, then 4, then 2 heads at any other even
+    K, a head a pass at an odd K.  The groups cover the K heads once, and
+    each starts and ends on the kernel's pack (4 floats where 4 divides K,
+    else 2, else 1), so its loads stay aligned."""
+    got = gat_k.dst_head_groups(k)
+    assert got == groups
+    assert sum(got) == k
+    pack = next(w for w in (4, 2, 1) if k % w == 0)
+    starts = [sum(got[:i]) for i in range(len(got))]
+    assert all(c % pack == 0 and g % pack == 0 for c, g in zip(starts, got))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [3, 6, 8, 10, 12, 14, 16])
+def test_dst_kernel_sums_bitwise_as_one_head_launches(k):
+    """On the card, ``gat_bwd_dst`` at K heads gives dadl bitwise equal to
+    K launches at K = 1 on each column of dq: every pass plan sums each
+    head in the K = 1 kernel's order (a lane over its edges in CSR order,
+    then the same xor tree).  The K take every branch of the kernel's pass
+    plan (``dst_head_groups``): a head a pass, 4 + 2, one group of 8,
+    8 + 2, 8 + 4, 8 + 4 + 2, 8 + 8.  A random graph with a hub row of
+    5,000 in-edges, an empty row and rows of under 32 edges; Gaussian dq,
+    so a sum in another order shows in the bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(2 ** 31 + k)
+    deg = torch.randint(0, 32, (4000,), generator=gen)
+    deg[0], deg[1], deg[2] = 5000, 0, 33
+    row_ptr = torch.cat([torch.zeros(1, dtype=torch.int64),
+                         deg.cumsum(0)]).to(dev)
+    e = int(deg.sum())
+    t_pos = torch.randperm(e, generator=gen).to(torch.int32).to(dev)
+    col_idx = torch.zeros(e, dtype=torch.int32, device=dev)
+    dq = torch.randn((e, k), generator=gen).to(dev)
+    dadl = gat_k.gat_bwd_dst(dq, t_pos, row_ptr, col_idx)
+    heads = torch.cat([gat_k.gat_bwd_dst(dq[:, j].contiguous().view(e, 1),
+                                         t_pos, row_ptr, col_idx)
+                       for j in range(k)], 1)
+    torch.cuda.synchronize()
+    assert torch.equal(dadl, heads)
+    assert bool((dadl[1] == 0).all())
