@@ -389,12 +389,10 @@ def _sum_per_edge_cases(ctx):
     def call(rp, ci):
         n = rp.numel() - 1
         out = torch.empty((n, x.shape[1]), device=x.device)
-        err = KS.LIBRARY.load().roc_aggregate_sum(
-            rp.data_ptr(), ci.data_ptr(), x.data_ptr(), x.stride(0), 0,
-            KS._vec_width(x), out.data_ptr(), n, x.shape[1], 0, 0,
-            KS._stream(x))
-        if err != 0:
-            raise RuntimeError(f"roc_aggregate_sum failed: CUDA error {err}")
+        KS.LIBRARY.launch(KS.aggregate_sum, "roc_aggregate_sum", x.device,
+                          rp.data_ptr(), ci.data_ptr(), x.data_ptr(),
+                          x.stride(0), 0, KS._vec_width(x), out.data_ptr(),
+                          n, x.shape[1], 0, 0)
         return out
     return [(f"H41_{d}_fast", lambda rp=rp, ci=ci: call(rp, ci))
             for d, rp, ci in (("fwd", csr.row_ptr, csr.col_idx),

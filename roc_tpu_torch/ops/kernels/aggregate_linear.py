@@ -44,12 +44,13 @@ from typing import Optional, Tuple
 import torch
 
 from roc_tpu_torch.ops.kernels.aggregate_sum import (_check_csr, _ld,
-                                                     _require_rows,
-                                                     _stage_launch, _stream,
                                                      _vec_width,
                                                      aggregate_sum_plain,
-                                                     check_precision)
-from roc_tpu_torch.ops.kernels.build import CudaLibrary
+                                                     check_precision,
+                                                     plane_launch,
+                                                     stage_plane)
+from roc_tpu_torch.ops.kernels.build import (CudaLibrary, _csr_int64,
+                                             _require_cuda)
 from roc_tpu_torch.ops.linear import linear
 
 
@@ -123,24 +124,6 @@ def aggregate_linear_bwd_plain(g: torch.Tensor, y: Optional[torch.Tensor],
     return u, (linear(u, w.t()) if need_dx else None)
 
 
-def _require_cuda(name: str, *tensors) -> None:
-    dev = tensors[0].device
-    if dev.type != "cuda":
-        raise ValueError(f"{name} runs on cuda or cpu tensors, got {dev}")
-    for t in tensors:
-        if t.device != dev:
-            raise ValueError(f"{name}: every tensor must be on {dev}, got "
-                             f"{t.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: tensors must be contiguous")
-
-
-def _csr_int64(row_ptr: torch.Tensor) -> None:
-    if row_ptr.dtype != torch.int64:
-        raise ValueError(f"the megakernel takes an int64 row_ptr, got "
-                         f"{row_ptr.dtype}")
-
-
 def aggregate_linear(x: torch.Tensor, w: torch.Tensor,
                      row_ptr: torch.Tensor, col_idx: torch.Tensor,
                      precision: str = "fast",
@@ -154,24 +137,11 @@ def aggregate_linear(x: torch.Tensor, w: torch.Tensor,
                                       activation)
     _check_csr(x, row_ptr, col_idx)
     _check(precision, activation, x, w)
-    _require_cuda("aggregate_linear", w, row_ptr, col_idx)
-    if x.device != w.device:
-        raise ValueError(f"aggregate_linear: every tensor must be on "
-                         f"{w.device}, got {x.device}")
-    _require_rows(x)
-    _csr_int64(row_ptr)
+    _require_cuda("aggregate_linear", w, row_ptr, col_idx, rows=(x,))
+    _csr_int64("aggregate_linear", row_ptr)
     if w.dim() != 2 or w.shape[0] != x.shape[1]:
         raise ValueError(f"w must be [{x.shape[1]}, H_out], got "
                          f"{tuple(w.shape)}")
-    with torch.cuda.device(x.device):
-        return _linear_launch(x, w, row_ptr, col_idx, precision,
-                              activation, _stream(x))
-
-
-def _linear_launch(x, w, row_ptr, col_idx, precision, activation,
-                   stream: int) -> torch.Tensor:
-    """The card's launches for checked inputs: the staging (fast), then the
-    forward kernel on the staged plane, or on x itself (exact)."""
     n, h_in, h_out = row_ptr.numel() - 1, x.shape[1], w.shape[1]
     out = torch.empty((n, h_out), dtype=torch.float32, device=x.device)
     if n == 0 or h_in == 0 or h_out == 0:
@@ -183,18 +153,15 @@ def _linear_launch(x, w, row_ptr, col_idx, precision, activation,
         wp[:, :h_out] = w
         w = wp
     if precision == "fast":
-        src = _stage_launch(x, stream)
+        src = plane_launch(x, "fast", stage_plane)
         ld, vec = src.shape[1], 8
     else:
         src, ld, vec = x, x.stride(0), _vec_width(x)
-    err = LIBRARY.load().roc_aggregate_linear(
-        row_ptr.data_ptr(), col_idx.data_ptr(), src.data_ptr(), ld, vec,
-        w.data_ptr(), ldw, out.data_ptr(), n, h_in, h_out,
-        int(precision == "fast"), int(activation == "relu"), stream)
-    if err != 0:
-        raise RuntimeError(f"aggregate_linear kernel launch failed: CUDA "
-                           f"error {err}")
-    aggregate_linear.launches += 1
+    LIBRARY.launch(aggregate_linear, "roc_aggregate_linear", x.device,
+                   row_ptr.data_ptr(), col_idx.data_ptr(), src.data_ptr(),
+                   ld, vec, w.data_ptr(), ldw, out.data_ptr(), n, h_in,
+                   h_out, int(precision == "fast"),
+                   int(activation == "relu"))
     return out
 
 
@@ -233,16 +200,10 @@ def stage_cotangent(g: torch.Tensor, y: Optional[torch.Tensor],
         return s.zero_()
     vec = 4 if h % 4 == 0 and all(t.data_ptr() % 16 == 0
                                   for t in gathered) else 1
-    fn = LIBRARY.load().roc_stage_cotangent
-    with torch.cuda.device(g.device):
-        stream = torch.cuda.current_stream(g.device).cuda_stream
-        err = fn(g.data_ptr(), y.data_ptr() if relu else None, s.data_ptr(),
-                 rows, h, ld, int(dtype == torch.bfloat16), int(relu), vec,
-                 stream)
-    if err != 0:
-        raise RuntimeError(f"stage_cotangent kernel launch failed: CUDA "
-                           f"error {err}")
-    stage_cotangent.launches += 1
+    LIBRARY.launch(stage_cotangent, "roc_stage_cotangent", g.device,
+                   g.data_ptr(), y.data_ptr() if relu else None,
+                   s.data_ptr(), rows, h, ld, int(dtype == torch.bfloat16),
+                   int(relu), vec)
     return s
 
 
@@ -264,7 +225,7 @@ def aggregate_linear_bwd(g: torch.Tensor, y: Optional[torch.Tensor],
     if relu and (y is None or y.shape != g.shape or y.dtype != g.dtype):
         raise ValueError("relu needs the saved output y, shaped like g")
     _require_cuda("aggregate_linear_bwd", g, w, t_row_ptr, t_col_idx)
-    _csr_int64(t_row_ptr)
+    _csr_int64("aggregate_linear_bwd", t_row_ptr)
     if w.dim() != 2 or w.shape[1] != g.shape[1]:
         raise ValueError(f"w must be [H_in, {g.shape[1]}], got "
                          f"{tuple(w.shape)}")
@@ -285,17 +246,11 @@ def aggregate_linear_bwd(g: torch.Tensor, y: Optional[torch.Tensor],
     if need_dx:
         wt = torch.zeros((h_out, ldw), dtype=torch.float32, device=g.device)
         wt[:, :h_in] = w.t()
-    fn = LIBRARY.load().roc_aggregate_linear_bwd
-    with torch.cuda.device(g.device):
-        stream = torch.cuda.current_stream(g.device).cuda_stream
-        err = fn(t_row_ptr.data_ptr(), t_col_idx.data_ptr(), s.data_ptr(),
-                 ld, int(dtype == torch.bfloat16), vec,
-                 wt.data_ptr() if need_dx else None, ldw, u.data_ptr(),
-                 dx.data_ptr() if need_dx else None, t, h_out, h_in, stream)
-    if err != 0:
-        raise RuntimeError(f"aggregate_linear_bwd kernel launch failed: "
-                           f"CUDA error {err}")
-    aggregate_linear_bwd.launches += 1
+    LIBRARY.launch(aggregate_linear_bwd, "roc_aggregate_linear_bwd",
+                   g.device, t_row_ptr.data_ptr(), t_col_idx.data_ptr(),
+                   s.data_ptr(), ld, int(dtype == torch.bfloat16), vec,
+                   wt.data_ptr() if need_dx else None, ldw, u.data_ptr(),
+                   dx.data_ptr() if need_dx else None, t, h_out, h_in)
     return u, dx
 
 

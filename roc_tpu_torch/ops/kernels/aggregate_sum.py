@@ -43,7 +43,7 @@ from typing import Optional
 
 import torch
 
-from roc_tpu_torch.ops.kernels.build import CudaLibrary
+from roc_tpu_torch.ops.kernels.build import CudaLibrary, _require_cuda
 
 # Edges per plain-version chunk: the gathered [chunk, H] block stays near
 # 2^25 elements (128 MiB fp32).  Unchunked, x[col_idx] at Reddit shape is
@@ -159,19 +159,6 @@ def stage_plain(src: torch.Tensor, mask: Optional[torch.Tensor] = None,
     return out
 
 
-def _require_rows(x: torch.Tensor) -> None:
-    """x's rows must each be contiguous, ``x.stride(0)`` >= H elements
-    apart (a column slice of a wider tensor is fine)."""
-    if x.shape[0] > 0 and x.shape[1] > 1 and x.stride(1) != 1 or \
-            x.shape[0] > 1 and x.stride(0) < x.shape[1]:
-        raise ValueError("x's rows must be contiguous (x.stride(1) == 1, "
-                         "x.stride(0) >= H)")
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def stage_plane(x: torch.Tensor) -> torch.Tensor:
     """x [rows, H] fp32 as the bf16 plane [rows, ld8(H)] a "fast" gather
     reads: each element rounded once to bf16 (round to nearest even), the
@@ -183,24 +170,15 @@ def stage_plane(x: torch.Tensor) -> torch.Tensor:
     if x.dim() != 2 or x.dtype != torch.float32:
         raise ValueError(f"stage_plane takes a 2-D float32 x, got "
                          f"{x.dtype} of shape {tuple(x.shape)}")
-    if x.device.type != "cuda":
-        raise ValueError(f"stage_plane runs on cuda or cpu tensors, got "
-                         f"{x.device}")
-    _require_rows(x)
-    with torch.cuda.device(x.device):
-        return _stage_launch(x, _stream(x))
+    _require_cuda("stage_plane", rows=(x,))
+    return plane_launch(x, "fast", stage_plane)
 
 
-def _stage_launch(x: torch.Tensor, stream: int) -> torch.Tensor:
-    out = plane_launch(x, stream, "fast")
-    stage_plane.launches += 1
-    return out
-
-
-def plane_launch(x: torch.Tensor, stream: int,
-                 precision: str) -> torch.Tensor:
+def plane_launch(x: torch.Tensor, precision: str,
+                 wrapper) -> torch.Tensor:
     """The staging kernel on a checked fp32 x: the plane ``stage_plain``
-    gives, bf16 in fast and fp32 in exact.  Its caller counts it."""
+    gives, bf16 in fast and fp32 in exact, its launch counted on
+    ``wrapper``."""
     n, h = x.shape
     ld = _ld(h, precision)
     exact = precision == "exact"
@@ -208,12 +186,9 @@ def plane_launch(x: torch.Tensor, stream: int,
                       dtype=torch.float32 if exact else torch.bfloat16)
     if n == 0 or h == 0:
         return out.zero_()
-    err = LIBRARY.load().roc_stage_plane(x.data_ptr(), x.stride(0), n, h,
-                                         _vec_width(x), out.data_ptr(), ld,
-                                         int(exact), stream)
-    if err != 0:
-        raise RuntimeError(f"stage_plane kernel launch failed: CUDA error "
-                           f"{err}")
+    LIBRARY.launch(wrapper, "roc_stage_plane", x.device, x.data_ptr(),
+                   x.stride(0), n, h, _vec_width(x), out.data_ptr(), ld,
+                   int(exact))
     return out
 
 
@@ -229,31 +204,16 @@ def aggregate_sum(x: torch.Tensor, row_ptr: torch.Tensor,
     configuration the library does not build raises."""
     if x.device.type == "cpu":
         return aggregate_sum_plain(x, row_ptr, col_idx, precision)
-    if x.device.type != "cuda":
-        raise ValueError(f"aggregate_sum runs on cuda or cpu tensors, got "
-                         f"{x.device}")
     _check_csr(x, row_ptr, col_idx)
     check_precision(precision, x.dtype)
-    for name, t in (("row_ptr", row_ptr), ("col_idx", col_idx)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    _require_cuda("aggregate_sum", row_ptr, col_idx, rows=(x,))
     if x.dtype == torch.bfloat16 and not x.is_contiguous():
         raise ValueError("a bf16 x must be contiguous")
-    _require_rows(x)
-    lpr, edges = (int(v) for v in launch)
-    if x.dtype == torch.bfloat16 and (lpr, edges) != DEFAULT_LAUNCH:
+    launch = tuple(int(v) for v in launch)
+    if x.dtype == torch.bfloat16 and launch != DEFAULT_LAUNCH:
         raise ValueError(f"a bf16 x is summed at the default launch only, "
-                         f"got {tuple(launch)}")
-    with torch.cuda.device(x.device):
-        return _sum_launch(x, row_ptr.to(torch.int64), col_idx, precision,
-                           _stream(x), (lpr, edges))
-
-
-def _sum_launch(x: torch.Tensor, row_ptr: torch.Tensor,
-                col_idx: torch.Tensor, precision: str,
-                stream: int, launch=DEFAULT_LAUNCH) -> torch.Tensor:
-    """The card's launches for checked inputs: the staging (fast on
-    fp32), then the gather at ``launch``."""
+                         f"got {launch}")
+    row_ptr = row_ptr.to(torch.int64)
     n, h = row_ptr.numel() - 1, x.shape[1]
     out = torch.empty((n, h), dtype=x.dtype, device=x.device)
     if n == 0 or h == 0:
@@ -263,17 +223,13 @@ def _sum_launch(x: torch.Tensor, row_ptr: torch.Tensor,
     elif precision == "exact":
         src, ld, kind, vec = x, x.stride(0), 0, _vec_width(x)
     else:
-        src = _stage_launch(x, stream)
+        src = plane_launch(x, "fast", stage_plane)
         ld, kind, vec = src.shape[1], 1, 8
-    err = LIBRARY.load().roc_aggregate_sum(
-        row_ptr.data_ptr(), col_idx.data_ptr(), src.data_ptr(), ld, kind,
-        vec, out.data_ptr(), n, h, launch[0], launch[1], stream)
-    if err != 0:
-        raise RuntimeError(f"aggregate_sum kernel launch failed at launch "
-                           f"{tuple(launch)}: CUDA error {err}")
-    aggregate_sum.launches += 1
+    LIBRARY.launch(aggregate_sum, "roc_aggregate_sum", x.device,
+                   row_ptr.data_ptr(), col_idx.data_ptr(), src.data_ptr(),
+                   ld, kind, vec, out.data_ptr(), n, h, *launch)
     by = aggregate_sum.by_launch
-    by[tuple(launch)] = by.get(tuple(launch), 0) + 1
+    by[launch] = by.get(launch, 0) + 1
     return out
 
 

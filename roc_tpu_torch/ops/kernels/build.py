@@ -4,7 +4,9 @@ Each source under ``roc_tpu_torch/csrc/`` has a plain C interface.  It is
 compiled with ``nvcc`` for ``sm_90a`` into a shared library under
 ``roc_tpu_torch/build/`` (named by the hash of the source, the headers it
 includes and the flags, so an edit rebuilds) at its first use, and loaded with ctypes.  Nothing here
-runs when a module is imported.
+runs when a module is imported.  Every wrapper reaches its entry points
+through :meth:`CudaLibrary.launch` and checks its tensors' placement with
+:func:`_require_cuda` and :func:`_csr_int64`.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ import threading
 import time
 from pathlib import Path
 from typing import Callable
+
+import torch
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -125,3 +129,45 @@ class CudaLibrary:
                 self._bind(lib)
                 self._lib = lib
         return self._lib
+
+    def launch(self, wrapper, entry: str, device: torch.device, *args,
+               tail=()) -> None:
+        """Queue ``entry(*args, stream, *tail)`` on ``device``'s current
+        stream, ``device`` entered: the library's entry point ``entry``
+        with its arguments, the stream and those that follow it.  Raises
+        RuntimeError with the CUDA error the entry point returns; counts
+        the launch in ``wrapper.launches`` once it is queued."""
+        fn = getattr(self.load(), entry)
+        with torch.cuda.device(device):
+            err = fn(*args, torch.cuda.current_stream(device).cuda_stream,
+                     *tail)
+        if err != 0:
+            raise RuntimeError(f"{wrapper.__name__} kernel launch failed: "
+                               f"CUDA error {err}")
+        wrapper.launches += 1
+
+
+def _require_cuda(name: str, *tensors, rows=()) -> None:
+    """Every tensor on one CUDA device and contiguous; those in ``rows``
+    need only their rows' elements adjacent (a column slice)."""
+    dev = (*tensors, *rows)[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu tensors, got {dev}")
+    for t in (*tensors, *rows):
+        if t.device != dev:
+            raise ValueError(f"{name}: every tensor must be on {dev}, got "
+                             f"{t.device}")
+    for t in tensors:
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+    for t in rows:
+        if t.dim() != 2 or (t.shape[1] > 1 and t.stride(1) != 1) \
+                or t.stride(0) < t.shape[1]:
+            raise ValueError(f"{name}: {tuple(t.shape)} with strides "
+                             f"{t.stride()} is not a row-major matrix")
+
+
+def _csr_int64(name: str, row_ptr: torch.Tensor) -> None:
+    if row_ptr.dtype != torch.int64:
+        raise ValueError(f"{name} takes an int64 row_ptr, got "
+                         f"{row_ptr.dtype}")

@@ -63,20 +63,15 @@ def dropout_plain(x: torch.Tensor, rate: float, key: prng.Key) -> torch.Tensor:
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
-def _launch(x: torch.Tensor, rate: float, key: prng.Key) -> torch.Tensor:
+def _run(x: torch.Tensor, rate: float, key: prng.Key) -> torch.Tensor:
     x = x.contiguous()
     if x.data_ptr() % 16:   # the kernel moves 16-byte packs
         x = x.clone()       # a fresh tensor is aligned
     out = torch.empty_like(x)
-    lib = LIBRARY.load()
-    fn = lib.roc_dropout_bf16 if x.dtype == torch.bfloat16 else lib.roc_dropout
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), out.data_ptr(), x.numel(), key[0], key[1],
-                 1.0 - rate, divisor(rate, x.dtype),
-                 torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"dropout kernel launch failed: CUDA error {err}")
-    dropout.launches += 1
+    LIBRARY.launch(dropout, "roc_dropout_bf16" if x.dtype == torch.bfloat16
+                   else "roc_dropout", x.device, x.data_ptr(),
+                   out.data_ptr(), x.numel(), key[0], key[1], 1.0 - rate,
+                   divisor(rate, x.dtype))
     return out
 
 
@@ -84,11 +79,11 @@ class _Dropout(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, rate, key):
         ctx.rate, ctx.key = rate, key
-        return _launch(x, rate, key)
+        return _run(x, rate, key)
 
     @staticmethod
     def backward(ctx, g):
-        return _launch(g, ctx.rate, ctx.key), None, None
+        return _run(g, ctx.rate, ctx.key), None, None
 
 
 def dropout(x: torch.Tensor, rate: float, key: prng.Key) -> torch.Tensor:

@@ -73,7 +73,8 @@ from roc_tpu_torch.ops.kernels.aggregate_sum import (_CHUNK_TARGET_ELEMS,
                                                      check_precision,
                                                      plane_launch,
                                                      stage_plain)
-from roc_tpu_torch.ops.kernels.build import CudaLibrary
+from roc_tpu_torch.ops.kernels.build import (CudaLibrary, _csr_int64,
+                                             _require_cuda)
 
 # Normalizer guard of every softmax division (roc_tpu/ops/edge.py:39): live
 # rows have z >= 1 by the max shift; edgeless rows divide 0 by it.
@@ -338,32 +339,6 @@ def gat_dadl_plain(dq: torch.Tensor, t_pos: torch.Tensor,
 
 # -- the kernels ------------------------------------------------------------
 
-def _require_cuda(name: str, *tensors, rows=()) -> None:
-    """Every tensor on one CUDA device and contiguous; those in ``rows``
-    need only their rows' elements adjacent (a column slice)."""
-    dev = (*tensors, *rows)[0].device
-    if dev.type != "cuda":
-        raise ValueError(f"{name} runs on cuda or cpu tensors, got {dev}")
-    for t in (*tensors, *rows):
-        if t.device != dev:
-            raise ValueError(f"{name}: every tensor must be on {dev}, got "
-                             f"{t.device}")
-    for t in tensors:
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: tensors must be contiguous")
-    for t in rows:
-        if t.dim() != 2 or (t.shape[1] > 1 and t.stride(1) != 1) \
-                or t.stride(0) < t.shape[1]:
-            raise ValueError(f"{name}: {tuple(t.shape)} with strides "
-                             f"{t.stride()} is not a row-major matrix")
-
-
-def _csr_int64(row_ptr: torch.Tensor) -> None:
-    if row_ptr.dtype != torch.int64:
-        raise ValueError(f"the GAT kernels take an int64 row_ptr, got "
-                         f"{row_ptr.dtype}")
-
-
 def _vec_width(h: int, *packed: torch.Tensor) -> int:
     """Widest vector (floats per lane) that divides ``h`` (H, or F where a
     pack must lie in one head) and keeps every row start of each tensor
@@ -372,13 +347,6 @@ def _vec_width(h: int, *packed: torch.Tensor) -> int:
         if h % v == 0 and all(t.data_ptr() % (v * 4) == 0 for t in packed):
             return v
     return 1
-
-
-def _launch(name: str, fn, *args) -> None:
-    with torch.cuda.device(args[-1]):
-        err = fn(*args[:-1], torch.cuda.current_stream(args[-1]).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
 def gat_score(x: torch.Tensor, a_src: torch.Tensor) -> torch.Tensor:
@@ -395,10 +363,9 @@ def gat_score(x: torch.Tensor, a_src: torch.Tensor) -> torch.Tensor:
     out = torch.empty((x.shape[0], k), device=x.device)
     if x.shape[0] == 0:
         return out
-    _launch("gat_score", LIBRARY.load().roc_gat_score, x.data_ptr(),
-            a_src.data_ptr(), out.data_ptr(), x.shape[0], k, f,
-            int(x.data_ptr() % 16 == 0), x.device)
-    gat_score.launches += 1
+    LIBRARY.launch(gat_score, "roc_gat_score", x.device, x.data_ptr(),
+                   a_src.data_ptr(), out.data_ptr(), x.shape[0], k, f,
+                   int(x.data_ptr() % 16 == 0))
     return out
 
 
@@ -464,12 +431,7 @@ def gat_stage(x: torch.Tensor) -> torch.Tensor:
         return stage_plain(x, precision="exact")
     _check_f32(x)
     _require_cuda("gat_stage", rows=(x,))
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        plane = plane_launch(x, stream, "exact")
-    if x.shape[0]:
-        gat_stage.launches += 1
-    return plane
+    return plane_launch(x, "exact", gat_stage)
 
 
 def _forward_launch(x, as_, ad, row_ptr, col_idx, slope, precision,
@@ -485,12 +447,12 @@ def _forward_launch(x, as_, ad, row_ptr, col_idx, slope, precision,
         return out, m, z
     src = gat_stage(x) if geo.staged else x
     claimed = torch.zeros(1, dtype=torch.int32, device=x.device)  # rows taken
-    _launch("gat_forward", LIBRARY.load().roc_gat_forward,
-            row_ptr.data_ptr(), col_idx.data_ptr(), src.data_ptr(), geo.ld,
-            as_.data_ptr(), ad.data_ptr(), out.data_ptr(), m.data_ptr(),
-            z.data_ptr(), n, k, f, float(slope), int(precision == "fast"),
-            geo.vec, geo.lanes, geo.packs, claimed.data_ptr(), x.device)
-    gat_forward.launches += 1
+    LIBRARY.launch(gat_forward, "roc_gat_forward", x.device,
+                   row_ptr.data_ptr(), col_idx.data_ptr(), src.data_ptr(),
+                   geo.ld, as_.data_ptr(), ad.data_ptr(), out.data_ptr(),
+                   m.data_ptr(), z.data_ptr(), n, k, f, float(slope),
+                   int(precision == "fast"), geo.vec, geo.lanes, geo.packs,
+                   claimed.data_ptr())
     gat_forward.sweeps += -(-k // 4)   # pass 1: one sweep each 4 heads
     return out, m, z
 
@@ -509,7 +471,7 @@ def gat_forward(x, as_, ad, row_ptr, col_idx, slope: float = 0.2,
     _check_shapes(x, as_, ad, row_ptr, col_idx)
     check_precision(precision, x.dtype)
     _require_cuda("gat_forward", as_, ad, row_ptr, col_idx, rows=(x,))
-    _csr_int64(row_ptr)
+    _csr_int64("gat_forward", row_ptr)
     if row_ptr.numel() > 1 << 30:   # the kernel claims rows with an int32
         raise ValueError(f"gat_forward takes fewer than 2^30 rows, got "
                          f"{row_ptr.numel() - 1}")
@@ -542,7 +504,7 @@ def gat_bwd_src(x, as_, ad, m, du, dz, t_row_ptr, t_col_idx,
     _check_src_shapes(x, as_, ad, m, du, dz, t_row_ptr, t_col_idx)
     check_precision(precision, x.dtype)
     _require_cuda("gat_bwd_src", x, as_, ad, m, du, dz, t_row_ptr, t_col_idx)
-    _csr_int64(t_row_ptr)
+    _csr_int64("gat_bwd_src", t_row_ptr)
     k, f = _heads(x, as_)
     t, h = x.shape
     dtable = torch.empty((t, h), device=x.device)
@@ -551,13 +513,12 @@ def gat_bwd_src(x, as_, ad, m, du, dz, t_row_ptr, t_col_idx,
     if t == 0:
         return dtable, dast, dq
     st = _state_rows(dz, ad, m)
-    _launch("gat_bwd_src", LIBRARY.load().roc_gat_bwd_src,
-            t_row_ptr.data_ptr(), t_col_idx.data_ptr(), x.data_ptr(),
-            as_.data_ptr(), st.data_ptr(), du.data_ptr(), dtable.data_ptr(),
-            dast.data_ptr(), dq.data_ptr(), t, k, f, st.shape[1],
-            float(slope), int(precision == "fast"),
-            _vec_width(f, x, du, dtable), x.device)
-    gat_bwd_src.launches += 1
+    LIBRARY.launch(gat_bwd_src, "roc_gat_bwd_src", x.device,
+                   t_row_ptr.data_ptr(), t_col_idx.data_ptr(), x.data_ptr(),
+                   as_.data_ptr(), st.data_ptr(), du.data_ptr(),
+                   dtable.data_ptr(), dast.data_ptr(), dq.data_ptr(), t, k,
+                   f, st.shape[1], float(slope), int(precision == "fast"),
+                   _vec_width(f, x, du, dtable))
     return dtable, dast, dq
 
 
@@ -586,18 +547,17 @@ def gat_bwd_dst(dq: torch.Tensor, t_pos: torch.Tensor, row_ptr: torch.Tensor,
         return gat_dadl_plain(dq, t_pos, row_ptr, col_idx)
     _check_dq(dq, t_pos, row_ptr, col_idx)
     _require_cuda("gat_bwd_dst", dq, t_pos, row_ptr, col_idx)
-    _csr_int64(row_ptr)
+    _csr_int64("gat_bwd_dst", row_ptr)
     if dq.data_ptr() % 16:
         raise ValueError("gat_bwd_dst: dq must start 16-byte aligned")
     n, k = row_ptr.numel() - 1, dq.shape[1]
     dadl = torch.empty((n, k), device=dq.device)
     if n == 0:
         return dadl
-    _launch("gat_bwd_dst", LIBRARY.load().roc_gat_bwd_dst,
-            row_ptr.data_ptr(), t_pos.data_ptr(), dq.data_ptr(),
-            dadl.data_ptr(), n, k, dq.device)
+    LIBRARY.launch(gat_bwd_dst, "roc_gat_bwd_dst", dq.device,
+                   row_ptr.data_ptr(), t_pos.data_ptr(), dq.data_ptr(),
+                   dadl.data_ptr(), n, k)
     groups = dst_head_groups(k)
-    gat_bwd_dst.launches += 1
     gat_bwd_dst.dq_passes += len(groups)
     gat_bwd_dst.head_loops += k > 1 and len(groups) == k
     return dadl

@@ -47,13 +47,12 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from roc_tpu_torch.ops.kernels.aggregate_linear import (_csr_int64,
-                                                        _require_cuda)
 from roc_tpu_torch.ops.kernels.aggregate_sum import (_check_csr, _ld,
                                                      aggregate_sum_plain,
                                                      check_precision,
                                                      stage_plain)
-from roc_tpu_torch.ops.kernels.build import CudaLibrary
+from roc_tpu_torch.ops.kernels.build import (CudaLibrary, _csr_int64,
+                                             _require_cuda)
 from roc_tpu_torch.ops.linear import linear
 
 MAX_DEPTH = 8     # kMaxDepth in csrc/xlayer.cu
@@ -227,24 +226,10 @@ def _longs(vals) -> ctypes.Array:
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
-def _launch(wrapper, fn, args, dev: torch.device) -> None:
-    """One cooperative launch on the current stream; counts it on
-    ``wrapper``."""
-    grid = ctypes.c_int(0)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*args, stream, ctypes.byref(grid))
-    if err != 0:
-        raise RuntimeError(f"{wrapper.__name__} kernel launch failed: CUDA "
-                           f"error {err}")
-    wrapper.launches += 1
-    wrapper.grid = grid.value
-
-
 def _cuda_inputs(name, x, ws, scale, row_ptr, col_idx, *more) -> None:
     _require_cuda(name, x, *ws, row_ptr, col_idx, *more,
                   *(() if scale is None else (scale,)))
-    _csr_int64(row_ptr)
+    _csr_int64(name, row_ptr)
 
 
 def xlayer_fwd(x: torch.Tensor, ws: Sequence[torch.Tensor],
@@ -299,14 +284,17 @@ def _fwd_launch(x, ws, scale, row_ptr, col_idx, precision, activations,
     xs = _staged_x(x, precision)
     wp = [_padded(w) for w in ws]       # alive until the launch is queued
     counter = torch.zeros(depth, dtype=torch.int32, device=dev)
-    _launch(xlayer_fwd, LIBRARY.load().roc_xlayer_fwd,
-            (row_ptr.data_ptr(), col_idx.data_ptr(), x.data_ptr(),
-             None if xs is None else xs.data_ptr(), _ptrs(wp),
-             None if scale is None else scale.data_ptr(),
-             _ints([a == "relu" for a in activations]), _longs(widths),
-             depth, n, out.data_ptr(), _ptrs(planes + planes[:1]),
-             counter.data_ptr(), _stamps_ptr(stamps, depth, False,
-                                             precision), int(fast)), dev)
+    grid = ctypes.c_int(0)
+    LIBRARY.launch(
+        xlayer_fwd, "roc_xlayer_fwd", dev, row_ptr.data_ptr(),
+        col_idx.data_ptr(), x.data_ptr(),
+        None if xs is None else xs.data_ptr(), _ptrs(wp),
+        None if scale is None else scale.data_ptr(),
+        _ints([a == "relu" for a in activations]), _longs(widths), depth, n,
+        out.data_ptr(), _ptrs(planes + planes[:1]), counter.data_ptr(),
+        _stamps_ptr(stamps, depth, False, precision), int(fast),
+        tail=(ctypes.byref(grid),))
+    xlayer_fwd.grid = grid.value
     return out
 
 
@@ -341,7 +329,7 @@ def xlayer_bwd(g: torch.Tensor, y: Optional[torch.Tensor], x: torch.Tensor,
         raise ValueError("the transposed CSR must have the region's rows")
     _cuda_inputs("xlayer_bwd", x, ws, scale, row_ptr, col_idx, g,
                  t_row_ptr, t_col_idx, *((y,) if relu[-1] else ()))
-    _csr_int64(t_row_ptr)
+    _csr_int64("xlayer_bwd", t_row_ptr)
     return _bwd_launch(g, y, x, ws, scale, row_ptr, col_idx, t_row_ptr,
                        t_col_idx, precision, relu, need_dx, stamps, widths)
 
@@ -350,7 +338,6 @@ def _bwd_launch(g, y, x, ws, scale, row_ptr, col_idx, t_row_ptr, t_col_idx,
                 precision, relu, need_dx, stamps, widths):
     n, depth, dev = row_ptr.numel() - 1, len(ws), x.device
     fast = precision == "fast"
-    lib = LIBRARY.load()
     f32 = dict(dtype=torch.float32, device=dev)
     low = dict(dtype=torch.bfloat16 if fast else torch.float32, device=dev)
     dws = [torch.empty(tuple(w.shape), **f32) for w in ws]
@@ -366,23 +353,26 @@ def _bwd_launch(g, y, x, ws, scale, row_ptr, col_idx, t_row_ptr, t_col_idx,
     stg = [torch.empty(n * _ld(max(widths[1:]), precision), **low)
            for _ in range(2)]
     u = torch.empty(n * _ld(max(widths[1:]), "exact"), **f32)
-    partial = torch.empty(lib.roc_xlayer_partial_floats(
+    partial = torch.empty(LIBRARY.load().roc_xlayer_partial_floats(
         n, _longs(widths), depth), **f32)
     xs = _staged_x(x, precision)
     wp = [_padded(w) for w in ws]       # alive until the launch is queued
     wtp = [_padded(w.t()) for w in ws]
     counter = torch.zeros(2 * depth - 1, dtype=torch.int32, device=dev)
-    _launch(xlayer_bwd, lib.roc_xlayer_bwd,
-            (row_ptr.data_ptr(), col_idx.data_ptr(), t_row_ptr.data_ptr(),
-             t_col_idx.data_ptr(), x.data_ptr(),
-             None if xs is None else xs.data_ptr(), _ptrs(wp), _ptrs(wtp),
-             None if scale is None else scale.data_ptr(), _ints(relu),
-             _longs(widths), depth, n, g.data_ptr(),
-             y.data_ptr() if relu[-1] else None, _ptrs(rplanes),
-             _ptrs(shadow + shadow[:1]) if shadow else None, _ptrs(stg),
-             u.data_ptr(), partial.data_ptr(), _ptrs(dws),
-             None if dx is None else dx.data_ptr(), counter.data_ptr(),
-             _stamps_ptr(stamps, depth, True, precision), int(fast)), dev)
+    grid = ctypes.c_int(0)
+    LIBRARY.launch(
+        xlayer_bwd, "roc_xlayer_bwd", dev, row_ptr.data_ptr(),
+        col_idx.data_ptr(), t_row_ptr.data_ptr(), t_col_idx.data_ptr(),
+        x.data_ptr(), None if xs is None else xs.data_ptr(), _ptrs(wp),
+        _ptrs(wtp), None if scale is None else scale.data_ptr(),
+        _ints(relu), _longs(widths), depth, n, g.data_ptr(),
+        y.data_ptr() if relu[-1] else None, _ptrs(rplanes),
+        _ptrs(shadow + shadow[:1]) if shadow else None, _ptrs(stg),
+        u.data_ptr(), partial.data_ptr(), _ptrs(dws),
+        None if dx is None else dx.data_ptr(), counter.data_ptr(),
+        _stamps_ptr(stamps, depth, True, precision), int(fast),
+        tail=(ctypes.byref(grid),))
+    xlayer_bwd.grid = grid.value
     return dx, tuple(dws)
 
 

@@ -93,6 +93,7 @@ queries take only the plan lock.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import struct
 import threading
@@ -780,11 +781,14 @@ class DeltaManager:
             dst_deg[idx] = deg
             dst_rp.copy_(torch.from_numpy(new_rp))
         with obs.span("delta_install") as sp_install:
-            # the wait for the window in flight, a part of the install
-            lock_wait = obs.span("delta_lock_wait").__enter__()
-            with self._plan_lock:
-                lock_wait.__exit__(None, None, None)
-                self._set_gdata(self._gdata_of(self._bufs[idle], n_edges))
+            # the wait for the window in flight, a part of the install: its
+            # span closes once the lock is taken, or as taking it raises
+            with contextlib.ExitStack() as waiting:
+                lock_wait = waiting.enter_context(obs.span("delta_lock_wait"))
+                with self._plan_lock:
+                    waiting.close()
+                    self._set_gdata(self._gdata_of(self._bufs[idle],
+                                                   n_edges))
             self._active, self._dev_rp = idle, new_rp
         self.last_patch = {
             "rows": int(touched.size), "rewrite_s": sp.dur_s,

@@ -28,8 +28,10 @@ element whose gradient sits near 0 may step either way: the change parts
 by 6.8e-3 (CHANGE_TOL 0.05; the fault 0.67).  A missing normaliser reads
 near 1 everywhere."""
 
+import contextlib
 import copy
 import json
+import types
 
 import pytest
 import torch
@@ -226,13 +228,17 @@ def test_the_wrappers_count_sweeps_and_head_loops(k, f, passes, head_loops,
     8) and ``gat_bwd_dst`` its passes over dq (one a group of up to 8
     heads: 1 at K = 8, 2 at 12 and 16, K at an odd K) and the launches
     that still sum a head at a time (an odd K above 1), beside their
-    launches: the launch path run on meta tensors with the library and the
-    launch stubbed out."""
+    launches: the launch path, the shared ``CudaLibrary.launch`` included,
+    run on meta tensors with the library's entry points, the device, the
+    stream and the placement check stubbed out."""
     class Lib:
         def __getattr__(self, name):
-            return name
+            return lambda *args: 0
     monkeypatch.setattr(gat_k.LIBRARY, "load", lambda: Lib())
-    monkeypatch.setattr(gat_k, "_launch", lambda name, fn, *args: None)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=0))
     monkeypatch.setattr(gat_k, "_require_cuda", lambda *a, **kw: None)
     monkeypatch.setattr(gat_k, "gat_stage", lambda x: x)
     for counter in ("launches", "sweeps"):

@@ -7,8 +7,9 @@ the ring's Chrome export start within 1 ms of each other, on the OS
 thread's row.  Queue: a stub serve function's worker records
 ``queue_idle``, ``queue_fill`` (``late_us`` on a deadline drain only) and
 ``queue_resolve``, and one ``request_queued`` a request, from its submit
-to its drain.  Deltas: ``delta_batch`` holds every step of an apply, and
-a held plan lock shows as ``delta_lock_wait`` inside ``delta_install``."""
+to its drain.  Deltas: ``delta_batch`` holds every step of an apply, a
+held plan lock shows as ``delta_lock_wait`` inside ``delta_install``, and
+a lock whose taking raises still closes that span."""
 
 import gc
 import json
@@ -261,6 +262,45 @@ def test_delta_apply_spans_nest_and_a_held_lock_is_its_wait():
         obs.enable(False)
         mgr.close()
 
+
+
+class _FailingLock:
+    """A lock whose taking raises once ``fail`` is set."""
+
+    def __init__(self):
+        self._lock = threading.RLock()
+        self.fail = False
+
+    def __enter__(self):
+        if self.fail:
+            raise RuntimeError("the plan lock could not be taken")
+        self._lock.acquire()
+        return self
+
+    def __exit__(self, *exc):
+        self._lock.release()
+        return False
+
+
+def test_delta_lock_wait_closes_when_taking_the_lock_raises():
+    """The wait's span closes, and is recorded inside the install's, when
+    taking the plan lock raises: no span is left open on the thread."""
+    lock = _FailingLock()
+    mgr = _manager(lock)
+    obs.enable(True)
+    try:
+        lock.fail = True
+        with pytest.raises(RuntimeError, match="could not be taken"):
+            _apply(mgr, [[64, 70]])
+        spans = obs.get_tracer().spans()
+        (wait,) = _named(spans, "delta_lock_wait")
+        (install,) = _named(spans, "delta_install")
+        assert _within(install, wait)
+        assert obs.get_tracer()._stack() == []
+    finally:
+        obs.enable(False)
+        lock.fail = False
+        mgr.close()
 
 # -- the collector --------------------------------------------------------------
 
