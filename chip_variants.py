@@ -24,9 +24,10 @@ the checkout's and is timed at the main path's shapes:
   xlayer  the region kernels at the full-width path's region (depth 3,
           602-256-256-256, relu, the norm pair), both precisions: xlayer_fwd
           and xlayer_bwd without dx, and the phase split
-  gat     the GAT backward at the full-width GAT's two layers (K=4, F=64
-          and K=1, F=41): gat_bwd_src in fast and exact (dtable, dast, dq),
-          gat_bwd_dst on its dq, in fast
+  gat     the GAT backward at the published GAT's two layers (K=8, F=8
+          and K=1, F=41) and the full-width GAT's first (K=4, F=64):
+          gat_bwd_src in fast and exact (dtable, dast, dq), gat_bwd_dst on
+          its dq, in fast
   gat_fwd the GAT forward (gat_forward: out, m, z) at the same two layers,
           fast and exact (a staging launch included where the geometry
           stages x)
@@ -262,23 +263,52 @@ VARIANTS = {
                     "  switch (packs_per_lane<T>((H + VEC - 1) / VEC, 32))"
                     " {")]),
     "gat_two_edges": (
-        "4 edges in flight in the src kernel's du gather instead of 2",
+        "8 edges in flight in the src kernel's du gather instead of 2",
         "gat", [("gat.cu",
-                 "#pragma unroll 4\n        for (int ii = 0; ii < m; ++ii) {",
-                 "#pragma unroll 2\n        for (int ii = 0; ii < m; ++ii) {")]),
+                 "#pragma unroll 8\n          for (int ii = 0; ii < m; ++ii) {",
+                 "#pragma unroll 2\n          for (int ii = 0; ii < m; ++ii) {")]),
+    "gat_four_edges": (
+        "8 edges in flight in the src kernel's du gather instead of 4",
+        "gat", [("gat.cu",
+                 "#pragma unroll 8\n          for (int ii = 0; ii < m; ++ii) {",
+                 "#pragma unroll 4\n          for (int ii = 0; ii < m; ++ii) {")]),
+    "gat_dq_per_edge": (
+        "a one-tile row's dq written a batch at a time from shared memory "
+        "(coalesced) where a lane owns one pack and K > 1 instead of by "
+        "each edge's lane, a head at a time",
+        "gat", [("gat.cu", "  const bool whole = PACKS == 1 && H <= kTile && K > 1;",
+                 "  const bool whole = false;")]),
+    "gat_dq_rows_at_two_packs": (
+        "a one-tile row's dq written a batch at a time only where a lane "
+        "owns one pack instead of at two packs too",
+        "gat", [("gat.cu", "  const bool whole = PACKS == 1 && H <= kTile && K > 1;",
+                 "  const bool whole = H <= kTile && K > 1;")]),
+    "gat_src_static_rows": (
+        "rows claimed from a counter by the resident blocks in the src kernel "
+        "instead of a static order (a lane group's row from its block and "
+        "place)",
+        "gat", [("gat.cu", "    int claim = 0;\n"
+                 "    if (sl == 0) claim = atomicAdd(claimed, 1);\n"
+                 "    const int64_t row = __shfl_sync(gm, claim, 0, LPR);\n",
+                 "    const int64_t row = static_cast<int64_t>(blockIdx.x) * "
+                 "(blockDim.x / LPR) + group;\n"),
+                ("gat.cu", "    __syncwarp(gm);  // the row's readers of st, pbuf, "
+                 "ebuf, dsacc and asv are done\n", "    return;\n"),
+                ("gat.cu", "  blocks = blocks < resident ? blocks : resident;\n",
+                 "  (void)resident;\n")]),
     "gat_four_warps": (
         "8 warps a block in the src kernel instead of 4",
-        "gat", [("gat.cu", "  int64_t wpb = kMaxWarps;\n",
-                 "  int64_t wpb = 4;\n")]),
+        "gat", [("gat.cu", "gat_bwd_src_rows<VEC, PACKS, LPR, ROUND>, kMaxWarps * 32,",
+                 "gat_bwd_src_rows<VEC, PACKS, LPR, ROUND>, 4 * 32,")]),
     "gat_guarded_loads": (
         "unconditional du loads in the src kernel (a surplus pack re-reads "
         "the row's last pack) instead of guarded ones",
         "gat", [("gat.cu",
                  "            const Pack<VEC> gv = load_pack<VEC>(du + vv * H "
-                 "+ cl[p]);\n",
+                 "+ cl[q]);\n",
                  "            Pack<VEC> gv = {};\n"
-                 "            if (ok[p]) gv = load_pack<VEC>(du + vv * H "
-                 "+ cl[p]);\n")]),
+                 "            if (ok[q]) gv = load_pack<VEC>(du + vv * H "
+                 "+ cl[q]);\n")]),
     "gat_three_blocks": (
         "2 resident blocks an SM (128 registers) in the src kernel with "
         "4-float packs instead of 3 (80)",
@@ -287,11 +317,21 @@ VARIANTS = {
         "4 resident blocks an SM (64 registers) in the src kernel with "
         "narrower packs instead of 3 (80)",
         "gat", [("gat.cu", "return vec == 4 ? 2 : 4;", "return vec == 4 ? 2 : 3;")]),
-    "gat_dot_edges_32": (
-        "a batch's dots formed in halves of 16 edges (8.3 KB of shared "
-        "memory a warp at K = 4) instead of all 32 at once (12.4 KB)",
-        "gat", [("gat.cu", "constexpr int kDotEdges = 16;",
-                 "constexpr int kDotEdges = 32;")]),
+    "gat_dot_edges_whole": (
+        "a batch's dots formed in halves where a lane owns several packs "
+        "(8.3 KB of shared memory a warp at K = 4) instead of all at once "
+        "(12.4 KB)",
+        "gat", [("gat.cu", "return lpr * packs > 16 ? lpr / 2 : lpr;",
+                 "return lpr;")]),
+    "gat_dot_halves": (
+        "a narrow group's batch dotted at once (one sum phase a batch) "
+        "instead of in halves",
+        "gat", [("gat.cu", "return lpr * packs > 16 ? lpr / 2 : lpr;",
+                 "return lpr / 2;")]),
+    "gat_src_warp_a_row": (
+        "a lane group sized to the row's packs (16 lanes of one 4-float "
+        "pack at H = 64) instead of a warp of two packs a lane, the earlier "
+        "geometry", "gat", [], "_gat_warp_cases"),
     "gat_fwd_four_edges": (
         "2 edges in flight a lane group where a forward lane owns several "
         "packs a pass (layer 1) instead of 4",
@@ -433,6 +473,23 @@ def _gat_cases(ctx):
                       lambda dq=i["dq"]: G.gat_bwd_dst(dq, csr.t_pos,
                                                        csr.row_ptr,
                                                        csr.col_idx)))
+    return cases
+
+
+def _gat_warp_cases(ctx):
+    """The src kernel at a warp of two packs a lane, (32, 2), at every
+    shape."""
+    from roc_tpu_torch.ops.kernels import gat as G
+    csr = ctx["csr"]
+    cases = []
+    for (k, f), i in ctx["gat"].items():
+        args = (i["x"], i["as_"], i["ad"], i["m"], i["du"], i["dz"],
+                csr.t_row_ptr, csr.t_col_idx, 0.2)
+        vec = G.src_geometry(k, f, i["x"], i["du"]).vec
+        for prec in ("fast", "exact"):
+            cases.append((f"src_K{k}_F{f}_{prec}",
+                          lambda a=args, p=prec, v=vec: G._src_launch(
+                              *a, p, G.SrcGeometry(v, 32, 2))))
     return cases
 
 
@@ -636,7 +693,7 @@ def main() -> int:
         ctx["region"] = C.region_gauss_inputs(n, C.REGION, scale, gen, dev)
     if {"gat", "gat_fwd"} & set(targets):
         ctx["gat"] = {}
-        for k, f in ((4, 64), (1, 41)):
+        for k, f in ((8, 8), (4, 64), (1, 41)):
             i = C._gat_inputs(n, k, f, gen, dev)
             i["m"] = KG.gat_forward(i["x"], i["as_"], i["ad"], csr.row_ptr,
                                     csr.col_idx, 0.2, "fast")[1]

@@ -39,7 +39,8 @@
 // the score gradient dq[e, k] = e * (sum_f du[v, kF+f] x[u, kF+f] + dz[v, k])
 // * lrelu'(q) is formed once per edge, then summed twice.
 //   gat_bwd_src_rows (row 12) walks the transposed CSR, a source row u per
-//     warp: one gather of du[v] per edge, which gives both dtable (the
+//     lane group of 8, 16 or 32 lanes sized to the row's packs, as the
+//     forward's: one gather of du[v] per edge, which gives both dtable (the
 //     column sums of e * du) and, against x[u] held in registers, each
 //     head's dot; from it dq, summed into dast and written to an [E, K]
 //     buffer in transposed edge order (coalesced).  Bound: the du gather,
@@ -82,7 +83,6 @@
 namespace {
 
 constexpr int kMaxWarps = 8;            // warps per block of the backward kernels
-constexpr int kNP = 2;                  // column packs per lane per tile (src kernel)
 constexpr int kSmemBytes = 48 * 1024;   // above this a launch opts in
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -105,12 +105,6 @@ __device__ __forceinline__ Pack<VEC> load_pack(const float* p) {
 template <int VEC>
 __device__ __forceinline__ void store_pack(float* p, const Pack<VEC>& v) {
   *reinterpret_cast<Pack<VEC>*>(p) = v;
-}
-
-// Columns of (tile t0, pack p, lane): c0 = t0 + p * 32 * VEC + lane * VEC.
-template <int VEC>
-__device__ __forceinline__ int64_t pack_col(int64_t t0, int p, int lane) {
-  return t0 + static_cast<int64_t>(p) * 32 * VEC + static_cast<int64_t>(lane) * VEC;
 }
 
 // ---------------------------------------------------------------------------
@@ -410,13 +404,14 @@ __global__ void __launch_bounds__(kFwdThreads) gat_fwd_rows(const FwdArgs p) {
   }
 }
 
-template <int VEC, int PACKS, int LPR, bool ROUND>
-int launch_fwd(const FwdArgs& p, cudaStream_t s) {
-  auto kernel = gat_fwd_rows<VEC, PACKS, LPR, ROUND>;
-  // kFwdThreads a block, halved (down to one warp) while the groups' shared memory passes 227 KB
+// A kernel whose lane groups of lpr lanes claim rows from a counter, each group with fpg floats
+// of shared memory: threads a block, halved (down to one warp) while the groups' shared memory
+// passes 227 KB, on a grid of the resident blocks, at most one a row's group.
+template <typename Kernel, typename... Args>
+int launch_claimed(Kernel kernel, int threads, int lpr, int64_t fpg, int64_t rows, cudaStream_t s,
+                   Args... args) {
   constexpr int64_t kMaxSmem = 227 * 1024;
-  int threads = kFwdThreads;
-  auto smem_of = [&](int t) { return t / LPR * fwd_floats_per_group(p.K, LPR) * 4; };
+  auto smem_of = [&](int t) { return t / lpr * fpg * 4; };
   while (threads > 32 && smem_of(threads) > kMaxSmem) threads /= 2;
   const int64_t smem = smem_of(threads);
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
@@ -425,9 +420,8 @@ int launch_fwd(const FwdArgs& p, cudaStream_t s) {
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const int64_t groups_per_block = threads / LPR;
-  int64_t blocks = (p.rows + groups_per_block - 1) / groups_per_block;
-  // the resident blocks, at most one a row's group
+  const int64_t groups_per_block = threads / lpr;
+  int64_t blocks = (rows + groups_per_block - 1) / groups_per_block;
   int dev = 0, sms = 0, per_sm = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
@@ -437,8 +431,14 @@ int launch_fwd(const FwdArgs& p, cudaStream_t s) {
     return static_cast<int>(cudaErrorInvalidConfiguration);
   const int64_t resident = static_cast<int64_t>(per_sm) * sms;
   blocks = blocks < resident ? blocks : resident;
-  kernel<<<dim3(static_cast<unsigned>(blocks)), threads, static_cast<size_t>(smem), s>>>(p);
+  kernel<<<dim3(static_cast<unsigned>(blocks)), threads, static_cast<size_t>(smem), s>>>(args...);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int VEC, int PACKS, int LPR, bool ROUND>
+int launch_fwd(const FwdArgs& p, cudaStream_t s) {
+  return launch_claimed(gat_fwd_rows<VEC, PACKS, LPR, ROUND>, kFwdThreads, LPR,
+                        fwd_floats_per_group(p.K, LPR), p.rows, s, p);
 }
 
 // (lanes, packs) pairs: forward_geometry's FWD_GROUPS at every vec, and at 4-float packs (the
@@ -462,45 +462,64 @@ int launch_fwd_group(const FwdArgs& p, int lanes, int packs, cudaStream_t s) {
 
 // ---------------------------------------------------------------------------
 // Backward over the transposed CSR (row 12): dtable, dast and the per-edge score gradient dq
-// for one source row u per warp.  Its edges e' (u -> v) come in transposed order, and dq [E, K]
-// is written in that order.
+// for one source row u per lane group.  Its edges e' (u -> v) come in transposed order, and dq
+// [E, K] is written in that order.
 //
-// The warp walks u's edges in batches of 32.  Lane l takes the batch's edge l: the
+// Geometry (chosen by the wrapper, ops/kernels/gat.py:src_geometry, by the forward's rule over
+// the row's packs from SRC_GROUPS): a group of LPR lanes (8, 16 or 32; 32 / LPR rows a warp)
+// owns a row; lane sl of it owns the packs sl + LPR q (q < PACKS) of VEC floats of each tile of
+// LPR * PACKS packs, so a tile's pack slots are all used but at the row's ragged end.  At
+// Reddit's layer 1 (H = 64) that is 16 lanes x 1 pack of 4; a warp over a 256-column tile, the
+// earlier geometry, used 16 of its 64 pack slots there and still loaded and multiplied the
+// other 48.  Rows are claimed one at a time from a counter (zeroed by the wrapper) by a grid of
+// resident blocks, as in the forward, so a long row holds one group, not a block.
+//
+// The group walks u's edges in batches of LPR.  Lane sl takes the batch's edge sl: the
 // destination's packed state row (dz | ad | m, P floats, 16-byte aligned) reaches its slice of
 // st by 16-byte cp.async, issued during the previous batch's gather (and the index a batch
-// before that), and the lane forms e for the heads of the tile into ebuf.  Then the warp walks
-// the batch edge by edge: each lane gathers its kNP packs of du[v] (unconditional loads: a
-// surplus pack re-reads the row's last pack and is masked), adds the rounded e * du into
-// dtable's column sums, and writes the pack's dot with x[u] (held in registers) to pbuf, a
-// [kDotEdges edges, 32 * kNP packs] transpose, so the batch is walked in halves.  After each
-// half, lane l of it sums its edge's slots per head (slots in column order, one head a
-// contiguous run, since F % VEC == 0), forms dq and adds it into its own per-head sum of dast
-// (dsacc; the 32 lanes' sums are added in lane order at the end).  A head that spans two tiles
-// keeps its partial dot in dq between them (the same lane reads it back, the batches being the
-// same in every tile).
-//   shared memory per warp: st[2][32 P] | pbuf[kDotEdges (32 kNP + 1)] | ebuf[32 K] |
-//   dsacc[32 K] | asv[K]: 8.3 KB at K = 4, 5.5 KB at K = 1, so the registers, not shared
-//   memory, bound the blocks an SM.
-constexpr int kSlots = 32 * kNP + 1;  // a pbuf row: one edge's packs, +1 against bank conflicts
-// pbuf rows: a batch's dots are formed in halves (all 32 at once read 8.6 and 5.4 ms against
-// 8.8 and 2.6-2.8 at Reddit's two GAT layers: gat_dot_edges_32)
-constexpr int kDotEdges = 16;
+// before that), and the lane forms e for the heads of the tile into ebuf.  Then the group walks
+// the batch edge by edge, 8 edges in flight: each lane gathers its PACKS packs of du[v]
+// (unconditional loads: a surplus pack re-reads the row's last pack and is masked), adds the
+// rounded e * du into dtable's column sums, and writes the pack's dot with x[u] (held in
+// registers) to pbuf, a [kDot edges, LPR * PACKS packs] transpose: the whole batch where a lane
+// owns one pack, halves of it where it owns more (src_dot_edges).  After each kDot edges, the
+// lane of each sums its edge's slots per head (slots in column order, one head a contiguous
+// run, since F % VEC == 0), forms dq and adds it into dast's partial sum of the edge's slot,
+// its position in the row modulo 32 (dsacc; the 32 partials are added in slot order at the
+// end).  Where a lane owns one pack and the row is one tile of K > 1 heads, dq takes e's place
+// in ebuf and the group writes the batch's dq rows, contiguous, once the batch is summed
+// (whole, below); otherwise each lane writes its edge's dq a head at a time, and a head that
+// spans two tiles keeps its partial dot in dq between them (the same lane reads it back, the
+// batches being the same in every tile).  So each output takes the same additions in the same
+// order at every geometry, and a launch at (32, 2) gives the rule's pair's bits.
+//   shared memory per group: st[2][LPR P] | pbuf[kDot (LPR PACKS + 1)] | ebuf[LPR K] |
+//   dsacc[32 K] | asv[K]: 5.6 KB at K = 8 in (16, 1), 8.3 KB at K = 4 and 5.5 KB at K = 1 in
+//   (32, 2).  At K = 8 it allows 2 blocks of 8 warps an SM, so 32 rows in flight.
+// The readings behind each choice (rows claimed, 8 edges in flight, dq rows written whole, the
+// whole batch dotted at once at one pack a lane) are chip_variants.py's gat_* variants (PERF.md
+// §6).
+__host__ __device__ constexpr int src_dot_edges(int lpr, int packs) {
+  return lpr * packs > 16 ? lpr / 2 : lpr;
+}
+
 // Resident blocks an SM the src kernel asks for: 2 (128 registers a thread) with 4-float packs,
-// 4 (64) with narrower ones; the du gather keeps 4 edges in flight a warp (#pragma unroll 4
-// below).  On Reddit, fast (chip_variants.py's gat_* variants, NVIDIA H100 80GB HBM3, 700 W):
-// at K = 4, F = 64, 8.8 ms against 10.2 at 3 blocks (80 registers) and 12.0 at 4 (64, with
-// spills); at K = 1, F = 41, 2.6-2.8 against 2.8 at 3 blocks and 3.95 with no cap.  2 edges
-// in flight read 10.6 and 3.1.
+// 4 (64) with narrower ones.  With 4-float packs (16, 1) takes 108 registers and (32, 2) 128,
+// no spills; with 1-float packs (32, 2) takes 64, no spills, and the narrow groups, which no
+// main-path shape takes, spill 24-44 bytes.  3 blocks with 4-float packs (80 registers) and 3
+// with narrower ones read no faster at Reddit's three shapes.
 __host__ __device__ constexpr int src_min_blocks(int vec) { return vec == 4 ? 2 : 4; }
 
-__host__ __device__ constexpr int64_t src_floats_per_warp(int K, int P) {
-  return (64 * static_cast<int64_t>(P) + kDotEdges * kSlots + 64 * static_cast<int64_t>(K) + K +
-          3) /
+__host__ __device__ constexpr int64_t src_floats_per_group(int K, int P, int lpr, int packs) {
+  return (2 * static_cast<int64_t>(lpr) * P +
+          static_cast<int64_t>(src_dot_edges(lpr, packs)) * (lpr * packs + 1) +
+          static_cast<int64_t>(lpr + 32) * K + K + 3) /
          4 * 4;
 }
 
 // A lane's edge's destination state row (P floats) into shared memory by cp.async, one commit
-// group (empty for a lane past the row's end).
+// group (empty for a lane past the row's end).  The group copying the batch's rows together, a
+// copy's lanes on adjacent chunks, read 5 % faster at K = 8 and slower at K = 4 and K = 1
+// (spills at 1-float packs; PERF.md §6).
 __device__ __forceinline__ void stage_state(const float* state, int dst, float* to, int P,
                                             bool valid) {
   if (valid) {
@@ -510,132 +529,177 @@ __device__ __forceinline__ void stage_state(const float* state, int dst, float* 
   roc::cp_async_commit();
 }
 
-template <int VEC, bool ROUND>
+template <int VEC, int PACKS, int LPR, bool ROUND>
 __global__ void __launch_bounds__(kMaxWarps * 32, src_min_blocks(VEC))
     gat_bwd_src_rows(const int64_t* __restrict__ t_row_ptr, const int32_t* __restrict__ t_col_idx,
                      const float* __restrict__ x, const float* __restrict__ as,
                      const float* __restrict__ state, const float* __restrict__ du,
                      float* __restrict__ dtable, float* __restrict__ dast, float* dq,
-                     int64_t rows, int K, int F, int P, float slope) {
+                     int64_t rows, int K, int F, int P, float slope, int* __restrict__ claimed) {
   extern __shared__ float4 smem4[];
-  constexpr int kTile = 32 * VEC * kNP;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, wpb = blockDim.x >> 5;
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * wpb + warp;
-  if (row >= rows) return;
-  float* st = reinterpret_cast<float*>(smem4) + warp * src_floats_per_warp(K, P);
-  float* pbuf = st + 64 * P;
-  float* ebuf = pbuf + kDotEdges * kSlots;
-  float* dsacc = ebuf + 32 * K;
+  constexpr int kTile = LPR * PACKS * VEC, kSlots = LPR * PACKS + 1;
+  constexpr int kDot = src_dot_edges(LPR, PACKS);
+  const int lane = threadIdx.x & 31, sl = lane % LPR, group = threadIdx.x / LPR;
+  const unsigned gm = group_mask<LPR>(lane);
+  float* st = reinterpret_cast<float*>(smem4) + group * src_floats_per_group(K, P, LPR, PACKS);
+  float* pbuf = st + 2 * LPR * P;
+  float* ebuf = pbuf + kDot * kSlots;
+  float* dsacc = ebuf + LPR * K;
   float* asv = dsacc + 32 * K;
   const int64_t H = static_cast<int64_t>(K) * F;
-  const int64_t beg = t_row_ptr[row], end = t_row_ptr[row + 1];
+  // one pack a lane and one tile of more than one head: a batch's dq rows are written whole,
+  // from ebuf.  At (32, 2) it read no faster at K = 4, and its code alone cost 15 % at K = 1,
+  // where the lanes' own stores are adjacent already (PERF.md §6)
+  const bool whole = PACKS == 1 && H <= kTile && K > 1;
+  for (;;) {
+    int claim = 0;
+    if (sl == 0) claim = atomicAdd(claimed, 1);
+    const int64_t row = __shfl_sync(gm, claim, 0, LPR);
+    if (row >= rows) return;
+    const int64_t beg = t_row_ptr[row], end = t_row_ptr[row + 1];
 
-  for (int k = lane; k < K; k += 32) asv[k] = as[row * K + k];
-  for (int i = lane; i < 32 * K; i += 32) dsacc[i] = 0.f;
-  __syncwarp();
-  for (int64_t t0 = 0; t0 < H; t0 += kTile) {
-    float acc[kNP][VEC], xr[kNP][VEC];
-    int64_t cl[kNP];
-    int kc[kNP];
-    bool ok[kNP];
+    for (int k = sl; k < K; k += LPR) asv[k] = as[row * K + k];
+    for (int i = sl; i < 32 * K; i += LPR) dsacc[i] = 0.f;
+    __syncwarp(gm);
+    for (int64_t t0 = 0; t0 < H; t0 += kTile) {
+      float acc[PACKS][VEC], xr[PACKS][VEC];
+      int64_t cl[PACKS];
+      int kc[PACKS];
+      bool ok[PACKS];
 #pragma unroll
-    for (int p = 0; p < kNP; ++p) {
-      const int64_t c = pack_col<VEC>(t0, p, lane);
-      ok[p] = c < H;
-      cl[p] = ok[p] ? c : H - VEC;
-      kc[p] = static_cast<int>(cl[p] / F);
-      const Pack<VEC> xv = load_pack<VEC>(x + row * H + cl[p]);
+      for (int q = 0; q < PACKS; ++q) {
+        const int64_t c = t0 + static_cast<int64_t>(q * LPR + sl) * VEC;
+        ok[q] = c < H;
+        cl[q] = ok[q] ? c : H - VEC;
+        kc[q] = static_cast<int>(cl[q] / F);
+        const Pack<VEC> xv = load_pack<VEC>(x + row * H + cl[q]);
 #pragma unroll
-      for (int j = 0; j < VEC; ++j) {
-        acc[p][j] = 0.f;
-        xr[p][j] = ok[p] ? xv.v[j] : 0.f;
-      }
-    }
-    // the heads whose columns meet this tile
-    const int k0 = static_cast<int>(t0 / F);
-    const int64_t t1 = t0 + kTile < H ? t0 + kTile : H;
-    const int k1 = static_cast<int>((t1 - 1) / F);
-    // the first batch's indices and state rows; each batch stages the next one's during its
-    // gather (st holds two batches' rows)
-    int dst = beg + lane < end ? t_col_idx[beg + lane] : 0;
-    stage_state(state, dst, st + lane * P, P, beg + lane < end);
-    int buf = 0;
-    for (int64_t b = beg; b < end; b += 32, buf ^= 1) {
-      const int n = end - b < 32 ? static_cast<int>(end - b) : 32;
-      const int64_t te = b + lane;  // this lane's transposed edge, and its dq row
-      const bool more = b + 32 < end;
-      const int next = te + 32 < end ? t_col_idx[te + 32] : 0;
-      float* mine = st + (buf * 32 + lane) * P;  // this lane's edge: dz | ad | m
-      roc::cp_async_wait<0>();
-      __syncwarp();  // the batch's rows have landed; the previous batch's readers are done
-      if (lane < n) {
-        for (int k = k0; k <= k1; ++k)
-          ebuf[lane * K + k] = expf(lrelu(mine[K + k] + asv[k], slope) - mine[2 * K + k]);
-      }
-      __syncwarp();
-      for (int i0 = 0; i0 < n; i0 += kDotEdges) {
-        const int m = n - i0 < kDotEdges ? n - i0 : kDotEdges;
-#pragma unroll 4
-        for (int ii = 0; ii < m; ++ii) {
-          const int i = i0 + ii;
-          const int64_t vv = __shfl_sync(kFull, dst, i);
-          float* prow = pbuf + ii * kSlots + lane;
-#pragma unroll
-          for (int p = 0; p < kNP; ++p) {
-            const Pack<VEC> gv = load_pack<VEC>(du + vv * H + cl[p]);
-            const float e = ebuf[i * K + kc[p]];
-            float s = 0.f;
-#pragma unroll
-            for (int j = 0; j < VEC; ++j) {
-              float t = e * gv.v[j];
-              if (ROUND) t = round_bf16(t);
-              acc[p][j] += t;
-              s += gv.v[j] * xr[p][j];
-            }
-            if (ok[p]) prow[p * 32] = s;
-          }
+        for (int j = 0; j < VEC; ++j) {
+          acc[q][j] = 0.f;
+          xr[q][j] = ok[q] ? xv.v[j] : 0.f;
         }
-        if (i0 == 0 && more)
-          stage_state(state, next, st + ((buf ^ 1) * 32 + lane) * P, P, te + 32 < end);
-        __syncwarp();
-        if (lane >= i0 && lane < i0 + m) {
-          const float* slots = pbuf + (lane - i0) * kSlots;
-          for (int k = k0; k <= k1; ++k) {
-            const int64_t h0 = static_cast<int64_t>(k) * F, h1 = h0 + F;
-            const int s0 = static_cast<int>(((h0 > t0 ? h0 : t0) - t0) / VEC);
-            const int s1 = static_cast<int>(((h1 < t1 ? h1 : t1) - t0) / VEC);
-            float d = h0 >= t0 ? 0.f : dq[te * K + k];
-            for (int s = s0; s < s1; ++s) d += slots[s];
-            if (h1 <= t1) {  // the head's last tile: its dot is whole
-              const float q = mine[K + k] + asv[k];
-              const float g = ebuf[lane * K + k] * (d + mine[k]) * (q >= 0.f ? 1.f : slope);
-              dq[te * K + k] = g;
-              dsacc[lane * K + k] += g;
-            } else {
-              dq[te * K + k] = d;
+      }
+      // the heads whose columns meet this tile
+      const int k0 = static_cast<int>(t0 / F);
+      const int64_t t1 = t0 + kTile < H ? t0 + kTile : H;
+      const int k1 = static_cast<int>((t1 - 1) / F);
+      const int tw = static_cast<int>(t1 - t0);  // the tile's columns
+      // the first batch's indices and state rows; each batch stages the next one's during its
+      // gather (st holds two batches' rows)
+      int dst = beg + sl < end ? t_col_idx[beg + sl] : 0;
+      stage_state(state, dst, st + sl * P, P, beg + sl < end);
+      int buf = 0;
+      for (int64_t b = beg; b < end; b += LPR, buf ^= 1) {
+        const int n = end - b < LPR ? static_cast<int>(end - b) : LPR;
+        const int64_t te = b + sl;  // this lane's transposed edge, and its dq row
+        const int slot = static_cast<int>((te - beg) & 31);  // its partial sum of dast
+        const bool more = b + LPR < end;
+        const int next = te + LPR < end ? t_col_idx[te + LPR] : 0;
+        float* mine = st + (buf * LPR + sl) * P;  // this lane's edge: dz | ad | m
+        roc::cp_async_wait<0>();
+        __syncwarp(gm);  // the batch's rows have landed; the previous batch's readers are done
+        if (sl < n) {
+          for (int k = k0; k <= k1; ++k)
+            ebuf[sl * K + k] = expf(lrelu(mine[K + k] + asv[k], slope) - mine[2 * K + k]);
+        }
+        __syncwarp(gm);
+        for (int i0 = 0; i0 < n; i0 += kDot) {
+          const int m = n - i0 < kDot ? n - i0 : kDot;
+#pragma unroll 8
+          for (int ii = 0; ii < m; ++ii) {
+            const int i = i0 + ii;
+            const int64_t vv = __shfl_sync(gm, dst, i, LPR);
+            float* prow = pbuf + ii * kSlots + sl;
+#pragma unroll
+            for (int q = 0; q < PACKS; ++q) {
+              const Pack<VEC> gv = load_pack<VEC>(du + vv * H + cl[q]);
+              const float e = ebuf[i * K + kc[q]];
+              float s = 0.f;
+#pragma unroll
+              for (int j = 0; j < VEC; ++j) {
+                float t = e * gv.v[j];
+                if (ROUND) t = round_bf16(t);
+                acc[q][j] += t;
+                s += gv.v[j] * xr[q][j];
+              }
+              if (ok[q]) prow[q * LPR] = s;
             }
           }
+          if (i0 == 0 && more)
+            stage_state(state, next, st + ((buf ^ 1) * LPR + sl) * P, P, te + LPR < end);
+          __syncwarp(gm);
+          if (sl >= i0 && sl < i0 + m) {
+            const float* slots = pbuf + (sl - i0) * kSlots;
+            // head k's columns from the tile's first: [c, c + F), c <= 0 at k0
+            int c = static_cast<int>(static_cast<int64_t>(k0) * F - t0);
+            for (int k = k0; k <= k1; ++k, c += F) {
+              float d = c >= 0 ? 0.f : dq[te * K + k];
+              const int s1 = (c + F < tw ? c + F : tw) / VEC;
+              for (int s = (c > 0 ? c : 0) / VEC; s < s1; ++s) d += slots[s];
+              if (c + F <= tw) {  // the head's last tile: its dot is whole
+                const float q = mine[K + k] + asv[k];
+                const float g = ebuf[sl * K + k] * (d + mine[k]) * (q >= 0.f ? 1.f : slope);
+                if (whole)
+                  ebuf[sl * K + k] = g;  // its e is read no more: the batch's gathers are done
+                else
+                  dq[te * K + k] = g;
+                dsacc[slot * K + k] += g;
+              } else {
+                dq[te * K + k] = d;
+              }
+            }
+          }
+          __syncwarp(gm);  // pbuf's readers are done before the next kDot edges write it
         }
-        __syncwarp();  // pbuf's readers are done before the next half writes it
+        if (whole)  // the batch's dq rows, contiguous, as ebuf holds them
+          for (int j = sl; j < n * K; j += LPR) dq[b * K + j] = ebuf[j];
+        dst = next;
       }
-      dst = next;
-    }
 #pragma unroll
-    for (int p = 0; p < kNP; ++p) {
-      if (ok[p]) {
-        Pack<VEC> o;
+      for (int q = 0; q < PACKS; ++q) {
+        if (ok[q]) {
+          Pack<VEC> o;
 #pragma unroll
-        for (int j = 0; j < VEC; ++j) o.v[j] = acc[p][j];
-        store_pack<VEC>(dtable + row * H + cl[p], o);
+          for (int j = 0; j < VEC; ++j) o.v[j] = acc[q][j];
+          store_pack<VEC>(dtable + row * H + cl[q], o);
+        }
       }
     }
+    __syncwarp(gm);
+    for (int k = sl; k < K; k += LPR) {
+      float s = 0.f;
+      for (int l = 0; l < 32; ++l) s += dsacc[l * K + k];
+      dast[row * K + k] = s;
+    }
+    __syncwarp(gm);  // the row's readers of st, pbuf, ebuf, dsacc and asv are done
   }
-  __syncwarp();
-  for (int k = lane; k < K; k += 32) {
-    float s = 0.f;
-    for (int l = 0; l < 32; ++l) s += dsacc[l * K + k];
-    dast[row * K + k] = s;
-  }
+}
+
+template <int VEC, int PACKS, int LPR, bool ROUND>
+int launch_src(const int64_t* rp, const int32_t* ci, const float* xp, const float* asp,
+               const float* stp, const float* dup, float* tp, float* sp, float* qp,
+               int64_t rows, int K, int F, int P, float slope, int* claimed, cudaStream_t s) {
+  return launch_claimed(gat_bwd_src_rows<VEC, PACKS, LPR, ROUND>, kMaxWarps * 32, LPR,
+                        src_floats_per_group(K, P, LPR, PACKS), rows, s, rp, ci, xp, asp, stp,
+                        dup, tp, sp, qp, rows, K, F, P, slope, claimed);
+}
+
+// (lanes, packs) pairs: ops/kernels/gat.py's SRC_GROUPS, the wrapper's rule taking the first
+// whose lanes * packs cover the row's packs.  Any other pair returns cudaErrorInvalidValue.
+template <int VEC, bool ROUND>
+int launch_src_group(int lanes, int packs, const int64_t* rp, const int32_t* ci, const float* xp,
+                     const float* asp, const float* stp, const float* dup, float* tp, float* sp,
+                     float* qp, int64_t rows, int K, int F, int P, float slope, int* claimed,
+                     cudaStream_t s) {
+#define ROC_GAT_SRC(PK, L)                                                                       \
+  if (lanes == L && packs == PK)                                                                 \
+  return launch_src<VEC, PK, L, ROUND>(rp, ci, xp, asp, stp, dup, tp, sp, qp, rows, K, F, P,     \
+                                       slope, claimed, s)
+  ROC_GAT_SRC(1, 8);
+  ROC_GAT_SRC(1, 16);
+  ROC_GAT_SRC(2, 32);
+#undef ROC_GAT_SRC
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // ---------------------------------------------------------------------------
@@ -831,22 +895,16 @@ extern "C" int roc_gat_bwd_dst(const void* row_ptr, const void* t_pos, const voi
 }
 
 // state is [N, P] (dz | ad | m | zeros), P = 3K rounded up to 4, 16-byte aligned; dq is
-// [E, K] in transposed edge order; vec divides F.
+// [E, K] in transposed edge order; vec divides F; (lanes, packs) is one of launch_src_group's
+// pairs; claimed is one int32, 0 at the launch, so rows < 2^30.
 extern "C" int roc_gat_bwd_src(const void* t_row_ptr, const void* t_col_idx, const void* x,
                                const void* as, const void* state, const void* du, void* dtable,
                                void* dast, void* dq, long long rows, int K, int F, int P,
-                               float slope, int round_bf16, int vec, void* stream) {
-  if (bad_shape(rows, K, F) || P % 4 != 0 || P < 3 * K || F % vec != 0)
+                               float slope, int round_bf16, int vec, int lanes, int packs,
+                               void* claimed, void* stream) {
+  if (bad_shape(rows, K, F) || rows >= (1ll << 30) || P % 4 != 0 || P < 3 * K || F % vec != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t fpw = src_floats_per_warp(K, P);
-  constexpr int64_t kMaxSmem = 227 * 1024;
-  int64_t wpb = kMaxWarps;
-  while (wpb > 1 && wpb * fpw * 4 > kMaxSmem) wpb /= 2;
-  const int64_t smem = wpb * fpw * 4;
-  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>((rows + wpb - 1) / wpb));
-  const int threads = static_cast<int>(wpb) * 32;
   const int64_t* rp = static_cast<const int64_t*>(t_row_ptr);
   const int32_t* ci = static_cast<const int32_t*>(t_col_idx);
   const float *xp = static_cast<const float*>(x), *asp = static_cast<const float*>(as),
@@ -854,17 +912,8 @@ extern "C" int roc_gat_bwd_src(const void* t_row_ptr, const void* t_col_idx, con
   float *tp = static_cast<float*>(dtable), *sp = static_cast<float*>(dast),
         *qp = static_cast<float*>(dq);
 #define ROC_GAT_SRC(V, R)                                                                        \
-  do {                                                                                           \
-    auto kernel = gat_bwd_src_rows<V, R>;                                                        \
-    if (smem > kSmemBytes) {                                                                     \
-      const cudaError_t err = cudaFuncSetAttribute(                                              \
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));         \
-      if (err != cudaSuccess) return static_cast<int>(err);                                      \
-    }                                                                                            \
-    kernel<<<grid, threads, static_cast<size_t>(smem), s>>>(rp, ci, xp, asp, stp, dup, tp, sp,  \
-                                                            qp, (int64_t)rows, K, F, P, slope);  \
-    return static_cast<int>(cudaGetLastError());                                                 \
-  } while (0)
+  return launch_src_group<V, R>(lanes, packs, rp, ci, xp, asp, stp, dup, tp, sp, qp, rows, K, F, \
+                                P, slope, static_cast<int*>(claimed), s)
   switch (vec * 2 + (round_bf16 ? 1 : 0)) {
     case 9: ROC_GAT_SRC(4, true);
     case 8: ROC_GAT_SRC(4, false);

@@ -26,7 +26,9 @@ Two implementations, selected by the graph data's backend:
                      its backward runs the plain twins on every device
                      (``ops/switches.py``).  Its forward runs in a
                      ``gat_attend`` span, its backward in ``gat_attend_bwd``
-                     (arguments heads, head_dim, rows, edges, precision).
+                     (arguments heads, head_dim, rows, edges, precision;
+                     the backward's also ``src_lanes``, the src kernel's
+                     lane group, where the kernels' backward runs).
 
 The JAX package's ``GatPlans``, ``build_gat_plans``, ``_plan_sum``,
 ``_plan_max`` and ``_edge_contract`` are TPU schedules (host-built chunk
@@ -45,7 +47,7 @@ from roc_tpu_torch.ops.kernels.gat import Z_GUARD as _Z_GUARD
 from roc_tpu_torch.ops.kernels.gat import (_lrelu, gat_bwd_dst, gat_bwd_src,
                                            gat_bwd_src_dq_plain,
                                            gat_dadl_plain, gat_forward,
-                                           gat_score)
+                                           gat_score, src_geometry)
 from roc_tpu_torch.ops.switches import gat_bwd_killed, gat_fuse_killed
 
 # The gathered [E, K, F] bound above which the JAX package chunks its
@@ -118,7 +120,7 @@ class _GatAttend(torch.autograd.Function):
         h, x, a_src, a_dst, as_t, ad_l, m, z, out = ctx.saved_tensors
         csr, slope, precision = ctx.csr, ctx.slope, ctx.precision
         n, k, f = h.shape
-        with span("gat_attend_bwd", **_span_args(h, csr, precision)):
+        with span("gat_attend_bwd", **_span_args(h, csr, precision)) as sp:
             torch.backends.cuda.matmul.allow_tf32 = False
             zc = torch.clamp_min(z, _Z_GUARD)
             du = (g / zc[:, :, None]).reshape(n, k * f).contiguous()
@@ -129,6 +131,8 @@ class _GatAttend(torch.autograd.Function):
             src_fn, dst_fn = ((gat_bwd_src_dq_plain, gat_dadl_plain)
                               if gat_bwd_killed()
                               else (gat_bwd_src, gat_bwd_dst))
+            if src_fn is gat_bwd_src:
+                sp.args["src_lanes"] = src_geometry(k, f, x, du).lanes
             dtable, dast, dq = src_fn(x, as_t, ad_l, m, du, dz,
                                       *csr.transposed(), slope, precision)
             dadl = dst_fn(dq, csr.edge_map(), csr.row_ptr, csr.col_idx)

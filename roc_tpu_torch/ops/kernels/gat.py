@@ -29,7 +29,9 @@ of a TPU kernel (or of the score its body computes):
                                        dq = e lrelu'(q) (sum_f du[v] x[u] + dz[v])
                                        formed once, from the one gather of
                                        du[v], in transposed edge order
-                                       (``_gat_bwd_src_kernel``)
+                                       (``_gat_bwd_src_kernel``); the
+                                       kernel's lane group is
+                                       ``src_geometry``'s
   gat_bwd_dst(dq, t_pos, row_ptr, col_idx)
                                        -> dadl [N, K] = sum of dq over in-edges:
                                        forward edge e's row of dq is
@@ -53,7 +55,9 @@ raises; on a CPU tensor it runs the plain version, which gathers in edge
 chunks (unchunked, [E, K, F] at the Reddit shape is 24 GB).  Each wrapper's
 ``launches`` counts kernel launches; beside it ``gat_forward.sweeps`` counts
 pass 1's sweeps of a row's edges (one for each 4 heads' maxima, so two a
-launch at K = 8), ``gat_bwd_dst.dq_passes`` the dst kernel's passes over
+launch at K = 8), ``gat_bwd_src.narrow_launches`` the src kernel's
+launches whose lane group is under a warp (16 lanes at H = 64),
+``gat_bwd_dst.dq_passes`` the dst kernel's passes over
 the rows of dq, one for each group of heads ``dst_head_groups`` gives (one
 a launch at K in {1, 2, 4, 8}, two at K = 12 or 16, K at an odd K), and
 ``gat_bwd_dst.head_loops`` the launches that still take a head a pass (an
@@ -90,7 +94,7 @@ def _bind(lib: ctypes.CDLL) -> None:
                                  i, i, i, p, p]),
             ("roc_gat_bwd_dst", [p, p, p, p, ll, i, p]),
             ("roc_gat_bwd_src", [p, p, p, p, p, p, p, p, p, ll, i, i, i, f,
-                                 i, i, p])):
+                                 i, i, i, i, p, p])):
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = ctypes.c_int
@@ -374,6 +378,17 @@ def gat_score(x: torch.Tensor, a_src: torch.Tensor) -> torch.Tensor:
 # the last in several passes (csrc/gat.cu:launch_fwd_group)
 FWD_GROUPS = ((8, 1), (16, 1), (16, 3), (32, 2))
 
+# The src kernel's, read by the same rule (csrc/gat.cu:launch_src_group):
+# the forward's but (16, 3), which at layer 2's 41 columns in 1-float packs
+# read slower than a warp of two (PERF.md row 12)
+SRC_GROUPS = ((8, 1), (16, 1), (32, 2))
+
+
+def _lane_group(packs: int, table) -> Tuple[int, int]:
+    """The first (lanes, packs) of ``table`` that covers a row of
+    ``packs`` packs, else its last (the row in several passes)."""
+    return next(((n, q) for n, q in table if packs <= n * q), table[-1])
+
 # The pairs csrc/gat.cu builds, by pack width: FWD_GROUPS at every width,
 # and three more at 4-float packs (the main path's) that the autotuner may
 # choose (roc_tpu_torch/tune/lattice.py).  Any other pair raises.
@@ -413,8 +428,7 @@ def forward_geometry(k: int, f: int, ld: int, ptr: int,
     packs = -(-h // vec)
     table = FWD_GROUPS if groups is None else tuple(
         (int(n), int(q)) for n, q in groups)
-    lanes, per = next(((n, q) for n, q in table if packs <= n * q),
-                      table[-1])
+    lanes, per = _lane_group(packs, table)
     if (lanes, per) not in FWD_PAIRS[vec]:
         raise ValueError(f"gat_forward: lane group {(lanes, per)} is not "
                          f"built at {vec}-float packs "
@@ -493,18 +507,31 @@ def _state_rows(dz: torch.Tensor, ad: torch.Tensor,
     return st
 
 
-def gat_bwd_src(x, as_, ad, m, du, dz, t_row_ptr, t_col_idx,
-                slope: float = 0.2, precision: str = "exact"):
-    """(dtable [T, H], dast [T, K], dq [E, K]) over the transposed CSR,
-    dq in its edge order.  Launches the CUDA kernel for CUDA tensors, runs
-    the plain twin for CPU tensors."""
-    if x.device.type == "cpu":
-        return gat_bwd_src_dq_plain(x, as_, ad, m, du, dz, t_row_ptr,
-                                    t_col_idx, slope, precision)
-    _check_src_shapes(x, as_, ad, m, du, dz, t_row_ptr, t_col_idx)
-    check_precision(precision, x.dtype)
-    _require_cuda("gat_bwd_src", x, as_, ad, m, du, dz, t_row_ptr, t_col_idx)
-    _csr_int64("gat_bwd_src", t_row_ptr)
+class SrcGeometry(NamedTuple):
+    """How ``gat_bwd_src_rows`` covers a source row: ``vec`` floats a pack,
+    ``lanes`` lanes a row, ``packs`` packs a lane a tile."""
+    vec: int
+    lanes: int
+    packs: int
+
+
+def src_geometry(k: int, f: int, x: torch.Tensor,
+                 du: torch.Tensor) -> SrcGeometry:
+    """The src kernel's geometry for K heads of F: ``vec`` the widest of 4,
+    2, 1 floats that divides F and keeps x's and du's rows aligned (dtable
+    comes fresh from the allocator, aligned), and the lane group the
+    forward's rule gives from ``SRC_GROUPS`` over the row's ceil(H / vec)
+    packs: 16 lanes of one 4-float pack at H = 64, a warp of two packs a
+    lane at layer 2's 41 one-float packs and over 256-column tiles at
+    H = 256 and beyond."""
+    vec = _vec_width(f, x, du)
+    return SrcGeometry(vec, *_lane_group(-(-k * f // vec), SRC_GROUPS))
+
+
+def _src_launch(x, as_, ad, m, du, dz, t_row_ptr, t_col_idx, slope,
+                precision, geo: SrcGeometry):
+    """The src kernel at geometry ``geo``: (dtable, dast, dq).  A lane
+    group the library does not build raises."""
     k, f = _heads(x, as_)
     t, h = x.shape
     dtable = torch.empty((t, h), device=x.device)
@@ -513,13 +540,35 @@ def gat_bwd_src(x, as_, ad, m, du, dz, t_row_ptr, t_col_idx,
     if t == 0:
         return dtable, dast, dq
     st = _state_rows(dz, ad, m)
+    claimed = torch.zeros(1, dtype=torch.int32, device=x.device)  # rows taken
     LIBRARY.launch(gat_bwd_src, "roc_gat_bwd_src", x.device,
                    t_row_ptr.data_ptr(), t_col_idx.data_ptr(), x.data_ptr(),
                    as_.data_ptr(), st.data_ptr(), du.data_ptr(),
                    dtable.data_ptr(), dast.data_ptr(), dq.data_ptr(), t, k,
                    f, st.shape[1], float(slope), int(precision == "fast"),
-                   _vec_width(f, x, du, dtable))
+                   geo.vec, geo.lanes, geo.packs, claimed.data_ptr())
+    gat_bwd_src.narrow_launches += geo.lanes < 32
     return dtable, dast, dq
+
+
+def gat_bwd_src(x, as_, ad, m, du, dz, t_row_ptr, t_col_idx,
+                slope: float = 0.2, precision: str = "exact"):
+    """(dtable [T, H], dast [T, K], dq [E, K]) over the transposed CSR,
+    dq in its edge order.  Launches the CUDA kernel, in ``src_geometry``'s
+    lane group, for CUDA tensors, runs the plain twin for CPU tensors."""
+    if x.device.type == "cpu":
+        return gat_bwd_src_dq_plain(x, as_, ad, m, du, dz, t_row_ptr,
+                                    t_col_idx, slope, precision)
+    _check_src_shapes(x, as_, ad, m, du, dz, t_row_ptr, t_col_idx)
+    check_precision(precision, x.dtype)
+    _require_cuda("gat_bwd_src", x, as_, ad, m, du, dz, t_row_ptr, t_col_idx)
+    _csr_int64("gat_bwd_src", t_row_ptr)
+    if t_row_ptr.numel() > 1 << 30:   # the kernel claims rows with an int32
+        raise ValueError(f"gat_bwd_src takes fewer than 2^30 rows, got "
+                         f"{t_row_ptr.numel() - 1}")
+    k, f = _heads(x, as_)
+    return _src_launch(x, as_, ad, m, du, dz, t_row_ptr, t_col_idx, slope,
+                       precision, src_geometry(k, f, x, du))
 
 
 def dst_head_groups(k: int) -> Tuple[int, ...]:
@@ -571,3 +620,4 @@ gat_bwd_dst.launches = 0
 gat_bwd_dst.dq_passes = 0
 gat_bwd_dst.head_loops = 0
 gat_bwd_src.launches = 0
+gat_bwd_src.narrow_launches = 0

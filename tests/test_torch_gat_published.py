@@ -8,8 +8,10 @@ random weights, at a few hundred nodes: the eval logits, three steps'
 losses, each leaf's first gradient and each leaf's change after the three
 steps, element by element.  A reference with a planted fault fails the
 same tolerances.  And the attention's spans, the kernel wrappers' sweep,
-pass and head-loop counters, the dst kernel's pass plan over dq and, on
-the card, its sums bitwise against one-head launches.
+pass and head-loop counters, the src kernel's lane group, the dst kernel's
+pass plan over dq and, on the card, the dst kernel's sums bitwise against
+one-head launches and the src kernel's outputs bitwise across its lane
+groups.
 
 Tolerances (each a gap of the largest element, over the reference's
 largest; read on five seeds, program against the scores-in-bf16 fault).
@@ -216,6 +218,10 @@ def test_the_steps_run_the_attention_in_its_spans(cfg):
             if s.name == name:
                 assert (s.args["rows"], s.args["edges"],
                         s.args["precision"]) == (n, e, "fast")
+    # the src kernel's lane group: 16 lanes of one 4-float pack at H = 64,
+    # 8 lanes of one float at H = 5
+    assert sorted((s.args["head_dim"], s.args["src_lanes"]) for s in spans
+                  if s.name == "gat_attend_bwd") == [(5, 8), (8, 16)]
     assert not gcn_names & {"gat_attend", "gat_attend_bwd"}
 
 
@@ -263,6 +269,73 @@ def test_the_wrappers_count_sweeps_and_head_loops(k, f, passes, head_loops,
         assert gat_k.gat_forward.sweeps == 2
         assert (gat_k.gat_bwd_dst.dq_passes,
                 gat_k.gat_bwd_dst.head_loops) == (1, 0)
+
+
+class _SrcLib:
+    """The library's entry points stubbed: ``roc_gat_bwd_src`` records its
+    (vec, lanes, packs) and refuses, as ``csrc/gat.cu:launch_src_group``
+    does, a pair it does not build."""
+    BUILT = ((8, 1), (16, 1), (32, 2))
+
+    def __init__(self):
+        self.src = []
+
+    def __getattr__(self, name):
+        return lambda *args: 0
+
+    def roc_gat_bwd_src(self, *args):
+        vec, lanes, packs = args[-5:-2]
+        self.src.append((vec, lanes, packs))
+        return 0 if (lanes, packs) in self.BUILT else 1   # InvalidValue
+
+
+@pytest.mark.parametrize("k,f,pair,tiles", [
+    (8, 8, (16, 1), 1), (4, 64, (32, 2), 1), (1, 41, (32, 2), 1),
+    (2, 3, (8, 1), 1), (16, 4, (16, 1), 1), (2, 160, (32, 2), 2)])
+def test_the_src_kernel_takes_the_forward_lane_group(k, f, pair, tiles,
+                                                    monkeypatch):
+    """``gat_bwd_src`` launches the src kernel in the lane group the
+    forward's rule gives over the row's packs (the first pair of
+    ``SRC_GROUPS`` whose lanes * packs cover them): 16 lanes of one 4-float
+    pack at H = 64 and at 16 heads of 4, a warp of two at H = 256 and at
+    layer 2's 41 one-float columns (``SRC_GROUPS`` leaves out the
+    forward's (16, 3)), 8 lanes at 6, a warp over two 256-column tiles at
+    H = 320.  ``gat_bwd_src.narrow_launches`` counts the launches under a
+    warp.  A pair the library does not build, as the forward's (16, 3),
+    raises, uncounted: the launch path run on meta tensors with the entry
+    points, the device, the stream and the placement check stubbed out."""
+    lib = _SrcLib()
+    monkeypatch.setattr(gat_k.LIBRARY, "load", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(gat_k, "_require_cuda", lambda *a, **kw: None)
+    for counter in ("launches", "narrow_launches"):
+        monkeypatch.setattr(gat_k.gat_bwd_src, counter, 0)
+    meta = torch.device("meta")
+    t, n, e = 5, 6, 9
+    t_row_ptr = torch.empty(t + 1, dtype=torch.int64, device=meta)
+    t_col_idx = torch.empty(e, dtype=torch.int32, device=meta)
+    x = torch.empty(t, k * f, device=meta)
+    as_ = torch.empty(t, k, device=meta)
+    node = torch.empty(n, k, device=meta)
+    du = torch.empty(n, k * f, device=meta)
+    args = (x, as_, node, node, du, node, t_row_ptr, t_col_idx, 0.2, "fast")
+    dtable, dast, dq = gat_k.gat_bwd_src(*args)
+    assert (tuple(dtable.shape), tuple(dast.shape), tuple(dq.shape)) == (
+        (t, k * f), (t, k), (e, k))
+    vec = next(v for v in (4, 2, 1) if f % v == 0)
+    assert lib.src == [(vec, *pair)]
+    lanes, packs = pair
+    assert -(-k * f // (lanes * packs * vec)) == tiles
+    assert gat_k.gat_bwd_src.launches == 1
+    assert gat_k.gat_bwd_src.narrow_launches == int(lanes < 32)
+    assert gat_k.SRC_GROUPS == _SrcLib.BUILT
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        gat_k._src_launch(*args, gat_k.SrcGeometry(vec, 16, 3))
+    assert (gat_k.gat_bwd_src.launches,
+            gat_k.gat_bwd_src.narrow_launches) == (1, int(lanes < 32))
 
 
 @pytest.mark.parametrize("k,groups", [
@@ -313,3 +386,50 @@ def test_dst_kernel_sums_bitwise_as_one_head_launches(k):
     torch.cuda.synchronize()
     assert torch.equal(dadl, heads)
     assert bool((dadl[1] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["fast", "exact"])
+@pytest.mark.parametrize("k,f", [(8, 8), (4, 64), (1, 41), (3, 5), (16, 4),
+                                 (2, 160)])
+def test_src_kernel_lane_groups_bitwise_as_a_warp(k, f, precision):
+    """On the card, ``gat_bwd_src`` in the rule's lane group and in every
+    pair of ``SRC_GROUPS`` gives dtable, dast and dq bitwise equal to a
+    launch at a warp of two packs, (32, 2), through the same entry point: each column's lane sums the row's edges in transposed order, dq
+    adds its slots in column order (across tiles through dq where a head
+    crosses one, as at H = 320 in a narrow group) and dast's 32 partials
+    are indexed by the edge's position modulo 32.  A pair the library does
+    not build, as the forward's (16, 3), raises.  A random graph with a hub row of 5,000 edges, an
+    empty row and rows of under 32 edges; Gaussian du and x, so a sum in
+    another order shows in the bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(2 ** 31 + 100 * k + f)
+    t = n = 4000
+    deg = torch.randint(0, 32, (t,), generator=gen)
+    deg[0], deg[1], deg[2] = 5000, 0, 33
+    t_row_ptr = torch.cat([torch.zeros(1, dtype=torch.int64),
+                           deg.cumsum(0)]).to(dev)
+    e = int(deg.sum())
+    t_col_idx = torch.randint(0, n, (e,), generator=gen,
+                              dtype=torch.int32).to(dev)
+    x, du = (torch.randn((r, k * f), generator=gen).to(dev) for r in (t, n))
+    as_ = torch.randn((t, k), generator=gen).to(dev)
+    ad, dz = (torch.randn((n, k), generator=gen).to(dev) for _ in range(2))
+    m = torch.randn((n, k), generator=gen).abs().to(dev)
+    args = (x, as_, ad, m, du, dz, t_row_ptr, t_col_idx, 0.2, precision)
+    geo = gat_k.src_geometry(k, f, x, du)
+    want = gat_k._src_launch(*args, gat_k.SrcGeometry(geo.vec, 32, 2))
+    got = {pair: gat_k._src_launch(*args, gat_k.SrcGeometry(geo.vec, *pair))
+           for pair in gat_k.SRC_GROUPS}
+    rule = gat_k.gat_bwd_src(*args)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dtable", "dast", "dq"), rule, want):
+        assert torch.equal(a, b), (geo, name)
+    for pair, out in got.items():
+        for name, a, b in zip(("dtable", "dast", "dq"), out, want):
+            assert torch.equal(a, b), (pair, name)
+    assert bool((rule[0][1] == 0).all()) and bool((rule[1][1] == 0).all())
+    with pytest.raises(RuntimeError, match="kernel launch failed"):
+        gat_k._src_launch(*args, gat_k.SrcGeometry(geo.vec, 16, 3))
