@@ -1,5 +1,7 @@
 """Operations and bytes of the work a step or a forward needs, counted
-from the shapes, and the card's peaks.
+from the shapes, and the card's peaks.  Each model module under
+``perfbench/reference/`` counts its own step (``counts``) from the
+functions here.
 
 Rules: a multiply-add is 2 operations, an add, a compare, a max or an exp
 is 1; each input byte is read once and each output byte written once,
@@ -35,21 +37,24 @@ def sum_call(n: int, e: int, h: int):
     return e * h, 2 * n * h * F32 + _csr_bytes(n, e)
 
 
-def _widths(cfg):
-    """(in width, out width, heads, head width) of each layer."""
+def _widths(cfg, heads: int):
+    """(in width, out width, heads, head width) of each layer: ``heads``
+    heads on every layer but the last, which has one (a model without
+    heads passes 1)."""
     layers = [int(v) for v in cfg["layers"]]
     out, width = [], layers[0]
     for i in range(1, len(layers)):
-        last = i == len(layers) - 1
-        k = 1 if (last or cfg["model"] != "gat") else int(cfg["heads"])
+        k = 1 if i == len(layers) - 1 else heads
         out.append((width, k * layers[i], k, layers[i]))
         width = k * layers[i]
     return out
 
 
-def gemm_flops(cfg, n: int, train: bool) -> float:
+def gemm_flops(widths, n: int, train: bool) -> float:
+    """One [N, in] x [in, out] GEMM a layer of ``widths`` (``_widths``'
+    rows): forward, and in training dW and dX (past the first layer)."""
     total = 0
-    for i, (din, dout, _, _) in enumerate(_widths(cfg)):
+    for i, (din, dout, _, _) in enumerate(widths):
         f = 2 * n * din * dout
         total += f
         if train:
@@ -86,32 +91,24 @@ def gat_bwd_call(n: int, e: int, k: int, f: int):
     return ops, nbytes
 
 
+def step_totals(gemm, sum_flops=0.0, gat_flops=0.0, sum_least_s=0.0,
+                gat_least_s=0.0) -> dict:
+    """The dict :func:`step_counts` returns, from a model's GEMM
+    operations and its other parts; a model without sums or GAT kernels
+    leaves theirs at 0."""
+    return {"flops": gemm + sum_flops + gat_flops,
+            "gemm_flops": gemm, "sum_flops": sum_flops,
+            "gat_flops": gat_flops, "sum_least_s": sum_least_s,
+            "gat_least_s": gat_least_s}
+
+
 def step_counts(cfg, n: int, e: int, train: bool) -> dict:
     """Model operations of one step (``train``) or one full-graph eval
     forward, and the least seconds of the sum and the GAT functions in
-    it."""
-    gemm = gemm_flops(cfg, n, train)
-    sums = gat = 0.0
-    sum_least = gat_least = 0.0
-    for _, dout, k, f in _widths(cfg):
-        if cfg["model"] == "gat":
-            calls = [gat_score_call(n, k, f), gat_fwd_call(n, e, k, f)]
-            if train:
-                calls.append(gat_bwd_call(n, e, k, f))
-            # the destination score (an einsum, no GAT kernel) is model
-            # work too
-            gat += 2 * n * k * f
-            for ops, nbytes in calls:
-                gat += ops
-                gat_least += least_s(ops, nbytes)
-        else:
-            for _ in range(2 if train else 1):
-                ops, nbytes = sum_call(n, e, dout)
-                sums += ops
-                sum_least += least_s(ops, nbytes)
-    return {"flops": gemm + sums + gat, "gemm_flops": gemm,
-            "sum_flops": sums, "gat_flops": gat,
-            "sum_least_s": sum_least, "gat_least_s": gat_least}
+    it: the ``counts`` of the model module the configuration names
+    under ``reference``."""
+    from perfbench.reference import model_module
+    return model_module(cfg).counts(cfg, n, e, train)
 
 
 # the port's kernels by name in the device trace

@@ -111,29 +111,11 @@ def make_mask(gspec: dict, seed: int, device) -> torch.Tensor:
 
 
 def weight_shapes(cfg: dict) -> List[Tuple[str, Tuple[int, ...], int, int]]:
-    """(leaf name, shape, Glorot fan-in, fan-out) of each leaf, in the
-    port's leaf names: ``linear_i`` for GCN; ``gat_i_w``, ``gat_i_asrc``,
-    ``gat_i_adst`` for GAT (the attention vectors drawn as [K*F, 1]
-    Glorot matrices, as roc_tpu draws them)."""
-    layers = [int(v) for v in cfg["layers"]]
-    out = []
-    if cfg["model"] == "gcn":
-        for i in range(1, len(layers)):
-            out.append((f"linear_{i - 1}", (layers[i - 1], layers[i]),
-                        layers[i - 1], layers[i]))
-        return out
-    if cfg["model"] == "gat":
-        width = layers[0]
-        for i in range(1, len(layers)):
-            k = 1 if i == len(layers) - 1 else int(cfg["heads"])
-            f = layers[i]
-            p = f"gat_{i - 1}"
-            out.append((p + "_w", (width, k * f), width, k * f))
-            out.append((p + "_asrc", (k, f), k * f, 1))
-            out.append((p + "_adst", (k, f), k * f, 1))
-            width = k * f
-        return out
-    raise ValueError(f"unknown model {cfg['model']!r}")
+    """(leaf name, shape, Glorot fan-in, fan-out) of each leaf in draw
+    order, in the port's leaf names: the ``leaves`` of the model module
+    the configuration names under ``reference``."""
+    from perfbench.reference import model_module
+    return model_module(cfg).leaves(cfg)
 
 
 def make_weights(cfg: dict, seed: int, device) -> Dict[str, torch.Tensor]:

@@ -16,7 +16,8 @@ def read(run):
     busy = kernel_seconds(run["trace"], KERNELS)
     n, e = run["nodes"], run["edges"]
     least = sum(least_s(*gat_bwd_call(n, e, k, f))
-                for _, _, k, f in _widths(run["cfg"]))
+                for _, _, k, f in _widths(run["cfg"],
+                                       int(run["cfg"]["heads"])))
     if busy <= 0:
         return None
     return 100.0 * least * run["steps"] / busy

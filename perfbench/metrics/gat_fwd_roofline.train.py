@@ -19,7 +19,8 @@ def read(run):
     n, e = run["nodes"], run["edges"]
     least = sum(least_s(*gat_score_call(n, k, f))
                 + least_s(*gat_fwd_call(n, e, k, f))
-                for _, _, k, f in _widths(run["cfg"]))
+                for _, _, k, f in _widths(run["cfg"],
+                                       int(run["cfg"]["heads"])))
     if busy <= 0:
         return None
     return 100.0 * least * run["steps"] / busy

@@ -7,7 +7,9 @@ the transpose, the in-degree norms, the dropout masks, the patched graph.
 cross-entropy summed over train rows, reverse mode, Adam with L2 folded
 into the gradient and the bias correction folded into the step size);
 ``logits`` is the eval forward.  Each configuration names its model
-module under ``reference``."""
+module under ``reference`` (``perfbench/reference/<reference>.py``): its
+``forward``, its ``leaves`` (what :mod:`perfbench.inputs` draws) and its
+``counts`` (what :mod:`perfbench.counts` reckons a step)."""
 
 from __future__ import annotations
 

@@ -18,7 +18,9 @@ e * du[v] of the source table's gradient; the scores, maxima, normalisers
 and score gradients stay float32 (the contract of the port's GAT kernels).
 The weighted sum gathers [edges, K, F] in chunks of edges in CSR order, so
 in blocks of destination rows: at once it would be 6 GB at Reddit's first
-layer."""
+layer.
+
+It is the port's ``gat`` (heads concatenated) at any depth."""
 
 from __future__ import annotations
 
@@ -26,11 +28,47 @@ from typing import Dict, Optional
 
 import torch
 
+from perfbench.counts import (_widths, gat_bwd_call, gat_fwd_call,
+                              gat_score_call, gemm_flops, least_s,
+                              step_totals)
 from perfbench.reference import prng
 
 SLOPE = 0.2
 Z_GUARD = 1e-15
 _CHUNK = 1 << 26   # gathered elements a chunk of edges (256 MB of fp32)
+
+
+def leaves(cfg):
+    """(name, shape, Glorot fan-in, fan-out) of each leaf in draw order:
+    ``gat_i_w`` [in, K*F], ``gat_i_asrc`` and ``gat_i_adst`` [K, F] a
+    layer (the attention vectors drawn as [K*F, 1] Glorot matrices, as
+    roc_tpu draws them)."""
+    out = []
+    widths = _widths(cfg, int(cfg["heads"]))
+    for i, (din, dout, k, f) in enumerate(widths):
+        p = f"gat_{i}"
+        out.append((p + "_w", (din, dout), din, dout))
+        out.append((p + "_asrc", (k, f), dout, 1))
+        out.append((p + "_adst", (k, f), dout, 1))
+    return out
+
+
+def counts(cfg, n: int, e: int, train: bool) -> dict:
+    """One GEMM a layer; per layer and head the source score, the
+    attention forward and, in training, its backward (GAT kernels), and
+    the destination score (an einsum: model work, no GAT kernel)."""
+    widths = _widths(cfg, int(cfg["heads"]))
+    gat = gat_least = 0.0
+    for _, _, k, f in widths:
+        calls = [gat_score_call(n, k, f), gat_fwd_call(n, e, k, f)]
+        if train:
+            calls.append(gat_bwd_call(n, e, k, f))
+        gat += 2 * n * k * f
+        for ops, nbytes in calls:
+            gat += ops
+            gat_least += least_s(ops, nbytes)
+    return step_totals(gemm_flops(widths, n, train), gat_flops=gat,
+                       gat_least_s=gat_least)
 
 
 def _round(t: torch.Tensor, stage: bool) -> torch.Tensor:

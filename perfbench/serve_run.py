@@ -32,7 +32,7 @@ import time
 import numpy as np
 import torch
 
-from perfbench import inputs, loadgen, reference
+from perfbench import inputs, loadgen, port, reference
 from perfbench.trace import DeviceTrace, label
 from perfbench.train_run import free
 
@@ -43,23 +43,16 @@ def build_engine(cfg, traffic, seed: int, device, journal: str = None,
                  use_bf16: bool = False):
     """The port's engine on the seed's inputs and weights, every bucket
     served once; (engine, its dataset).  ``use_bf16`` switches on the
-    port's ``-bf16`` path (the control)."""
-    from roc_tpu_torch.models import build_model
+    port's ``-bf16`` path (the control).  Stops where the drawn leaves
+    are not the engine's parameters."""
     from roc_tpu_torch.serve import ServeEngine
-    from roc_tpu_torch.train.config import Config
+    conf, model = port.build(cfg, seed, device, use_bf16,
+                             serve_batch=int(traffic["serve_batch"]),
+                             serve_wait_ms=float(traffic["serve_wait_ms"]))
     ds, weights = inputs.for_port(cfg, seed, device)
-    conf = Config(model=cfg["model"], layers=list(cfg["layers"]),
-                  heads=int(cfg.get("heads", 1)),
-                  dropout_rate=float(cfg["dropout"]),
-                  aggregate_precision=cfg["precision"],
-                  aggregate_backend="binned", seed=int(seed),
-                  device=device.type, serve_batch=int(traffic["serve_batch"]),
-                  serve_wait_ms=float(traffic["serve_wait_ms"]),
-                  use_bf16=use_bf16)
-    model = build_model(conf.model, conf.layers, conf.dropout_rate,
-                        heads=conf.heads)
     eng = ServeEngine(conf, ds, model, device=device, delta_journal=journal)
-    eng.bundle.params = {k: w.to(eng.device) for k, w in weights.items()}
+    eng.bundle.params = port.leaves_for(eng.bundle.params, weights,
+                                        eng.device)
     eng.warmup()
     return eng, ds
 

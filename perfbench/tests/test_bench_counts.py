@@ -5,8 +5,9 @@ import pytest
 from perfbench import counts
 
 N, E = 232965, 23526073
-GCN = {"model": "gcn", "layers": [602, 256, 41]}
-GAT = {"model": "gat", "layers": [602, 64, 41], "heads": 4}
+GCN = {"model": "gcn", "reference": "gcn", "layers": [602, 256, 41]}
+GAT = {"model": "gat", "reference": "gat", "layers": [602, 64, 41],
+       "heads": 4}
 
 
 def test_gcn_step_flops_by_hand():

@@ -13,7 +13,7 @@ import time
 
 import torch
 
-from perfbench import inputs, reference
+from perfbench import inputs, port, reference
 from perfbench.check import train_numbers
 from perfbench.trace import DeviceTrace, label
 
@@ -21,24 +21,16 @@ from perfbench.trace import DeviceTrace, label
 def build_trainer(cfg, seed: int, device, use_bf16: bool = False):
     """The port's trainer on the seed's inputs, with the seed's weights
     and a fresh Adam state; ``use_bf16`` switches on the port's ``-bf16``
-    path (the control)."""
-    from roc_tpu_torch.models import build_model
-    from roc_tpu_torch.train.config import Config
+    path (the control).  Stops where the drawn leaves are not the
+    trainer's parameters."""
     from roc_tpu_torch.train.driver import Trainer
+    conf, model = port.build(cfg, seed, device, use_bf16,
+                             learning_rate=float(cfg["learning_rate"]),
+                             weight_decay=float(cfg["weight_decay"]),
+                             eval_every=1 << 30)
     ds, weights = inputs.for_port(cfg, seed, device)
-    conf = Config(model=cfg["model"], layers=list(cfg["layers"]),
-                  heads=int(cfg.get("heads", 1)),
-                  dropout_rate=float(cfg["dropout"]),
-                  learning_rate=float(cfg["learning_rate"]),
-                  weight_decay=float(cfg["weight_decay"]),
-                  aggregate_precision=cfg["precision"],
-                  aggregate_backend="binned", seed=int(seed),
-                  device=device.type, eval_every=1 << 30,
-                  use_bf16=use_bf16)
-    model = build_model(conf.model, conf.layers, conf.dropout_rate,
-                        heads=conf.heads)
     tr = Trainer(conf, ds, model)
-    tr.params = {k: w.to(tr.device) for k, w in weights.items()}
+    tr.params = port.leaves_for(tr.params, weights, tr.device)
     tr.opt_state = tr.optimizer.init(tr.params)
     return tr, (ds.graph.num_nodes, ds.graph.num_edges)
 
